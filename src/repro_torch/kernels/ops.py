@@ -1,0 +1,136 @@
+"""Public wrappers around the hand-written CUDA kernels.
+
+A wrapper checks device, dtype, contiguity and lengths, then launches
+its kernel when the tensors lie on a CUDA device, or runs the kernel's
+plain PyTorch version when they lie on the CPU.  There is no fallback:
+a CUDA tensor goes to the kernel or the call raises.  Each wrapper keeps
+a plain integer count of its kernel launches, so a run can show that
+its path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from . import pdhg_spmv as ps
+
+# calls of the fused burst on the card: one per burst, and each burst is
+# 2*iters + 1 CUDA launches (a primal and a dual step per iteration, then
+# the residual)
+PDHG_BURST_LAUNCHES = 0
+
+_F32 = torch.float32
+_META_CACHE: dict = {}
+_META_CACHE_MAX = 64
+
+
+def _burst_fn():
+    lib = build.load("pdhg_burst.cu")
+    fn = lib.pdhg_burst_f32
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 25
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _meta_tensors(meta: tuple, device: torch.device):
+    """(offsets int64, widths int32) of one blocked-ELL direction on
+    `device`, cached by layout — the device form of EllBlocks.meta."""
+    key = (meta, device)
+    hit = _META_CACHE.get(key)
+    if hit is None:
+        offsets, widths = meta[0], meta[1]
+        hit = (torch.tensor(offsets, dtype=torch.int64, device=device),
+               torch.tensor(widths, dtype=torch.int32, device=device))
+        if len(_META_CACHE) >= _META_CACHE_MAX:
+            _META_CACHE.pop(next(iter(_META_CACHE)))
+        _META_CACHE[key] = hit
+    return hit
+
+
+def _check_burst_args(named: dict, row_meta: tuple, col_meta: tuple,
+                      iters: int) -> torch.device:
+    """Validate a burst's operands; returns their common device."""
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
+    devices = {t.device for t in named.values()}
+    if len(devices) != 1:
+        raise ValueError(f"pdhg_burst operands span devices {devices}")
+    n_pad, m_pad = col_meta[3], row_meta[3]
+
+    def table_len(meta):
+        offsets, widths, bm, _ = meta
+        return offsets[-1] + bm * widths[-1]
+
+    want = {
+        "c": (_F32, n_pad), "tau": (_F32, n_pad), "xmax": (_F32, n_pad),
+        "keep_n": (torch.bool, n_pad), "x0": (_F32, n_pad),
+        "q": (_F32, m_pad), "sig": (_F32, m_pad), "ub": (torch.bool, m_pad),
+        "keep_m": (torch.bool, m_pad), "y0": (_F32, m_pad),
+        "row_idx": (torch.int32, table_len(row_meta)),
+        "row_val": (_F32, table_len(row_meta)),
+        "col_idx": (torch.int32, table_len(col_meta)),
+        "col_val": (_F32, table_len(col_meta)),
+    }
+    for name, (dtype, length) in want.items():
+        t = named[name]
+        if t.dtype != dtype or t.dim() != 1 or t.shape[0] != length:
+            raise ValueError(f"pdhg_burst: {name} must be a 1-D {dtype} "
+                             f"tensor of length {length}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"pdhg_burst: {name} must be contiguous")
+    return devices.pop()
+
+
+def pdhg_burst(c, tau, xmax, q, sig, ub, keep_n, keep_m,
+               row_idx, row_val, col_idx, col_val, x0, y0, *,
+               row_meta: tuple, col_meta: tuple, iters: int):
+    """One fused `iters`-iteration PDHG burst over a blocked-ELL operator.
+
+    Arrays are storage-padded (x side n_pad, y side m_pad, see
+    kernels.pdhg_spmv.ell_pack; padded slots carry c=tau=xmax=0 and
+    sig=q=0 with ub=True, so they stay at zero); `keep_n`/`keep_m`
+    freeze coordinates (True = hold).  Returns (x, y, worst), `worst`
+    the terminal per-row residual vector.  On CUDA tensors this is the
+    kernel of kernels/csrc/pdhg_burst.cu; on CPU tensors the plain
+    version, kernels.pdhg_spmv.pdhg_update_burst."""
+    global PDHG_BURST_LAUNCHES
+    named = dict(c=c, tau=tau, xmax=xmax, q=q, sig=sig, ub=ub,
+                 keep_n=keep_n, keep_m=keep_m, row_idx=row_idx,
+                 row_val=row_val, col_idx=col_idx, col_val=col_val,
+                 x0=x0, y0=y0)
+    device = _check_burst_args(named, row_meta, col_meta, iters)
+    if device.type == "cpu":
+        return ps.pdhg_update_burst(
+            x0, y0, c, tau, xmax, q, sig, ub, keep_n, keep_m,
+            row_idx, row_val, col_idx, col_val,
+            row_meta=row_meta, col_meta=col_meta, iters=iters)
+    if device.type != "cuda":
+        raise ValueError(f"pdhg_burst runs on cuda or cpu tensors, got "
+                         f"{device}")
+    fn = _burst_fn()
+    n_pad, m_pad = col_meta[3], row_meta[3]
+    row_off, row_w = _meta_tensors(row_meta, device)
+    col_off, col_w = _meta_tensors(col_meta, device)
+    x_out, x_tmp, x_bar = (torch.empty(n_pad, dtype=_F32, device=device)
+                           for _ in range(3))
+    y_out, y_tmp, worst = (torch.empty(m_pad, dtype=_F32, device=device)
+                           for _ in range(3))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(n_pad, m_pad, int(iters), int(row_meta[2]),
+                 int(col_meta[2]),
+                 *(t.data_ptr() for t in (
+                     c, tau, xmax, q, sig, ub, keep_n, keep_m,
+                     row_off, row_w, row_idx, row_val,
+                     col_off, col_w, col_idx, col_val, x0, y0,
+                     x_out, y_out, worst, x_tmp, y_tmp, x_bar)),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"pdhg_burst kernel launch failed: CUDA error "
+                           f"{err}")
+    PDHG_BURST_LAUNCHES += 1
+    return x_out, y_out, worst

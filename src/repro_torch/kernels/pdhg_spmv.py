@@ -1,0 +1,291 @@
+"""Blocked-ELL layout and the plain PyTorch PDHG burst.
+
+The routing-LP hot loop (core.solver) spends essentially all of its time
+in two sparse mat-vecs per iteration — K.x and K^T.y — plus elementwise
+prox/clip updates.  The operator is packed into a padded **blocked-ELL**
+layout (gather-friendly, no scatters at all) in both directions, and a
+whole `iters`-iteration PDHG burst runs over it: K^T.y gather, primal
+prox/clip against xmax, K.x, dual ascent + inequality projection, and
+the terminal residual vector.
+
+This module holds the two halves that are not the CUDA kernel:
+
+  * the layout (`ell_blocks_plan` ... `ell_pack`): a numpy copy of the
+    reference `repro.kernels.pdhg_spmv` layout, kept bitwise equal to it
+    (tests/test_torch_lp.py);
+  * the plain version of the burst (`spmv_blocks`, `pdhg_update_burst`)
+    in torch, fp32, with the reference's formulas and freeze masks.  The
+    CPU tests run it, and the card compares the hand kernel
+    (kernels/csrc/pdhg_burst.cu, wrapped by kernels.ops.pdhg_burst)
+    against it.
+
+Blocked-ELL layout
+------------------
+Rows keep their original order (no permutation — PDHG vectors stay in LP
+index space) and are grouped into blocks of `bm` consecutive rows; each
+block is padded to its own width (the block's max row degree, rounded up
+to a multiple of `align`) and stored row-major in one flat (idx, val)
+pair.  Padding entries carry idx=0, val=0 so they gather slot 0 and
+contribute nothing.  The transpose direction (K^T for the primal update)
+is the same layout built from the column index.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class EllBlocks:
+    """One SpMV direction in blocked-ELL: per stored row, a padded gather.
+
+    Block b holds rows [b*bm, (b+1)*bm) in row-major order at
+    idx/val[offsets[b] : offsets[b] + bm*widths[b]]; `n_rows` true rows,
+    padded up to `n_rows_pad = n_blocks * bm` with empty rows."""
+
+    idx: np.ndarray            # (total,) int32 gather indices, 0 for padding
+    val: np.ndarray            # (total,) float coefficients, 0 for padding
+    offsets: tuple[int, ...]   # (n_blocks,) flat start of each block
+    widths: tuple[int, ...]    # (n_blocks,) padded width of each block
+    bm: int                    # rows per block
+    n_rows: int                # true row count
+    n_rows_pad: int            # n_blocks * bm
+
+    @property
+    def meta(self) -> tuple:
+        """Hashable static description of the layout."""
+        return (self.offsets, self.widths, self.bm, self.n_rows_pad)
+
+    @property
+    def fill(self) -> float:
+        """Fraction of stored slots that carry a real entry."""
+        return float(np.count_nonzero(self.val)) / max(len(self.val), 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class EllPlanSide:
+    """The value-independent half of one blocked-ELL direction: gather
+    indices and storage layout, plus the (order, flat) permutation that
+    scatters COO values into storage slots.  Built once per sparsity
+    pattern; `ell_refill` turns it into an EllBlocks for any coefficient
+    vector in O(nnz) (core.solver caches plans across re-solves)."""
+
+    idx: np.ndarray            # (total,) int32 gather indices, 0 for padding
+    order: np.ndarray          # (nnz,) stable row-sort permutation of COO
+    flat: np.ndarray           # (nnz,) storage slot of each sorted entry
+    size: int                  # total storage slots
+    offsets: tuple[int, ...]
+    widths: tuple[int, ...]
+    bm: int
+    n_rows: int
+    n_rows_pad: int
+
+
+def ell_blocks_plan(row: np.ndarray, col: np.ndarray, n_rows: int, *,
+                    bm: int = 8, align: int = 8,
+                    min_widths: np.ndarray | None = None) -> EllPlanSide:
+    """Lay out COO entries (keyed by `row`) in blocked-ELL storage.
+
+    Entries keep their COO appearance order within each row (stable
+    sort), so repeated packs of the same operator are bit-identical.
+    `bm` rows per block; each block's width is its max row degree rounded
+    up to a multiple of `align` (>= align even for all-empty blocks).
+    `min_widths` (one entry per block, already align-rounded) forces each
+    block at least that wide; extra slots are plain padding."""
+    assert bm >= 1 and align >= 1
+    row = np.asarray(row, np.int64)
+    nnz = len(row)
+    order = np.argsort(row, kind="stable")
+    counts = np.bincount(row, minlength=max(n_rows, 1))
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    # position of each entry within its row
+    pos = np.arange(nnz, dtype=np.int64) - starts[row[order]]
+
+    n_blocks = max(-(-n_rows // bm), 1)
+    # per-block width: max row degree in the block, align-rounded (>= align)
+    cpad = np.zeros(n_blocks * bm, np.int64)
+    lim = min(len(counts), n_blocks * bm)
+    cpad[:lim] = counts[:lim]
+    w = cpad.reshape(n_blocks, bm).max(axis=1)
+    w = np.maximum(-(-w // align) * align, align)
+    if min_widths is not None:
+        assert len(min_widths) == n_blocks, (len(min_widths), n_blocks)
+        w = np.maximum(w, np.asarray(min_widths, np.int64))
+    widths_arr = w
+    offsets_arr = np.concatenate([[0], np.cumsum(bm * w)[:-1]])
+    off = int(np.sum(bm * w))
+
+    r = row[order]
+    blk = r // bm
+    flat = offsets_arr[blk] + (r - blk * bm) * widths_arr[blk] + pos
+    idx = np.zeros(off, np.int32)
+    idx[flat] = np.asarray(col, np.int64)[order].astype(np.int32)
+    return EllPlanSide(idx=idx, order=order, flat=flat, size=off,
+                       offsets=tuple(int(o) for o in offsets_arr),
+                       widths=tuple(int(x) for x in widths_arr),
+                       bm=bm, n_rows=n_rows, n_rows_pad=n_blocks * bm)
+
+
+def ell_refill(plan: EllPlanSide, val: np.ndarray) -> EllBlocks:
+    """Scatter a coefficient vector into a plan's storage layout —
+    the O(nnz) value-refresh half of `ell_blocks`."""
+    vals = np.zeros(plan.size, np.float32)
+    vals[plan.flat] = np.asarray(val)[plan.order].astype(np.float32)
+    return EllBlocks(idx=plan.idx, val=vals, offsets=plan.offsets,
+                     widths=plan.widths, bm=plan.bm, n_rows=plan.n_rows,
+                     n_rows_pad=plan.n_rows_pad)
+
+
+def ell_blocks(row: np.ndarray, col: np.ndarray, val: np.ndarray,
+               n_rows: int, *, bm: int = 8, align: int = 8) -> EllBlocks:
+    """Pack COO entries into blocked-ELL rows keyed by `row` (plan +
+    refill in one step; see ell_blocks_plan for the layout rules)."""
+    return ell_refill(ell_blocks_plan(row, col, n_rows, bm=bm, align=align),
+                      val)
+
+
+@dataclasses.dataclass(frozen=True)
+class EllOperator:
+    """K (m x n) packed both ways: `rows` gathers x to produce K.x (one
+    stored row per constraint), `cols` gathers y to produce K^T.y (one
+    stored row per variable)."""
+
+    rows: EllBlocks
+    cols: EllBlocks
+    m: int
+    n: int
+
+    @property
+    def m_pad(self) -> int:
+        return self.rows.n_rows_pad
+
+    @property
+    def n_pad(self) -> int:
+        return self.cols.n_rows_pad
+
+
+@dataclasses.dataclass(frozen=True)
+class EllPlan:
+    """Both directions of an operator's blocked-ELL layout, values
+    excluded — the cacheable product of a COO sparsity pattern."""
+
+    rows: EllPlanSide
+    cols: EllPlanSide
+    m: int
+    n: int
+
+
+def ell_plan(row: np.ndarray, col: np.ndarray, m: int, n: int, *,
+             bm: int = 8, align: int = 8) -> EllPlan:
+    """Lay out a COO pattern in both blocked-ELL directions."""
+    return EllPlan(rows=ell_blocks_plan(row, col, m, bm=bm, align=align),
+                   cols=ell_blocks_plan(col, row, n, bm=bm, align=align),
+                   m=m, n=n)
+
+
+def ell_fill(plan: EllPlan, val: np.ndarray) -> EllOperator:
+    """Refresh both directions of a planned operator with new values."""
+    return EllOperator(rows=ell_refill(plan.rows, val),
+                       cols=ell_refill(plan.cols, val),
+                       m=plan.m, n=plan.n)
+
+
+def ell_pack(row: np.ndarray, col: np.ndarray, val: np.ndarray,
+             m: int, n: int, *, bm: int = 8, align: int = 8) -> EllOperator:
+    """Pack a COO operator into both blocked-ELL directions."""
+    return ell_fill(ell_plan(row, col, m, n, bm=bm, align=align), val)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version of the burst
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class WidthGroups:
+    """Index plan for `spmv_blocks`: the storage slots reordered so that
+    the rows of each distinct block width are contiguous.  `perm` maps
+    grouped position -> storage slot; group g covers [starts[g],
+    starts[g+1]) of the grouped order and reshapes to (rows, widths[g]);
+    `unperm` maps each row to its position in the concatenated group
+    sums.  The number of torch ops per SpMV is then the number of
+    distinct widths plus four, not the number of blocks."""
+
+    perm: torch.Tensor
+    unperm: torch.Tensor
+    widths: tuple[int, ...]
+    starts: tuple[int, ...]
+
+
+def width_groups(meta: tuple, device) -> WidthGroups:
+    """Build the WidthGroups of one direction's layout meta."""
+    offsets, widths, bm, n_rows_pad = meta
+    off = np.asarray(offsets, np.int64)
+    wid = np.asarray(widths, np.int64)
+    perm, rows, ws, starts = [], [], [], [0]
+    for w in np.unique(wid):
+        blocks = np.flatnonzero(wid == w)
+        perm.append((off[blocks][:, None]
+                     + np.arange(bm * w)[None, :]).ravel())
+        rows.append((blocks[:, None] * bm + np.arange(bm)[None, :]).ravel())
+        ws.append(int(w))
+        starts.append(starts[-1] + len(perm[-1]))
+    rows = np.concatenate(rows)
+    unperm = np.empty(n_rows_pad, np.int64)
+    unperm[rows] = np.arange(n_rows_pad)
+    return WidthGroups(perm=torch.as_tensor(np.concatenate(perm),
+                                            device=device),
+                       unperm=torch.as_tensor(unperm, device=device),
+                       widths=tuple(ws), starts=tuple(starts))
+
+
+def spmv_blocks(vec, idx_g, val_g, groups: WidthGroups):
+    """Blocked-ELL SpMV: out[r] = sum_j val[r, j] * vec[idx[r, j]], each
+    row's gather scaled and summed over its block's padded width — the
+    reference's `spmv_blocks` per row.  `idx_g`/`val_g` are the tables
+    in grouped order (`table[groups.perm]`)."""
+    g = vec[idx_g] * val_g
+    sums = [g[a:b].view(-1, w).sum(dim=1)
+            for w, a, b in zip(groups.widths, groups.starts,
+                               groups.starts[1:])]
+    return torch.cat(sums)[groups.unperm]
+
+
+def pdhg_update_burst(x0, y0, c, tau, xmax, q, sig, ub, keep_n, keep_m,
+                      row_idx, row_val, col_idx, col_val, *,
+                      row_meta: tuple, col_meta: tuple, iters: int):
+    """`iters` iterations of the reference PDHG update over the blocked-
+    ELL operator, plus the terminal per-row residual vector
+    (|K_eq x - b| on equality rows, max(K_ub x - h, 0) on inequality
+    rows).  fp32 throughout; returns (x, y, worst).
+
+      x' = clip(x - tau * (c + K^T y), 0, xmax),  held where keep_n
+      xbar = 2 x' - x
+      y' = y + sig * (K xbar - q),  max(., 0) where ub,  held where keep_m
+    """
+    dev = x0.device
+    rows_g = width_groups(row_meta, dev)
+    cols_g = width_groups(col_meta, dev)
+    r_idx, r_val = row_idx[rows_g.perm], row_val[rows_g.perm]
+    c_idx, c_val = col_idx[cols_g.perm], col_val[cols_g.perm]
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+    def Kx(x):
+        return spmv_blocks(x, r_idx, r_val, rows_g)
+
+    def KTy(y):
+        return spmv_blocks(y, c_idx, c_val, cols_g)
+
+    x, y = x0, y0
+    for _ in range(iters):
+        x_new = torch.minimum(torch.maximum(x - tau * (c + KTy(y)), zero),
+                              xmax)
+        x_new = torch.where(keep_n, x, x_new)
+        x_bar = 2.0 * x_new - x
+        y_new = y + sig * (Kx(x_bar) - q)
+        y_new = torch.where(ub, torch.maximum(y_new, zero), y_new)
+        y_new = torch.where(keep_m, y, y_new)
+        x, y = x_new, y_new
+    r = Kx(x) - q
+    return x, y, torch.where(ub, torch.maximum(r, zero), torch.abs(r))
