@@ -18,14 +18,31 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      time}, each solved twice on the card; certificates, bitwise repeat,
      and the kernel's launch count;
   6. times at the full-size shapes: the kernel, its plain version, two
-     CSR mat-vecs as a library yardstick, and the bound.
+     CSR mat-vecs as a library yardstick, and the bound;
+  7. build of the flash-attention kernel (started with the burst
+     kernel's in phase 2, one nvcc each): seconds, registers, spills;
+  8. attention kernel vs its plain version on the card: the grid of
+     tests/test_kernels.py, a danube-shaped windowed case and the serving
+     path's shape, fp32 within 2e-5 and bf16 within 2e-2, two launches
+     bitwise equal;
+  9. serving path at full width: `launch.serve.main` on phi4-mini-3.8b
+     (batch 4, prompt 2048, 32 tokens), run twice: 32 kernel launches a
+     prefill, identical tokens, finite logits that agree with a prefill
+     whose attention is the plain version; then h2o-danube-3-4b cut to 4
+     layers (batch 1, prompt 6144, 8 tokens) for the window, hd=120 and
+     the ring-buffer cache;
+ 10. times at the serving shapes: the attention kernel, its plain
+     version, torch's scaled_dot_product_attention as a library
+     yardstick, the bound; prefill wall, decode ms a token, and the
+     device's busy share of one prefill.
 
-The last lines are one JSON object describing the kernel, the card's
+The last lines are one JSON object describing the kernels, the card's
 name and power limit, and `{"ok": true, "device": {...}}`.  Imports
 torch, numpy and repro_torch only.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import pathlib
@@ -33,6 +50,7 @@ import subprocess
 import sys
 import time
 import warnings
+from unittest import mock
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -60,6 +78,28 @@ HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
 REPLACES = "src/repro/kernels/pdhg_spmv.py:333"
 SOURCE = "src/repro_torch/kernels/csrc/pdhg_burst.cu"
+# attention: tolerances of tests/test_kernels.py, the bf16 tensor-core
+# peak (H100 SXM data sheet, dense) for the bound
+FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+BF16_OPS_S = 989e12
+FA_REPLACES = "src/repro/kernels/flash_attention.py:75"
+FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+# (name, B, S, H, Hkv, hd, window, softcap, dtypes)
+FA_CASES = [
+    ("grid-1", 2, 512, 4, 2, 64, 0, 0.0, ("float32", "bfloat16")),
+    ("grid-2", 2, 512, 4, 4, 128, 0, 50.0, ("float32", "bfloat16")),
+    ("grid-3", 2, 1024, 8, 1, 64, 256, 0.0, ("float32", "bfloat16")),
+    ("grid-4", 2, 512, 6, 2, 80, 0, 0.0, ("float32", "bfloat16")),
+    ("danube", 1, 6144, 32, 8, 120, 4096, 0.0, ("float32", "bfloat16")),
+    ("phi4-serve", 4, 2048, 24, 8, 128, 0, 0.0, ("bfloat16",)),
+]
+SERVE_ARGS = ["--arch", "phi4-mini-3.8b", "--batch", "4", "--prompt-len",
+              "2048", "--gen", "32", "--impl", "kernel"]
+# one layer's output, attention through the kernel against through the
+# plain version on the same input, relative to the output's largest
+# magnitude: about two bf16 places (the two differ by a last-place
+# rounding of the attention output)
+LAYER_RTOL = 1e-2
 
 
 def card_line() -> str:
@@ -313,6 +353,177 @@ def stage_breakdown(p, dev):
                     for k, (c, us) in sorted(busy.items())))
 
 
+# ---------------------------------------------------------------------------
+# phases 8-10: the attention kernel and the serving path
+# ---------------------------------------------------------------------------
+
+def fa_inputs(seed, B, S, H, Hkv, hd, dtype, dev):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                 for shape in ((B, S, H, hd), (B, S, Hkv, hd),
+                               (B, S, Hkv, hd)))
+
+
+def fa_plain(q, k, v, window, cap):
+    from repro_torch.kernels import flash_attention as fa
+    return fa.flash_attention_plain(q, k, v, causal=True, window=window,
+                                    softcap=cap,
+                                    scale=1.0 / q.shape[-1] ** 0.5)
+
+
+def compare_attention(label, q, k, v, window, cap) -> float:
+    """The kernel against its plain version on the same card inputs, and
+    two launches bitwise equal; returns max |kernel - plain|."""
+    import torch
+    from repro_torch.kernels import ops
+    out = ops.flash_attention(q, k, v, causal=True, window=window,
+                              softcap=cap)
+    again = ops.flash_attention(q, k, v, causal=True, window=window,
+                                softcap=cap)
+    want = fa_plain(q, k, v, window, cap)
+    torch.cuda.synchronize()
+    tol = FA_TOL[str(q.dtype).split(".")[-1]]
+    diff = (out.float() - want.float()).abs()
+    err = float(diff.max())
+    excess = float((diff - tol * want.float().abs()).max())
+    say(f"    {label:24s} {str(q.dtype):15s} max|kernel-plain|={err:.3e} "
+        f"(limit {tol:g} + {tol:g}*|plain|)")
+    require(bool(torch.isfinite(out).all()), f"{label}: output not finite")
+    require(excess <= tol, f"{label}: kernel differs from plain by {err:.3e}")
+    require(torch.equal(out, again), f"{label}: two launches differ")
+    return err
+
+
+def attention_bound(B, S, H, Hkv, hd, window, itemsize):
+    """Least time of one causal attention launch: 4*hd flop for each
+    unmasked (query, key) pair (q.k and p.v) at the bf16 tensor-core
+    peak, against q, k, v read once and the output written once at the
+    HBM rate.  Returns (ms, bound_by, bytes, flop)."""
+    q_idx = range(S)
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in q_idx)
+    flop = 4 * hd * B * H * pairs
+    nbytes = itemsize * hd * B * (2 * S * H + 2 * S * Hkv)
+    t_ops = flop / BF16_OPS_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else
+            "bytes", nbytes, flop)
+
+
+def plain_attention_patch():
+    """Route the model's kernel path to the plain version: the reference
+    for the serving prefill on the card."""
+    from repro_torch.kernels import ops
+
+    def plain(q, k, v, *, causal=True, window=None, softcap=0.0):
+        from repro_torch.kernels import flash_attention as fa
+        return fa.flash_attention_plain(
+            q, k, v, causal=causal, window=int(window or 0),
+            softcap=softcap, scale=1.0 / q.shape[-1] ** 0.5)
+    return mock.patch.object(ops, "flash_attention", plain)
+
+
+def report_logits(label, got, want) -> None:
+    """Print how far the prefill's last-token logits drift when the
+    attention is the plain version: finite logits are required, the
+    drift is reported (see compare_layers for the bound)."""
+    import torch
+    require(bool(torch.isfinite(got).all()), f"{label}: logits not finite")
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max()) / scale
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    say(f"    {label}, whole model, kernel vs plain attention: logits "
+        f"scale {scale:.4f}, max|kernel-plain|/scale {err:.3e}, argmax "
+        f"agrees on {agree:.3f} of rows (reported, not bounded)")
+
+
+def compare_layers(label, model, toks) -> float:
+    """Each layer run twice on the same input, the kernel-path hidden
+    state: its attention through the kernel, then through the plain
+    version.  Requires every layer's output to agree within LAYER_RTOL
+    of its largest magnitude; returns the worst relative difference."""
+    import torch
+    from repro_torch.models import transformer
+    x = transformer._embed(model, toks)
+    pos = torch.arange(toks.shape[1], device=toks.device)[None, :]
+    worst = 0.0
+    with torch.no_grad():
+        for i, block in enumerate(model.blocks):
+            out, _ = block(x, pos, mode="train", impl="kernel")
+            with plain_attention_patch():
+                ref, _ = block(x, pos, mode="train", impl="kernel")
+            require(bool(torch.isfinite(out).all()),
+                    f"{label} layer {i}: not finite")
+            err = float((out.float() - ref.float()).abs().max()) / float(
+                ref.float().abs().max())
+            worst = max(worst, err)
+            x = out
+    say(f"    {label}, layer by layer, kernel vs plain attention on the "
+        f"same input: worst max|kernel-plain|/scale {worst:.3e} over "
+        f"{len(model.blocks)} layers (limit {LAYER_RTOL:g})")
+    require(worst <= LAYER_RTOL, f"{label}: a layer differs by {worst}")
+    return worst
+
+
+def check_ring(model, toks, nxt) -> None:
+    """The windowed layer's ring cache on the card: after a prefill of
+    S > window tokens, slot p % window holds the key and value of
+    position p for the last `window` positions; one decode step then
+    overwrites exactly slot S % window.  Checked bitwise on layer 0,
+    whose keys depend on the tokens alone."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.models.common import rms_norm
+    from repro_torch.runtime import steps
+    cfg = model.cfg
+    S, W = toks.shape[1], cfg.window
+    block = model.blocks[0]
+    with torch.no_grad():
+        _, caches = steps.make_prefill_step(cfg, impl="kernel", max_len=S + 8)(
+            model, {"tokens": toks})
+        h = rms_norm(transformer._embed(model, toks), block.ln1, cfg.rms_eps)
+        _, k_all, v_all = block.attn._qkv(
+            h, torch.arange(S, device=toks.device)[None, :])
+        pos = torch.arange(S - W, S, device=toks.device)
+        ring = caches[0]
+        require(torch.equal(ring["k"][:, pos % W], k_all[:, pos]) and
+                torch.equal(ring["v"][:, pos % W], v_all[:, pos]),
+                "ring cache: prefill keys are not at slot p % window")
+        before = ring["k"].clone()
+        _, caches = steps.make_decode_step(cfg, impl="kernel")(
+            model, caches, nxt, S)
+        h1 = rms_norm(transformer._embed(model, nxt), block.ln1, cfg.rms_eps)
+        _, k1, _ = block.attn._qkv(
+            h1, torch.full((1, 1), S, device=toks.device))
+        slot = S % W
+        changed = (caches[0]["k"] != before).any(dim=(0, 2, 3))
+        require(torch.equal(caches[0]["k"][:, slot], k1[:, 0]) and
+                changed.nonzero().flatten().tolist() in ([slot], []),
+                "ring cache: decode did not write exactly slot S % window")
+    say(f"    ring cache, layer 0: slots p % {W} hold positions "
+        f"{S - W}..{S - 1} bitwise; decode at {S} wrote slot {slot} only")
+
+
+def report_busy(label, fn, wall) -> None:
+    """Device busy time of one call of `fn` by torch.profiler, against the
+    call's unprofiled host wall `wall` (s), and the largest kernels."""
+    busy = profile_device(fn)
+    if busy is None:
+        say(f"    {label}: device busy share not measured (the profiler "
+            f"saw no device time)")
+        return
+    busy_s = sum(us for _, us in busy.values()) * 1e-6
+    fa_s = sum(us for n, (_, us) in busy.items() if "flash_fwd" in n) * 1e-6
+    launches = sum(c for c, _ in busy.values())
+    say(f"    {label}: device busy {busy_s * 1e3:.3f} ms of {wall * 1e3:.3f} "
+        f"ms wall (idle share {1.0 - busy_s / wall:.3f}), {launches} "
+        f"kernels; attention kernel {fa_s * 1e3:.3f} ms "
+        f"({fa_s / busy_s:.3f} of busy)")
+    for name, (count, us) in sorted(busy.items(),
+                                    key=lambda kv: -kv[1][1])[:6]:
+        say(f"    profiler: {name} x{count}: {us * 1e-3:.3f} ms")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -321,8 +532,11 @@ def main() -> int:
         return 1
     import numpy as np
 
+    from repro_torch import configs
     from repro_torch.core import solver, verify
     from repro_torch.kernels import build, ops
+    from repro_torch.launch import serve
+    from repro_torch.runtime import steps
 
     t_start = time.perf_counter()
     # -- phase 1: card -----------------------------------------------------
@@ -337,8 +551,8 @@ def main() -> int:
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda", 0)
 
-    # -- phase 2: build ----------------------------------------------------
-    build.load("pdhg_burst.cu")
+    # -- phase 2: build (both kernels, one nvcc each, started together) ----
+    build.load_all("pdhg_burst.cu", "flash_attention.cu")
     info = build.BUILD_INFO["pdhg_burst.cu"]
     say(f"[2] built pdhg_burst.cu in {info['seconds']:.3f} s -> "
         f"{pathlib.Path(info['library']).name}")
@@ -484,14 +698,143 @@ def main() -> int:
             "device time)")
     for name, (count, us) in sorted((per_launch or {}).items()):
         say(f"    profiler: {name} x{count}: {us / count:.3f} us a launch")
-    say(f"    total {time.perf_counter() - t_start:.1f} s")
+    say(f"    phases 1-6 took {time.perf_counter() - t_start:.1f} s")
+
+    # -- phase 7: the attention kernel's build -----------------------------
+    fa_info = build.BUILD_INFO["flash_attention.cu"]
+    say(f"[7] built flash_attention.cu in {fa_info['seconds']:.3f} s "
+        f"(started with pdhg_burst.cu in phase 2) -> "
+        f"{pathlib.Path(fa_info['library']).name}")
+    for line in fa_info["log"].splitlines():
+        if "Compiling entry" in line or "registers" in line or \
+                "spill" in line:
+            say(f"    ptxas: {line.strip()}")
+
+    # -- phase 8: attention kernel vs plain version ------------------------
+    say("[8] attention kernel vs plain version on the card (causal)")
+    fa_errs = []
+    for seed, (name, B, S, H, Hkv, hd, window, cap, dtypes) in enumerate(
+            FA_CASES):
+        for dt in dtypes:
+            q, k, v = fa_inputs(seed, B, S, H, Hkv, hd, getattr(torch, dt),
+                                dev)
+            fa_errs.append(compare_attention(
+                f"{name} S={S} H={H}/{Hkv} hd={hd} w={window} cap={cap:g}",
+                q, k, v, window, cap))
+            del q, k, v
+    fa_max_err = max(fa_errs)
+
+    # -- phase 9: serving path at full width --------------------------------
+    say("[9] serving path: phi4-mini-3.8b at full width, batch 4, prompt "
+        "2048, 32 tokens, impl=kernel")
+    cfg = configs.get("phi4-mini-3.8b")
+    served = []
+    for rep in range(2):
+        ops.PDHG_BURST_LAUNCHES = 0
+        ops.FLASH_ATTENTION_LAUNCHES = 0
+        t0 = time.perf_counter()
+        served.append(serve.main(SERVE_ARGS))
+        wall = time.perf_counter() - t0
+        serve_launches = ops.FLASH_ATTENTION_LAUNCHES
+        say(f"    run {rep}: serve.main wall {wall:.3f} s (weights drawn on "
+            f"the card included); flash_attention launches "
+            f"{serve_launches}, pdhg_burst launches "
+            f"{ops.PDHG_BURST_LAUNCHES}")
+        require(serve_launches == cfg.n_layers,
+                f"serving prefill launched the attention kernel "
+                f"{serve_launches} times, expected {cfg.n_layers}")
+    require(served[0].shape == (4, 32), f"tokens {served[0].shape}")
+    require(np.array_equal(served[0], served[1]), "two serving runs differ")
+    say("    two runs: identical tokens")
+    model, toks = serve.build(cfg, 4, 2048, 0, dev)
+    prefill = steps.make_prefill_step(cfg, impl="kernel", max_len=2048 + 32)
+    logits_k, _ = prefill(model, {"tokens": toks})
+    with plain_attention_patch():
+        logits_p, _ = prefill(model, {"tokens": toks})
+    torch.cuda.synchronize()
+    require(np.array_equal(logits_k[:, -1].argmax(-1).cpu().numpy(),
+                           served[0][:, 0]),
+            "serve.main's first tokens are not this prefill's argmax")
+    report_logits("phi4 prefill", logits_k, logits_p)
+    del logits_k, logits_p
+    compare_layers("phi4 prefill", model, toks)
+
+    say("    h2o-danube-3-4b at full width, 4 layers (window 4096, hd 120), "
+        "batch 1, prompt 6144, 8 tokens")
+    dcfg = dataclasses.replace(configs.get("h2o-danube-3-4b"), n_layers=4)
+    dmodel, dtoks = serve.build(dcfg, 1, 6144, 0, dev)
+    ops.FLASH_ATTENTION_LAUNCHES = 0
+    g = serve.generate(dmodel, dtoks, 8, impl="kernel")
+    dl = ops.FLASH_ATTENTION_LAUNCHES
+    cache0 = g.caches[0]
+    say(f"    prefill {g.prefill_s * 1e3:.1f} ms, 7 decode steps "
+        f"{g.decode_s * 1e3:.1f} ms; flash_attention launches {dl}; "
+        f"ring cache {tuple(cache0['k'].shape)} len {cache0['len']}; "
+        f"tokens {g.tokens[0].tolist()}")
+    require(dl == dcfg.n_layers, f"danube prefill launched {dl} times")
+    require(cache0["k"].shape[1] == dcfg.window and
+            cache0["len"] == 6144 + 7, "danube ring cache")
+    require(bool(torch.isfinite(g.prefill_logits).all()),
+            "danube logits not finite")
+    compare_layers("danube prefill", dmodel, dtoks)
+    check_ring(dmodel, dtoks, g.tokens[:, :1])
+    del dmodel, g
+
+    # -- phase 10: times at the serving shapes -----------------------------
+    say(f"[10] times at the serving shapes ({card})")
+    q, k, v = fa_inputs(99, 4, 2048, 24, 8, 128, torch.bfloat16, dev)
+    fa_ms = sorted(time_events(lambda: ops.flash_attention(q, k, v), 10)
+                   for _ in range(3))[1]
+    fa_plain_ms = time_events(lambda: fa_plain(q, k, v, 0, 0.0), 3)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fa_lib_ms = time_events(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True), 10)
+    fa_bound_ms, fa_bound_by, fa_bytes, fa_flop = attention_bound(
+        4, 2048, 24, 8, 128, 0, 2)
+    del q, k, v, qt, kt, vt
+    say(f"    attention kernel {fa_ms:.6f} ms a launch (q (4, 2048, 24, 128),"
+        f" k/v (4, 2048, 8, 128), bf16, causal; median of 3 runs of 10)")
+    say(f"    plain version    {fa_plain_ms:.6f} ms")
+    say(f"    library          {fa_lib_ms:.6f} ms (torch "
+        f"scaled_dot_product_attention, is_causal, enable_gqa, (B,H,S,hd))")
+    say(f"    bound            {fa_bound_ms:.6f} ms ({fa_bound_by}: "
+        f"{fa_flop} flop at 989 TFLOP/s bf16, {fa_bytes} B at 3.35 TB/s)")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(model, {"tokens": toks})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    prefill_wall = sorted(walls)[1]
+    g = serve.generate(model, toks, 32, impl="kernel")
+    say(f"    phi4 prefill wall {prefill_wall * 1e3:.3f} ms (median of 3); "
+        f"decode {g.decode_s / 31 * 1e3:.3f} ms a token (31 steps, batch 4)")
+    report_busy("prefill", lambda: prefill(model, {"tokens": toks}),
+                prefill_wall)
+    decode = steps.make_decode_step(cfg, impl="kernel")
+    tok = g.tokens[:, -1:]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode(model, g.caches, tok, 2048 + 31)
+    torch.cuda.synchronize()
+    report_busy("decode step", lambda: decode(model, g.caches, tok, 2048 + 31),
+                time.perf_counter() - t0)
+    say(f"    peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB; total {time.perf_counter() - t_start:.1f} s")
 
     kernels = {"kernels": [{
         "name": "pdhg_burst", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": full_launches,
         "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms}]}
+        "library_ms": library_ms}, {
+        "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
+        "replaces": FA_REPLACES, "launches": serve_launches,
+        "max_abs_err": fa_max_err, "ms": fa_ms, "plain_ms": fa_plain_ms,
+        "bound_ms": fa_bound_ms, "bound_by": fa_bound_by,
+        "library_ms": fa_lib_ms}]}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

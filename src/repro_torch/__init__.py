@@ -1,15 +1,23 @@
-"""PyTorch + CUDA port of the co-flow scheduler (package `repro`).
+"""PyTorch + CUDA port of the co-flow scheduler and its model zoo
+(package `repro`).
 
-Imports torch and numpy only — never jax and nothing of `repro`.  The
-main path is `core.solver.solve_fast`: routing-LP assembly (numpy) ->
-PDHG on the card through the hand-written blocked-ELL burst kernel
-(kernels/csrc/pdhg_burst.cu) -> path decomposition and slot packing ->
-exact re-scoring and certification (numpy).
+Imports torch and numpy only — never jax and nothing of `repro`.  Two
+paths run on the card:
+
+  * the scheduler, `core.solver.solve_fast`: routing-LP assembly (numpy)
+    -> PDHG through the hand-written blocked-ELL burst kernel
+    (kernels/csrc/pdhg_burst.cu) -> path decomposition and slot packing
+    -> exact re-scoring and certification (numpy);
+  * serving the dense language models, `launch.serve` (`runtime.steps`,
+    `models.transformer`): prefill with attention through the
+    hand-written flash-attention kernel (kernels/csrc/flash_attention.cu),
+    then greedy decode against KV caches.
 
 Device rule (`device.resolve`): entry points default to device="cuda"
 and raise when no card is available; only an explicit device="cpu" runs
-on the host, through the kernel's plain PyTorch version.
+on the host, through the kernels' plain PyTorch versions.
 """
-from . import convert, core, device, kernels
+from . import configs, convert, core, device, kernels, models, runtime
 
-__all__ = ["convert", "core", "device", "kernels"]
+__all__ = ["configs", "convert", "core", "device", "kernels", "models",
+           "runtime"]

@@ -1,8 +1,8 @@
-"""Carry a problem across packages as plain arrays.
+"""Carry a problem, or a model's weights, across packages as plain arrays.
 
-The scheduler has no weights: what crosses between the reference package
-and the port is the problem itself (and, for warm starts, the PDHG state,
-which `core.solver.solve_lp`/`solve_fast` take as numpy `x0`/`y0`).
+For the scheduler what crosses between the reference package and the
+port is the problem itself (and, for warm starts, the PDHG state, which
+`core.solver.solve_lp`/`solve_fast` take as numpy `x0`/`y0`).
 
 `problem_to_arrays` flattens a ScheduleProblem into a dict of numpy
 arrays and Python scalars; `problem_from_arrays` rebuilds the port's
@@ -10,14 +10,22 @@ ScheduleProblem from it.  `problem_to_arrays` reads only public fields,
 so it accepts the reference's ScheduleProblem as well — which is how a
 problem the port cannot build yet (a degraded fabric, say) is handed to
 it.
+
+For the model zoo, `params_from_numpy` turns the reference's
+`transformer.init_params` tree (its leaves made numpy arrays) into a
+state dict for the port's `models.transformer.Transformer`, so both
+packages run the same weights and nothing is downloaded.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core.timeslot import ScheduleProblem
 from .core.topology import Device, Topology
 from .core.traffic import CoflowSet
+from .models.common import ModelConfig
+from .models.transformer import check_supported
 
 
 def problem_to_arrays(p) -> dict:
@@ -90,3 +98,50 @@ def problem_from_arrays(d: dict) -> ScheduleProblem:
         path_slack=None if d.get("path_slack") is None
         else int(d["path_slack"]),
         flow_weight=opt("flow_weight", np.float64))
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for name, leaf in tree.items():
+        key = f"{prefix}{name}"
+        if isinstance(leaf, dict):
+            out.update(_flatten(leaf, key + "."))
+        else:
+            out[key] = leaf
+    return out
+
+
+def params_from_numpy(cfg: ModelConfig, tree: dict) -> dict:
+    """A `Transformer` state dict (fp32 CPU tensors) from the reference's
+    parameter tree with numpy leaves.
+
+    The reference stacks the layers of each block-pattern slot: slot i's
+    tensors `tree["groups"][i]` carry a leading group axis, and group g
+    of slot i is layer g * len(block_pattern) + i; the layers left over,
+    `tree["rem"][i]`, are layers n_groups * len(block_pattern) + i."""
+    check_supported(cfg)
+    P = len(cfg.block_pattern)
+    n_groups = cfg.n_layers // P
+    n_rem = cfg.n_layers - n_groups * P
+    if len(tree["groups"]) != P or len(tree["rem"]) != n_rem:
+        raise ValueError(f"{cfg.name}: expected {P} stacked slots and "
+                         f"{n_rem} remainder layers, got "
+                         f"{len(tree['groups'])} and {len(tree['rem'])}")
+
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    sd = {name: t(tree[name]) for name in ("embed", "final_ln", "unembed")
+          if name in tree}
+    for i, slot in enumerate(tree["groups"]):
+        for name, stacked in _flatten(slot).items():
+            if stacked.shape[0] != n_groups:
+                raise ValueError(f"groups[{i}].{name} stacks "
+                                 f"{stacked.shape[0]} layers, expected "
+                                 f"{n_groups}")
+            for g in range(n_groups):
+                sd[f"blocks.{g * P + i}.{name}"] = t(stacked[g])
+    for i, layer in enumerate(tree["rem"]):
+        for name, leaf in _flatten(layer).items():
+            sd[f"blocks.{n_groups * P + i}.{name}"] = t(leaf)
+    return sd

@@ -1,0 +1,55 @@
+"""The plain PyTorch version of the flash-attention kernel.
+
+`flash_attention_plain` computes what the reference's Pallas kernel
+(`repro.kernels.flash_attention._kernel`, driven by
+`flash_attention_bhsd`) computes, written as one masked softmax in fp32
+instead of an online softmax over kv tiles:
+
+  s   = (q . k^T) * scale                      fp32, scale = 1/sqrt(hd)
+  s   = softcap * tanh(s / softcap)            when softcap != 0
+  s   = NEG_INF where masked                   causal: q_idx >= k_idx;
+                                               window: q_idx - k_idx < window
+  p   = exp(s - rowmax(s)),  l = rowsum(p)
+  out = (p . v) / max(l, 1e-30)                cast once to q's dtype
+
+NEG_INF is the reference's finite fill (-2.3819763e38), not -inf, so a
+row whose scores are all masked gives the same finite answer as the
+kernel.  GQA maps query head h to kv head h // (H / Hkv).
+
+The CPU tests run it (kernels.ops.flash_attention on CPU tensors), and
+the card holds the CUDA kernel (kernels/csrc/flash_attention.cu) against
+it.  Memory is O(B * H * S * T) fp32: it is a reference, not a fast path.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -2.3819763e38
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool, window: int, softcap: float,
+                          scale: float) -> torch.Tensor:
+    """q: (B,S,H,hd); k, v: (B,T,Hkv,hd) with H % Hkv == 0 -> (B,S,H,hd)
+    in q's dtype.  `window` 0 means no window."""
+    B, S, H, hd = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    qg = q.float().reshape(B, S, Hkv, G, hd)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    qi = torch.arange(S, device=q.device)[:, None]
+    ki = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qi >= ki
+    if window > 0:
+        mask &= (qi - ki) < window
+    s = torch.where(mask, s, torch.tensor(NEG_INF, dtype=torch.float32,
+                                          device=q.device))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgst,btkd->bkgsd", p, v.float())
+    out = out / torch.clamp(l, min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)

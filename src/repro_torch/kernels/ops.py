@@ -14,12 +14,15 @@ import ctypes
 import torch
 
 from . import build
+from . import flash_attention as fa
 from . import pdhg_spmv as ps
 
 # calls of the fused burst on the card: one per burst, and each burst is
 # 2*iters + 1 CUDA launches (a primal and a dual step per iteration, then
 # the residual)
 PDHG_BURST_LAUNCHES = 0
+# launches of the flash-attention kernel on the card (one a call)
+FLASH_ATTENTION_LAUNCHES = 0
 
 _F32 = torch.float32
 _META_CACHE: dict = {}
@@ -134,3 +137,85 @@ def pdhg_burst(c, tau, xmax, q, sig, ub, keep_n, keep_m,
                            f"{err}")
     PDHG_BURST_LAUNCHES += 1
     return x_out, y_out, worst
+
+
+# ---------------------------------------------------------------------------
+# flash attention (the prefill's attention, models.attention impl="kernel")
+# ---------------------------------------------------------------------------
+
+_FA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _flash_fn():
+    lib = build.load("flash_attention.cu")
+    fn = lib.flash_attention_fwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] * 9 + [ctypes.c_float] * 2
+                       + [ctypes.c_void_p] * 5)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """Forward attention.  q: (B,S,H,hd); k, v: (B,T,Hkv,hd) with
+    H % Hkv == 0, all contiguous, one dtype (float32 or bfloat16), hd a
+    multiple of 8 up to 256.  Returns (B,S,H,hd) in q's dtype.
+
+    `window` None or 0 means no sliding window; the softmax scale is
+    1/sqrt(hd).  On CUDA tensors this is the kernel of
+    kernels/csrc/flash_attention.cu; on CPU tensors its plain version,
+    kernels.flash_attention.flash_attention_plain."""
+    global FLASH_ATTENTION_LAUNCHES
+    named = dict(q=q, k=k, v=v)
+    for name, t in named.items():
+        if t.dim() != 4:
+            raise ValueError(f"flash_attention: {name} must be 4-D, got "
+                             f"shape {tuple(t.shape)}")
+        if t.dtype not in _FA_DTYPES:
+            raise ValueError(f"flash_attention: {name} must be float32 or "
+                             f"bfloat16, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+    if len({t.dtype for t in named.values()}) != 1:
+        raise ValueError("flash_attention: q, k and v must share one dtype")
+    devices = {t.device for t in named.values()}
+    if len(devices) != 1:
+        raise ValueError(f"flash_attention operands span devices {devices}")
+    B, S, H, hd = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or v.shape != k.shape:
+        raise ValueError(f"flash_attention: k and v must be ({B}, T, Hkv, "
+                         f"{hd}), got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    if Hkv == 0 or H % Hkv:
+        raise ValueError(f"flash_attention: {H} query heads do not divide "
+                         f"into {Hkv} kv heads")
+    if hd % 8 or not 0 < hd <= 256:
+        raise ValueError(f"flash_attention: head dim {hd} must be a "
+                         f"multiple of 8 up to 256")
+    window = int(window or 0)
+    scale = 1.0 / hd ** 0.5
+    device = devices.pop()
+    if device.type == "cpu":
+        return fa.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window, softcap=softcap,
+                                        scale=scale)
+    if device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
+                         f"{device}")
+    if B * H > 65535:
+        raise ValueError(f"flash_attention: B*H = {B * H} exceeds the "
+                         f"kernel's grid limit of 65535")
+    fn = _flash_fn()
+    out = torch.empty_like(q)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(_FA_DTYPES[q.dtype], B, S, T, H, Hkv, hd, int(causal),
+                 window, float(softcap), scale, q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    FLASH_ATTENTION_LAUNCHES += 1
+    return out

@@ -1,0 +1,198 @@
+"""GQA attention: causal / sliding-window, softcap, KV caches.
+
+The port's counterpart of `repro.models.attention`.  Three modes:
+  train    full-sequence causal, no cache
+  prefill  full-sequence causal, returns a cache
+  decode   one new token against the cache (full or windowed ring buffer)
+
+impl = "einsum" is the reference's "xla" math (bf16 score products,
+bf16 probabilities); impl = "kernel", the counterpart of "pallas", runs
+the prefill's attention through kernels.ops.flash_attention — the CUDA
+kernel on the card, its plain fp32 version on the CPU.  Decode always
+takes the einsum path, as in the reference.
+
+Unlike the reference, decode writes the new key and value into the cache
+tensors in place (no copy of the whole cache a step); the cache dict it
+returns shares those tensors.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..kernels import ops as kops
+from .common import (CastWeights, ModelConfig, einsum, init_normal, matmul,
+                     rope, softcap)
+
+NEG_INF = -2.3819763e38
+IMPLS = ("einsum", "kernel")
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, kind: str, *,
+               device: torch.device, dtype=torch.bfloat16) -> dict:
+    """KV cache for one attention layer.  kind: "full" | "window"."""
+    _, hkv = cfg.padded_heads(1)
+    slots = min(max_len, cfg.window) if kind == "window" else max_len
+    shape = (batch, slots, hkv, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device), "len": 0}
+
+
+def _sdpa(q, k, v, mask, cfg: ModelConfig):
+    """Grouped attention, the reference's einsum math.  q: (B,S,Hq,hd);
+    k,v: (B,T,Hkv,hd); mask: (B|1, 1, S|1, T), True = attend."""
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, S, Hkv, G, hd)
+    # the product is rounded to q's dtype; the division (by a numpy
+    # float64 scalar in the reference) promotes to float32
+    scores = einsum("bskgd,btkd->bkgst", qg, k).float() / math.sqrt(hd)
+    scores = softcap(scores, cfg.attn_softcap)
+    scores = torch.where(mask[:, :, None], scores, NEG_INF)
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    probs = (e / e.sum(dim=-1, keepdim=True)).to(q.dtype)
+    out = einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(B, S, Hq, hd)
+
+
+def _flash(q, k, v, cfg: ModelConfig, *, causal: bool, window: int | None):
+    return kops.flash_attention(q, k, v, causal=causal, window=window,
+                                softcap=cfg.attn_softcap)
+
+
+def _causal_mask(q_pos, t_pos, cfg: ModelConfig, local: bool):
+    mask = q_pos[:, None] >= t_pos[None, :]
+    if local:
+        mask &= q_pos[:, None] - t_pos[None, :] < cfg.window
+    return mask[None, None]
+
+
+def _sdpa_chunked(q, k, v, cfg: ModelConfig, *, local: bool):
+    """Query-chunked causal attention: scores never exceed
+    (B, Hkv, G, cq, T) — the einsum path's answer to long sequences."""
+    S = q.shape[1]
+    T = k.shape[1]
+    cq = max(128, min(S, (1 << 22) // max(T, 1)))
+    while S % cq:
+        cq //= 2
+    cq = max(cq, 1)
+    t_pos = torch.arange(T, device=q.device)
+    outs = []
+    for c0 in range(0, S, cq):
+        q_pos = c0 + torch.arange(cq, device=q.device)
+        outs.append(_sdpa(q[:, c0:c0 + cq], k, v,
+                          _causal_mask(q_pos, t_pos, cfg, local), cfg))
+    return torch.cat(outs, dim=1)
+
+
+def _fill_cache(cfg: ModelConfig, k, v, local: bool, max_len: int) -> dict:
+    """A cache from prefill keys/values sized for decoding up to max_len
+    total positions (window slots for local layers)."""
+    B, S = k.shape[:2]
+    if local:
+        slots = min(max_len, cfg.window)
+        if S > slots:
+            # keep the last `slots` keys, rotated so that absolute
+            # position p sits at ring slot p % slots
+            shift = S % slots
+            k = torch.roll(k[:, -slots:], shift, dims=1)
+            v = torch.roll(v[:, -slots:], shift, dims=1)
+            pad = 0
+        else:
+            pad = slots - S
+    else:
+        pad = max(max_len - S, 0)
+
+    def padded(x):
+        x = x.to(torch.bfloat16)
+        if not pad:
+            return x.contiguous()
+        return torch.cat([x, x.new_zeros((B, pad) + x.shape[2:])], dim=1)
+
+    return {"k": padded(k), "v": padded(v), "len": S}
+
+
+def _append_cache(cache: dict, k, v, local: bool):
+    """Write one token into the cache in place; return (cache', keys,
+    vals, valid)."""
+    B = k.shape[0]
+    ck, cv = cache["k"], cache["v"]
+    slots = ck.shape[1]
+    length = cache["len"]
+    idx = length % slots if local else min(length, slots - 1)
+    ck[:, idx] = k[:, 0].to(ck.dtype)
+    cv[:, idx] = v[:, 0].to(cv.dtype)
+    new_len = length + 1
+    valid = (torch.arange(slots, device=k.device) < new_len)[None, :]
+    valid = valid.expand(B, slots)
+    return ({"k": ck, "v": cv, "len": new_len}, ck.to(k.dtype),
+            cv.to(v.dtype), valid)
+
+
+class Attention(CastWeights):
+    """One attention layer: wq (d, hq, hd), wk and wv (d, hkv, hd), wo
+    (hq, hd, d), fp32, read in the activation's dtype.  kind: "attn" |
+    "attn_local"."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, *,
+                 generator: torch.Generator, device: torch.device):
+        super().__init__()
+        if kind not in ("attn", "attn_local"):
+            raise ValueError(f"attention kind {kind!r}")
+        self.cfg, self.kind = cfg, kind
+        d, hd = cfg.d_model, cfg.hd
+        hq, hkv = cfg.padded_heads(1)
+        kw = dict(generator=generator, device=device)
+        self.wq = init_normal((d, hq, hd), **kw)
+        self.wk = init_normal((d, hkv, hd), **kw)
+        self.wv = init_normal((d, hkv, hd), **kw)
+        self.wo = init_normal((hq, hd, d), **kw)
+
+    def _qkv(self, x, positions):
+        B, S, d = x.shape
+
+        def proj(name):
+            w = self.weight(name, x.dtype)
+            return matmul(x, w.reshape(d, -1)).view(B, S, w.shape[1], w.shape[2])
+
+        theta = self.cfg.rope_theta
+        q = rope(proj("wq"), positions, theta)
+        k = rope(proj("wk"), positions, theta)
+        return q, k, proj("wv")
+
+    def forward(self, x, positions, *, mode: str, cache: dict | None = None,
+                impl: str = "einsum", max_len: int = 0):
+        """Attention layer body.  Returns (out (B,S,D), new cache or
+        None)."""
+        if impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+        cfg = self.cfg
+        B, S, _ = x.shape
+        q, k, v = self._qkv(x, positions)
+        local = self.kind == "attn_local"
+        new_cache = None
+
+        if mode in ("train", "prefill"):
+            if impl == "kernel" and S > 1:
+                out = _flash(q, k, v, cfg, causal=True,
+                             window=cfg.window if local else None)
+            elif S > 2048:
+                out = _sdpa_chunked(q, k, v, cfg, local=local)
+            else:
+                t = torch.arange(S, device=x.device)
+                out = _sdpa(q, k, v, _causal_mask(t, t, cfg, local), cfg)
+            if mode == "prefill":
+                new_cache = _fill_cache(cfg, k, v, local, max_len or S)
+        elif mode == "decode":
+            if S != 1 or cache is None:
+                raise ValueError("decode takes one token and a cache")
+            new_cache, keys, vals, valid = _append_cache(cache, k, v, local)
+            out = _sdpa(q, keys, vals, valid[:, None, None, :], cfg)
+        else:
+            raise ValueError(mode)
+
+        wo = self.weight("wo", x.dtype)
+        out = matmul(out.reshape(B, S, -1), wo.reshape(-1, wo.shape[2]))
+        return out, new_cache

@@ -1,0 +1,178 @@
+"""Config schema, parameter initialisation, and shared layer primitives.
+
+The port's counterpart of `repro.models.common`, restricted to what the
+dense serving path needs: `MoEConfig` and `ModelConfig` (copied as they
+are, so every config file reads the same), `rms_norm`, `softcap` and
+`rope` on torch tensors, `init_normal` for the parameter draws, and
+`matmul`/`einsum` with one rounding.  The reference's activation-sharding
+annotations (`shard`) have no counterpart: the port runs on one card and
+has no mesh yet.  The loss (`cross_entropy`) waits for the training
+slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int
+    n_shared: int = 0            # qwen2-moe: one shared expert (gated)
+    d_shared: int = 0
+    capacity_factor: float = 1.25
+    group_size: int = 1024       # tokens per dispatch group
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0            # 0 -> d_model // n_heads
+    # block pattern, repeated to cover n_layers.  kinds:
+    #   "attn"       full causal attention + MLP
+    #   "attn_local" sliding-window attention + MLP
+    #   "rglru"      Griffin recurrent block + MLP
+    #   "mlstm"      xLSTM matrix-memory block (no separate MLP)
+    #   "slstm"      xLSTM scalar-memory block (no separate MLP)
+    block_pattern: tuple[str, ...] = ("attn",)
+    mlp_kind: str = "swiglu"     # swiglu | relu2 | geglu | none
+    moe: MoEConfig | None = None
+    window: int = 4096           # sliding-window size for attn_local
+    attn_softcap: float = 0.0    # gemma2: 50.0
+    final_softcap: float = 0.0   # gemma2: 30.0
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = True
+    family: str = "lm"           # lm | encdec | vlm
+    n_enc_layers: int = 0        # encdec: encoder depth
+    n_img_tokens: int = 0        # vlm: stub patch-embedding tokens
+    rms_eps: float = 1e-6
+    # sharding strategy hint (the reference's runtime.sharding reads it)
+    sharding: str = "2d"         # "2d" (FSDP x TP + SP) | "fsdp" (ZeRO-3)
+    # sub-quadratic? (drives long_500k eligibility in the reference)
+    subquadratic: bool = False
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def pattern_for(self, n_layers: int) -> tuple[str, ...]:
+        reps = math.ceil(n_layers / len(self.block_pattern))
+        return (self.block_pattern * reps)[:n_layers]
+
+    def padded_heads(self, tp: int) -> tuple[int, int]:
+        """(n_q_heads, n_kv_heads) padded for a tp-way model axis.
+
+        Zero-weight padding heads keep semantics."""
+        if self.sharding == "fsdp" or tp == 1:
+            return self.n_heads, self.n_kv_heads
+        hq = math.ceil(self.n_heads / tp) * tp
+        hkv = self.n_kv_heads if self.n_kv_heads % tp == 0 \
+            else math.ceil(self.n_kv_heads / tp) * tp
+        assert hq % hkv == 0 or hkv % hq == 0
+        return hq, min(hkv, hq)
+
+    def padded_vocab(self, tp: int) -> int:
+        mult = 128 * max(tp, 1)
+        return math.ceil(self.vocab_size / mult) * mult
+
+
+def init_normal(shape: tuple[int, ...], *, generator: torch.Generator,
+                device: torch.device, scale: float | None = None,
+                zero: bool = False) -> torch.nn.Parameter:
+    """One fp32 parameter, drawn as the reference's ParamFactory.tensor
+    draws it: zeros, or N(0, 1) * scale with scale = 1/sqrt(fan_in) and
+    fan_in = shape[-2] (shape[-1] for a vector).  The values come from
+    `generator` on `device`, so they are not the reference's values."""
+    if zero:
+        t = torch.zeros(shape, dtype=torch.float32, device=device)
+    else:
+        if scale is None:
+            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+            scale = 1.0 / math.sqrt(max(fan_in, 1))
+        t = torch.empty(shape, dtype=torch.float32, device=device)
+        t.normal_(generator=generator).mul_(scale)
+    return torch.nn.Parameter(t, requires_grad=False)
+
+
+class CastWeights(torch.nn.Module):
+    """A module whose weights are held in fp32 and read in the
+    activation's dtype, as every reference use `w.astype(x.dtype)` does.
+
+    `weight(name, dtype)` keeps one cast copy per weight and refreshes it
+    when the weight changes (a new storage or an in-place write such as
+    `load_state_dict`), so serving reads bf16 weights without casting
+    the fp32 ones on every step."""
+
+    def __init__(self):
+        super().__init__()
+        self._casts: dict[str, tuple[tuple, torch.Tensor]] = {}
+
+    def weight(self, name: str, dtype: torch.dtype) -> torch.Tensor:
+        w = getattr(self, name)
+        if w.dtype == dtype:
+            return w
+        key = (dtype, w.data_ptr(), w._version)
+        hit = self._casts.get(name)
+        if hit is None or hit[0] != key:
+            hit = (key, w.detach().to(dtype))
+            self._casts[name] = hit
+        return hit[1]
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in a's dtype, accumulated in fp32 and rounded once.
+
+    cuBLAS does that for bf16 on the card.  PyTorch's bf16 matmul on the
+    CPU can round partial sums, which moves the last bf16 place, so on
+    the CPU the product is taken in fp32 and rounded once: that is also
+    what the reference's bf16 dots compute on the CPU."""
+    if a.device.type == "cpu" and a.dtype != torch.float32:
+        return (a.float() @ b.float()).to(a.dtype)
+    return a @ b
+
+
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """torch.einsum of two operands with `matmul`'s rounding."""
+    if a.device.type == "cpu" and a.dtype != torch.float32:
+        return torch.einsum(eq, a.float(), b.float()).to(a.dtype)
+    return torch.einsum(eq, a, b)
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + w.float())).to(dt)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if not cap:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding.  x: (..., S, H, hd); positions: (..., S)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    exponent = -torch.arange(0, half, dtype=torch.float32,
+                             device=x.device) / half
+    freqs = torch.pow(theta, exponent)
+    angles = positions[..., None].float() * freqs       # (..., S, hd/2)
+    angles = angles[..., None, :]                       # (..., S, 1, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().split(half, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,63 @@
+"""Feed-forward blocks: SwiGLU (llama family), squared ReLU (nemotron),
+GeGLU (gemma family) and GELU, with the tanh-approximate GELU.
+
+SiLU and GELU are written out op by op, each op rounded to the
+activation's dtype, with the constants rounded to it first: that is how
+the reference's `jax.nn.silu` (x * 1 / (1 + exp(-x))) and
+`jax.nn.gelu(approximate=True)` evaluate in bf16, and a fused
+`F.silu` / `F.gelu`, which rounds once, differs from them in the last
+bf16 place.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .common import CastWeights, ModelConfig, init_normal, matmul
+
+KINDS = ("swiglu", "geglu", "relu2", "gelu")
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * (1 / (torch.exp(-x) + 1))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    def c(value):   # the constant rounded to x's dtype, as a Python float
+        return torch.tensor(value, dtype=x.dtype).item()
+    inner = c(math.sqrt(2 / math.pi)) * (x + c(0.044715) * (x * x * x))
+    return x * ((torch.tanh(inner) + 1) * 0.5)
+
+
+class MLP(CastWeights):
+    """w_up (d, f) and w_down (f, d), plus w_gate (d, f) for the gated
+    kinds; fp32, read in the activation's dtype."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
+                 device: torch.device):
+        super().__init__()
+        if cfg.mlp_kind not in KINDS:
+            raise ValueError(f"mlp_kind {cfg.mlp_kind!r} is not one of "
+                             f"{KINDS}")
+        self.kind = cfg.mlp_kind
+        d, f = cfg.d_model, cfg.d_ff
+        kw = dict(generator=generator, device=device)
+        self.w_up = init_normal((d, f), **kw)
+        self.w_down = init_normal((f, d), **kw)
+        if self.kind in ("swiglu", "geglu"):
+            self.w_gate = init_normal((d, f), **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        up = matmul(x, self.weight("w_up", dt))
+        if self.kind == "swiglu":
+            h = silu(matmul(x, self.weight("w_gate", dt))) * up
+        elif self.kind == "geglu":
+            h = gelu_tanh(matmul(x, self.weight("w_gate", dt))) * up
+        elif self.kind == "relu2":
+            h = torch.square(F.relu(up))
+        else:
+            h = gelu_tanh(up)
+        return matmul(h, self.weight("w_down", dt))

@@ -1,0 +1,275 @@
+"""The port's dense language models against the reference's, on the CPU.
+
+For the smoke configs of phi4-mini, nemotron, gemma2 and h2o-danube, the
+reference's `init_params(PRNGKey(0))` goes through
+`convert.params_from_numpy` into the port, and both run the same tokens
+(a numpy seed): the teacher-forced forward, the prefill (the port's
+impl="kernel" against the reference's impl="pallas": last-token logits
+and every layer's cache), then 8 decode steps fed the same token ids.
+Logits agree to 2e-2 absolute, as in tests/test_decode_consistency.py.
+
+The reference is compiled with XLA's `xla_allow_excess_precision` off.
+With it on (XLA's default), the CPU fusions keep some bf16 intermediates
+in fp32, and the smoke models' random weights turn such a last-place
+difference into logit differences of 0.1 to 1: the reference run that
+way disagrees by that much with itself run op by op.  With it off, each
+bf16 op rounds as written, which is what the port computes.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import transformer as jtransformer
+from repro_torch import configs, convert
+from repro_torch.launch import serve
+from repro_torch.models import transformer
+from repro_torch.runtime import steps
+
+ARCHS = ("phi4_mini_3_8b", "nemotron_4_15b", "gemma2_27b",
+         "h2o_danube_3_4b")
+UNPORTED = ("granite_moe_1b_a400m", "qwen2_moe_a2_7b", "recurrentgemma_2b",
+            "seamless_m4t_large_v2", "internvl2_1b", "xlstm_1_3b")
+B, S, GEN = 2, 16, 8
+TOL = 2e-2
+CPU = torch.device("cpu")
+# every bf16 op of the reference rounded as written (see the docstring)
+STRICT = {"xla_allow_excess_precision": False}
+
+
+def _strict(fn, *args):
+    """Compile fn for args with STRICT, and run it."""
+    return jax.jit(fn).lower(*args).compile(compiler_options=STRICT)(*args)
+
+
+def _as_f32(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(jnp.asarray(a, jnp.float32))
+
+
+def _models(jcfg, cfg, seed=0):
+    params = jtransformer.init_params(jcfg, jax.random.PRNGKey(seed), tp=1)
+    model = transformer.Transformer(cfg, generator=torch.Generator(),
+                                    device=CPU)
+    model.load_state_dict(convert.params_from_numpy(
+        cfg, jax.tree.map(np.asarray, params)))
+    return params, model
+
+
+def _jax_layer_caches(jcfg, caches):
+    """The reference's stacked caches as one {"k", "v", "len"} a layer."""
+    P = len(jcfg.block_pattern)
+    n_groups = jcfg.n_layers // P
+    out = [None] * jcfg.n_layers
+    for i, slot in enumerate(caches["groups"]):
+        c = slot["self"]
+        for g in range(n_groups):
+            out[g * P + i] = {name: c[name][g] for name in ("k", "v", "len")}
+    for i, layer in enumerate(caches["rem"]):
+        out[n_groups * P + i] = layer["self"]
+    return out
+
+
+def _run_both(arch, prompt, gen, seed):
+    """Both packages on the same weights and tokens: teacher-forced
+    logits, prefill logits and caches, and `gen` decode steps' logits
+    and the caches after them."""
+    jcfg = jconfigs.get(arch, smoke=True)
+    cfg = configs.get(arch, smoke=True)
+    params, model = _models(jcfg, cfg)
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                (B, prompt + gen))
+    max_len = prompt + gen
+    out = {"jax": {}, "port": {}}
+    j = out["jax"]
+    j["train"] = _strict(lambda p, t: jtransformer.train_logits(
+        jcfg, p, {"tokens": t}, remat=False)[0], params, jnp.asarray(toks))
+    j["prefill"], caches = _strict(lambda p, t: jtransformer.prefill(
+        jcfg, p, {"tokens": t}, impl="pallas", max_len=max_len),
+        params, jnp.asarray(toks[:, :prompt]))
+    j["prefill_cache"] = _jax_layer_caches(jcfg, caches)
+    step = jax.jit(lambda p, c, t, pos: jtransformer.decode_step(
+        jcfg, p, c, t, pos)).lower(
+            params, caches, jnp.asarray(toks[:, :1]),
+            jnp.asarray(prompt)).compile(compiler_options=STRICT)
+    j["decode"] = []
+    for i in range(gen):
+        logits, caches = step(params, caches,
+                              jnp.asarray(toks[:, prompt + i:prompt + i + 1]),
+                              jnp.asarray(prompt + i))
+        j["decode"].append(logits)
+    j["decode_cache"] = _jax_layer_caches(jcfg, caches)
+    t = out["port"]
+    prefill = steps.make_prefill_step(cfg, impl="kernel", max_len=max_len)
+    decode = steps.make_decode_step(cfg, impl="kernel")
+    with torch.no_grad():
+        t["train"] = transformer.train_logits(
+            model, {"tokens": torch.from_numpy(toks)})[0]
+    t["prefill"], caches = prefill(
+        model, {"tokens": torch.from_numpy(toks[:, :prompt])})
+    t["prefill_cache"] = [{name: (c[name].clone() if name != "len"
+                                  else c[name]) for name in c}
+                          for c in caches]
+    t["decode"] = []
+    for i in range(gen):
+        logits, caches = decode(
+            model, caches, torch.from_numpy(toks[:, prompt + i:prompt + i + 1]),
+            prompt + i)
+        t["decode"].append(logits)
+    t["decode_cache"] = caches
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs():
+    cache = {}
+
+    def get(arch, prompt=S, gen=GEN, seed=0):
+        key = (arch, prompt, gen, seed)
+        if key not in cache:
+            cache[key] = _run_both(arch, prompt, gen, seed)
+        return cache[key]
+    return get
+
+
+def _assert_caches_equal(port, ref):
+    assert len(port) == len(ref)
+    for layer, (p, r) in enumerate(zip(port, ref)):
+        assert p["len"] == int(r["len"]), layer
+        for name in ("k", "v"):
+            assert p[name].dtype == torch.bfloat16
+            np.testing.assert_allclose(_as_f32(p[name]), _as_f32(r[name]),
+                                       atol=TOL, rtol=TOL,
+                                       err_msg=f"layer {layer} {name}")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_logits_match_reference(arch, runs):
+    r = runs(arch)
+    assert r["port"]["train"].shape == r["jax"]["train"].shape
+    np.testing.assert_allclose(_as_f32(r["port"]["train"]),
+                               _as_f32(r["jax"]["train"]), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_matches_reference(arch, runs):
+    r = runs(arch)
+    np.testing.assert_allclose(_as_f32(r["port"]["prefill"]),
+                               _as_f32(r["jax"]["prefill"]), atol=TOL,
+                               rtol=0)
+    _assert_caches_equal(r["port"]["prefill_cache"],
+                         r["jax"]["prefill_cache"])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_steps_match_reference(arch, runs):
+    r = runs(arch)
+    for i, (p, j) in enumerate(zip(r["port"]["decode"], r["jax"]["decode"])):
+        err = float(np.abs(_as_f32(p) - _as_f32(j)).max())
+        assert err < TOL, (i, err)
+    _assert_caches_equal(r["port"]["decode_cache"], r["jax"]["decode_cache"])
+
+
+def test_windowed_cache_rolls_like_reference(runs):
+    """danube smoke, window 32: a 40-token prompt leaves the last 32 keys
+    in the ring, rotated so position p sits at slot p % 32, and 8 decode
+    steps keep overwriting the oldest slot."""
+    r = runs("h2o_danube_3_4b", prompt=40, gen=8, seed=3)
+    cache = r["port"]["prefill_cache"][0]
+    assert cache["k"].shape[1] == 32 and cache["len"] == 40
+    _assert_caches_equal(r["port"]["prefill_cache"],
+                         r["jax"]["prefill_cache"])
+    for i, (p, j) in enumerate(zip(r["port"]["decode"], r["jax"]["decode"])):
+        err = float(np.abs(_as_f32(p) - _as_f32(j)).max())
+        assert err < TOL, (i, err)
+    _assert_caches_equal(r["port"]["decode_cache"], r["jax"]["decode_cache"])
+
+
+@pytest.mark.parametrize("n_layers", [4, 5])
+def test_convert_orders_stacked_layers(n_layers):
+    """gemma2's two-slot pattern (attn_local, attn): group g of slot i is
+    layer 2g + i, and a fifth layer comes from the remainder list."""
+    jcfg = dataclasses.replace(jconfigs.get("gemma2_27b", smoke=True),
+                               n_layers=n_layers)
+    cfg = dataclasses.replace(configs.get("gemma2_27b", smoke=True),
+                              n_layers=n_layers)
+    tree = jax.tree.map(np.asarray, jtransformer.init_params(
+        jcfg, jax.random.PRNGKey(1), tp=1))
+    sd = convert.params_from_numpy(cfg, tree)
+    model = transformer.Transformer(cfg, generator=torch.Generator(),
+                                    device=CPU)
+    model.load_state_dict(sd)
+    assert [b.attn.kind for b in model.blocks] == list(
+        cfg.pattern_for(n_layers))
+    for layer in range(n_layers):
+        g, i = divmod(layer, 2)
+        if g < n_layers // 2:
+            want = tree["groups"][i]["attn"]["wq"][g]
+        else:
+            want = tree["rem"][i]["attn"]["wq"]
+        np.testing.assert_array_equal(
+            model.blocks[layer].attn.wq.numpy(), want)
+    # every layer's weights differ, so a wrong order could not pass
+    firsts = {model.blocks[layer].attn.wq.flatten()[0].item()
+              for layer in range(n_layers)}
+    assert len(firsts) == n_layers
+
+
+@pytest.mark.parametrize("impl", ["kernel", "einsum"])
+def test_serve_smoke_on_cpu_is_repeatable(impl, capsys):
+    argv = ["--arch", "phi4-mini-3.8b", "--smoke", "--device", "cpu",
+            "--batch", "2", "--prompt-len", "12", "--gen", "5",
+            "--impl", impl]
+    first = serve.main(argv)
+    second = serve.main(argv)
+    assert first.shape == (2, 5)
+    assert ((first >= 0) & (first < 256)).all()
+    np.testing.assert_array_equal(first, second)
+    assert "prefill:" in capsys.readouterr().out
+
+
+def test_serve_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device runs")
+    with pytest.raises(RuntimeError, match="is_available"):
+        serve.main(["--smoke", "--gen", "2", "--prompt-len", "4"])
+
+
+@pytest.mark.parametrize("arch", UNPORTED)
+def test_unported_configs_raise(arch):
+    cfg = configs.get(arch, smoke=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        transformer.Transformer(cfg, generator=torch.Generator(),
+                                device=CPU)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        steps.make_prefill_step(cfg)
+
+
+def test_steps_reject_unported_knobs():
+    cfg = configs.get("phi4_mini_3_8b", smoke=True)
+    with pytest.raises(NotImplementedError, match="strategy"):
+        steps.make_prefill_step(cfg, strategy=object())
+    with pytest.raises(NotImplementedError, match="strategy"):
+        steps.make_decode_step(cfg, strategy=object())
+    with pytest.raises(ValueError, match="impl"):
+        steps.make_decode_step(cfg, impl="pallas")
+
+
+@pytest.mark.parametrize("arch", ["gemma2_27b", "h2o_danube_3_4b"])
+def test_init_cache_matches_reference_shapes(arch):
+    jcfg = jconfigs.get(arch, smoke=True)
+    cfg = configs.get(arch, smoke=True)
+    ref = _jax_layer_caches(jcfg, jtransformer.init_cache(jcfg, 3, 48))
+    got = transformer.init_cache(cfg, 3, 48, device=CPU)
+    assert len(got) == len(ref)
+    for p, r in zip(got, ref):
+        for name in ("k", "v"):
+            assert p[name].shape == r[name].shape
+            assert p[name].dtype == torch.bfloat16
+            assert not p[name].any()
+        assert p["len"] == int(r["len"]) == 0
