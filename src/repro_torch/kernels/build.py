@@ -31,11 +31,11 @@ SOURCE_FLAGS = {
     "flash_attention.cu": tuple(f for f in NVCC_FLAGS if f != "-fmad=false"),
 }
 
-_LOCK = threading.Lock()
+# one lock per source: two threads may build two sources at once
+_LOCKS: dict[str, threading.Lock] = {}
 _LOADED: dict[str, ctypes.CDLL] = {}
-# per source: seconds from the start of its build to the library being
-# ready in this process (about 0.0 when a built library was found; builds
-# started together overlap) and the compiler's output (-Xptxas -v: registers,
+# per source: seconds the build took in this process (0.0 when a built
+# library was found) and the compiler's output (-Xptxas -v: registers,
 # shared memory and spills per kernel)
 BUILD_INFO: dict[str, dict] = {}
 
@@ -59,49 +59,30 @@ def nvcc_path() -> str:
 def load(source: str) -> ctypes.CDLL:
     """Compile `csrc/<source>` if its library is not built yet, then load
     it (once per process)."""
-    return load_all(source)[0]
-
-
-def load_all(*sources: str) -> list[ctypes.CDLL]:
-    """Load each of `sources`, compiling every one that is not built yet
-    with one `nvcc` each, all started together."""
-    with _LOCK:
-        todo = {}
-        for source in sources:
-            if source in _LOADED or source in todo:
-                continue
-            src = CSRC / source
-            flags = SOURCE_FLAGS.get(source, NVCC_FLAGS)
-            digest = hashlib.sha256(src.read_bytes()
-                                    + " ".join(flags).encode()).hexdigest()
-            out = BUILD_DIR / f"{src.stem}_{digest[:16]}.so"
-            proc = tmp = log_file = None
-            if not out.exists():
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                tmp = out.with_suffix(f".{os.getpid()}.tmp")
-                # a file, not a pipe: a long error log cannot stall nvcc
-                log_file = out.with_suffix(f".{os.getpid()}.log")
-                with open(log_file, "w") as fh:
-                    proc = subprocess.Popen(
-                        [nvcc_path(), *flags, "-o", str(tmp), str(src)],
-                        stdout=fh, stderr=subprocess.STDOUT)
-            todo[source] = (src, out, tmp, proc, log_file,
-                            time.perf_counter())
-        failed = []
-        for source, (src, out, tmp, proc, log_file, t0) in todo.items():
-            log = ""
-            if proc is not None:
-                proc.wait()
-                log = log_file.read_text()
-                log_file.unlink()
-                if proc.returncode != 0:
-                    tmp.unlink(missing_ok=True)
-                    failed.append(f"nvcc failed on {src}:\n{log}")
-                    continue
-                os.replace(tmp, out)
-            BUILD_INFO[source] = {"seconds": time.perf_counter() - t0,
-                                  "log": log, "library": str(out)}
-            _LOADED[source] = ctypes.CDLL(str(out))
-        if failed:
-            raise RuntimeError("\n".join(failed))
-        return [_LOADED[s] for s in sources]
+    with _LOCKS.setdefault(source, threading.Lock()):
+        lib = _LOADED.get(source)
+        if lib is not None:
+            return lib
+        src = CSRC / source
+        flags = SOURCE_FLAGS.get(source, NVCC_FLAGS)
+        digest = hashlib.sha256(src.read_bytes()
+                                + " ".join(flags).encode()).hexdigest()
+        out = BUILD_DIR / f"{src.stem}_{digest[:16]}.so"
+        t0 = time.perf_counter()
+        log = ""
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [nvcc_path(), *flags, "-o", str(tmp), str(src)],
+                capture_output=True, text=True)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+            os.replace(tmp, out)
+        BUILD_INFO[source] = {"seconds": time.perf_counter() - t0,
+                              "log": log, "library": str(out)}
+        lib = ctypes.CDLL(str(out))
+        _LOADED[source] = lib
+        return lib
