@@ -14,6 +14,11 @@ The port of the reference `repro.core.solver` single-instance path:
   4. exact re-evaluation with core.timeslot.evaluate — so reported E and M
      are always true paper-model numbers, never LP estimates.
 
+The batched form (`solve_lp_batch`, `solve_fast_batch`,
+`solve_fast_ensemble`) stacks instances block-diagonally and runs each
+level of its restart ladder as one adaptive dispatch of the same kernel
+(kernels.ops.pdhg_adaptive), freezing each instance as it converges.
+
 The port has one PDHG lowering, the reference's blocked-ELL
 `backend="pallas"` one, with its iters/tol/restart semantics.  The
 reference's COO `backend="xla"` lowering is not ported: it is built on
@@ -158,8 +163,8 @@ def _pack_ell(c, row, col, val, b, h, xmax, m_eq, device: torch.device):
 
 
 def _solve_lp_ell(lp: StructuredLP, iters: int, tol: float,
-                  max_restarts: int, x0, y0,
-                  device: torch.device) -> PDHGResult:
+                  max_restarts: int, x0, y0, device: torch.device,
+                  precision: str = "fp32") -> PDHGResult:
     """solve_lp's restart ladder with each rung one fused burst."""
     xmax = np.where(np.isfinite(lp.xmax), lp.xmax, 1e12)
     cscale = max(float(np.abs(lp.c).max(initial=0.0)), 1e-12)
@@ -180,7 +185,8 @@ def _solve_lp_ell(lp: StructuredLP, iters: int, tol: float,
     for attempt in range(max_restarts + 1):
         x, y, worst = kops.pdhg_burst(
             *vecs, keep_n, keep_m, *ell, x, y,
-            row_meta=op.rows.meta, col_meta=op.cols.meta, iters=iters)
+            row_meta=op.rows.meta, col_meta=op.cols.meta, iters=iters,
+            precision=precision)
         total_iters += iters
         primal = float(worst.max())           # padded rows contribute 0
         if primal <= tol:
@@ -198,17 +204,15 @@ PRECISIONS = ("fp32", "bf16")
 
 
 def _check_scale_opts(shards: int, precision: str) -> None:
-    """The reference's scale knobs exist in the port's signature but are
-    not ported yet (ROADMAP.md, queue 1 item 10)."""
+    """Validate the reference's scale knobs.  Both precisions are ported
+    (bf16 stores the iterates in bfloat16 between iterations, fp32
+    arithmetic); the row-sharded operator (shards > 1) is not yet
+    (ROADMAP.md, queue 1 item 10)."""
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; "
                          f"have {PRECISIONS}")
     if shards < 1:
         raise ValueError(f"shards must be >= 1, got {shards}")
-    if precision != "fp32":
-        raise NotImplementedError(
-            "precision='bf16' (bf16 iterate storage) is not ported yet: "
-            "ROADMAP.md queue 1 item 10, scale knobs")
     if shards > 1:
         raise NotImplementedError(
             "shards > 1 (row-sharded PDHG) is not ported yet: ROADMAP.md "
@@ -228,6 +232,11 @@ def solve_lp(lp: StructuredLP, iters: int = 4000, *,
     times.  `x0`/`y0` seed the primal/dual iterates (numpy, e.g. the
     state of an earlier solve); default is a cold start from zero.
 
+    `precision="bf16"` stores the PDHG iterates in bfloat16 between
+    iterations, with fp32 arithmetic and residuals (the kernel's
+    pdhg_burst_bf16 entry); `shards` > 1 is not ported yet and raises
+    NotImplementedError.
+
     `device="cuda"` (the default) runs each rung as one burst of the CUDA
     kernel and raises RuntimeError when no card is available;
     `device="cpu"` runs the kernel's plain PyTorch version."""
@@ -237,7 +246,8 @@ def solve_lp(lp: StructuredLP, iters: int = 4000, *,
         tol = 1e-4 * max(float(np.abs(lp.b).max(initial=0.0)), 1.0)
     if lp.n == 0 or lp.m == 0:
         return _solve_lp_trivial(lp)
-    return _solve_lp_ell(lp, iters, tol, max_restarts, x0, y0, dev)
+    return _solve_lp_ell(lp, iters, tol, max_restarts, x0, y0, dev,
+                         precision)
 
 
 # ---------------------------------------------------------------------------
@@ -408,6 +418,50 @@ def reset_build_caches() -> None:
     for f in dataclasses.fields(BuildCacheStats):
         setattr(BUILD_STATS, f.name, f.default)
 
+
+@dataclasses.dataclass
+class DispatchStats:
+    """Counters for stacked PDHG dispatches (solve_lp_batch).
+
+    A dispatch is keyed by its static shape: the blocked-ELL packer's
+    padded grid, the instance count, the chunk schedule and the budget
+    (the reference's pallas dispatch tuple).  `shape_hits` counts
+    dispatches whose shape this process has dispatched before,
+    `shape_misses` first-seen shapes.  Read via `dispatch_stats()`,
+    clear via `reset_dispatch_stats()`."""
+
+    dispatches: int = 0
+    shape_hits: int = 0
+    shape_misses: int = 0
+
+    def snapshot(self) -> "DispatchStats":
+        return dataclasses.replace(self)
+
+
+DISPATCH_STATS = DispatchStats()
+_DISPATCH_SHAPES: set = set()
+
+
+def dispatch_stats() -> DispatchStats:
+    """The live stacked-dispatch shape counters (see DispatchStats)."""
+    return DISPATCH_STATS
+
+
+def reset_dispatch_stats() -> None:
+    """Forget seen dispatch shapes and zero the counters."""
+    _DISPATCH_SHAPES.clear()
+    for f in dataclasses.fields(DispatchStats):
+        setattr(DISPATCH_STATS, f.name, f.default)
+
+
+def _note_dispatch(shape: tuple) -> None:
+    """Record one stacked dispatch's static shape (see DispatchStats)."""
+    DISPATCH_STATS.dispatches += 1
+    if shape in _DISPATCH_SHAPES:
+        DISPATCH_STATS.shape_hits += 1
+    else:
+        DISPATCH_STATS.shape_misses += 1
+        _DISPATCH_SHAPES.add(shape)
 
 
 def _structure_key(p: ScheduleProblem, objective: str) -> tuple:
@@ -954,8 +1008,9 @@ def solve_fast(p: ScheduleProblem, objective: str = "energy", *,
       iters: PDHG iterations per restart rung (doubled on each restart,
         up to solve_lp's max_restarts).
       tol: primal-residual target in Gbits; default 1e-4 * max demand.
-      shards, precision: the reference's scale knobs; only the defaults
-        (1, "fp32") are ported, anything else raises NotImplementedError.
+      shards, precision: the reference's scale knobs.  precision "fp32"
+        or "bf16" (bf16 iterate storage, fp32 arithmetic); shards > 1
+        is not ported yet and raises NotImplementedError.
       x0, y0: numpy PDHG warm start (see solve_lp).
       device: "cuda" (default; raises when no card is available) or
         "cpu" (the kernel's plain PyTorch version).
@@ -973,3 +1028,306 @@ def solve_fast(p: ScheduleProblem, objective: str = "energy", *,
     res = solve_lp(lp, iters=iters, tol=tol, x0=x0, y0=y0, shards=shards,
                    precision=precision, device=dev)
     return _assemble_fast_result(p, lp, idx, res)
+
+
+# ---------------------------------------------------------------------------
+# Batched solve (instance axis): block-diagonal stacking, adaptive freezing
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class BlockStackedLP:
+    """`B` StructuredLPs joined block-diagonally into one big LP.
+
+    PDHG with diagonal preconditioning decouples exactly over the blocks
+    — every coordinate's step size and update depends only on its own
+    block — so solving the stacked LP reproduces each instance's own
+    trajectory.  All equality rows (across instances) come first so the
+    burst's single m_eq split still applies."""
+
+    lp: StructuredLP               # the stacked LP
+    n_off: np.ndarray              # (B+1,) variable offsets
+    eq_off: np.ndarray             # (B+1,) equality-row offsets
+    ub_off: np.ndarray             # (B+1,) inequality-row offsets
+
+
+def block_stack(lps: list[StructuredLP]) -> BlockStackedLP:
+    n_off = np.cumsum([0] + [lp.n for lp in lps])
+    eq_off = np.cumsum([0] + [lp.m_eq for lp in lps])
+    ub_off = np.cumsum([0] + [lp.m - lp.m_eq for lp in lps])
+    m_eq = int(eq_off[-1])
+    rows, cols, vals, cs, xmaxs = [], [], [], [], []
+    for i, lp in enumerate(lps):
+        is_eq = lp.row < lp.m_eq
+        rows.append(np.where(is_eq, lp.row + eq_off[i],
+                             m_eq + ub_off[i] + (lp.row - lp.m_eq)))
+        cols.append(lp.col + n_off[i])
+        vals.append(lp.val)
+        cscale = max(float(np.abs(lp.c).max(initial=0.0)), 1e-12)
+        cs.append(lp.c / cscale)
+        xmaxs.append(np.where(np.isfinite(lp.xmax), lp.xmax, 1e12))
+    stacked = StructuredLP(
+        c=np.concatenate(cs), row=np.concatenate(rows),
+        col=np.concatenate(cols), val=np.concatenate(vals),
+        b=np.concatenate([lp.b for lp in lps]),
+        h=np.concatenate([lp.h for lp in lps]),
+        xmax=np.concatenate(xmaxs))
+    return BlockStackedLP(stacked, n_off, eq_off, ub_off)
+
+
+def _per_instance_residuals(bs: BlockStackedLP, x: np.ndarray) -> np.ndarray:
+    """Exact per-instance primal residuals of the stacked iterate."""
+    lp = bs.lp
+    r = np.zeros(lp.m)
+    np.add.at(r, lp.row, lp.val * x[lp.col])
+    r -= np.concatenate([lp.b, lp.h])
+    B = len(bs.n_off) - 1
+    m_eq = lp.m_eq
+    out = np.zeros(B)
+    for i in range(B):
+        eq = r[bs.eq_off[i]:bs.eq_off[i + 1]]
+        ub = r[m_eq + bs.ub_off[i]:m_eq + bs.ub_off[i + 1]]
+        out[i] = max(np.abs(eq).max(initial=0.0),
+                     np.maximum(ub, 0.0).max(initial=0.0))
+    return out
+
+
+def solve_lp_batch(lps: list[StructuredLP], iters: int = 4000, *,
+                   tol: float | None = None, max_restarts: int = 3,
+                   adaptive: bool = True, chunk: int = 500,
+                   warm_starts: list[tuple[np.ndarray, np.ndarray]] | None
+                   = None, bucket: bool = True, shards: int = 1,
+                   precision: str = "fp32",
+                   device: str | torch.device = "cuda") -> list[PDHGResult]:
+    """Solve a batch of LPs in stacked PDHG dispatches: the reference's
+    solve_lp_batch with backend="pallas", every dispatch one block-
+    diagonal stack (BlockStackedLP) packed in blocked ELL.
+
+    Both modes run an escalation ladder that re-stacks only the
+    still-unconverged instances each level, so every instance follows
+    exactly the trajectory of its solo solve.  With `adaptive=True`
+    (default) a level is kernels.ops.pdhg_adaptive: `chunk`-iteration
+    bursts, per-instance residuals checked on the device after each, and
+    converged instances frozen, so a level stops within `chunk`
+    iterations of its last straggler.  With `adaptive=False` a level is
+    one kernels.ops.pdhg_burst of the level's budget, the solve_lp
+    warm-restart ladder (iters, then doubled).  Both cap at the
+    ladder's total budget (sum of iters * 2**a for a <= max_restarts).
+    The decision to re-stack an instance uses the exact float64
+    residuals of its fp32 iterate (_per_instance_residuals).
+
+    `warm_starts[i] = (x0, y0)` seeds instance i's primal/dual iterates
+    (shapes (lps[i].n,) and (lps[i].m,), y0 ordered [eq; ub]).
+    Degenerate members (no rows or no variables) solve in closed form
+    and never enter a dispatch.
+
+    `bucket` is accepted and has no effect, as in the reference's pallas
+    branch: the blocked-ELL packer's padded grid is the dispatch shape.
+    `precision="bf16"` stores the iterates in bfloat16 between
+    iterations; `shards` > 1 is not ported yet and raises
+    NotImplementedError.  `device` as in solve_lp: "cuda" (default,
+    the CUDA kernel; raises without a card) or "cpu" (its plain
+    version).
+
+    Determinism: no RNG and fixed-order sums in the kernel, so results
+    repeat bitwise on one device for fixed inputs."""
+    dev = _device.resolve(device)
+    _check_scale_opts(shards, precision)
+    B = len(lps)
+    all_tols = np.array([tol if tol is not None
+                         else 1e-4 * max(float(np.abs(lp.b).max(initial=0.0)),
+                                         1.0)
+                         for lp in lps])
+
+    def _run_ell(g: StructuredLP, bs: BlockStackedLP, x0, y0,
+                 sub: list[int], budget: int):
+        """One stacked dispatch through the burst kernel: pack the
+        stacked LP into blocked ELL, then run the adaptive driver (or
+        one fixed burst)."""
+        op, vecs, ell = _pack_ell(g.c, g.row, g.col, g.val, g.b, g.h,
+                                  g.xmax, g.m_eq, dev)
+        # the blocked-ELL packer's padded grid is the dispatch shape
+        _note_dispatch(("pallas", adaptive, chunk if adaptive else 0,
+                        budget, op.n_pad, op.m_pad, len(sub)))
+        x0p = torch.from_numpy(np.pad(np.asarray(x0, np.float32),
+                                      (0, op.n_pad - g.n))).to(dev)
+        y0p = torch.from_numpy(np.pad(np.asarray(y0, np.float32),
+                                      (0, op.m_pad - g.m))).to(dev)
+        if adaptive:
+            # storage coordinate -> instance id; padded slots go to the
+            # dump segment len(sub) (always treated as frozen/converged)
+            inst_n = np.full(op.n_pad, len(sub), np.int64)
+            inst_n[:g.n] = np.repeat(np.arange(len(sub)), np.diff(bs.n_off))
+            inst_m = np.full(op.m_pad, len(sub), np.int64)
+            inst_m[:g.m] = np.concatenate(
+                [np.repeat(np.arange(len(sub)), np.diff(bs.eq_off)),
+                 np.repeat(np.arange(len(sub)), np.diff(bs.ub_off))])
+            x, y, _, used_chunks = kops.pdhg_adaptive(
+                *vecs, *ell, x0p, y0p,
+                torch.from_numpy(all_tols[sub].astype(np.float32)).to(dev),
+                torch.from_numpy(inst_n).to(dev),
+                torch.from_numpy(inst_m).to(dev),
+                num_inst=len(sub), row_meta=op.rows.meta,
+                col_meta=op.cols.meta, chunk=chunk,
+                max_chunks=budget // chunk, precision=precision)
+            used = used_chunks.cpu().numpy().astype(np.int64) * chunk
+        else:
+            x, y, _ = kops.pdhg_burst(
+                *vecs, torch.zeros(op.n_pad, dtype=torch.bool, device=dev),
+                torch.zeros(op.m_pad, dtype=torch.bool, device=dev),
+                *ell, x0p, y0p, row_meta=op.rows.meta,
+                col_meta=op.cols.meta, iters=budget, precision=precision)
+            used = np.full(len(sub), budget)
+        return x.cpu().numpy()[:g.n], y.cpu().numpy()[:g.m], used
+
+    def _run(sub: list[int], states, budget: int):
+        """One stacked dispatch over the instances in `sub`; returns
+        (x, y, residuals, iterations) split per instance."""
+        bs = block_stack([lps[i] for i in sub])
+        g = bs.lp
+        if states is None:
+            x0, y0 = np.zeros(g.n, np.float32), np.zeros(g.m, np.float32)
+        else:
+            x0 = np.concatenate([states[i][0] for i in sub])
+            y0 = np.concatenate(
+                [states[i][1][:lps[i].m_eq] for i in sub]
+                + [states[i][1][lps[i].m_eq:] for i in sub])
+        x_np, y_np, used = _run_ell(g, bs, x0, y0, sub, budget)
+        res = _per_instance_residuals(bs, x_np)
+        outs = {}
+        for j, i in enumerate(sub):
+            xi = x_np[bs.n_off[j]:bs.n_off[j + 1]]
+            yi = np.concatenate(
+                [y_np[bs.eq_off[j]:bs.eq_off[j + 1]],
+                 y_np[g.m_eq + bs.ub_off[j]:g.m_eq + bs.ub_off[j + 1]]])
+            outs[i] = (xi, yi, float(res[j]), int(used[j]))
+        return outs
+
+    # escalation ladder with re-stacking: each level runs only the
+    # still-unconverged instances (warm-started), so a converged instance
+    # stops exactly where its solo solve would and stragglers don't drag
+    # the full batch width through their extra iterations.  adaptive=True
+    # checks convergence every chunk inside the level and starts from a
+    # fraction of `iters`; adaptive=False reproduces the per-instance
+    # solve_lp ladder (iters, then doubled, warm-started).  Both cap at
+    # the ladder's total budget.
+    x_fin = {}
+    y_fin = {}
+    res_fin = np.zeros(B)
+    iters_fin = np.zeros(B, dtype=int)
+    states = None
+    if warm_starts is not None:
+        assert len(warm_starts) == B
+        states = {i: (np.asarray(x0, np.float64), np.asarray(y0, np.float64))
+                  for i, (x0, y0) in enumerate(warm_starts)}
+        for i, (x0, y0) in states.items():
+            assert x0.shape == (lps[i].n,) and y0.shape == (lps[i].m,), \
+                (i, x0.shape, y0.shape, lps[i].n, lps[i].m)
+            x_fin[i], y_fin[i] = x0, y0
+    # degenerate members (zero-flow instances: no rows or no variables)
+    # solve in closed form and never enter the stacked dispatches
+    active = []
+    for i in range(B):
+        if lps[i].n == 0 or lps[i].m == 0:
+            triv = _solve_lp_trivial(lps[i])
+            x_fin[i], y_fin[i] = triv.x, triv.y
+        else:
+            active.append(i)
+    total_budget = sum(iters * 2 ** a for a in range(max_restarts + 1))
+    budget = max(chunk, iters // 4) if adaptive else iters
+    spent = 0
+    while active and spent < total_budget:
+        budget = min(budget, total_budget - spent)
+        if adaptive:
+            # whole chunks only, so a level never exceeds its budget and
+            # per-instance iteration accounting stays exact
+            budget = max(chunk, budget - budget % chunk)
+        outs = _run(active, states, budget)
+        states = states or {}
+        for i, (xi, yi, ri, ki) in outs.items():
+            states[i] = (xi, yi)
+            x_fin[i], y_fin[i] = xi, yi
+            res_fin[i], iters_fin[i] = ri, iters_fin[i] + ki
+        active = [i for i in active if res_fin[i] > all_tols[i]]
+        spent += budget
+        budget *= 2
+
+    out = []
+    for i, lp in enumerate(lps):
+        xi = x_fin[i]
+        obj = float(lp.c @ xi)
+        # per-instance gap proxy mirrors solve_lp's (|c.x + q.y| form)
+        qi = np.concatenate([lp.b, lp.h])
+        cscale = max(float(np.abs(lp.c).max(initial=0.0)), 1e-12)
+        objn = obj / cscale
+        gap = abs(objn + float(qi @ y_fin[i])) / (1.0 + abs(objn))
+        out.append(PDHGResult(xi, float(res_fin[i]), gap, int(iters_fin[i]),
+                              y=y_fin[i]))
+    return out
+
+
+def solve_fast_batch(problems: list[ScheduleProblem],
+                     objective: str = "energy", *,
+                     iters: int = 4000, tol: float | None = None,
+                     adaptive: bool = True, bucket: bool = True,
+                     shards: int = 1, precision: str = "fp32",
+                     device: str | torch.device = "cuda"
+                     ) -> list[FastPathResult]:
+    """Batched fast path over ScheduleProblems sharing one topology.
+
+    The routing LPs (which differ per instance through task placement and
+    flow sizes) are stacked block-diagonally and solved in a few adaptive
+    dispatches (solve_lp_batch, chunk 500); slot packing and the exact
+    paper-model re-evaluation stay per instance (numpy).
+
+    Units and determinism are as in solve_fast; each element of the
+    returned list reports exact paper-model metrics for its instance.
+    Instances may differ in capacities — only vertex/edge structure must
+    match (ValueError otherwise); for heterogeneous instance lists use
+    solve_fast_ensemble, which this call delegates to after the check."""
+    if not problems:
+        return []
+    t0 = problems[0].topo
+    for p in problems[1:]:
+        t = p.topo
+        if t is not t0 and (t.n_vertices != t0.n_vertices
+                            or t.n_edges != t0.n_edges
+                            or not np.array_equal(t.edges, t0.edges)):
+            raise ValueError("solve_fast_batch requires a shared topology "
+                             f"structure; got {t0.name} and {t.name}")
+    return solve_fast_ensemble(problems, objective, iters=iters, tol=tol,
+                               adaptive=adaptive, chunk=500, bucket=bucket,
+                               shards=shards, precision=precision,
+                               device=device)
+
+
+def solve_fast_ensemble(problems: list[ScheduleProblem],
+                        objective: str = "energy", *,
+                        warm: list[FastPathResult] | None = None,
+                        iters: int = 4000, tol: float | None = None,
+                        adaptive: bool = True, chunk: int | None = None,
+                        bucket: bool = True, shards: int = 1,
+                        precision: str = "fp32",
+                        device: str | torch.device = "cuda"
+                        ) -> list[FastPathResult]:
+    """Batched fast path over a (possibly heterogeneous) instance list:
+    one routing LP per problem, stacked and solved by solve_lp_batch
+    (chunk 500 by default), then packed and re-scored per instance.
+
+    Cold starts only: the reference's `warm=` (each member started from
+    its healthy result projected by project_warm_start) is not ported
+    yet (ROADMAP.md queue 1 item 6) and raises NotImplementedError."""
+    if warm is not None:
+        raise NotImplementedError(
+            "solve_fast_ensemble(warm=...) needs project_warm_start, which "
+            "is not ported yet: ROADMAP.md queue 1 item 6")
+    dev = _device.resolve(device)
+    if not problems:
+        return []
+    built = [build_routing_lp(p, objective) for p in problems]
+    lps = [lp for lp, _ in built]
+    results = solve_lp_batch(lps, iters=iters, tol=tol, adaptive=adaptive,
+                             chunk=500 if chunk is None else chunk,
+                             bucket=bucket, shards=shards,
+                             precision=precision, device=dev)
+    return [_assemble_fast_result(p, lp, idx, res)
+            for p, (lp, idx), res in zip(problems, built, results)]

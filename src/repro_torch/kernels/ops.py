@@ -17,10 +17,14 @@ from . import build
 from . import flash_attention as fa
 from . import pdhg_spmv as ps
 
-# calls of the fused burst on the card: one per burst, and each burst is
-# 2*iters + 1 CUDA launches (a primal and a dual step per iteration, then
-# the residual)
+# calls of the fused burst on the card, either storage type: one per
+# burst, and each burst is 2*iters + 1 CUDA launches (a primal and a dual
+# step per iteration, then the residual; bf16 adds four conversions)
 PDHG_BURST_LAUNCHES = 0
+# calls of the bf16-storage burst on the card (counted in both)
+PDHG_BURST_BF16_LAUNCHES = 0
+# calls of the adaptive driver on the card (each runs one burst a chunk)
+PDHG_ADAPTIVE_CALLS = 0
 # launches of the flash-attention kernel on the card (one a call)
 FLASH_ATTENTION_LAUNCHES = 0
 
@@ -29,9 +33,13 @@ _META_CACHE: dict = {}
 _META_CACHE_MAX = 64
 
 
-def _burst_fn():
+# the burst's iterate storage types and their entry points in pdhg_burst.cu
+_BURST_ENTRY = {"fp32": "pdhg_burst_f32", "bf16": "pdhg_burst_bf16"}
+
+
+def _burst_fn(precision: str):
     lib = build.load("pdhg_burst.cu")
-    fn = lib.pdhg_burst_f32
+    fn = getattr(lib, _BURST_ENTRY[precision])
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 25
         fn.restype = ctypes.c_int
@@ -90,17 +98,25 @@ def _check_burst_args(named: dict, row_meta: tuple, col_meta: tuple,
 
 def pdhg_burst(c, tau, xmax, q, sig, ub, keep_n, keep_m,
                row_idx, row_val, col_idx, col_val, x0, y0, *,
-               row_meta: tuple, col_meta: tuple, iters: int):
+               row_meta: tuple, col_meta: tuple, iters: int,
+               precision: str = "fp32"):
     """One fused `iters`-iteration PDHG burst over a blocked-ELL operator.
 
     Arrays are storage-padded (x side n_pad, y side m_pad, see
     kernels.pdhg_spmv.ell_pack; padded slots carry c=tau=xmax=0 and
     sig=q=0 with ub=True, so they stay at zero); `keep_n`/`keep_m`
-    freeze coordinates (True = hold).  Returns (x, y, worst), `worst`
-    the terminal per-row residual vector.  On CUDA tensors this is the
-    kernel of kernels/csrc/pdhg_burst.cu; on CPU tensors the plain
-    version, kernels.pdhg_spmv.pdhg_update_burst."""
-    global PDHG_BURST_LAUNCHES
+    freeze coordinates (True = hold).  `precision="bf16"` stores the
+    iterates in bfloat16 between iterations (fp32 arithmetic; see
+    pdhg_spmv.pdhg_update_burst); inputs and outputs are float32 either
+    way.  Returns (x, y, worst), `worst` the terminal per-row residual
+    vector.  On CUDA tensors this is the kernel of
+    kernels/csrc/pdhg_burst.cu, its pdhg_burst_f32 or pdhg_burst_bf16
+    entry; on CPU tensors the plain version,
+    kernels.pdhg_spmv.pdhg_update_burst."""
+    global PDHG_BURST_LAUNCHES, PDHG_BURST_BF16_LAUNCHES
+    if precision not in _BURST_ENTRY:
+        raise ValueError(f"unknown precision {precision!r}; "
+                         f"have {tuple(_BURST_ENTRY)}")
     named = dict(c=c, tau=tau, xmax=xmax, q=q, sig=sig, ub=ub,
                  keep_n=keep_n, keep_m=keep_m, row_idx=row_idx,
                  row_val=row_val, col_idx=col_idx, col_val=col_val,
@@ -110,18 +126,26 @@ def pdhg_burst(c, tau, xmax, q, sig, ub, keep_n, keep_m,
         return ps.pdhg_update_burst(
             x0, y0, c, tau, xmax, q, sig, ub, keep_n, keep_m,
             row_idx, row_val, col_idx, col_val,
-            row_meta=row_meta, col_meta=col_meta, iters=iters)
+            row_meta=row_meta, col_meta=col_meta, iters=iters,
+            precision=precision)
     if device.type != "cuda":
         raise ValueError(f"pdhg_burst runs on cuda or cpu tensors, got "
                          f"{device}")
-    fn = _burst_fn()
+    fn = _burst_fn(precision)
     n_pad, m_pad = col_meta[3], row_meta[3]
     row_off, row_w = _meta_tensors(row_meta, device)
     col_off, col_w = _meta_tensors(col_meta, device)
-    x_out, x_tmp, x_bar = (torch.empty(n_pad, dtype=_F32, device=device)
-                           for _ in range(3))
-    y_out, y_tmp, worst = (torch.empty(m_pad, dtype=_F32, device=device)
-                           for _ in range(3))
+    x_out, x_bar = (torch.empty(n_pad, dtype=_F32, device=device)
+                    for _ in range(2))
+    y_out, worst = (torch.empty(m_pad, dtype=_F32, device=device)
+                    for _ in range(2))
+    if precision == "bf16":
+        # the two ping-pong buffers of each side, in one tensor
+        x_tmp = torch.empty(2 * n_pad, dtype=torch.bfloat16, device=device)
+        y_tmp = torch.empty(2 * m_pad, dtype=torch.bfloat16, device=device)
+    else:
+        x_tmp = torch.empty(n_pad, dtype=_F32, device=device)
+        y_tmp = torch.empty(m_pad, dtype=_F32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(n_pad, m_pad, int(iters), int(row_meta[2]),
@@ -133,10 +157,77 @@ def pdhg_burst(c, tau, xmax, q, sig, ub, keep_n, keep_m,
                      x_out, y_out, worst, x_tmp, y_tmp, x_bar)),
                  stream)
     if err != 0:
-        raise RuntimeError(f"pdhg_burst kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"pdhg_burst ({precision}) kernel launch failed: "
+                           f"CUDA error {err}")
     PDHG_BURST_LAUNCHES += 1
+    if precision == "bf16":
+        PDHG_BURST_BF16_LAUNCHES += 1
     return x_out, y_out, worst
+
+
+def _segment_max(values, segments, num_segments: int):
+    """out[s] = max of values[segments == s], -inf for an empty segment
+    (jax.ops.segment_max's convention).  Runs where the tensors lie, as
+    `scatter_reduce_(..., "amax")`: on the card its atomic maxima land in
+    no fixed order, but a maximum is exact, so the result does not
+    depend on the order."""
+    out = torch.full((num_segments,), float("-inf"), dtype=values.dtype,
+                     device=values.device)
+    return out.scatter_reduce_(0, segments, values, reduce="amax",
+                               include_self=True)
+
+
+def pdhg_adaptive(c, tau, xmax, q, sig, ub, row_idx, row_val, col_idx,
+                  col_val, x0, y0, tols, inst_n, inst_m, *,
+                  num_inst: int, row_meta: tuple, col_meta: tuple,
+                  chunk: int, max_chunks: int, precision: str = "fp32"):
+    """Adaptive PDHG over a block-stacked instance batch: the reference's
+    kernels.ops.pdhg_adaptive, a host loop of `chunk`-iteration bursts.
+
+    Before each burst, instance i's coordinates are frozen (held) once
+    it has converged; padded slots map to the dump segment `num_inst`
+    (`inst_n`/`inst_m` give each storage coordinate's instance id),
+    which is always frozen.  After each burst each instance's residual
+    is the segment max of the burst's `worst` over `inst_m`, compared
+    with `tols` in float32 (the reference runs with x64 off); an
+    instance whose residual meets its tolerance freezes, and `used`
+    records the chunks it ran.  The loop ends after `max_chunks` bursts
+    or when every instance is frozen (one host sync a chunk).
+
+    Every burst is `pdhg_burst` (the CUDA kernel on CUDA tensors, the
+    plain version on CPU tensors); the masks and segment maxima are
+    plain torch on the same device.  Returns (x, y, per-instance
+    residuals, per-instance chunks used), the last two on the device."""
+    global PDHG_ADAPTIVE_CALLS
+    dev = x0.device
+    inst_n = torch.as_tensor(inst_n, device=dev).long()
+    inst_m = torch.as_tensor(inst_m, device=dev).long()
+    tols = torch.as_tensor(tols, device=dev).to(_F32)
+    if tols.shape != (num_inst,):
+        raise ValueError(f"pdhg_adaptive: tols must have shape "
+                         f"({num_inst},), got {tuple(tols.shape)}")
+    always = torch.ones(1, dtype=torch.bool, device=dev)
+
+    def residuals(worst):
+        return _segment_max(worst, inst_m, num_inst + 1)[:num_inst]
+
+    x, y = x0, y0
+    worst = torch.zeros(y0.shape[0], dtype=_F32, device=dev)
+    frozen = torch.zeros(num_inst, dtype=torch.bool, device=dev)
+    used = torch.zeros(num_inst, dtype=torch.int32, device=dev)
+    k = 0
+    while k < max_chunks and not bool(frozen.all()):
+        frozen_ext = torch.cat([frozen, always])
+        x, y, worst = pdhg_burst(
+            c, tau, xmax, q, sig, ub, frozen_ext[inst_n], frozen_ext[inst_m],
+            row_idx, row_val, col_idx, col_val, x, y, row_meta=row_meta,
+            col_meta=col_meta, iters=chunk, precision=precision)
+        used = torch.where(frozen, used, k + 1)
+        frozen = frozen | (residuals(worst) <= tols)
+        k += 1
+    if dev.type == "cuda":
+        PDHG_ADAPTIVE_CALLS += 1
+    return x, y, residuals(worst), used
 
 
 # ---------------------------------------------------------------------------

@@ -14,10 +14,10 @@ This module holds the two halves that are not the CUDA kernel:
     reference `repro.kernels.pdhg_spmv` layout, kept bitwise equal to it
     (tests/test_torch_lp.py);
   * the plain version of the burst (`spmv_blocks`, `pdhg_update_burst`)
-    in torch, fp32, with the reference's formulas and freeze masks.  The
-    CPU tests run it, and the card compares the hand kernel
-    (kernels/csrc/pdhg_burst.cu, wrapped by kernels.ops.pdhg_burst)
-    against it.
+    in torch, fp32 or bf16 iterate storage, with the reference's formulas
+    and freeze masks.  The CPU tests run it, and the card compares the
+    hand kernel (kernels/csrc/pdhg_burst.cu, wrapped by
+    kernels.ops.pdhg_burst) against it.
 
 Blocked-ELL layout
 ------------------
@@ -252,18 +252,30 @@ def spmv_blocks(vec, idx_g, val_g, groups: WidthGroups):
     return torch.cat(sums)[groups.unperm]
 
 
+PRECISIONS = ("fp32", "bf16")
+
+
 def pdhg_update_burst(x0, y0, c, tau, xmax, q, sig, ub, keep_n, keep_m,
                       row_idx, row_val, col_idx, col_val, *,
-                      row_meta: tuple, col_meta: tuple, iters: int):
+                      row_meta: tuple, col_meta: tuple, iters: int,
+                      precision: str = "fp32"):
     """`iters` iterations of the reference PDHG update over the blocked-
     ELL operator, plus the terminal per-row residual vector
     (|K_eq x - b| on equality rows, max(K_ub x - h, 0) on inequality
-    rows).  fp32 throughout; returns (x, y, worst).
+    rows).  Returns (x, y, worst), all float32.
 
       x' = clip(x - tau * (c + K^T y), 0, xmax),  held where keep_n
       xbar = 2 x' - x
       y' = y + sig * (K xbar - q),  max(., 0) where ub,  held where keep_m
-    """
+
+    `precision="bf16"` stores x and y in bfloat16 between iterations,
+    at the reference's cast points: x0/y0 rounded once at the start,
+    each step on the fp32 widening of the stored values (xbar from the
+    unrounded x'), x' and y' rounded when stored, and the outputs and
+    the residual on the widened final state.  "fp32" inserts no casts."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; "
+                         f"have {PRECISIONS}")
     dev = x0.device
     rows_g = width_groups(row_meta, dev)
     cols_g = width_groups(col_meta, dev)
@@ -277,8 +289,7 @@ def pdhg_update_burst(x0, y0, c, tau, xmax, q, sig, ub, keep_n, keep_m,
     def KTy(y):
         return spmv_blocks(y, c_idx, c_val, cols_g)
 
-    x, y = x0, y0
-    for _ in range(iters):
+    def update(x, y):
         x_new = torch.minimum(torch.maximum(x - tau * (c + KTy(y)), zero),
                               xmax)
         x_new = torch.where(keep_n, x, x_new)
@@ -286,6 +297,17 @@ def pdhg_update_burst(x0, y0, c, tau, xmax, q, sig, ub, keep_n, keep_m,
         y_new = y + sig * (Kx(x_bar) - q)
         y_new = torch.where(ub, torch.maximum(y_new, zero), y_new)
         y_new = torch.where(keep_m, y, y_new)
-        x, y = x_new, y_new
+        return x_new, y_new
+
+    if precision == "bf16":
+        x, y = x0.to(torch.bfloat16), y0.to(torch.bfloat16)
+        for _ in range(iters):
+            x_new, y_new = update(x.float(), y.float())
+            x, y = x_new.to(torch.bfloat16), y_new.to(torch.bfloat16)
+        x, y = x.float(), y.float()
+    else:
+        x, y = x0, y0
+        for _ in range(iters):
+            x, y = update(x, y)
     r = Kx(x) - q
     return x, y, torch.where(ub, torch.maximum(r, zero), torch.abs(r))

@@ -25,7 +25,9 @@ def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.core.solver, "
             "repro_torch.kernels.ops, repro_torch.convert, "
             "repro_torch.models.transformer, repro_torch.runtime.steps, "
-            "repro_torch.launch.serve, repro_torch.configs; "
+            "repro_torch.launch.serve, repro_torch.configs, "
+            "repro_torch.core.oracle, repro_torch.sweep, "
+            "repro_torch.sweep.__main__; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')); print(bad)")
@@ -74,13 +76,22 @@ def test_default_device_raises_without_cuda():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(precision="bf16"), "bf16"),
-    (dict(shards=2), "shards"),
+    pytest.param(dict(shards=2), "shards", id="kw1-shards"),
 ])
 def test_unported_scale_knobs_raise(kw, match):
     p = _tiny_problem()
     with pytest.raises(NotImplementedError, match=match):
         solver.solve_fast(p, "energy", device="cpu", **kw)
+
+
+def test_bf16_scale_knob_certifies():
+    """precision="bf16" is ported: the tiny solve certifies."""
+    from repro_torch.core import verify
+    p = _tiny_problem()
+    r = solver.solve_fast(p, "energy", iters=200, precision="bf16",
+                          device="cpu")
+    verify.check_schedule(p, r.schedule).assert_ok("bf16 tiny solve")
+    assert r.metrics.feasible and r.remaining_gbits < 1e-6
 
 
 def test_unknown_device_rejected():
