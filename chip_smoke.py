@@ -8,7 +8,8 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases, in order; any failure ends the script with a non-zero exit code:
 
   1. card check: a CUDA device, its name and power limit, TF32 off;
-  2. build: the CUDA burst kernel from src/repro_torch/kernels/csrc;
+  2. build: the three CUDA kernels from src/repro_torch/kernels/csrc (the
+     burst, attention and scan kernels; one nvcc each, started together);
   3. kernel vs plain version on the card: random blocked-ELL operators
      (frozen coordinates, a mix of inequality rows) and the full-size LP;
   4. main path, paper topologies: solve_fast on the card for six paper
@@ -19,11 +20,12 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      and the kernel's launch count;
   6. times at the full-size shapes: the kernel, its plain version, two
      CSR mat-vecs as a library yardstick, and the bound;
-  7. build of the flash-attention kernel (started with the burst
-     kernel's in phase 2, one nvcc each): seconds, registers, spills;
+  7. build of the flash-attention kernel (phase 2): seconds, registers,
+     spills;
   8. attention kernel vs its plain version on the card: the grid of
-     tests/test_kernels.py, a danube-shaped windowed case and the serving
-     path's shape, each in fp32 and bf16, each element within its tolerance
+     tests/test_kernels.py, a danube-shaped windowed case, the phi4 serving
+     shape and recurrentgemma's (hd 256, one kv head, window 2048), each in
+     fp32 and bf16, each element within its tolerance
      (fp32: 2e-5 + 2e-5 of the element; bf16: one bf16 place more), two
      launches bitwise equal; an attention that drops the last kv tile
      must fail the same check;
@@ -55,7 +57,23 @@ Phases, in order; any failure ends the script with a non-zero exit code:
  15. times at the batched and bf16 shapes: the fp32 burst at the
      8-instance stack, the bf16 burst at the single flagship shape, each
      with its plain version, two CSR mat-vecs and its bound; the batch's
-     wall against 8 solo solves and its device busy share.
+     wall against 8 solo solves and its device busy share;
+ 16. the RG-LRU scan kernel vs its plain version on the card: the grid of
+     tests/test_kernels.py, R = 200, with and without h0, and the serving
+     shape (4, 4096, 2560) with a and b as the model makes them; bitwise
+     equal, two launches bitwise equal; a scan that ignores h0 and one
+     that drops the last step must fail the same check;
+ 17. serving path at full width: `launch.serve.main` on recurrentgemma-2b
+     (26 layers, batch 4, prompt 4096, 32 tokens), run twice: 18 scan and
+     8 attention launches a prefill, identical tokens, finite logits; in
+     every layer the recurrent or attention sublayer through its kernel
+     agrees with it through the plain version within bf16 places, and
+     fails with the dropped step or the dropped kv tile;
+ 18. times at recurrentgemma's shapes: the scan kernel, its plain version
+     and its bound (no library call computes the recurrence); attention at
+     hd 256 against SDPA with a window mask and its bound; prefill wall,
+     decode ms a token, and the device's busy share of one prefill and one
+     decode step by kernel.
 
 The last lines are one JSON object describing the kernels, the card's
 name and power limit, and `{"ok": true, "device": {...}}`.  Imports
@@ -125,6 +143,7 @@ FA_CASES = [
     ("grid-4", 2, 512, 6, 2, 80, 0, 0.0, ("float32", "bfloat16")),
     ("danube", 1, 6144, 32, 8, 120, 4096, 0.0, ("float32", "bfloat16")),
     ("phi4-serve", 4, 2048, 24, 8, 128, 0, 0.0, ("float32", "bfloat16")),
+    ("rgemma-serve", 4, 4096, 10, 1, 256, 2048, 0.0, ("float32", "bfloat16")),
 ]
 SERVE_ARGS = ["--arch", "phi4-mini-3.8b", "--batch", "4", "--prompt-len",
               "2048", "--gen", "32", "--impl", "kernel"]
@@ -157,6 +176,16 @@ SWEEP_RTOL = 1e-4
 SWEEP_ORDER_SENSITIVE = {("spine-leaf", "energy", "skew", 5): 4.6468e-4}
 SWEEP_CPU_CELLS = dict(topos=("spine-leaf", "pon3"), patterns=("uniform",),
                        seeds=(0, 1))
+# the RG-LRU scan: the TPU kernel it replaces and its source
+SCAN_REPLACES = "src/repro/kernels/rglru_scan.py:33"
+SCAN_SOURCE = "src/repro_torch/kernels/csrc/rglru_scan.cu"
+# (B, S, R): the grid of tests/test_kernels.py, then R off the 128 lanes
+SCAN_CASES = [(b, s, r) for b in (1, 2, 3) for s in (64, 256)
+              for r in (128, 256, 384)] + [(2, 256, 200), (3, 64, 200)]
+# recurrentgemma-2b's prefill scan at the serving shape below
+SCAN_SERVE = (4, 4096, 2560)
+RGEMMA_ARGS = ["--arch", "recurrentgemma-2b", "--batch", "4", "--prompt-len",
+               "4096", "--gen", "32", "--impl", "kernel"]
 
 
 def card_line() -> str:
@@ -711,21 +740,94 @@ def report_logits(label, got, want) -> None:
         f"agrees on {agree:.3f} of rows (reported, not bounded)")
 
 
-def sublayer_excess(block, x, pos, attn=None) -> float:
-    """One layer's attention sublayer (projections, attention, wo) on
-    rms_norm(x), its attention through the kernel (or through `attn`),
-    against the same sublayer through the plain version.  The two
-    attention outputs differ by a rare last bf16 place, which wo spreads
-    over a row, and each output is rounded once more to bf16; so each
-    element is held within one bf16 place of itself plus one of its
-    row's rms.  Returns max |got - want| / that limit."""
+def scan_plain(a, b, h0=None):
+    """The scan kernel's plain version (kernels.rglru_scan)."""
+    from repro_torch.kernels.rglru_scan import rglru_scan_plain
+    return rglru_scan_plain(a, b, h0)
+
+
+def scan_drop_last_step(a, b, h0=None):
+    """A wrong scan, the checks' negative control: the last step is never
+    taken (h at the last position and h_last repeat the step before)."""
+    import torch
+    h, h_last = scan_plain(a[:, :-1], b[:, :-1], h0)
+    return torch.cat([h, h[:, -1:]], dim=1), h_last
+
+
+def scan_ignore_h0(a, b, h0=None):
+    """A wrong scan, the checks' other negative control: h0 is dropped."""
+    return scan_plain(a, b, None)
+
+
+def scan_equal(got, want) -> bool:
+    """h and h_last bitwise equal."""
+    import torch
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def scan_inputs(seed, B, S, R, dev):
+    """a and b as the recurrent layer makes them: a = exp(log_a) in (0, 1)
+    with log_a = -8 softplus(lam) sigmoid(z), b = sqrt(1 - a^2) n; z, n,
+    lam and h0 standard normal."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lam = torch.randn(R, generator=g, device=dev)
+    z, n = (torch.randn((B, S, R), generator=g, device=dev)
+            for _ in range(2))
+    log_a = -8.0 * torch.nn.functional.softplus(lam) * torch.sigmoid(z)
+    b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) * n
+    h0 = torch.randn((B, R), generator=g, device=dev)
+    return torch.exp(log_a), b, h0
+
+
+def compare_scan(label, a, b, h0) -> float:
+    """The scan kernel against its plain version on the same card inputs:
+    h and h_last bitwise equal, and two launches bitwise equal.  Returns
+    max |kernel - plain| (0 when it passes)."""
+    import torch
+    from repro_torch.kernels import ops
+    out = ops.rglru(a, b, h0)
+    again = ops.rglru(a, b, h0)
+    want = scan_plain(a, b, h0)
+    torch.cuda.synchronize()
+    err = max(float((o - w).abs().max()) for o, w in zip(out, want))
+    same = scan_equal(out, want)
+    say(f"    {label:34s} max|kernel-plain|={err:.3e} bitwise {same}")
+    require(all(bool(torch.isfinite(o).all()) for o in out),
+            f"{label}: scan output not finite")
+    require(same, f"{label}: scan kernel differs from plain by {err:.3e}")
+    require(scan_equal(out, again), f"{label}: two scan launches differ")
+    return err
+
+
+def mixer_patch(block, fn):
+    """Route a block's kernel path to `fn`: the scan (ops.rglru, called
+    as fn(a, b, h0)) in a recurrent block, else the attention (called as
+    fn(q, k, v, window, softcap), see attention_patch)."""
+    from repro_torch.kernels import ops
+    if block.kind == "rglru":
+        return mock.patch.object(ops, "rglru", fn)
+    return attention_patch(fn)
+
+
+def sublayer_excess(block, x, pos, broken=None) -> float:
+    """One layer's first sublayer (attention: projections, attention, wo;
+    recurrent: projections, conv, gates, scan, gate, w_out) on
+    rms_norm(x), through its kernel (or through `broken`), against the
+    same sublayer through the plain version.  The two attention outputs
+    differ by a rare last bf16 place, which wo spreads over a row, and
+    each output is rounded once more to bf16 (the scan's two are
+    bitwise equal); so each element is held within one bf16 place of
+    itself plus one of its row's rms.  Returns max |got - want| / that
+    limit."""
     import contextlib
     from repro_torch.models.common import rms_norm
     h = rms_norm(x, block.ln1, block.eps)
-    with attention_patch(attn) if attn else contextlib.nullcontext():
-        got, _ = block.attn(h, pos, mode="train", impl="kernel")
-    with attention_patch(fa_plain):
-        want, _ = block.attn(h, pos, mode="train", impl="kernel")
+    with mixer_patch(block, broken) if broken else contextlib.nullcontext():
+        got, _ = block.mixer(h, pos, mode="train", impl="kernel")
+    plain = scan_plain if block.kind == "rglru" else fa_plain
+    with mixer_patch(block, plain):
+        want, _ = block.mixer(h, pos, mode="train", impl="kernel")
     want = want.float()
     rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
     return float(((got.float() - want).abs()
@@ -734,30 +836,41 @@ def sublayer_excess(block, x, pos, attn=None) -> float:
 
 def compare_sublayers(label, model, toks) -> float:
     """sublayer_excess in every layer, on the hidden state of the kernel
-    path; requires it at most 1 everywhere, and above 1 in layer 0 when
-    the attention drops the last kv tile (the check can fail).  Returns
-    the worst ratio."""
+    path; requires it at most 1 everywhere, and above 1 in the first layer
+    of each kind when its kernel is replaced by a broken one (an attention
+    that drops the last kv tile, a scan that drops the last step), so the
+    check can fail.  Returns the worst ratio."""
     import torch
     from repro_torch.models import transformer
     x = transformer._embed(model, toks)
     pos = torch.arange(toks.shape[1], device=toks.device)[None, :]
-    worst = 0.0
+    worst, broken, count = {}, {}, {}
     with torch.no_grad():
-        broken = sublayer_excess(model.blocks[0], x, pos, fa_drop_last_tile)
         for i, block in enumerate(model.blocks):
-            worst = max(worst, sublayer_excess(block, x, pos))
+            kind = "rglru" if block.kind == "rglru" else "attention"
+            count[kind] = count.get(kind, 0) + 1
+            if kind not in broken:
+                broken[kind] = (i, sublayer_excess(
+                    block, x, pos, scan_drop_last_step if kind == "rglru"
+                    else fa_drop_last_tile))
+            worst[kind] = max(worst.get(kind, 0.0),
+                              sublayer_excess(block, x, pos))
             x, _ = block(x, pos, mode="train", impl="kernel")
             require(bool(torch.isfinite(x).all()),
                     f"{label} layer {i}: not finite")
-    say(f"    {label}, attention sublayer in each layer, kernel vs plain on "
-        f"the same input: worst |kernel-plain|/limit {worst:.3f} over "
-        f"{len(model.blocks)} layers (limit {BF16_PLACE:g}*(|plain| + row "
-        f"rms)); with the last kv tile dropped, layer 0 reads {broken:.3f}")
-    require(worst <= 1.0, f"{label}: an attention sublayer differs, "
-                          f"{worst:.3f} of its limit")
-    require(broken > 1.0, f"{label}: the sublayer check passes an attention "
-                          f"that drops the last kv tile ({broken:.3f})")
-    return worst
+    for kind in worst:
+        i, bad = broken[kind]
+        say(f"    {label}, {kind} sublayer in each layer, kernel vs plain on "
+            f"the same input: worst |kernel-plain|/limit {worst[kind]:.3f} "
+            f"over {count[kind]} layers (limit {BF16_PLACE:g}*(|plain| "
+            f"+ row rms)); with the "
+            f"{'last step' if kind == 'rglru' else 'last kv tile'} dropped, "
+            f"layer {i} reads {bad:.3f}")
+        require(worst[kind] <= 1.0, f"{label}: an {kind} sublayer differs, "
+                                    f"{worst[kind]:.3f} of its limit")
+        require(bad > 1.0, f"{label}: the {kind} sublayer check passes a "
+                           f"broken kernel ({bad:.3f})")
+    return max(worst.values())
 
 
 def check_ring(model, toks, nxt) -> None:
@@ -808,12 +921,16 @@ def report_busy(label, fn, wall) -> None:
             f"saw no device time)")
         return
     busy_s = sum(us for _, us in busy.values()) * 1e-6
-    fa_s = sum(us for n, (_, us) in busy.items() if "flash_fwd" in n) * 1e-6
     launches = sum(c for c, _ in busy.values())
+    ours = []
+    for what, key in (("attention kernel", "flash_fwd"),
+                      ("scan kernel", "rglru_scan")):
+        t = sum(us for n, (_, us) in busy.items() if key in n) * 1e-6
+        if t > 0 or key == "flash_fwd":
+            ours.append(f"{what} {t * 1e3:.3f} ms ({t / busy_s:.3f} of busy)")
     say(f"    {label}: device busy {busy_s * 1e3:.3f} ms of {wall * 1e3:.3f} "
         f"ms wall (idle share {1.0 - busy_s / wall:.3f}), {launches} "
-        f"kernels; attention kernel {fa_s * 1e3:.3f} ms "
-        f"({fa_s / busy_s:.3f} of busy)")
+        f"kernels; " + "; ".join(ours))
     for name, (count, us) in sorted(busy.items(),
                                     key=lambda kv: -kv[1][1])[:6]:
         say(f"    profiler: {name} x{count}: {us * 1e-3:.3f} ms")
@@ -851,9 +968,10 @@ def main(argv=None) -> int:
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda", 0)
 
-    # -- phase 2: build (both kernels, one nvcc each, started together) ----
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(build.load, ("pdhg_burst.cu", "flash_attention.cu")))
+    # -- phase 2: build (the three kernels, one nvcc each, started together)
+    sources = ("pdhg_burst.cu", "flash_attention.cu", "rglru_scan.cu")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(build.load, sources))
     info = build.BUILD_INFO["pdhg_burst.cu"]
     say(f"[2] built pdhg_burst.cu in {info['seconds']:.3f} s -> "
         f"{pathlib.Path(info['library']).name}")
@@ -1011,7 +1129,7 @@ def main(argv=None) -> int:
     # -- phase 7: the attention kernel's build -----------------------------
     fa_info = build.BUILD_INFO["flash_attention.cu"]
     say(f"[7] built flash_attention.cu in {fa_info['seconds']:.3f} s "
-        f"(started with pdhg_burst.cu in phase 2) -> "
+        f"(started with the others in phase 2) -> "
         f"{pathlib.Path(fa_info['library']).name}")
     for line in fa_info["log"].splitlines():
         if "Compiling entry" in line or "registers" in line or \
@@ -1138,6 +1256,8 @@ def main(argv=None) -> int:
                 time.perf_counter() - t0)
     say(f"    peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB; total {time.perf_counter() - t_start:.1f} s")
+    del model, toks, g, tok           # phi4's weights and caches
+    torch.cuda.empty_cache()
 
     # -- phase 11: the bf16-storage burst vs its plain version -------------
     say("[11] bf16-storage kernel (pdhg_burst_bf16) vs its plain version "
@@ -1419,6 +1539,143 @@ def main(argv=None) -> int:
         f"{solo_wall:.3f} s; sweep {sweep_wall / n_cells:.3f} s a cell")
     say(f"    total {time.perf_counter() - t_start:.1f} s")
 
+    # -- phase 16: the scan kernel vs its plain version --------------------
+    sc_info = build.BUILD_INFO["rglru_scan.cu"]
+    say(f"[16] RG-LRU scan kernel vs its plain version on the card (built "
+        f"in phase 2 in {sc_info['seconds']:.3f} s -> "
+        f"{pathlib.Path(sc_info['library']).name})")
+    for line in sc_info["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            say(f"    ptxas: {line.strip()}")
+    scan_errs = []
+    for seed, (B, S, R) in enumerate(SCAN_CASES + [SCAN_SERVE]):
+        a, b, h0 = scan_inputs(seed, B, S, R, dev)
+        for with_h0 in (False, True):
+            scan_errs.append(compare_scan(
+                f"B={B} S={S} R={R} h0={'given' if with_h0 else 'zeros'}",
+                a, b, h0 if with_h0 else None))
+    out = ops.rglru(a, b, h0)
+    for name, wrong in (("ignores h0", scan_ignore_h0),
+                        ("drops the last step", scan_drop_last_step)):
+        bad = scan_equal(wrong(a, b, h0), out)
+        say(f"    negative control at {SCAN_SERVE}: a scan that {name} "
+            f"passes the check: {bad}")
+        require(not bad, f"the scan check passes a scan that {name}")
+    scan_max_err = max(scan_errs)
+    del a, b, h0, out
+
+    # -- phase 17: recurrentgemma-2b serving at full width -----------------
+    say("[17] serving path: recurrentgemma-2b at full width (26 layers, d "
+        "2560, vocab 256,000), batch 4, prompt 4096, 32 tokens, impl=kernel")
+    torch.cuda.reset_peak_memory_stats()
+    rcfg = configs.get("recurrentgemma-2b")
+    kinds = rcfg.pattern_for(rcfg.n_layers)
+    n_rec, n_att = kinds.count("rglru"), kinds.count("attn_local")
+    rserved = []
+    for rep in range(2):
+        ops.RGLRU_SCAN_LAUNCHES = 0
+        ops.FLASH_ATTENTION_LAUNCHES = 0
+        t0 = time.perf_counter()
+        rserved.append(serve.main(RGEMMA_ARGS))
+        wall = time.perf_counter() - t0
+        scan_launches = ops.RGLRU_SCAN_LAUNCHES
+        rfa_launches = ops.FLASH_ATTENTION_LAUNCHES
+        say(f"    run {rep}: serve.main wall {wall:.3f} s (weights drawn on "
+            f"the card included); rglru_scan launches {scan_launches}, "
+            f"flash_attention launches {rfa_launches}")
+        require(scan_launches == n_rec and rfa_launches == n_att,
+                f"recurrentgemma prefill launched the scan kernel "
+                f"{scan_launches} and the attention kernel {rfa_launches} "
+                f"times, expected {n_rec} and {n_att}")
+    require(rserved[0].shape == (4, 32), f"tokens {rserved[0].shape}")
+    require(np.array_equal(rserved[0], rserved[1]),
+            "two recurrentgemma serving runs differ")
+    say(f"    two runs: identical tokens; {rserved[0][0][:8].tolist()} ...")
+    rmodel, rtoks = serve.build(rcfg, 4, 4096, 0, dev)
+    rprefill = steps.make_prefill_step(rcfg, impl="kernel",
+                                       max_len=4096 + 32)
+    rlogits, _ = rprefill(rmodel, {"tokens": rtoks})
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(rlogits).all()),
+            "recurrentgemma logits not finite")
+    require(np.array_equal(rlogits[:, -1].argmax(-1).cpu().numpy(),
+                           rserved[0][:, 0]),
+            "serve.main's first tokens are not this prefill's argmax")
+    del rlogits
+    compare_sublayers("recurrentgemma prefill", rmodel, rtoks)
+
+    # -- phase 18: times at recurrentgemma's shapes ------------------------
+    say(f"[18] times at recurrentgemma-2b's shapes ({card})")
+    a, b, _ = scan_inputs(77, *SCAN_SERVE, dev)
+    scan_ms = sorted(time_events(lambda: ops.rglru(a, b), 10)
+                     for _ in range(3))[1]
+    scan_plain_ms = time_events(lambda: scan_plain(a, b), 1)
+    B, S, R = SCAN_SERVE
+    scan_bytes = (3 * B * S * R + 2 * B * R) * 4
+    scan_flop = 2 * B * S * R
+    t_bytes = scan_bytes / HBM_BYTES_S * 1e3
+    t_ops = scan_flop / FP32_OPS_S * 1e3
+    scan_bound_ms = max(t_bytes, t_ops)
+    scan_bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    del a, b
+    say(f"    scan kernel   {scan_ms:.6f} ms a launch (a, b {SCAN_SERVE} "
+        f"fp32; median of 3 runs of 10)")
+    say(f"    scan plain    {scan_plain_ms:.6f} ms")
+    say(f"    scan library  none: no single PyTorch call computes a "
+        f"first-order linear recurrence")
+    say(f"    scan bound    {scan_bound_ms:.6f} ms ({scan_bound_by}: "
+        f"{scan_bytes} B at 3.35 TB/s, {scan_flop} fp32 ops at 67 TFLOP/s)")
+    q, k, v = fa_inputs(98, 4, 4096, 10, 1, 256, torch.bfloat16, dev)
+    rfa_ms = sorted(time_events(lambda: ops.flash_attention(
+        q, k, v, window=2048), 3) for _ in range(3))[1]
+    rfa_plain_ms = time_events(lambda: fa_plain(q, k, v, 2048, 0.0), 1)
+    # yardstick: SDPA with the causal window as a boolean mask and the one
+    # kv head repeated to the ten query heads
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.transpose(1, 2).repeat_interleave(10, dim=1).contiguous()
+              for t in (k, v))
+    i = torch.arange(4096, device=dev)
+    wmask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < 2048)
+    rfa_lib_ms = time_events(lambda: sdpa(qt, kt, vt, attn_mask=wmask), 3)
+    rfa_bound_ms, rfa_bound_by, rfa_bytes, rfa_flop = attention_bound(
+        4, 4096, 10, 1, 256, 2048, 2)
+    del q, k, v, qt, kt, vt
+    say(f"    attention kernel {rfa_ms:.6f} ms a launch (q (4, 4096, 10, 256),"
+        f" k/v (4, 4096, 1, 256), bf16, causal, window 2048; median of 3 "
+        f"runs of 3)")
+    say(f"    attention plain  {rfa_plain_ms:.6f} ms")
+    say(f"    attention library {rfa_lib_ms:.6f} ms (torch "
+        f"scaled_dot_product_attention, boolean window mask, kv repeated to "
+        f"10 heads, (B,H,S,hd))")
+    say(f"    attention bound  {rfa_bound_ms:.6f} ms ({rfa_bound_by}: "
+        f"{rfa_flop} flop at 989 TFLOP/s bf16, {rfa_bytes} B at 3.35 TB/s)")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rprefill(rmodel, {"tokens": rtoks})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    rprefill_wall = sorted(walls)[1]
+    g = serve.generate(rmodel, rtoks, 32, impl="kernel")
+    say(f"    recurrentgemma prefill wall {rprefill_wall * 1e3:.3f} ms "
+        f"(median of 3); decode {g.decode_s / 31 * 1e3:.3f} ms a token (31 "
+        f"steps, batch 4)")
+    report_busy("prefill", lambda: rprefill(rmodel, {"tokens": rtoks}),
+                rprefill_wall)
+    rdecode = steps.make_decode_step(rcfg, impl="kernel")
+    tok = g.tokens[:, -1:]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rdecode(rmodel, g.caches, tok, 4096 + 31)
+    torch.cuda.synchronize()
+    report_busy("decode step", lambda: rdecode(rmodel, g.caches, tok,
+                                               4096 + 31),
+                time.perf_counter() - t0)
+    say(f"    peak device memory in phases 17-18 "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+
     kernels = {"kernels": [{
         "name": "pdhg_burst", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": full_launches,
@@ -1434,7 +1691,12 @@ def main(argv=None) -> int:
         "replaces": BF16_REPLACES, "launches": bf16_launches,
         "max_abs_err": bf16_max_err, "ms": bf16_ms,
         "plain_ms": bf16_plain_ms, "bound_ms": bf16_bound_ms,
-        "bound_by": bf16_bound_by, "library_ms": library_ms}]}
+        "bound_by": bf16_bound_by, "library_ms": library_ms}, {
+        "name": "rglru_scan", "route": "cuda", "source": SCAN_SOURCE,
+        "replaces": SCAN_REPLACES, "launches": scan_launches,
+        "max_abs_err": scan_max_err, "ms": scan_ms,
+        "plain_ms": scan_plain_ms, "bound_ms": scan_bound_ms,
+        "bound_by": scan_bound_by, "library_ms": None}]}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,7 @@ import torch
 from . import build
 from . import flash_attention as fa
 from . import pdhg_spmv as ps
+from . import rglru_scan as rs
 
 # calls of the fused burst on the card, either storage type: one per
 # burst, and each burst is 2*iters + 1 CUDA launches (a primal and a dual
@@ -27,6 +28,8 @@ PDHG_BURST_BF16_LAUNCHES = 0
 PDHG_ADAPTIVE_CALLS = 0
 # launches of the flash-attention kernel on the card (one a call)
 FLASH_ATTENTION_LAUNCHES = 0
+# launches of the RG-LRU scan kernel on the card (one a call)
+RGLRU_SCAN_LAUNCHES = 0
 
 _F32 = torch.float32
 _META_CACHE: dict = {}
@@ -310,3 +313,63 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
                            f"error {err}")
     FLASH_ATTENTION_LAUNCHES += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU scan (the recurrent layer's prefill, models.rglru impl="kernel")
+# ---------------------------------------------------------------------------
+
+def _rglru_fn():
+    lib = build.load("rglru_scan.cu")
+    fn = lib.rglru_scan_f32
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def rglru(a, b, h0=None):
+    """The linear recurrence h_t = a_t * h_{t-1} + b_t over axis 1.
+    a, b: (B, S, R) float32, contiguous; h0: (B, R) float32, contiguous,
+    or None (zeros).  Returns (h (B, S, R), h_last (B, R)).
+
+    On CUDA tensors this is the kernel of kernels/csrc/rglru_scan.cu; on
+    CPU tensors its plain version, kernels.rglru_scan.rglru_scan_plain.
+    The two agree bitwise."""
+    global RGLRU_SCAN_LAUNCHES
+    named = dict(a=a, b=b) if h0 is None else dict(a=a, b=b, h0=h0)
+    for name, t in named.items():
+        if t.dtype != _F32:
+            raise ValueError(f"rglru: {name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"rglru: {name} must be contiguous")
+    if a.dim() != 3 or b.shape != a.shape:
+        raise ValueError(f"rglru: a and b must share one (B, S, R) shape, "
+                         f"got {tuple(a.shape)} and {tuple(b.shape)}")
+    B, S, R = a.shape
+    if h0 is not None and h0.shape != (B, R):
+        raise ValueError(f"rglru: h0 must have shape ({B}, {R}), got "
+                         f"{tuple(h0.shape)}")
+    devices = {t.device for t in named.values()}
+    if len(devices) != 1:
+        raise ValueError(f"rglru operands span devices {devices}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return rs.rglru_scan_plain(a, b, h0)
+    if device.type != "cuda":
+        raise ValueError(f"rglru runs on cuda or cpu tensors, got {device}")
+    if B > 65535:
+        raise ValueError(f"rglru: batch {B} exceeds the kernel's grid limit "
+                         f"of 65535")
+    fn = _rglru_fn()
+    h = torch.empty_like(a)
+    h_last = torch.empty((B, R), dtype=_F32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(B, S, R, a.data_ptr(), b.data_ptr(),
+                 None if h0 is None else h0.data_ptr(), h.data_ptr(),
+                 h_last.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"rglru kernel launch failed: CUDA error {err}")
+    RGLRU_SCAN_LAUNCHES += 1
+    return h, h_last

@@ -1,15 +1,16 @@
 """Batched serving: prefill a batch of prompts, then decode.
 
 The port's counterpart of the reference's `launch/serve.py`: the serving
-path (prefill -> KV caches -> decode loop) with greedy sampling, for the
-dense language models the port runs (phi4-mini, nemotron, gemma2,
-h2o-danube).  Weights and prompt tokens come from a `torch.Generator`
-seeded with --seed, on the device.
+path (prefill -> caches -> decode loop) with greedy sampling, for the
+language models the port runs (the dense phi4-mini, nemotron, gemma2 and
+h2o-danube, and the recurrent hybrid recurrentgemma).  Weights and prompt
+tokens come from a `torch.Generator` seeded with --seed, on the device.
 
---impl kernel (the default) runs the prefill's attention through the
-hand-written CUDA kernel on the card and through its plain version on
-the CPU; --impl einsum runs the einsum math, which is what the reference
-serve CLI runs (its steps default to impl="xla").  --device defaults to
+--impl kernel (the default) runs the prefill's attention and RG-LRU scan
+through the hand-written CUDA kernels on the card and through their plain
+versions on the CPU; --impl einsum runs the einsum attention and the
+associative scan, which is what the reference serve CLI runs (its steps
+default to impl="xla").  --device defaults to
 cuda and fails without a card; pass --device cpu to run on the host.
 
 Usage:
@@ -41,7 +42,7 @@ def _sync(device: torch.device) -> None:
 class Generation:
     tokens: torch.Tensor          # (B, gen) greedy tokens, on the device
     prefill_logits: torch.Tensor  # (B, 1, Vp) the prefill's last-token logits
-    caches: list                  # one KV cache a layer, after the last step
+    caches: list                  # one cache a layer, after the last step
     prefill_s: float              # host wall of the prefill, synchronised
     decode_s: float               # host wall of the gen - 1 decode steps
 

@@ -1,12 +1,12 @@
 """Feed-forward blocks: SwiGLU (llama family), squared ReLU (nemotron),
 GeGLU (gemma family) and GELU, with the tanh-approximate GELU.
 
-SiLU and GELU are written out op by op, each op rounded to the
+Sigmoid, SiLU and GELU are written out op by op, each op rounded to the
 activation's dtype, with the constants rounded to it first: that is how
-the reference's `jax.nn.silu` (x * 1 / (1 + exp(-x))) and
-`jax.nn.gelu(approximate=True)` evaluate in bf16, and a fused
-`F.silu` / `F.gelu`, which rounds once, differs from them in the last
-bf16 place.
+the reference's `jax.nn.sigmoid` (1 / (1 + exp(-x))), `jax.nn.silu`
+(x * sigmoid(x)) and `jax.nn.gelu(approximate=True)` evaluate in bf16,
+and a fused `torch.sigmoid` / `F.silu` / `F.gelu`, which rounds once,
+differs from them in the last bf16 place.
 """
 from __future__ import annotations
 
@@ -20,8 +20,12 @@ from .common import CastWeights, ModelConfig, init_normal, matmul
 KINDS = ("swiglu", "geglu", "relu2", "gelu")
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return 1 / (torch.exp(-x) + 1)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    return x * (1 / (torch.exp(-x) + 1))
+    return x * sigmoid(x)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:

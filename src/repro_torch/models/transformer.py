@@ -1,6 +1,7 @@
-"""Dense decoder-only language models: the port's counterpart of
+"""Decoder-only language models: the port's counterpart of
 `repro.models.transformer`, for family "lm" with attention layers
-("attn", "attn_local"), no MoE, and any of the MLP kinds.
+("attn", "attn_local") and Griffin recurrent layers ("rglru"), no MoE,
+and any of the MLP kinds.
 
 `Transformer` holds the layers in an `nn.ModuleList` and runs them in a
 plain loop, where the reference scans over stacked block-pattern groups;
@@ -11,8 +12,9 @@ fp32 with the reference's shapes and scales, drawn from a
 
 The passes mirror the reference: `train_logits` (the forward only; the
 tests' teacher-forced reference), `init_cache`, `prefill` (last-token
-logits and one KV cache per layer) and `decode_step` (one token against
-the caches, which it updates in place).
+logits and one cache per layer: keys and values for an attention layer,
+the RG-LRU state and conv history for a recurrent one) and `decode_step`
+(one token against the caches; attention caches are updated in place).
 """
 from __future__ import annotations
 
@@ -20,15 +22,15 @@ import math
 
 import torch
 
-from . import attention, mlp
+from . import attention, mlp, rglru
 from .common import (CastWeights, ModelConfig, init_normal, matmul, rms_norm,
                      softcap)
 
-ATTN_KINDS = ("attn", "attn_local")
+KINDS = ("attn", "attn_local", "rglru")
 # where the rest of the model zoo stands in the port
 UNPORTED = ("not ported yet: ROADMAP.md queue 1 item 11 (the workload "
-            "side) lists MoE, rglru/xLSTM, encoder-decoder and VLM models "
-            "as still to port")
+            "side) lists MoE, xLSTM, encoder-decoder and VLM models as "
+            "still to port")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -38,33 +40,48 @@ def check_supported(cfg: ModelConfig) -> None:
                                   f"{UNPORTED}")
     if cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: MoE layers are {UNPORTED}")
-    other = sorted(set(cfg.block_pattern) - set(ATTN_KINDS))
+    other = sorted(set(cfg.block_pattern) - set(KINDS))
     if other:
         raise NotImplementedError(f"{cfg.name}: block kinds {other} are "
                                   f"{UNPORTED}")
 
 
 class Block(torch.nn.Module):
-    """One layer: pre-norm attention, then (unless mlp_kind is "none") a
-    pre-norm MLP, each added to the residual stream."""
+    """One layer, pre-norm.  An attention layer: attention, then (unless
+    mlp_kind is "none") an MLP.  A recurrent layer ("rglru"): the RG-LRU
+    sublayer `rec`, then the MLP.  Each sublayer's output is added to
+    the residual stream."""
 
     def __init__(self, cfg: ModelConfig, kind: str, *,
                  generator: torch.Generator, device: torch.device):
         super().__init__()
         kw = dict(generator=generator, device=device)
+        self.kind = kind
         self.eps = cfg.rms_eps
         self.ln1 = init_normal((cfg.d_model,), zero=True, **kw)
-        self.attn = attention.Attention(cfg, kind, **kw)
+        if kind == "rglru":
+            self.rec = rglru.RGLRU(cfg, **kw)
+        else:
+            self.attn = attention.Attention(cfg, kind, **kw)
         self.ffn = None
-        if cfg.mlp_kind != "none":
+        if kind == "rglru" or cfg.mlp_kind != "none":
             self.ln2 = init_normal((cfg.d_model,), zero=True, **kw)
             self.ffn = mlp.MLP(cfg, **kw)
 
+    def mixer(self, h, positions, *, mode: str, cache=None,
+              impl: str = "einsum", max_len: int = 0):
+        """The first sublayer (attention or RG-LRU) on the normed input:
+        (out, new cache)."""
+        if self.kind == "rglru":
+            return self.rec(h, mode=mode, cache=cache, impl=impl)
+        return self.attn(h, positions, mode=mode, cache=cache, impl=impl,
+                         max_len=max_len)
+
     def forward(self, x, positions, *, mode: str, cache=None,
                 impl: str = "einsum", max_len: int = 0):
-        h = rms_norm(x, self.ln1, self.eps)
-        out, new_cache = self.attn(h, positions, mode=mode, cache=cache,
-                                   impl=impl, max_len=max_len)
+        out, new_cache = self.mixer(rms_norm(x, self.ln1, self.eps),
+                                    positions, mode=mode, cache=cache,
+                                    impl=impl, max_len=max_len)
         x = x + out
         if self.ffn is not None:
             x = x + self.ffn(rms_norm(x, self.ln2, self.eps))
@@ -130,10 +147,13 @@ def train_logits(model: Transformer, batch: dict, *, impl: str = "einsum"):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: torch.device) -> list[dict]:
     """Empty caches for decode, one per layer."""
-    return [attention.make_cache(cfg, batch, max_len,
-                                 "window" if kind == "attn_local" else "full",
-                                 device=device)
-            for kind in cfg.pattern_for(cfg.n_layers)]
+    def one(kind):
+        if kind == "rglru":
+            return rglru.make_cache(cfg, batch, device=device)
+        return attention.make_cache(
+            cfg, batch, max_len, "window" if kind == "attn_local" else "full",
+            device=device)
+    return [one(kind) for kind in cfg.pattern_for(cfg.n_layers)]
 
 
 def prefill(model: Transformer, batch: dict, *, impl: str = "einsum",
@@ -152,7 +172,8 @@ def prefill(model: Transformer, batch: dict, *, impl: str = "einsum",
 def decode_step(model: Transformer, caches: list, tokens, position: int, *,
                 impl: str = "einsum"):
     """One decode step.  tokens: (B, 1); position: absolute index.
-    Returns (logits (B,1,Vp), caches), the caches updated in place."""
+    Returns (logits (B,1,Vp), caches); attention caches are updated in
+    place, a recurrent layer's cache is replaced."""
     cfg = model.cfg
     x = _embed(model, tokens)
     positions = torch.full((1, 1), int(position), device=x.device)

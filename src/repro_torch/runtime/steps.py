@@ -3,8 +3,8 @@
 
 Each factory returns a function of the model (the reference's params)
 that runs without autograd.  `impl` is "kernel" (the counterpart of the
-reference's "pallas": the prefill's attention goes through the CUDA
-kernel) or "einsum" (the counterpart of "xla").  A sharding `strategy`
+reference's "pallas": the prefill's attention and RG-LRU scan go through
+the CUDA kernels) or "einsum" (the counterpart of "xla").  A sharding `strategy`
 is not ported; the training step waits for the training slice.
 """
 from __future__ import annotations

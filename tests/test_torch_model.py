@@ -1,12 +1,16 @@
-"""The port's dense language models against the reference's, on the CPU.
+"""The port's language models against the reference's, on the CPU.
 
-For the smoke configs of phi4-mini, nemotron, gemma2 and h2o-danube, the
+For the smoke configs of phi4-mini, nemotron, gemma2, h2o-danube and
+recurrentgemma (two RG-LRU layers and a windowed attention layer), the
 reference's `init_params(PRNGKey(0))` goes through
 `convert.params_from_numpy` into the port, and both run the same tokens
 (a numpy seed): the teacher-forced forward, the prefill (the port's
 impl="kernel" against the reference's impl="pallas": last-token logits
 and every layer's cache), then 8 decode steps fed the same token ids.
 Logits agree to 2e-2 absolute, as in tests/test_decode_consistency.py.
+The recurrent layers' scan is sequential in the port's kernel path and
+associative in the reference's model, so their states differ by fp32
+ulps; the same 2e-2 holds them.
 
 The reference is compiled with XLA's `xla_allow_excess_precision` off.
 With it on (XLA's default), the CPU fusions keep some bf16 intermediates
@@ -31,9 +35,12 @@ from repro_torch.models import transformer
 from repro_torch.runtime import steps
 
 ARCHS = ("phi4_mini_3_8b", "nemotron_4_15b", "gemma2_27b",
-         "h2o_danube_3_4b")
-UNPORTED = ("granite_moe_1b_a400m", "qwen2_moe_a2_7b", "recurrentgemma_2b",
+         "h2o_danube_3_4b", "recurrentgemma_2b")
+UNPORTED = ("granite_moe_1b_a400m", "qwen2_moe_a2_7b",
             "seamless_m4t_large_v2", "internvl2_1b", "xlstm_1_3b")
+# the fields of a layer's cache: attention keys and values (bf16) and the
+# tokens they hold, or a recurrent layer's state and conv history (fp32)
+CACHE_FIELDS = {"self": ("k", "v", "len"), "rec": ("h", "conv")}
 B, S, GEN = 2, 16, 8
 TOL = 2e-2
 CPU = torch.device("cpu")
@@ -62,16 +69,18 @@ def _models(jcfg, cfg, seed=0):
 
 
 def _jax_layer_caches(jcfg, caches):
-    """The reference's stacked caches as one {"k", "v", "len"} a layer."""
+    """The reference's stacked caches as one dict a layer: {"k", "v",
+    "len"} for attention, {"h", "conv"} for a recurrent layer."""
     P = len(jcfg.block_pattern)
     n_groups = jcfg.n_layers // P
     out = [None] * jcfg.n_layers
     for i, slot in enumerate(caches["groups"]):
-        c = slot["self"]
+        (kind, c), = slot.items()
         for g in range(n_groups):
-            out[g * P + i] = {name: c[name][g] for name in ("k", "v", "len")}
+            out[g * P + i] = {name: c[name][g] for name in CACHE_FIELDS[kind]}
     for i, layer in enumerate(caches["rem"]):
-        out[n_groups * P + i] = layer["self"]
+        (_, c), = layer.items()
+        out[n_groups * P + i] = c
     return out
 
 
@@ -140,9 +149,14 @@ def runs():
 def _assert_caches_equal(port, ref):
     assert len(port) == len(ref)
     for layer, (p, r) in enumerate(zip(port, ref)):
-        assert p["len"] == int(r["len"]), layer
-        for name in ("k", "v"):
-            assert p[name].dtype == torch.bfloat16
+        if "len" in p:
+            assert p["len"] == int(r["len"]), layer
+            names, dtype = ("k", "v"), torch.bfloat16
+        else:
+            names, dtype = ("h", "conv"), torch.float32
+        for name in names:
+            assert p[name].dtype == dtype
+            assert p[name].shape == r[name].shape, (layer, name)
             np.testing.assert_allclose(_as_f32(p[name]), _as_f32(r[name]),
                                        atol=TOL, rtol=TOL,
                                        err_msg=f"layer {layer} {name}")
@@ -220,6 +234,68 @@ def test_convert_orders_stacked_layers(n_layers):
     assert len(firsts) == n_layers
 
 
+def test_convert_orders_recurrentgemma_layers():
+    """recurrentgemma's three-slot pattern (rglru, rglru, attn_local) at 5
+    layers: group 0 is layers 0-2, and layers 3 and 4 are the remainder's
+    two rglru layers (as layers 24 and 25 are at the published depth)."""
+    jcfg = dataclasses.replace(jconfigs.get("recurrentgemma_2b", smoke=True),
+                               n_layers=5)
+    cfg = dataclasses.replace(configs.get("recurrentgemma_2b", smoke=True),
+                              n_layers=5)
+    tree = jax.tree.map(np.asarray, jtransformer.init_params(
+        jcfg, jax.random.PRNGKey(2), tp=1))
+    assert len(tree["rem"]) == 2 and all("rec" in r for r in tree["rem"])
+    model = transformer.Transformer(cfg, generator=torch.Generator(),
+                                    device=CPU)
+    model.load_state_dict(convert.params_from_numpy(cfg, tree))
+    assert [b.kind for b in model.blocks] == [
+        "rglru", "rglru", "attn_local", "rglru", "rglru"]
+    want = [tree["groups"][0]["rec"]["lam"][0],
+            tree["groups"][1]["rec"]["lam"][0], None,
+            tree["rem"][0]["rec"]["lam"], tree["rem"][1]["rec"]["lam"]]
+    for layer, w in enumerate(want):
+        if w is not None:
+            np.testing.assert_array_equal(
+                model.blocks[layer].rec.lam.numpy(), w)
+    np.testing.assert_array_equal(model.blocks[2].attn.wq.numpy(),
+                                  tree["groups"][2]["attn"]["wq"][0])
+    np.testing.assert_array_equal(model.blocks[4].ffn.w_up.numpy(),
+                                  tree["rem"][1]["ffn"]["w_up"])
+    firsts = {model.blocks[layer].rec.w_x.flatten()[0].item()
+              for layer in (0, 1, 3, 4)}
+    assert len(firsts) == 4
+
+
+def test_recurrentgemma_windowed_cache_rolls_like_reference(runs):
+    """recurrentgemma smoke, window 32: a 40-token prompt leaves layer 2's
+    (attn_local) ring holding the last 32 keys, and the recurrent layers'
+    states and conv histories track the reference's through 8 decode
+    steps."""
+    r = runs("recurrentgemma_2b", prompt=40, gen=8, seed=3)
+    cache = r["port"]["prefill_cache"][2]
+    assert cache["k"].shape[1] == 32 and cache["len"] == 40
+    assert r["port"]["prefill_cache"][0]["conv"].shape == (B, 3, 64)
+    _assert_caches_equal(r["port"]["prefill_cache"],
+                         r["jax"]["prefill_cache"])
+    for i, (p, j) in enumerate(zip(r["port"]["decode"], r["jax"]["decode"])):
+        err = float(np.abs(_as_f32(p) - _as_f32(j)).max())
+        assert err < TOL, (i, err)
+    _assert_caches_equal(r["port"]["decode_cache"], r["jax"]["decode_cache"])
+
+
+def test_serve_recurrentgemma_end_to_end(capsys):
+    """The port's counterpart of tests/test_system.py::
+    test_serve_driver_end_to_end, on the recurrent model."""
+    argv = ["--arch", "recurrentgemma-2b", "--smoke", "--device", "cpu",
+            "--batch", "2", "--prompt-len", "24", "--gen", "6"]
+    first = serve.main(argv)
+    second = serve.main(argv)
+    assert first.shape == (2, 6)
+    assert ((first >= 0) & (first < 256)).all()
+    np.testing.assert_array_equal(first, second)
+    assert "arch=recurrentgemma-smoke" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("impl", ["kernel", "einsum"])
 def test_serve_smoke_on_cpu_is_repeatable(impl, capsys):
     argv = ["--arch", "phi4-mini-3.8b", "--smoke", "--device", "cpu",
@@ -260,7 +336,8 @@ def test_steps_reject_unported_knobs():
         steps.make_decode_step(cfg, impl="pallas")
 
 
-@pytest.mark.parametrize("arch", ["gemma2_27b", "h2o_danube_3_4b"])
+@pytest.mark.parametrize("arch", ["gemma2_27b", "h2o_danube_3_4b",
+                                  "recurrentgemma_2b"])
 def test_init_cache_matches_reference_shapes(arch):
     jcfg = jconfigs.get(arch, smoke=True)
     cfg = configs.get(arch, smoke=True)
@@ -268,8 +345,11 @@ def test_init_cache_matches_reference_shapes(arch):
     got = transformer.init_cache(cfg, 3, 48, device=CPU)
     assert len(got) == len(ref)
     for p, r in zip(got, ref):
-        for name in ("k", "v"):
+        assert set(p) == set(r)
+        for name in set(p) - {"len"}:
             assert p[name].shape == r[name].shape
-            assert p[name].dtype == torch.bfloat16
+            assert p[name].dtype == (torch.bfloat16 if "len" in p
+                                     else torch.float32)
             assert not p[name].any()
-        assert p["len"] == int(r["len"]) == 0
+        if "len" in p:
+            assert p["len"] == int(r["len"]) == 0
