@@ -20,15 +20,17 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      and the kernel's launch count;
   6. times at the full-size shapes: the kernel, its plain version, two
      CSR mat-vecs as a library yardstick, and the bound;
-  7. build of the flash-attention kernel (phase 2): seconds, registers,
-     spills;
+  7. build of the flash-attention kernel (phase 2): seconds, and each
+     template's registers and spills (the bf16 tensor-core kernel and the
+     fp32 SIMT kernel, one template per padded head dim);
   8. attention kernel vs its plain version on the card: the grid of
      tests/test_kernels.py, a danube-shaped windowed case, the phi4 serving
-     shape and recurrentgemma's (hd 256, one kv head, window 2048), each in
-     fp32 and bf16, each element within its tolerance
-     (fp32: 2e-5 + 2e-5 of the element; bf16: one bf16 place more), two
-     launches bitwise equal; an attention that drops the last kv tile
-     must fail the same check;
+     shape and recurrentgemma's (hd 256, one kv head, window 2048), a
+     ragged S = T = 1000 and two non-causal cases, each in fp32 and bf16,
+     each element within its tolerance (fp32: 2e-5 + 2e-5 of the element;
+     bf16: one bf16 place more), two launches bitwise equal; an attention
+     that drops the last kv tile, and one that rounds p once to bf16 in
+     p.v, must fail the same check;
   9. serving path at full width: `launch.serve.main` on phi4-mini-3.8b
      (batch 4, prompt 2048, 32 tokens), run twice: 32 kernel launches a
      prefill, identical tokens, finite logits; in every layer the
@@ -38,8 +40,8 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      for the window, hd=120 and the ring-buffer cache;
  10. times at the serving shapes: the attention kernel, its plain
      version, torch's scaled_dot_product_attention as a library
-     yardstick, the bound; prefill wall, decode ms a token, and the
-     device's busy share of one prefill;
+     yardstick, the bound and the useful TFLOP/s reached; prefill wall,
+     decode ms a token, and the device's busy share of one prefill;
  11. the bf16-storage burst (pdhg_burst_bf16) vs its plain version on
      phase 3's operators at 1 and 500 iterations: every output on the
      bf16 grid (the fp32 kernel's is not), one bf16 place after one
@@ -71,7 +73,8 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      fails with the dropped step or the dropped kv tile;
  18. times at recurrentgemma's shapes: the scan kernel, its plain version
      and its bound (no library call computes the recurrence); attention at
-     hd 256 against SDPA with a window mask and its bound; prefill wall,
+     hd 256 against SDPA with a window mask, its bound and the useful
+     TFLOP/s reached; prefill wall,
      decode ms a token, and the device's busy share of one prefill and one
      decode step by kernel.
 
@@ -87,6 +90,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -135,19 +139,26 @@ FA_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-5, 2e-5 + BF16_PLACE)}
 BF16_OPS_S = 989e12
 FA_REPLACES = "src/repro/kernels/flash_attention.py:75"
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
-# (name, B, S, H, Hkv, hd, window, softcap, dtypes)
+# (name, B, S, H, Hkv, hd, window, softcap, causal); each in both dtypes
 FA_CASES = [
-    ("grid-1", 2, 512, 4, 2, 64, 0, 0.0, ("float32", "bfloat16")),
-    ("grid-2", 2, 512, 4, 4, 128, 0, 50.0, ("float32", "bfloat16")),
-    ("grid-3", 2, 1024, 8, 1, 64, 256, 0.0, ("float32", "bfloat16")),
-    ("grid-4", 2, 512, 6, 2, 80, 0, 0.0, ("float32", "bfloat16")),
-    ("danube", 1, 6144, 32, 8, 120, 4096, 0.0, ("float32", "bfloat16")),
-    ("phi4-serve", 4, 2048, 24, 8, 128, 0, 0.0, ("float32", "bfloat16")),
-    ("rgemma-serve", 4, 4096, 10, 1, 256, 2048, 0.0, ("float32", "bfloat16")),
+    ("grid-1", 2, 512, 4, 2, 64, 0, 0.0, True),
+    ("grid-2", 2, 512, 4, 4, 128, 0, 50.0, True),
+    ("grid-3", 2, 1024, 8, 1, 64, 256, 0.0, True),
+    ("grid-4", 2, 512, 6, 2, 80, 0, 0.0, True),
+    ("danube", 1, 6144, 32, 8, 120, 4096, 0.0, True),
+    ("phi4-serve", 4, 2048, 24, 8, 128, 0, 0.0, True),
+    ("rgemma-serve", 4, 4096, 10, 1, 256, 2048, 0.0, True),
+    # S and T not a multiple of any tile: ragged rows and keys
+    ("ragged", 2, 1000, 8, 2, 128, 0, 0.0, True),
+    # no causal mask: every kv tile visited, with and without a window
+    ("non-causal", 2, 1000, 6, 2, 80, 0, 0.0, False),
+    ("non-causal-window", 1, 1000, 4, 1, 256, 300, 30.0, False),
 ]
+FA_DTYPES = ("float32", "bfloat16")
 SERVE_ARGS = ["--arch", "phi4-mini-3.8b", "--batch", "4", "--prompt-len",
               "2048", "--gen", "32", "--impl", "kernel"]
-# kv tile of the attention kernel (kernels/csrc/flash_attention.cu)
+# keys the negative control drops: the fp32 kernel's kv tile, two or more
+# of the bf16 kernel's (kernels/csrc/flash_attention.cu)
 KV_TILE = 64
 # bf16 storage against fp32 (tests/test_precision.py): energy-objective
 # metrics within 1e-3, time-objective completion within 1.25x
@@ -653,11 +664,22 @@ def fa_inputs(seed, B, S, H, Hkv, hd, dtype, dev):
                                (B, S, Hkv, hd)))
 
 
-def fa_plain(q, k, v, window, cap):
+def fa_plain(q, k, v, window, cap, causal=True):
     from repro_torch.kernels import flash_attention as fa
-    return fa.flash_attention_plain(q, k, v, causal=True, window=window,
+    return fa.flash_attention_plain(q, k, v, causal=causal, window=window,
                                     softcap=cap,
                                     scale=1.0 / q.shape[-1] ** 0.5)
+
+
+def fa_p_rounded_once(q, k, v, window, cap):
+    """A wrong attention, the checks' second negative control: the plain
+    version with p rounded once to bf16 in p.v, the rounding the bf16
+    kernel avoids by splitting p into hi + lo."""
+    from repro_torch.kernels import flash_attention as fa
+    return fa.flash_attention_bf16_model(q, k, v, causal=True, window=window,
+                                         softcap=cap,
+                                         scale=1.0 / q.shape[-1] ** 0.5,
+                                         split=False)
 
 
 def fa_drop_last_tile(q, k, v, window, cap):
@@ -677,16 +699,16 @@ def fa_excess(got, want) -> float:
                  .max())
 
 
-def compare_attention(label, q, k, v, window, cap) -> float:
+def compare_attention(label, q, k, v, window, cap, causal) -> float:
     """The kernel against its plain version on the same card inputs, and
     two launches bitwise equal; returns max |kernel - plain|."""
     import torch
     from repro_torch.kernels import ops
-    out = ops.flash_attention(q, k, v, causal=True, window=window,
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
                               softcap=cap)
-    again = ops.flash_attention(q, k, v, causal=True, window=window,
+    again = ops.flash_attention(q, k, v, causal=causal, window=window,
                                 softcap=cap)
-    want = fa_plain(q, k, v, window, cap)
+    want = fa_plain(q, k, v, window, cap, causal)
     torch.cuda.synchronize()
     atol, rtol = FA_TOL[str(q.dtype).split(".")[-1]]
     err = float((out.float() - want.float()).abs().max())
@@ -698,6 +720,29 @@ def compare_attention(label, q, k, v, window, cap) -> float:
     require(excess <= 1.0, f"{label}: kernel differs from plain by {err:.3e}")
     require(torch.equal(out, again), f"{label}: two launches differ")
     return err
+
+
+def ptxas_templates(log: str) -> list[str]:
+    """One line per compiled kernel template from nvcc's -Xptxas -v log:
+    its name and template arguments, registers, and spill bytes."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            t = re.search(r"(flash_fwd_[a-z]+)I((?:Li\d+E)+)E", m.group(1))
+            name = (f"{t.group(1)}<" + ", ".join(
+                re.findall(r"Li(\d+)E", t.group(2))) + ">"
+                if t else m.group(1))
+            spills = "spills not reported"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {spills}")
+            name = None
+    return out
 
 
 def attention_bound(B, S, H, Hkv, hd, window, itemsize):
@@ -1131,29 +1176,37 @@ def main(argv=None) -> int:
     say(f"[7] built flash_attention.cu in {fa_info['seconds']:.3f} s "
         f"(started with the others in phase 2) -> "
         f"{pathlib.Path(fa_info['library']).name}")
-    for line in fa_info["log"].splitlines():
-        if "Compiling entry" in line or "registers" in line or \
-                "spill" in line:
-            say(f"    ptxas: {line.strip()}")
+    templates = ptxas_templates(fa_info["log"])
+    for line in templates:
+        say(f"    ptxas: {line}")
+    require(len(templates) == 10 or not fa_info["log"],
+            f"expected 10 attention templates (5 bf16, 5 fp32) in the "
+            f"ptxas log, found {len(templates)}")
 
     # -- phase 8: attention kernel vs plain version ------------------------
-    say("[8] attention kernel vs plain version on the card (causal)")
+    say("[8] attention kernel vs plain version on the card")
     fa_errs = []
-    for seed, (name, B, S, H, Hkv, hd, window, cap, dtypes) in enumerate(
+    for seed, (name, B, S, H, Hkv, hd, window, cap, causal) in enumerate(
             FA_CASES):
-        for dt in dtypes:
+        for dt in FA_DTYPES:
             q, k, v = fa_inputs(seed, B, S, H, Hkv, hd, getattr(torch, dt),
                                 dev)
             fa_errs.append(compare_attention(
-                f"{name} S={S} H={H}/{Hkv} hd={hd} w={window} cap={cap:g}",
-                q, k, v, window, cap))
+                f"{name} S={S} H={H}/{Hkv} hd={hd} w={window} cap={cap:g}"
+                f"{'' if causal else ' non-causal'}",
+                q, k, v, window, cap, causal))
             if name == "phi4-serve" and dt == "bfloat16":
-                broken = fa_excess(fa_drop_last_tile(q, k, v, window, cap),
-                                   fa_plain(q, k, v, window, cap))
-                say(f"    negative control: the last kv tile dropped reads "
-                    f"{broken:.3f} of the limit")
-                require(broken > 1.0, "the attention check passes an "
-                                      "attention that drops the last kv tile")
+                want = fa_plain(q, k, v, window, cap)
+                for what, wrong in (("the last kv tile dropped",
+                                     fa_drop_last_tile),
+                                    ("p rounded once to bf16 in p.v",
+                                     fa_p_rounded_once)):
+                    broken = fa_excess(wrong(q, k, v, window, cap), want)
+                    say(f"    negative control: {what} reads {broken:.3f} "
+                        f"of the limit")
+                    require(broken > 1.0, f"the attention check passes an "
+                                          f"attention with {what}")
+                del want
             del q, k, v
     fa_max_err = max(fa_errs)
 
@@ -1233,6 +1286,10 @@ def main(argv=None) -> int:
         f"scaled_dot_product_attention, is_causal, enable_gqa, (B,H,S,hd))")
     say(f"    bound            {fa_bound_ms:.6f} ms ({fa_bound_by}: "
         f"{fa_flop} flop at 989 TFLOP/s bf16, {fa_bytes} B at 3.35 TB/s)")
+    say(f"    useful work      {fa_flop / fa_ms * 1e-9:.3f} TFLOP/s (the "
+        f"bound's flop over the kernel's time); the kernel takes "
+        f"{fa_ms / fa_bound_ms:.3f}x its bound and {fa_ms / fa_lib_ms:.3f}x "
+        f"the library's time")
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -1649,6 +1706,9 @@ def main(argv=None) -> int:
         f"10 heads, (B,H,S,hd))")
     say(f"    attention bound  {rfa_bound_ms:.6f} ms ({rfa_bound_by}: "
         f"{rfa_flop} flop at 989 TFLOP/s bf16, {rfa_bytes} B at 3.35 TB/s)")
+    say(f"    attention useful work {rfa_flop / rfa_ms * 1e-9:.3f} TFLOP/s; "
+        f"the kernel takes {rfa_ms / rfa_bound_ms:.3f}x its bound and "
+        f"{rfa_ms / rfa_lib_ms:.3f}x the library's time")
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()

@@ -19,6 +19,13 @@ kernel.  GQA maps query head h to kv head h // (H / Hkv).
 The CPU tests run it (kernels.ops.flash_attention on CPU tensors), and
 the card holds the CUDA kernel (kernels/csrc/flash_attention.cu) against
 it.  Memory is O(B * H * S * T) fp32: it is a reference, not a fast path.
+
+`flash_attention_bf16_model` is the same function with the bf16
+tensor-core kernel's rounding: q.k^T of bf16 values summed in fp32, fp32
+p and l, and p . v as two bf16 products hi . v + lo . v (hi = bf16(p),
+lo = bf16(p - hi)) summed in fp32, the output rounded once.  With
+split=False p is rounded once to bf16 instead: the rounding the kernel
+must not use, which the checks show to fail.
 """
 from __future__ import annotations
 
@@ -32,6 +39,36 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: float) -> torch.Tensor:
     """q: (B,S,H,hd); k, v: (B,T,Hkv,hd) with H % Hkv == 0 -> (B,S,H,hd)
     in q's dtype.  `window` 0 means no window."""
+    return _attention(q, k, v, causal=causal, window=window,
+                      softcap=softcap, scale=scale, p_dot_v=_p_dot_v_fp32)
+
+
+def flash_attention_bf16_model(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, *, causal: bool, window: int,
+                               softcap: float, scale: float,
+                               split: bool = True) -> torch.Tensor:
+    """flash_attention_plain with p . v as the bf16 kernel rounds it:
+    hi . v + lo . v when `split`, else bf16(p) . v.  q, k, v are bf16."""
+    return _attention(q, k, v, causal=causal, window=window,
+                      softcap=softcap, scale=scale,
+                      p_dot_v=_p_dot_v_split if split else _p_dot_v_once)
+
+
+def _p_dot_v_fp32(p, v):
+    return torch.einsum("bkgst,btkd->bkgsd", p, v.float())
+
+
+def _p_dot_v_once(p, v):
+    return _p_dot_v_fp32(p.bfloat16().float(), v)
+
+
+def _p_dot_v_split(p, v):
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float()
+    return _p_dot_v_fp32(hi, v) + _p_dot_v_fp32(lo, v)
+
+
+def _attention(q, k, v, *, causal, window, softcap, scale, p_dot_v):
     B, S, H, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -50,6 +87,5 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                           device=q.device))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bkgst,btkd->bkgsd", p, v.float())
-    out = out / torch.clamp(l, min=1e-30)
+    out = p_dot_v(p, v) / torch.clamp(l, min=1e-30)
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)

@@ -258,7 +258,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
 
     `window` None or 0 means no sliding window; the softmax scale is
     1/sqrt(hd).  On CUDA tensors this is the kernel of
-    kernels/csrc/flash_attention.cu; on CPU tensors its plain version,
+    kernels/csrc/flash_attention.cu, chosen by dtype: bfloat16 runs the
+    tensor-core kernel (its operands on 16-byte boundaries), float32 the
+    SIMT kernel.  On CPU tensors it is the plain version,
     kernels.flash_attention.flash_attention_plain."""
     global FLASH_ATTENTION_LAUNCHES
     named = dict(q=q, k=k, v=v)
@@ -301,6 +303,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     if B * H > 65535:
         raise ValueError(f"flash_attention: B*H = {B * H} exceeds the "
                          f"kernel's grid limit of 65535")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in named.values()):
+        raise ValueError("flash_attention: bfloat16 q, k and v must start "
+                         "on 16-byte boundaries (the kernel copies 16 bytes "
+                         "at a time)")
     fn = _flash_fn()
     out = torch.empty_like(q)
     with torch.cuda.device(device):

@@ -18,7 +18,7 @@ from repro_torch.core import solver, timeslot, topology, traffic
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "attention_tiles.py"]
 
 
 def test_import_leaves_jax_and_repro_out():
