@@ -11,22 +11,31 @@ Phases, in order; any failure ends the script with a non-zero exit code:
   2. build: the three CUDA kernels from src/repro_torch/kernels/csrc (the
      burst, attention and scan kernels; one nvcc each, started together);
   3. kernel vs plain version on the card: random blocked-ELL operators
-     (frozen coordinates, a mix of inequality rows) and the full-size LP;
+     (frozen coordinates, a mix of inequality rows) and the full-size LP,
+     at 1 and 500 iterations: bitwise equal to the kernel-order model
+     (the plain version summing each row as the kernel does), bitwise
+     equal on two grids (as many blocks as fit, one block an SM), within
+     the plain version's tolerance; a launch on more blocks than fit
+     raises;
   4. main path, paper topologies: solve_fast on the card for six paper
      DCNs x {energy, time}; certificates, agreement with the port's own
      CPU solve, and the committed pins of tests/golden/metrics.json;
   5. main path at full size: fat-tree k=16 (1,024 servers) x {energy,
      time}, each solved twice on the card; certificates, bitwise repeat,
-     and the kernel's launch count;
-  6. times at the full-size shapes: the kernel, its plain version, two
-     CSR mat-vecs as a library yardstick, and the bound;
+     and the kernel's launch count; the profiler sees one burst kernel
+     launch a burst and no other kernel of the burst;
+  6. times at the full-size shapes: the kernel (as many blocks as fit,
+     and one block an SM), its plain version, two CSR mat-vecs as a
+     library yardstick, and the bound;
   7. build of the flash-attention kernel (phase 2): seconds, and each
      template's registers and spills (the bf16 tensor-core kernel and the
      fp32 SIMT kernel, one template per padded head dim);
   8. attention kernel vs its plain version on the card: the grid of
      tests/test_kernels.py, a danube-shaped windowed case, the phi4 serving
      shape and recurrentgemma's (hd 256, one kv head, window 2048), a
-     ragged S = T = 1000 and two non-causal cases, each in fp32 and bf16,
+     ragged S = T = 1000, two non-causal cases, hd 100 (zero-padded to
+     104 by the wrapper) and B*H = 65,600 (past the 65,535 limit of a
+     grid's y axis), each in fp32 and bf16,
      each element within its tolerance (fp32: 2e-5 + 2e-5 of the element;
      bf16: one bf16 place more), two launches bitwise equal; an attention
      that drops the last kv tile, and one that rounds p once to bf16 in
@@ -43,9 +52,9 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      yardstick, the bound and the useful TFLOP/s reached; prefill wall,
      decode ms a token, and the device's busy share of one prefill;
  11. the bf16-storage burst (pdhg_burst_bf16) vs its plain version on
-     phase 3's operators at 1 and 500 iterations: every output on the
-     bf16 grid (the fp32 kernel's is not), one bf16 place after one
-     iteration;
+     phase 3's operators at 1 and 500 iterations: bitwise equal to the
+     kernel-order model and on two grids, every output on the bf16 grid
+     (the fp32 kernel's is not), one bf16 place after one iteration;
  12. bf16 main path: solve_fast(precision="bf16") on the six paper
      cells x {energy, time}, held to the card's fp32 solves as
      tests/test_precision.py holds them, then fat-tree k=16;
@@ -54,15 +63,19 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      solo solves, adaptive=False against solve_lp, 8 identical copies
      bitwise equal, a frozen member's iterates, a bitwise repeat;
  14. the sweep CLI on the card: the reference's default grid over the
-     six paper topologies (288 rows), certified, against the port's CPU
-     run and against the committed results/sweep/results.csv;
+     six paper topologies (288 rows), certified, against the committed
+     results/sweep/results.csv and against the port's CPU run of 8 rows,
+     which in the kernel's summation order must give the card's rows
+     bitwise;
  15. times at the batched and bf16 shapes: the fp32 burst at the
      8-instance stack, the bf16 burst at the single flagship shape, each
-     with its plain version, two CSR mat-vecs and its bound; the batch's
-     wall against 8 solo solves and its device busy share;
+     on both grids, with its plain version, two CSR mat-vecs and its
+     bound; the batch's wall against 8 solo solves and its device busy
+     share;
  16. the RG-LRU scan kernel vs its plain version on the card: the grid of
-     tests/test_kernels.py, R = 200, with and without h0, and the serving
-     shape (4, 4096, 2560) with a and b as the model makes them; bitwise
+     tests/test_kernels.py, R = 200, B = 65,600 (past the 65,535 limit of
+     a grid's y axis), with and without h0, and the serving shape (4,
+     4096, 2560) with a and b as the model makes them; bitwise
      equal, two launches bitwise equal; a scan that ignores h0 and one
      that drops the last step must fail the same check;
  17. serving path at full width: `launch.serve.main` on recurrentgemma-2b
@@ -85,6 +98,7 @@ torch, numpy, scipy and repro_torch only.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import dataclasses
 import json
@@ -153,6 +167,10 @@ FA_CASES = [
     # no causal mask: every kv tile visited, with and without a window
     ("non-causal", 2, 1000, 6, 2, 80, 0, 0.0, False),
     ("non-causal-window", 1, 1000, 4, 1, 256, 300, 30.0, False),
+    # hd not a multiple of 8: the wrapper zero-pads it to 104
+    ("hd-100", 2, 512, 4, 1, 100, 128, 30.0, True),
+    # B*H = 65,600 with a short S: (batch, head) past a y axis's 65,535
+    ("bh-65600", 4100, 16, 16, 4, 32, 0, 0.0, True),
 ]
 FA_DTYPES = ("float32", "bfloat16")
 SERVE_ARGS = ["--arch", "phi4-mini-3.8b", "--batch", "4", "--prompt-len",
@@ -177,10 +195,10 @@ SWEEP_RTOL = 1e-4
 # pallas lowering misses: the port's CPU run of the grid (the plain
 # version) holds all 288 rows within 1.3e-6.  Listed here are the rows
 # whose card result misses the committed number by more than SWEEP_RTOL
-# because of the kernel's summation order alone: the kernel sums each row
-# in order (j ascending), and at this row that fp32 order moves the LP
-# iterate by a few ulps, enough to flip one discrete choice of the
-# host's packing (1 J of 2152).  Each is checked on every run: the plain
+# because of the kernel's summation order alone: at this row the lane
+# split moves the LP iterate by a few fp32 ulps, enough to flip one
+# discrete choice of the host's packing (1 J of 2152).  Each is checked
+# on every run: the plain
 # version summing in the kernel's order reproduces the card's row
 # bitwise, and summing in its own order lands within SWEEP_RTOL of the
 # committed number.  key -> the expected relative difference.
@@ -190,9 +208,11 @@ SWEEP_CPU_CELLS = dict(topos=("spine-leaf", "pon3"), patterns=("uniform",),
 # the RG-LRU scan: the TPU kernel it replaces and its source
 SCAN_REPLACES = "src/repro/kernels/rglru_scan.py:33"
 SCAN_SOURCE = "src/repro_torch/kernels/csrc/rglru_scan.cu"
-# (B, S, R): the grid of tests/test_kernels.py, then R off the 128 lanes
+# (B, S, R): the grid of tests/test_kernels.py, then R off the 128 lanes,
+# then B past the 65,535 limit of a grid's y axis
 SCAN_CASES = [(b, s, r) for b in (1, 2, 3) for s in (64, 256)
-              for r in (128, 256, 384)] + [(2, 256, 200), (3, 64, 200)]
+              for r in (128, 256, 384)] + [(2, 256, 200), (3, 64, 200),
+                                           (65600, 8, 16)]
 # recurrentgemma-2b's prefill scan at the serving shape below
 SCAN_SERVE = (4, 4096, 2560)
 RGEMMA_ARGS = ["--arch", "recurrentgemma-2b", "--batch", "4", "--prompt-len",
@@ -322,15 +342,51 @@ def lp_burst_args(lp, dev):
     return op, vecs + keep + ell + start
 
 
-def compare_burst(label, op, args, iters) -> float:
-    """Run the kernel and the plain version on the same card inputs;
-    returns the largest absolute difference over (x, y, worst)."""
+def layout(op, dev) -> dict:
+    """The burst's layout keywords for `op`: both directions' meta and
+    their work lists on `dev` (kernels.pdhg_spmv.burst_work)."""
+    from repro_torch.kernels import pdhg_spmv
+    return dict(row_meta=op.rows.meta, col_meta=op.cols.meta,
+                **pdhg_spmv.burst_work(op, dev))
+
+
+def check_kernel_order(label, op, args, iters, precision, k, sms) -> None:
+    """The kernel's outputs `k` (a launch on as many blocks as fit)
+    against the kernel-order model (pdhg_update_burst(order="kernel"):
+    each row summed as the kernel sums it) and against a launch on one
+    block an SM, both bitwise over (x, y, worst)."""
     import torch
     from repro_torch.kernels import ops, pdhg_spmv
-    kw = dict(row_meta=op.rows.meta, col_meta=op.cols.meta, iters=iters)
+    kw = dict(layout(op, args[0].device), iters=iters, precision=precision)
+    model = pdhg_spmv.pdhg_update_burst(args[12], args[13], *args[:12], **kw,
+                                        order="kernel")
+    one = ops.pdhg_burst(*args, **kw, _blocks=sms)
+    torch.cuda.synchronize()
+    same_model = all(torch.equal(a, b) for a, b in zip(k, model))
+    same_grid = all(torch.equal(a, b) for a, b in zip(k, one))
+    say(f"  {label} {precision} iters={iters}: bitwise equal to the "
+        f"kernel-order model: {same_model}; to the kernel on {sms} blocks "
+        f"(one an SM): {same_grid}")
+    require(same_model, f"{label} {precision} iters={iters}: the kernel "
+                        f"differs from the kernel-order model by "
+                        f"{max(float((a - b).abs().max()) for a, b in zip(k, model)):.3e}")
+    require(same_grid, f"{label} {precision} iters={iters}: two grids "
+                       f"give different bits")
+
+
+def compare_burst(label, op, args, iters, sms) -> tuple[float, bool]:
+    """Run the kernel and the plain version on the same card inputs, and
+    hold the kernel bitwise to its summation-order model and to itself on
+    one block an SM (check_kernel_order); returns the largest absolute
+    difference over (x, y, worst) and whether the plain version (torch's
+    sum order) differs from the kernel bitwise."""
+    import torch
+    from repro_torch.kernels import ops, pdhg_spmv
+    kw = dict(layout(op, args[0].device), iters=iters)
     k = ops.pdhg_burst(*args, **kw)
     p = pdhg_spmv.pdhg_update_burst(args[12], args[13], *args[:12], **kw)
     torch.cuda.synchronize()
+    check_kernel_order(label, op, args, iters, "fp32", k, sms)
     x_scale = float(p[0].abs().max())
     worst_err = 0.0
     for name, kv, pv in zip(("x", "y", "worst"), k, p):
@@ -349,7 +405,7 @@ def compare_burst(label, op, args, iters) -> float:
     # padded slots stay pinned at zero
     require(bool((k[0][op.n:] == 0).all() and (k[1][op.m:] == 0).all()),
             f"{label}: a padded slot moved")
-    return worst_err
+    return worst_err, not all(torch.equal(a, b) for a, b in zip(k, p))
 
 
 # ---------------------------------------------------------------------------
@@ -372,16 +428,25 @@ def time_events(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def burst_bound(op, nnz: int, it: int = 4) -> tuple[float, str, int, int]:
+def burst_bound(op, nnz: int, it: int = 4,
+                padded: bool = False) -> tuple[float, str, int, int]:
     """Least time of one PDHG iteration on this card: each operand of
-    the iteration read once and each output written once (ELL tables
-    and their block meta, the x-side and y-side vectors and masks; x'
-    and y' written), against the operations the real entries need (a
-    multiply and an add per nonzero in each direction, plus the
-    elementwise updates).  `it` is the bytes of a stored iterate (4 for
-    fp32, 2 for bf16 storage).  Returns (ms, bound_by, bytes, ops)."""
+    the iteration read once and each output written once (the ELL
+    tables' real entries, index and value, in both directions, and their
+    block meta; the x-side and y-side vectors and masks; x' and y'
+    written), against the operations the real entries need (a multiply
+    and an add per nonzero in each direction, plus the elementwise
+    updates).  The padding past each row's entries is not counted: the
+    function does not need it and the kernel does not read it
+    (`padded=True` counts every stored slot instead, the figure earlier
+    bounds used).  `it` is the bytes of a stored iterate (4 for fp32, 2
+    for bf16 storage).  Returns (ms, bound_by, bytes, ops)."""
     f4, b1, i8 = 4, 1, 8
-    tables = 8 * (len(op.rows.idx) + len(op.cols.idx))
+    entries = int(op.rows.work.lengths.sum()) + int(op.cols.work.lengths.sum())
+    require(entries == 2 * nnz, f"the work lists hold {entries} entries, "
+                                f"not 2 x nnz = {2 * nnz}")
+    tables = 8 * (len(op.rows.idx) + len(op.cols.idx) if padded
+                  else entries)
     meta = (i8 + f4) * (len(op.rows.widths) + len(op.cols.widths))
     # x side: c, tau, xmax, x (read), keep_n (read), x' (write)
     xside = op.n_pad * (3 * f4 + it + b1 + it)
@@ -426,8 +491,11 @@ def profile_device(fn) -> dict | None:
 def stage_breakdown(p, dev):
     """Where one full-size energy solve spends its wall time: the
     stages of solve_fast run one by one, then the device's busy time in
-    one profiled solve_fast against its unprofiled wall."""
+    one profiled solve_fast against its unprofiled wall.  The profile
+    must show one burst kernel launch a burst of that solve and no
+    kernel of the per-step design (primal_step, dual_step)."""
     from repro_torch.core import solver, verify
+    from repro_torch.kernels import ops
     t = [time.perf_counter()]
     lp, idx = solver.build_routing_lp(p, "energy")
     t.append(time.perf_counter())
@@ -444,17 +512,66 @@ def stage_breakdown(p, dev):
     t0 = time.perf_counter()
     solver.solve_fast(p, "energy", device=dev)
     wall = time.perf_counter() - t0
+    before = ops.PDHG_BURST_LAUNCHES
     busy = profile_device(lambda: solver.solve_fast(p, "energy",
                                                     device=dev))
-    if busy is None:
-        say("    device busy share: not measured (the profiler saw no "
-            "device time)")
-        return
+    bursts = ops.PDHG_BURST_LAUNCHES - before
+    require(busy is not None, "the profiler saw no device time, so it "
+                              "cannot count the burst's launches")
+    burst_kernels = sum(c for k, (c, _) in busy.items()
+                        if "pdhg_burst_kernel" in k)
+    per_step = [k for k in busy if "primal_step" in k or "dual_step" in k]
+    say(f"    profiler: {bursts} bursts, {burst_kernels} launches of "
+        f"pdhg_burst_kernel, kernels of the per-step design: {per_step}")
+    require(bursts > 0 and burst_kernels == bursts and not per_step,
+            f"profiled solve: {bursts} bursts, {burst_kernels} burst "
+            f"kernels, per-step kernels {per_step}")
     busy_s = sum(us for _, us in busy.values()) * 1e-6
     say(f"    device busy {busy_s:.3f} s of a {wall:.3f} s solve_fast "
         f"(idle share {1.0 - busy_s / wall:.3f}); by kernel: "
         + ", ".join(f"{k} x{c} {us * 1e-3:.1f} ms"
                     for k, (c, us) in sorted(busy.items())))
+
+
+def batch_stages() -> tuple:
+    """The host stages of solve_fast_batch that stage_clock times, as
+    (label, module, function); an indented label is part of the one
+    above it."""
+    from repro_torch.core import solver
+    from repro_torch.kernels import ops, pdhg_spmv
+    return (("LP builds", solver, "build_routing_lp"),
+            ("block_stack", solver, "block_stack"),
+            ("pack (_pack_ell)", solver, "_pack_ell"),
+            ("  of it: ELL plans", pdhg_spmv, "ell_plan"),
+            ("    of them: work lists", pdhg_spmv, "work_list"),
+            ("work lists to the card", pdhg_spmv, "burst_work"),
+            ("adaptive driver (bursts, a sync a chunk)", ops,
+             "pdhg_adaptive"),
+            ("per-instance residuals", solver, "_per_instance_residuals"),
+            ("assemble (decompose + pack + evaluate)", solver,
+             "_assemble_fast_result"))
+
+
+@contextlib.contextmanager
+def stage_clock(stages):
+    """While the block runs, add each stage function's wall time, summed
+    over its calls, to the dict it yields (label -> s)."""
+    spent = {label: 0.0 for label, _, _ in stages}
+
+    def clocked(label, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[label] += time.perf_counter() - t0
+        return run
+
+    with contextlib.ExitStack() as stack:
+        for label, mod, name in stages:
+            stack.enter_context(mock.patch.object(
+                mod, name, clocked(label, getattr(mod, name))))
+        yield spent
 
 
 # ---------------------------------------------------------------------------
@@ -467,9 +584,11 @@ def on_bf16_grid(t) -> bool:
     return bool(((t.contiguous().view(torch.int32) & 0xFFFF) == 0).all())
 
 
-def compare_burst_bf16(label, op, args, iters) -> float:
+def compare_burst_bf16(label, op, args, iters, sms) -> float:
     """The bf16-storage kernel against its plain version on the same card
-    inputs.  Every x and y element must lie on the bf16 grid (the fp32
+    inputs, and bitwise against its summation-order model and itself on
+    one block an SM (check_kernel_order).  Every x and y element must lie
+    on the bf16 grid (the fp32
     kernel's must not, or the check could not fail); after one iteration
     each element within one bf16 place of the plain one plus phase 3's
     fp32 tolerance (the two round one fp32 value computed in another sum
@@ -479,7 +598,7 @@ def compare_burst_bf16(label, op, args, iters) -> float:
     largest absolute difference over (x, y, worst)."""
     import torch
     from repro_torch.kernels import ops, pdhg_spmv
-    kw = dict(row_meta=op.rows.meta, col_meta=op.cols.meta, iters=iters)
+    kw = dict(layout(op, args[0].device), iters=iters)
     k = ops.pdhg_burst(*args, **kw, precision="bf16")
     p = pdhg_spmv.pdhg_update_burst(args[12], args[13], *args[:12], **kw,
                                     precision="bf16")
@@ -489,6 +608,7 @@ def compare_burst_bf16(label, op, args, iters) -> float:
         k[0], k[1], *args[:12], row_meta=op.rows.meta,
         col_meta=op.cols.meta, iters=0)
     torch.cuda.synchronize()
+    check_kernel_order(label, op, args, iters, "bf16", k, sms)
     require(on_bf16_grid(k[0]) and on_bf16_grid(k[1]),
             f"{label}: a bf16 kernel output is off the bf16 grid")
     require(not (on_bf16_grid(f[0]) and on_bf16_grid(f[1])),
@@ -560,8 +680,7 @@ def freeze_check(lps, tols, dev, chunk=500, max_chunks=3) -> None:
                      device=dev)
     x, y, res, used = ops.pdhg_adaptive(
         *vecs, *ell, *z, t, inst_n, inst_m, num_inst=len(lps),
-        row_meta=op.rows.meta, col_meta=op.cols.meta, chunk=chunk,
-        max_chunks=max_chunks)
+        **layout(op, dev), chunk=chunk, max_chunks=max_chunks)
     used = used.cpu().tolist()
     say(f"    freeze: member 0 with tol=inf used {used[0]} chunk(s) of "
         f"{chunk}, the others {used[1:]}; residuals "
@@ -575,7 +694,7 @@ def freeze_check(lps, tols, dev, chunk=500, max_chunks=3) -> None:
             torch.zeros(sop.m_pad, dtype=torch.bool, device=dev))
     sz = (torch.zeros(sop.n_pad, device=dev),
           torch.zeros(sop.m_pad, device=dev))
-    kw = dict(row_meta=sop.rows.meta, col_meta=sop.cols.meta)
+    kw = layout(sop, dev)
     sx, sy, _ = ops.pdhg_burst(*svecs, *keep, *sell, *sz, iters=chunk, **kw)
     lx, _, _ = ops.pdhg_burst(*svecs, *keep, *sell, *sz,
                               iters=chunk * max_chunks, **kw)
@@ -607,41 +726,39 @@ def rel_diff(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-12)
 
 
-def spmv_in_kernel_order(vec, idx_g, val_g, groups):
-    """kernels.pdhg_spmv.spmv_blocks summed as the CUDA kernel sums each
-    row: s += val[j] * vec[idx[j]] for j ascending, every product and
-    sum rounded to fp32 (the kernel is built with -fmad=false)."""
-    import torch
-    outs = []
-    for w, a, b in zip(groups.widths, groups.starts, groups.starts[1:]):
-        iv, vv = idx_g[a:b].view(-1, w), val_g[a:b].view(-1, w)
-        acc = torch.zeros(iv.shape[0], dtype=torch.float32,
-                          device=vec.device)
-        for j in range(w):
-            acc = acc + vv[:, j] * vec[iv[:, j]]
-        outs.append(acc)
-    return torch.cat(outs)[groups.unperm]
+def in_kernel_order():
+    """Route the burst's plain version (the CPU path of ops.pdhg_burst) to
+    the kernel's summation order, pdhg_update_burst(order="kernel")."""
+    import functools
+    from repro_torch.kernels import pdhg_spmv
+    return mock.patch.object(pdhg_spmv, "pdhg_update_burst",
+                             functools.partial(pdhg_spmv.pdhg_update_burst,
+                                               order="kernel"))
+
+
+def row_differs(rec, row) -> list[str]:
+    """The columns, solve_s aside, in which a sweep record and a
+    results.csv row differ as written."""
+    return [col for col, val in dataclasses.asdict(rec).items()
+            if col != "solve_s" and str("" if val is None else val) != row[col]]
 
 
 def check_order_sensitive(key, card_row, committed_row) -> None:
     """Re-solve one sweep row on the host CPU with the plain version, once
     summing in the kernel's order and once in its own: the first must
-    give the card's row bitwise (every column but solve_s), the second
-    the committed numbers within SWEEP_RTOL."""
-    from unittest import mock as _mock
-    from repro_torch.kernels import pdhg_spmv
+    give the card's row bitwise (every column but solve_s; a member of the
+    card's 8-seed stack sums its rows as it does alone), the second the
+    committed numbers within SWEEP_RTOL."""
     from repro_torch.sweep import runner
     topo, obj, pat, seed = key
     spec = runner.SweepSpec(topos=(topo,), objectives=(obj,),
                             patterns=(pat,), seeds=(seed,), device="cpu")
-    with _mock.patch.object(pdhg_spmv, "spmv_blocks", spmv_in_kernel_order):
+    with in_kernel_order():
         (kernel_order,), _ = runner.run_sweep(spec)
     (own_order,), _ = runner.run_sweep(spec)
-    for col, val in dataclasses.asdict(kernel_order).items():
-        if col != "solve_s":
-            require(str("" if val is None else val) == card_row[col],
-                    f"{key}: the kernel-order CPU solve gives {col}={val}, "
-                    f"the card {card_row[col]}")
+    bad = row_differs(kernel_order, card_row)
+    require(not bad, f"{key}: the kernel-order CPU solve differs from the "
+                     f"card in {bad}")
     d = max(rel_diff(getattr(own_order, c), float(committed_row[c]))
             for c in ("energy_j", "completion_s"))
     say(f"    {key}: the plain version in the kernel's summation order "
@@ -1022,20 +1139,39 @@ def main(argv=None) -> int:
         f"{pathlib.Path(info['library']).name}")
     for line in info["log"].splitlines():
         if "Compiling entry" in line:
-            # the templated steps: the fp32 and the bf16-storage entry's
+            # the kernel's two templates: fp32 and bf16-storage iterates
             kind = "bf16" if "bfloat16" in line else "fp32"
             say(f"    ptxas [{kind}]: {line.strip()}")
-        elif "registers" in line or "spill" in line:
+        elif "registers" in line or "spill" in line or "stack" in line:
             say(f"    ptxas: {line.strip()}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grids = {prec: ops.burst_max_blocks(prec, dev) for prec in ("fp32",
+                                                               "bf16")}
+    say(f"    burst grid: {grids['fp32']} blocks (fp32), {grids['bf16']} "
+        f"(bf16) of 512 threads fit at once on {sms} SMs")
+    require(min(grids.values()) >= sms, f"burst grid {grids}")
 
     # -- phase 3: kernel vs plain version ----------------------------------
     say("[3] kernel vs plain version on the card")
-    errs = []
+    errs, torch_order_differs = [], []
     for seed, (m, n, m_eq) in enumerate([(300, 250, 120), (1025, 777, 600)]):
         op, args = random_burst_args(seed, m, n, m_eq, dev)
         for iters in (1, 500):
-            errs.append(compare_burst(f"random#{seed} m={m} n={n}", op,
-                                      args, iters))
+            err, differs = compare_burst(f"random#{seed} m={m} n={n}", op,
+                                         args, iters, sms)
+            errs.append(err)
+            torch_order_differs.append(differs)
+    before = ops.PDHG_BURST_LAUNCHES
+    try:
+        ops.pdhg_burst(*args, **layout(op, dev), iters=1,
+                       _blocks=grids["fp32"] + 1)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    say(f"    a launch on {grids['fp32'] + 1} blocks (one more than fit) "
+        f"raises: {refused}")
+    require(refused is not None and ops.PDHG_BURST_LAUNCHES == before,
+            "a cooperative launch on more blocks than fit did not raise")
     t0 = time.perf_counter()
     p_full = problem(*FULL)
     t1 = time.perf_counter()
@@ -1051,8 +1187,15 @@ def main(argv=None) -> int:
         f", col widths {min(op_full.cols.widths)}.."
         f"{max(op_full.cols.widths)}")
     for iters in (1, 500):
-        errs.append(compare_burst("fat-tree-k16", op_full, args_full, iters))
+        err, differs = compare_burst("fat-tree-k16", op_full, args_full,
+                                     iters, sms)
+        errs.append(err)
+        torch_order_differs.append(differs)
     max_abs_err = max(errs)
+    say(f"    the plain version (torch's sum order) differs from the kernel "
+        f"bitwise in {sum(torch_order_differs)} of "
+        f"{len(torch_order_differs)} cases, so the bitwise check can fail")
+    require(any(torch_order_differs), "the bitwise check cannot fail")
 
     # -- phase 4: main path on the paper topologies ------------------------
     say("[4] main path: six paper topologies x {energy, time}")
@@ -1126,18 +1269,20 @@ def main(argv=None) -> int:
             f"schedule)")
     full_launches = ops.PDHG_BURST_LAUNCHES
     say(f"    pdhg_burst launches on this phase: {full_launches} bursts, "
-        f"{2 * full_iters + full_launches} CUDA kernel launches "
-        f"({full_iters} PDHG iterations)")
+        f"each one cooperative CUDA launch ({full_iters} PDHG iterations)")
     require(full_launches > 0, "phase 5 did not go through the CUDA kernel")
     stage_breakdown(p_full, dev)
 
     # -- phase 6: times ----------------------------------------------------
     say(f"[6] times per PDHG iteration at the full-size shapes ({card})")
-    kw = dict(row_meta=op_full.rows.meta, col_meta=op_full.cols.meta)
+    kw = layout(op_full, dev)
     n_k, n_p = 2000, 20
     ms = sorted(time_events(lambda: ops.pdhg_burst(*args_full, iters=n_k,
                                                    **kw), 1) / n_k
                 for _ in range(3))[1]
+    ms_sm = sorted(time_events(lambda: ops.pdhg_burst(
+        *args_full, iters=n_k, _blocks=sms, **kw), 1) / n_k
+        for _ in range(3))[1]
     plain_ms = time_events(lambda: pdhg_spmv.pdhg_update_burst(
         args_full[12], args_full[13], *args_full[:12], iters=n_p, **kw),
         1) / n_p
@@ -1156,12 +1301,18 @@ def main(argv=None) -> int:
     yv = torch.rand(lp_full.m, 1, device=dev)
     library_ms = time_events(lambda: (Kc @ xv, KTc @ yv), 200)
     bound_ms, bound_by, nbytes, nops = burst_bound(op_full, len(lp_full.val))
-    say(f"    kernel  {ms:.6f} ms/iter (burst of {n_k}, median of 3)")
+    say(f"    kernel  {ms:.6f} ms/iter (burst of {n_k}, median of 3; "
+        f"{grids['fp32']} blocks)")
+    say(f"    kernel  {ms_sm:.6f} ms/iter on {sms} blocks (one an SM)")
     say(f"    plain   {plain_ms:.6f} ms/iter (burst of {n_p})")
     say(f"    library {library_ms:.6f} ms per K.x + K^T.y pair "
         f"(torch CSR matmul)")
     say(f"    bound   {bound_ms:.6f} ms/iter ({bound_by}: {nbytes} B at "
-        f"3.35 TB/s, {nops} fp32 ops at 67 TFLOP/s)")
+        f"3.35 TB/s, {nops} fp32 ops at 67 TFLOP/s; the real entries)")
+    pad_ms, pad_by, pad_bytes, _ = burst_bound(op_full, len(lp_full.val),
+                                               padded=True)
+    say(f"    bound   {pad_ms:.6f} ms/iter counting every padded slot "
+        f"({pad_by}: {pad_bytes} B), for comparison with earlier bounds")
     per_launch = profile_device(lambda: ops.pdhg_burst(
         *args_full, iters=200, **kw))
     if per_launch is None:
@@ -1324,10 +1475,10 @@ def main(argv=None) -> int:
         op, args = random_burst_args(seed, m, n, m_eq, dev)
         for iters in (1, 500):
             bf16_errs.append(compare_burst_bf16(
-                f"random#{seed} m={m} n={n}", op, args, iters))
+                f"random#{seed} m={m} n={n}", op, args, iters, sms))
     for iters in (1, 500):
         bf16_errs.append(compare_burst_bf16("fat-tree-k16", op_full,
-                                            args_full, iters))
+                                            args_full, iters, sms))
     bf16_max_err = max(bf16_errs)
 
     # -- phase 12: bf16 main path ------------------------------------------
@@ -1383,15 +1534,23 @@ def main(argv=None) -> int:
     ops.PDHG_BURST_LAUNCHES = 0
     ops.PDHG_ADAPTIVE_CALLS = 0
     solver.reset_dispatch_stats()
-    t0 = time.perf_counter()
-    batch = solver.solve_fast_batch(probs8, "energy", device="cuda")
-    batch_wall = time.perf_counter() - t0
+    with stage_clock(batch_stages()) as spent:
+        t0 = time.perf_counter()
+        batch = solver.solve_fast_batch(probs8, "energy", device="cuda")
+        batch_wall = time.perf_counter() - t0
     batch_calls = ops.PDHG_ADAPTIVE_CALLS
     batch_launches = ops.PDHG_BURST_LAUNCHES
     ds = solver.dispatch_stats()
     say(f"    (a) batch wall {batch_wall:.3f} s; pdhg_adaptive calls "
         f"{batch_calls}, pdhg_burst launches {batch_launches}; dispatches "
         f"{ds.dispatches}")
+    for label, sec in spent.items():
+        say(f"        stage {label}: {sec:.4f} s "
+            f"({sec / batch_wall:.4f} of the wall)")
+    top = sum(sec for label, sec in spent.items()
+              if not label.startswith(" "))
+    say(f"        stage the rest: {batch_wall - top:.4f} s "
+        f"({(batch_wall - top) / batch_wall:.4f} of the wall)")
     require(batch_calls > 0 and batch_launches > 0,
             "phase 13 did not go through the adaptive driver and the kernel")
     solo_walls = []
@@ -1517,16 +1676,25 @@ def main(argv=None) -> int:
         f"spine-leaf and pon3, uniform, seeds 0-1, {time.perf_counter() - t0:.1f}"
         f" s): worst relative difference {cpu_worst:.3e}")
     require(cpu_worst <= SWEEP_RTOL, "sweep: card and CPU rows differ")
+    t0 = time.perf_counter()
+    with in_kernel_order():
+        ko_recs, _ = runner.run_sweep(runner.SweepSpec(**SWEEP_CPU_CELLS,
+                                                       device="cpu"))
+    ko_bad = [(r.topo, r.objective, r.pattern, r.seed) for r in ko_recs
+              if row_differs(r, rows[r.topo, r.objective, r.pattern, r.seed])]
+    say(f"    the same spec on the CPU in the kernel's summation order "
+        f"({time.perf_counter() - t0:.1f} s): {len(ko_recs) - len(ko_bad)} of "
+        f"{len(ko_recs)} rows bitwise the card's (every column but solve_s)")
+    require(not ko_bad, f"sweep: rows the kernel-order model does not "
+                        f"reproduce: {ko_bad}")
     cell = dict(topos=("pon3",), objectives=("energy",),
                 patterns=("uniform",))
     again, _ = runner.run_sweep(runner.SweepSpec(**cell))
     for rec in again:
-        row = rows[rec.topo, rec.objective, rec.pattern, rec.seed]
-        for key, val in dataclasses.asdict(rec).items():
-            if key != "solve_s":
-                require(str("" if val is None else val) == row[key],
-                        f"sweep repeat: {rec.topo}/{rec.seed} {key} "
-                        f"{val} vs {row[key]}")
+        bad = row_differs(rec, rows[rec.topo, rec.objective, rec.pattern,
+                                    rec.seed])
+        require(not bad, f"sweep repeat: {rec.topo}/{rec.seed} differs in "
+                         f"{bad}")
     say(f"    pon3/uniform/energy run again: {len(again)} rows bitwise "
         f"equal to the CLI's (every column but solve_s)")
 
@@ -1534,7 +1702,7 @@ def main(argv=None) -> int:
     say(f"[15] times at the batched and bf16 shapes ({card})")
     bs8 = solver.block_stack(lps8)
     op8, args8 = lp_burst_args(bs8.lp, dev)
-    kw8 = dict(row_meta=op8.rows.meta, col_meta=op8.cols.meta)
+    kw8 = layout(op8, dev)
     say(f"    8-stack: n={bs8.lp.n} m={bs8.lp.m} nnz={len(bs8.lp.val)}; ELL "
         f"n_pad={op8.n_pad} m_pad={op8.m_pad} row slots {len(op8.rows.idx)}"
         f" col slots {len(op8.cols.idx)}; row widths "
@@ -1543,6 +1711,9 @@ def main(argv=None) -> int:
     ms8 = sorted(time_events(lambda: ops.pdhg_burst(*args8, iters=n_k8,
                                                     **kw8), 1) / n_k8
                  for _ in range(3))[1]
+    ms8_sm = sorted(time_events(lambda: ops.pdhg_burst(
+        *args8, iters=n_k8, _blocks=sms, **kw8), 1) / n_k8
+        for _ in range(3))[1]
     plain8_ms = time_events(lambda: pdhg_spmv.pdhg_update_burst(
         args8[12], args8[13], *args8[:12], iters=5, **kw8), 1) / 5
     with warnings.catch_warnings():
@@ -1559,7 +1730,7 @@ def main(argv=None) -> int:
     bound8_ms, bound8_by, bytes8, ops8 = burst_bound(op8, len(bs8.lp.val))
     say(f"    fp32 kernel, 8-stack  {ms8:.6f} ms/iter (burst of {n_k8}, "
         f"median of 3; the single instance {ms:.6f} in phase 6, "
-        f"{ms8 / ms:.3f}x)")
+        f"{ms8 / ms:.3f}x); on {sms} blocks (one an SM) {ms8_sm:.6f}")
     say(f"    plain, 8-stack        {plain8_ms:.6f} ms/iter (burst of 5)")
     say(f"    library, 8-stack      {library8_ms:.6f} ms per K.x + K^T.y "
         f"pair (torch CSR matmul)")
@@ -1568,13 +1739,17 @@ def main(argv=None) -> int:
     bf16_ms = sorted(time_events(lambda: ops.pdhg_burst(
         *args_full, iters=n_k, precision="bf16", **kw), 1) / n_k
         for _ in range(3))[1]
+    bf16_ms_sm = sorted(time_events(lambda: ops.pdhg_burst(
+        *args_full, iters=n_k, precision="bf16", _blocks=sms, **kw), 1) / n_k
+        for _ in range(3))[1]
     bf16_plain_ms = time_events(lambda: pdhg_spmv.pdhg_update_burst(
         args_full[12], args_full[13], *args_full[:12], iters=n_p,
         precision="bf16", **kw), 1) / n_p
     bf16_bound_ms, bf16_bound_by, bf16_bytes, bf16_ops = burst_bound(
         op_full, len(lp_full.val), it=2)
     say(f"    bf16 kernel, single   {bf16_ms:.6f} ms/iter (burst of {n_k}, "
-        f"median of 3; fp32 {ms:.6f}, {bf16_ms / ms:.3f}x)")
+        f"median of 3; fp32 {ms:.6f}, {bf16_ms / ms:.3f}x); on {sms} "
+        f"blocks (one an SM) {bf16_ms_sm:.6f}")
     say(f"    bf16 plain, single    {bf16_plain_ms:.6f} ms/iter (burst of "
         f"{n_p})")
     say(f"    bf16 bound, single    {bf16_bound_ms:.6f} ms/iter "

@@ -172,6 +172,7 @@ def _solve_lp_ell(lp: StructuredLP, iters: int, tol: float,
                               lp.b, lp.h, xmax, lp.m_eq, device)
     keep_n = torch.zeros(op.n_pad, dtype=torch.bool, device=device)
     keep_m = torch.zeros(op.m_pad, dtype=torch.bool, device=device)
+    work = pdhg_spmv.burst_work(op, device)
 
     def start(v0, n_true, n_pad):
         if v0 is None:
@@ -186,7 +187,7 @@ def _solve_lp_ell(lp: StructuredLP, iters: int, tol: float,
         x, y, worst = kops.pdhg_burst(
             *vecs, keep_n, keep_m, *ell, x, y,
             row_meta=op.rows.meta, col_meta=op.cols.meta, iters=iters,
-            precision=precision)
+            precision=precision, **work)
         total_iters += iters
         primal = float(worst.max())           # padded rows contribute 0
         if primal <= tol:
@@ -1148,6 +1149,7 @@ def solve_lp_batch(lps: list[StructuredLP], iters: int = 4000, *,
         # the blocked-ELL packer's padded grid is the dispatch shape
         _note_dispatch(("pallas", adaptive, chunk if adaptive else 0,
                         budget, op.n_pad, op.m_pad, len(sub)))
+        work = pdhg_spmv.burst_work(op, dev)
         x0p = torch.from_numpy(np.pad(np.asarray(x0, np.float32),
                                       (0, op.n_pad - g.n))).to(dev)
         y0p = torch.from_numpy(np.pad(np.asarray(y0, np.float32),
@@ -1168,14 +1170,15 @@ def solve_lp_batch(lps: list[StructuredLP], iters: int = 4000, *,
                 torch.from_numpy(inst_m).to(dev),
                 num_inst=len(sub), row_meta=op.rows.meta,
                 col_meta=op.cols.meta, chunk=chunk,
-                max_chunks=budget // chunk, precision=precision)
+                max_chunks=budget // chunk, precision=precision, **work)
             used = used_chunks.cpu().numpy().astype(np.int64) * chunk
         else:
             x, y, _ = kops.pdhg_burst(
                 *vecs, torch.zeros(op.n_pad, dtype=torch.bool, device=dev),
                 torch.zeros(op.m_pad, dtype=torch.bool, device=dev),
                 *ell, x0p, y0p, row_meta=op.rows.meta,
-                col_meta=op.cols.meta, iters=budget, precision=precision)
+                col_meta=op.cols.meta, iters=budget, precision=precision,
+                **work)
             used = np.full(len(sub), budget)
         return x.cpu().numpy()[:g.n], y.cpu().numpy()[:g.m], used
 

@@ -115,8 +115,8 @@ __global__ void __launch_bounds__(kThreads)
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.x * kBQ;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = blockIdx.y * kBQ;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int hk = h / (H / Hkv);
   const int64_t q_stride = (int64_t)H * hd;
   const int64_t k_stride = (int64_t)Hkv * hd;
@@ -276,7 +276,8 @@ cudaError_t launch_simt(int B, int S, int Tk, int H, int Hkv, int hd,
       flash_fwd_simt<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
+  // (batch, head) on x, where the limit is 2^31 - 1; query tiles on y
+  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   flash_fwd_simt<NJ><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), S, Tk, H, Hkv,
@@ -634,7 +635,7 @@ extern "C" int flash_attention_fwd(int dtype, int B, int S, int Tk, int H,
                                    const void* k, const void* v, void* out,
                                    void* stream) {
   if (hd <= 0 || hd > 256 || hd % 8 != 0 || Hkv <= 0 || H % Hkv != 0 ||
-      B * H > 65535 || (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

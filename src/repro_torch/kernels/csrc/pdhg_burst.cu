@@ -12,34 +12,57 @@
 // and about 1.4 MB of vectors, about 6 MB in all, or about 1.8 us at
 // 3.35 TB/s.  The arithmetic is two multiply-adds a slot, far below the
 // fp32 rate.  The working set fits the 50 MB L2, so after the first
-// iteration the tables come from L2, and at this size each launch does a
-// few microseconds of work: launch latency (two launches an iteration),
-// not memory, sets the pace.  Row widths are skewed (8 up to 472 in the
-// row direction at that size), so a thread per row is imbalanced: the
-// widest rows' threads set each dual launch's length.  bf16 storage halves
-// the iterate vectors' bytes and leaves the tables as they are.
+// iteration the tables come from L2 (or L1), and each half-step is a few
+// dependent round trips to L2: latency, not bandwidth, sets the pace.  Two
+// grid-wide dependencies a step (K^T y needs all of y, K xbar all of xbar)
+// make two grid-wide barriers a step.  Row widths are skewed (8 up to 472
+// in the row direction at that size).  bf16 storage halves the iterate
+// vectors' bytes and leaves the tables as they are.
 //
 // What this design does about it.  The TPU kernel has no grid: one program
-// keeps both tables and every vector in VMEM for the whole burst.  Here
-// every step has two grid-wide dependencies (K^T y needs all of y, K xbar
-// all of xbar), so each iteration is two launches and the launch boundary
-// is the grid-wide barrier:
-//   primal kernel, one thread per padded variable: a fixed-order loop over
-//     its column-direction ELL row (K^T y), prox, clip, freeze; writes x'
-//     and xbar = 2x' - x into separate buffers;
-//   dual kernel, one thread per padded constraint: a fixed-order loop over
-//     its row-direction ELL row (K xbar), ascent, projection, freeze;
-//   residual kernel, after the last step: worst = |Kx - q| on equality
-//     rows, max(Kx - q, 0) on inequality rows.
-// The 2*iters+1 launches are issued by the host function below on the
-// caller's stream, so Python makes one call per burst.  No atomics and a
-// fixed summation order in every row: two runs give bitwise-equal
-// iterates.  The iterates ping-pong between two buffers.  Making it fast
-// (a CUDA graph or one persistent cooperative kernel, a warp per wide row,
-// column-major storage inside a block for coalescing) is later work.
+// keeps both tables and every vector in VMEM for the whole burst.  Here one
+// persistent cooperative launch runs the whole burst: as many blocks as fit
+// on the card at once (or the number the caller asks for), each warp
+// walking a work list with a grid stride (warps numbered block-minor, so
+// neighbouring tasks run on different SMs), and cooperative_groups'
+// grid.sync() in place of a launch boundary between the primal and the
+// dual half-step and between iterations.  The bf16 entry's start rounding
+// and end widening and the terminal residual run in the same launch, so a
+// burst is one CUDA launch (it was 2 * iters + 1, bf16 + 4 more).
 //
-// The two storage types are one set of kernels templated on the type T of
-// the stored x and y.  With T = __nv_bfloat16 (the reference's
+// Lane-split row sums.  Each stored row is summed by L lanes of one warp,
+// L = min(32, the largest power of two <= max(1, len / 8)), where len is
+// the row's length: its entry count in the sparsity pattern (the entries
+// fill the row's first slots).  Lane l adds slots l, l + L, ... below len
+// in ascending order, from +0.0, each product rounded before it is added
+// (-fmad=false); then the L partials combine in a fixed __shfl_xor_sync
+// butterfly, offsets L/2, ..., 1.  A lane takes at most 16 slots below 32
+// lanes (15 in the widest row at the flagship, against 472 for a thread
+// a row).  Neighbouring lanes read neighbouring slots, so the loads
+// coalesce.  A lane issues the loads of 8 slots (indices, values, then
+// the gathers) before its first add, so a row costs a round trip or two
+// to L2, not one a slot; the register budget (kMinBlocks) leaves ptxas
+// room to keep them all in flight.  The padding past a row's length is
+// never read.
+//
+// The order depends on the sparsity pattern alone: not on the values, the
+// grid, scheduling, or the rows that share its block, so a member of a
+// block-stacked batch sums every row as it does alone (a rule on the
+// block's width would not: stacking changes which rows share a block).
+// The host builds the work list once per sparsity pattern
+// (kernels.pdhg_spmv.work_list, with lane_count): the rows sorted by L,
+// cut into warp tasks of 32 / L rows.  The same order in plain torch is
+// kernels.pdhg_spmv.spmv_in_kernel_order, which this kernel equals
+// bitwise.  No atomics, so two launches, on any grid, give the same bits.
+//
+// Iterates written inside the launch (x, y, their ping-pong buffers and
+// xbar) are read with plain loads, which grid.sync() orders after the
+// writes before it (its acquire invalidates the SM's L1); the
+// non-coherent __ldg path could return a value from before the barrier.
+// Tables and constant vectors keep __ldg.
+//
+// The two storage types are one kernel templated on the type T of the
+// stored x and y.  With T = __nv_bfloat16 (the reference's
 // pdhg_spmv.py:292-305): each step widens the stored x and y to fp32,
 // computes x' in fp32, stores x' rounded to nearest even, and forms
 // xbar = 2x' - x from the UNROUNDED x' in an fp32 buffer; y' likewise is
@@ -47,29 +70,31 @@
 // its widened stored value, which rounds to itself.  x0/y0 come in as fp32
 // and are rounded once at the start; x_out/y_out are the fp32 widenings
 // of the final stored state, and the residual runs on that widened x.
-//
-// Built with -fmad=false, so each product is rounded before it is added,
-// as in the plain version; only the order of the row sums differs.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
+// threads a block
+constexpr int kThreads = 512;
+// blocks an SM the compiler keeps room for (64 registers a thread): below
+// that budget ptxas reuses one register for the gathers of a batch and so
+// waits on each before it issues the next
+constexpr int kMinBlocks = 2;
+// slots a lane loads at once (a row's lane takes at most 16 below 32 lanes)
+constexpr int kBatch = 8;
 
-// storage <-> fp32: identity for float; for bf16 an exact widening and a
-// round-to-nearest-even narrowing (as XLA's convert)
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+// Plain (coherent) loads of iterates, which this launch writes, widened to
+// fp32 (exactly, for bf16); narrow() stores fp32 in the storage type (round
+// to nearest even for bf16, as XLA's convert).
+__device__ __forceinline__ float load(const float* p) { return *p; }
 __device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __uint_as_float(
-      static_cast<unsigned>(__ldg(reinterpret_cast<const uint16_t*>(p)))
-      << 16);
+  return __bfloat162float(*p);
 }
 template <typename T>
 __device__ __forceinline__ T narrow(float v);
@@ -80,190 +105,282 @@ __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// sum_j val[r, j] * vec[idx[r, j]] over row r's padded width, j ascending
-template <typename V>
-__device__ __forceinline__ float ell_row_dot(
-    int r, int bm, const int64_t* __restrict__ offsets,
-    const int* __restrict__ widths, const int* __restrict__ idx,
-    const float* __restrict__ val, const V* __restrict__ vec) {
-  const int b = r / bm;
-  const int w = widths[b];
-  const int64_t start = offsets[b] + (int64_t)(r - b * bm) * w;
-  float s = 0.0f;
-#pragma unroll 4
-  for (int j = 0; j < w; ++j) {
-    s += val[start + j] * load(vec + idx[start + j]);
-  }
-  return s;
-}
-
-template <typename T>
-__global__ void primal_step(
-    int n_pad, const float* __restrict__ c, const float* __restrict__ tau,
-    const float* __restrict__ xmax, const uint8_t* __restrict__ keep_n,
-    int bm, const int64_t* __restrict__ col_off,
-    const int* __restrict__ col_w, const int* __restrict__ col_idx,
-    const float* __restrict__ col_val, const T* __restrict__ x,
-    const T* __restrict__ y, T* __restrict__ x_new,
-    float* __restrict__ x_bar) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_pad) return;
-  const float kty = ell_row_dot(i, bm, col_off, col_w, col_idx, col_val, y);
-  const float xi = widen(x[i]);
-  float v = fminf(fmaxf(xi - tau[i] * (c[i] + kty), 0.0f), xmax[i]);
-  if (keep_n[i]) v = xi;
-  x_new[i] = narrow<T>(v);
-  x_bar[i] = 2.0f * v - xi;
-}
-
-template <typename T>
-__global__ void dual_step(
-    int m_pad, const float* __restrict__ q, const float* __restrict__ sig,
-    const uint8_t* __restrict__ ub, const uint8_t* __restrict__ keep_m,
-    int bm, const int64_t* __restrict__ row_off,
-    const int* __restrict__ row_w, const int* __restrict__ row_idx,
-    const float* __restrict__ row_val, const float* __restrict__ x_bar,
-    const T* __restrict__ y, T* __restrict__ y_new) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= m_pad) return;
-  const float kx = ell_row_dot(r, bm, row_off, row_w, row_idx, row_val, x_bar);
-  const float yr = widen(y[r]);
-  float v = yr + sig[r] * (kx - q[r]);
-  if (ub[r]) v = fmaxf(v, 0.0f);
-  if (keep_m[r]) v = yr;
-  y_new[r] = narrow<T>(v);
-}
-
-__global__ void residual(
-    int m_pad, const float* __restrict__ q, const uint8_t* __restrict__ ub,
-    int bm, const int64_t* __restrict__ row_off,
-    const int* __restrict__ row_w, const int* __restrict__ row_idx,
-    const float* __restrict__ row_val, const float* __restrict__ x,
-    float* __restrict__ worst) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= m_pad) return;
-  const float d =
-      ell_row_dot(r, bm, row_off, row_w, row_idx, row_val, x) - q[r];
-  worst[r] = ub[r] ? fmaxf(d, 0.0f) : fabsf(d);
-}
-
-// out[i] = narrow(widen(in[i])): fp32 -> bf16 rounding at the start of a
-// bf16 burst, bf16 -> fp32 widening at its end
-template <typename S, typename D>
-__global__ void convert(int n, const S* __restrict__ in, D* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = narrow<D>(widen(in[i]));
-}
-
-struct Operator {
-  int n_pad, m_pad, row_bm, col_bm;
-  const float *c, *tau, *xmax, *q, *sig;
-  const uint8_t *ub, *keep_n, *keep_m;
-  const int64_t* row_off;
-  const int *row_w, *row_idx;
-  const float* row_val;
-  const int64_t* col_off;
-  const int *col_w, *col_idx;
-  const float* col_val;
+// One ELL direction and its work list.
+struct Direction {
+  int bm;                 // rows a block
+  int n_items;            // warp tasks
+  const int64_t* off;     // flat start of each block
+  const int* width;       // padded width of each block
+  const int* idx;         // gather index of each slot
+  const float* val;       // coefficient of each slot
+  const int* len;         // each stored row's length (padding past it)
+  const int* order;       // the rows sorted by lane count
+  const int2* items;      // [first position in order, log2 L | rows << 8]
 };
 
-// `iters` steps from (x, y): step k reads the previous step's output (x, y
-// for k = 0) and writes buffer k % 2 of (xs, ys)
+// Walk the direction's warp tasks with a grid stride over warps: for every
+// stored row r, s = sum_j val[r, j] * vec[idx[r, j]] in the lane-split
+// order, then emit(r, s) on the row's lane 0.
+template <typename V, typename F>
+__device__ __forceinline__ void row_sums(const Direction& d,
+                                         const V* vec, int warp,
+                                         int n_warps, int lane, F&& emit) {
+  for (int it = warp; it < d.n_items; it += n_warps) {
+    const int2 item = __ldg(d.items + it);
+    const int shift = item.y & 0xff;
+    const int n_rows = item.y >> 8;
+    const int L = 1 << shift;
+    const int g = lane >> shift;      // which of the task's rows
+    const int li = lane & (L - 1);    // which lane of that row
+    int r = -1, w = 0;
+    int64_t start = 0;
+    if (g < n_rows) {
+      r = __ldg(d.order + item.x + g);
+      const int b = r / d.bm;
+      w = __ldg(d.len + r);
+      start = __ldg(reinterpret_cast<const long long*>(d.off) + b) +
+              (int64_t)(r - b * d.bm) * __ldg(d.width + b);
+    }
+    // kBatch slots at a time: every load of the batch is issued before
+    // the first add waits on one (the loads of slots past the row's length
+    // re-read its first slot of the batch and are not added)
+    float s = 0.0f;
+    for (int j0 = li; j0 < w; j0 += kBatch * L) {
+      int ix[kBatch];
+      float coef[kBatch], got[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int j = j0 + k * L < w ? j0 + k * L : j0;
+        ix[k] = __ldg(d.idx + start + j);
+        coef[k] = __ldg(d.val + start + j);
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) got[k] = load(vec + ix[k]);
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        if (j0 + k * L < w) s += coef[k] * got[k];
+      }
+    }
+    for (int o = L >> 1; o > 0; o >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+    }
+    if (r >= 0 && li == 0) emit(r, s);
+  }
+}
+
 template <typename T>
-void run_steps(const Operator& op, int iters, const T* x, const T* y,
-               T* const xs[2], T* const ys[2], float* x_bar, cudaStream_t s) {
-  const int gx = (op.n_pad + kThreads - 1) / kThreads;
-  const int gy = (op.m_pad + kThreads - 1) / kThreads;
-  for (int k = 0; k < iters; ++k) {
-    T* xn = xs[k % 2];
-    T* yn = ys[k % 2];
-    primal_step<T><<<gx, kThreads, 0, s>>>(
-        op.n_pad, op.c, op.tau, op.xmax, op.keep_n, op.col_bm, op.col_off,
-        op.col_w, op.col_idx, op.col_val, x, y, xn, x_bar);
-    dual_step<T><<<gy, kThreads, 0, s>>>(
-        op.m_pad, op.q, op.sig, op.ub, op.keep_m, op.row_bm, op.row_off,
-        op.row_w, op.row_idx, op.row_val, x_bar, y, yn);
+struct Burst {
+  int n_pad, m_pad, iters;
+  const float *c, *tau, *xmax, *q, *sig;
+  const uint8_t *ub, *keep_n, *keep_m;
+  Direction rows, cols;     // K x (one stored row a constraint), K^T y
+  const float *x0, *y0;
+  float *x_out, *y_out, *worst, *x_bar;
+  T* xs[2];                 // ping-pong buffers of the stored x
+  T* ys[2];
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    pdhg_burst_kernel(const Burst<T> p) {
+  cg::grid_group grid = cg::this_grid();
+  const int lane = threadIdx.x & 31;
+  const int tid = blockIdx.x * kThreads + threadIdx.x;
+  const int n_threads = gridDim.x * kThreads;
+  // warps numbered block-minor, so consecutive tasks land on different
+  // SMs
+  const int warp = (threadIdx.x >> 5) * gridDim.x + blockIdx.x;
+  const int n_warps = n_threads >> 5;
+  constexpr bool kBf16 = sizeof(T) == 2;
+
+  const T* x;
+  const T* y;
+  if constexpr (kBf16) {
+    // x0/y0 rounded into buffer 1; step 0 reads it and writes buffer 0
+    for (int i = tid; i < p.n_pad; i += n_threads)
+      p.xs[1][i] = narrow<T>(__ldg(p.x0 + i));
+    for (int i = tid; i < p.m_pad; i += n_threads)
+      p.ys[1][i] = narrow<T>(__ldg(p.y0 + i));
+    grid.sync();
+    x = p.xs[1];
+    y = p.ys[1];
+  } else {
+    x = reinterpret_cast<const T*>(p.x0);
+    y = reinterpret_cast<const T*>(p.y0);
+  }
+
+  for (int k = 0; k < p.iters; ++k) {
+    // (selected, not indexed: an indexed array of the parameter block
+    // would be copied to local memory)
+    T* const xn = (k & 1) ? p.xs[1] : p.xs[0];
+    T* const yn = (k & 1) ? p.ys[1] : p.ys[0];
+    // primal: x' = clip(x - tau (c + K^T y), 0, xmax), xbar = 2x' - x
+    row_sums(p.cols, y, warp, n_warps, lane, [&](int i, float kty) {
+      const float xi = load(x + i);
+      float v = fminf(fmaxf(xi - __ldg(p.tau + i) * (__ldg(p.c + i) + kty),
+                            0.0f),
+                      __ldg(p.xmax + i));
+      if (__ldg(p.keep_n + i)) v = xi;
+      xn[i] = narrow<T>(v);
+      p.x_bar[i] = 2.0f * v - xi;
+    });
+    grid.sync();
+    // dual: y' = y + sig (K xbar - q), max(., 0) on inequality rows
+    row_sums(p.rows, p.x_bar, warp, n_warps, lane, [&](int r, float kx) {
+      const float yr = load(y + r);
+      float v = yr + __ldg(p.sig + r) * (kx - __ldg(p.q + r));
+      if (__ldg(p.ub + r)) v = fmaxf(v, 0.0f);
+      if (__ldg(p.keep_m + r)) v = yr;
+      yn[r] = narrow<T>(v);
+    });
+    grid.sync();
     x = xn;
     y = yn;
   }
+
+  // the final iterates as fp32 outputs: bf16 widens its last stored state;
+  // fp32's last step wrote x_out/y_out already (the host's parity rule),
+  // and with iters == 0 the inputs are copied
+  if (kBf16 || p.iters == 0) {
+    for (int i = tid; i < p.n_pad; i += n_threads)
+      p.x_out[i] = load(x + i);
+    for (int i = tid; i < p.m_pad; i += n_threads)
+      p.y_out[i] = load(y + i);
+    grid.sync();
+  }
+  // residual: |K x - q| on equality rows, max(K x - q, 0) on inequalities
+  row_sums(p.rows, static_cast<const float*>(p.x_out), warp, n_warps, lane,
+           [&](int r, float kx) {
+             const float d = kx - __ldg(p.q + r);
+             p.worst[r] = __ldg(p.ub + r) ? fmaxf(d, 0.0f) : fabsf(d);
+           });
 }
 
-void run_residual(const Operator& op, const float* x, float* worst,
-                  cudaStream_t s) {
-  const int gy = (op.m_pad + kThreads - 1) / kThreads;
-  residual<<<gy, kThreads, 0, s>>>(op.m_pad, op.q, op.ub, op.row_bm,
-                                   op.row_off, op.row_w, op.row_idx,
-                                   op.row_val, x, worst);
+// Blocks of the kernel that fit on `device` at once (0 on an error).
+template <typename T>
+int max_blocks(int device) {
+  int sms = 0, per_sm = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, pdhg_burst_kernel<T>, kThreads, 0) != cudaSuccess)
+    return 0;
+  return sms * per_sm;
+}
+
+// One cooperative launch of the burst on `stream`: `blocks` resident
+// blocks, or as many as fit when it is 0.  A launch the runtime refuses
+// (too many blocks for the card, no cooperative launch) returns its error.
+template <typename T>
+int launch(Burst<T> p, int blocks, int device, cudaStream_t stream) {
+  int coop = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  if (blocks <= 0) blocks = max_blocks<T>(device);
+  if (blocks <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  void* args[] = {&p};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(pdhg_burst_kernel<T>), dim3(blocks),
+      dim3(kThreads), args, 0, stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();   // clear it; the caller raises
+    return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+Direction direction(int bm, int n_items, const int64_t* off,
+                    const int* width, const int* idx, const float* val,
+                    const int* len, const int* order, const int* items) {
+  return Direction{bm, n_items, off, width, idx, val, len, order,
+                   reinterpret_cast<const int2*>(items)};
 }
 
 }  // namespace
 
-// One burst of `iters` PDHG steps plus the terminal residual vector, all
-// enqueued on `stream`, fp32 iterates.  x0/y0 are read only; the result is
-// written to x_out/y_out/worst, with x_tmp/y_tmp/x_bar as fp32 scratch of
-// the same lengths.  Returns cudaGetLastError() after the launches (0 on
-// success).
+// The arguments of both entries, in this order:
+//   ints: n_pad, m_pad, iters, blocks (0: as many as fit), device,
+//     then for the row direction (K x) and the column direction (K^T y)
+//     each: bm, n_items;
+//   vectors: c, tau, xmax (n_pad), q, sig (m_pad), ub, keep_n, keep_m (uint8);
+//   per direction (rows, then columns): block offsets (int64), block
+//     widths, slot indices (int32), slot values (fp32), row lengths (int32,
+//     a stored row each), row order (int32), warp tasks (int32 pairs);
+//   x0 (n_pad), y0 (m_pad) fp32, read only; outputs x_out, y_out, worst
+//   (m_pad) fp32; scratch x_tmp, y_tmp and x_bar (n_pad fp32); stream.
+// Return 0 on success, else the CUDA error of the refused launch.
+
+// fp32 iterates; x_tmp (n_pad) and y_tmp (m_pad) fp32 scratch.
 extern "C" int pdhg_burst_f32(
-    int n_pad, int m_pad, int iters, int row_bm, int col_bm,
-    const float* c, const float* tau, const float* xmax, const float* q,
-    const float* sig, const uint8_t* ub, const uint8_t* keep_n,
-    const uint8_t* keep_m, const int64_t* row_off, const int* row_w,
-    const int* row_idx, const float* row_val, const int64_t* col_off,
-    const int* col_w, const int* col_idx, const float* col_val,
-    const float* x0, const float* y0, float* x_out, float* y_out,
-    float* worst, float* x_tmp, float* y_tmp, float* x_bar, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Operator op{n_pad, m_pad, row_bm, col_bm, c, tau, xmax, q, sig,
-                    ub, keep_n, keep_m, row_off, row_w, row_idx, row_val,
-                    col_off, col_w, col_idx, col_val};
-  if (iters == 0) {
-    cudaMemcpyAsync(x_out, x0, sizeof(float) * (size_t)n_pad,
-                    cudaMemcpyDeviceToDevice, s);
-    cudaMemcpyAsync(y_out, y0, sizeof(float) * (size_t)m_pad,
-                    cudaMemcpyDeviceToDevice, s);
-  }
+    int n_pad, int m_pad, int iters, int blocks, int device, int row_bm,
+    int row_items_n, int col_bm, int col_items_n, const float* c,
+    const float* tau, const float* xmax, const float* q, const float* sig,
+    const uint8_t* ub, const uint8_t* keep_n, const uint8_t* keep_m,
+    const int64_t* row_off, const int* row_w, const int* row_idx,
+    const float* row_val, const int* row_len, const int* row_order,
+    const int* row_items, const int64_t* col_off, const int* col_w,
+    const int* col_idx, const float* col_val, const int* col_len,
+    const int* col_order, const int* col_items, const float* x0,
+    const float* y0, float* x_out, float* y_out, float* worst, float* x_tmp,
+    float* y_tmp, float* x_bar, void* stream) {
+  Burst<float> p{};
+  p.n_pad = n_pad;
+  p.m_pad = m_pad;
+  p.iters = iters;
+  p.c = c; p.tau = tau; p.xmax = xmax; p.q = q; p.sig = sig;
+  p.ub = ub; p.keep_n = keep_n; p.keep_m = keep_m;
+  p.rows = direction(row_bm, row_items_n, row_off, row_w, row_idx, row_val,
+                     row_len, row_order, row_items);
+  p.cols = direction(col_bm, col_items_n, col_off, col_w, col_idx, col_val,
+                     col_len, col_order, col_items);
+  p.x0 = x0; p.y0 = y0;
+  p.x_out = x_out; p.y_out = y_out; p.worst = worst; p.x_bar = x_bar;
   // the last step (k = iters - 1) must land in the output buffers
-  float* const xs[2] = {(iters % 2) ? x_out : x_tmp,
-                        (iters % 2) ? x_tmp : x_out};
-  float* const ys[2] = {(iters % 2) ? y_out : y_tmp,
-                        (iters % 2) ? y_tmp : y_out};
-  run_steps<float>(op, iters, x0, y0, xs, ys, x_bar, s);
-  run_residual(op, x_out, worst, s);
-  return static_cast<int>(cudaGetLastError());
+  p.xs[0] = (iters % 2) ? x_out : x_tmp;
+  p.xs[1] = (iters % 2) ? x_tmp : x_out;
+  p.ys[0] = (iters % 2) ? y_out : y_tmp;
+  p.ys[1] = (iters % 2) ? y_tmp : y_out;
+  return launch(p, blocks, device, static_cast<cudaStream_t>(stream));
 }
 
-// The same burst with the iterates stored in bfloat16 between steps (all
-// arithmetic in fp32; see the note at the top).  Inputs x0/y0 and outputs
-// x_out/y_out/worst are fp32; x_store (2 * n_pad) and y_store (2 * m_pad)
-// are bf16 scratch for the two ping-pong buffers, x_bar fp32 scratch.
-// iters == 0 returns the bf16-rounded x0/y0, widened.
+// bf16-stored iterates; x_tmp (2 * n_pad) and y_tmp (2 * m_pad) bf16
+// scratch for the two ping-pong buffers.  iters == 0 returns the
+// bf16-rounded x0/y0, widened.
 extern "C" int pdhg_burst_bf16(
-    int n_pad, int m_pad, int iters, int row_bm, int col_bm,
-    const float* c, const float* tau, const float* xmax, const float* q,
-    const float* sig, const uint8_t* ub, const uint8_t* keep_n,
-    const uint8_t* keep_m, const int64_t* row_off, const int* row_w,
-    const int* row_idx, const float* row_val, const int64_t* col_off,
-    const int* col_w, const int* col_idx, const float* col_val,
-    const float* x0, const float* y0, float* x_out, float* y_out,
-    float* worst, __nv_bfloat16* x_store, __nv_bfloat16* y_store,
-    float* x_bar, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Operator op{n_pad, m_pad, row_bm, col_bm, c, tau, xmax, q, sig,
-                    ub, keep_n, keep_m, row_off, row_w, row_idx, row_val,
-                    col_off, col_w, col_idx, col_val};
-  const int gx = (n_pad + kThreads - 1) / kThreads;
-  const int gy = (m_pad + kThreads - 1) / kThreads;
-  __nv_bfloat16* const xs[2] = {x_store, x_store + n_pad};
-  __nv_bfloat16* const ys[2] = {y_store, y_store + m_pad};
-  // x0/y0 rounded into buffer 1; step 0 reads it and writes buffer 0
-  convert<float, __nv_bfloat16><<<gx, kThreads, 0, s>>>(n_pad, x0, xs[1]);
-  convert<float, __nv_bfloat16><<<gy, kThreads, 0, s>>>(m_pad, y0, ys[1]);
-  run_steps<__nv_bfloat16>(op, iters, xs[1], ys[1], xs, ys, x_bar, s);
-  const int last = iters == 0 ? 1 : (iters - 1) % 2;
-  convert<__nv_bfloat16, float><<<gx, kThreads, 0, s>>>(n_pad, xs[last],
-                                                        x_out);
-  convert<__nv_bfloat16, float><<<gy, kThreads, 0, s>>>(m_pad, ys[last],
-                                                        y_out);
-  run_residual(op, x_out, worst, s);
-  return static_cast<int>(cudaGetLastError());
+    int n_pad, int m_pad, int iters, int blocks, int device, int row_bm,
+    int row_items_n, int col_bm, int col_items_n, const float* c,
+    const float* tau, const float* xmax, const float* q, const float* sig,
+    const uint8_t* ub, const uint8_t* keep_n, const uint8_t* keep_m,
+    const int64_t* row_off, const int* row_w, const int* row_idx,
+    const float* row_val, const int* row_len, const int* row_order,
+    const int* row_items, const int64_t* col_off, const int* col_w,
+    const int* col_idx, const float* col_val, const int* col_len,
+    const int* col_order, const int* col_items, const float* x0,
+    const float* y0, float* x_out, float* y_out, float* worst,
+    __nv_bfloat16* x_tmp, __nv_bfloat16* y_tmp, float* x_bar, void* stream) {
+  Burst<__nv_bfloat16> p{};
+  p.n_pad = n_pad;
+  p.m_pad = m_pad;
+  p.iters = iters;
+  p.c = c; p.tau = tau; p.xmax = xmax; p.q = q; p.sig = sig;
+  p.ub = ub; p.keep_n = keep_n; p.keep_m = keep_m;
+  p.rows = direction(row_bm, row_items_n, row_off, row_w, row_idx, row_val,
+                     row_len, row_order, row_items);
+  p.cols = direction(col_bm, col_items_n, col_off, col_w, col_idx, col_val,
+                     col_len, col_order, col_items);
+  p.x0 = x0; p.y0 = y0;
+  p.x_out = x_out; p.y_out = y_out; p.worst = worst; p.x_bar = x_bar;
+  p.xs[0] = x_tmp;
+  p.xs[1] = x_tmp + n_pad;
+  p.ys[0] = y_tmp;
+  p.ys[1] = y_tmp + m_pad;
+  return launch(p, blocks, device, static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of the burst kernel that fit on `device` at once (bf16 != 0: the
+// bf16-storage kernel); 0 on an error.
+extern "C" int pdhg_burst_max_blocks(int bf16, int device) {
+  return bf16 ? max_blocks<__nv_bfloat16>(device) : max_blocks<float>(device);
 }

@@ -17,9 +17,10 @@
 // What this design does about it.  The TPU kernel streams a (S, 128) slab
 // of a and b through VMEM per grid step and runs a fori_loop over S on one
 // 128-lane row.  Here each thread owns one (batch, feature) column: blocks
-// of 128 threads over (ceil(R/128), B), each thread walking S in order, so
-// a warp's loads of a_t and b_t (and its store of h_t) are 32 consecutive
-// floats of one row: coalesced.  The loop is unrolled 8 ways with
+// of 128 threads, B * ceil(R/128) of them on the grid's x axis (its limit
+// is 2^31 - 1), each thread walking S in order, so a warp's loads of a_t
+// and b_t (and its store of h_t) are 32 consecutive floats of one row:
+// coalesced.  The loop is unrolled 8 ways with
 // __restrict__ pointers, so the loads of the next steps are issued ahead
 // of the dependent multiply-add chain.  Any R is allowed (the last block
 // is ragged).  Each step rounds the product and the sum separately
@@ -46,10 +47,13 @@ __global__ void __launch_bounds__(kThreads)
     rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
                       const float* __restrict__ h0, float* __restrict__ h,
                       float* __restrict__ h_last, int S, int R) {
-  const int r = blockIdx.x * kThreads + threadIdx.x;
+  // blockIdx.x = batch * ceil(R / kThreads) + feature block
+  const int r_blocks = (R + kThreads - 1) / kThreads;
+  const int batch = blockIdx.x / r_blocks;
+  const int r = (blockIdx.x % r_blocks) * kThreads + threadIdx.x;
   if (r >= R) return;
-  const int64_t row = (int64_t)blockIdx.y * R + r;      // (batch, feature)
-  const int64_t col = (int64_t)blockIdx.y * S * R + r;  // its t = 0 element
+  const int64_t row = (int64_t)batch * R + r;      // (batch, feature)
+  const int64_t col = (int64_t)batch * S * R + r;  // its t = 0 element
   const float* ap = a + col;
   const float* bp = b + col;
   float* hp = h + col;
@@ -71,9 +75,12 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int rglru_scan_f32(int B, int S, int R, const void* a,
                               const void* b, const void* h0, void* h,
                               void* h_last, void* stream) {
-  if (B < 0 || S < 0 || R < 0 || B > 65535) return (int)cudaErrorInvalidValue;
+  if (B < 0 || S < 0 || R < 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || R == 0) return 0;
-  const dim3 grid((R + kThreads - 1) / kThreads, B);
+  // one axis, where the limit is 2^31 - 1
+  const int64_t blocks = (int64_t)B * ((R + kThreads - 1) / kThreads);
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks);
   rglru_scan_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<const float*>(h0), static_cast<float*>(h),

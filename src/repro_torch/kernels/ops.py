@@ -18,9 +18,9 @@ from . import flash_attention as fa
 from . import pdhg_spmv as ps
 from . import rglru_scan as rs
 
-# calls of the fused burst on the card, either storage type: one per
-# burst, and each burst is 2*iters + 1 CUDA launches (a primal and a dual
-# step per iteration, then the residual; bf16 adds four conversions)
+# launches of the fused burst on the card, either storage type: one
+# cooperative CUDA launch a burst (every step, the bf16 conversions and
+# the residual inside it)
 PDHG_BURST_LAUNCHES = 0
 # calls of the bf16-storage burst on the card (counted in both)
 PDHG_BURST_BF16_LAUNCHES = 0
@@ -40,13 +40,26 @@ _META_CACHE_MAX = 64
 _BURST_ENTRY = {"fp32": "pdhg_burst_f32", "bf16": "pdhg_burst_bf16"}
 
 
-def _burst_fn(precision: str):
+def _burst_lib() -> ctypes.CDLL:
     lib = build.load("pdhg_burst.cu")
-    fn = getattr(lib, _BURST_ENTRY[precision])
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 25
-        fn.restype = ctypes.c_int
-    return fn
+    if lib.pdhg_burst_max_blocks.argtypes is None:
+        for name in _BURST_ENTRY.values():
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 31
+            fn.restype = ctypes.c_int
+        lib.pdhg_burst_max_blocks.argtypes = [ctypes.c_int] * 2
+        lib.pdhg_burst_max_blocks.restype = ctypes.c_int
+    return lib
+
+
+def burst_max_blocks(precision: str = "fp32", device=None) -> int:
+    """Blocks of the burst kernel that fit on the card at once: the grid
+    of one burst launch by default."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return int(_burst_lib().pdhg_burst_max_blocks(int(precision == "bf16"),
+                                                  index))
 
 
 def _meta_tensors(meta: tuple, device: torch.device):
@@ -62,6 +75,23 @@ def _meta_tensors(meta: tuple, device: torch.device):
             _META_CACHE.pop(next(iter(_META_CACHE)))
         _META_CACHE[key] = hit
     return hit
+
+
+def _check_work(name: str, work, meta: tuple, device: torch.device):
+    """A direction's work list: (lengths, order, items) int32 tensors on
+    `device` of lengths (n_rows_pad,), (n_rows_pad,) and (n_items, 2)."""
+    rows = meta[3]
+    ok = (isinstance(work, tuple) and len(work) == 3
+          and all(isinstance(t, torch.Tensor) and t.dtype == torch.int32
+                  and t.device == device and t.is_contiguous()
+                  for t in work)
+          and tuple(work[0].shape) == (rows,)
+          and tuple(work[1].shape) == (rows,)
+          and work[2].dim() == 2 and work[2].shape[1] == 2)
+    if not ok:
+        raise ValueError(f"pdhg_burst: {name} must be the (lengths, order, "
+                         f"items) int32 tensors of kernels.pdhg_spmv."
+                         f"burst_work on {device}")
 
 
 def _check_burst_args(named: dict, row_meta: tuple, col_meta: tuple,
@@ -102,7 +132,8 @@ def _check_burst_args(named: dict, row_meta: tuple, col_meta: tuple,
 def pdhg_burst(c, tau, xmax, q, sig, ub, keep_n, keep_m,
                row_idx, row_val, col_idx, col_val, x0, y0, *,
                row_meta: tuple, col_meta: tuple, iters: int,
-               precision: str = "fp32"):
+               precision: str = "fp32", row_work=None, col_work=None,
+               _blocks: int = 0):
     """One fused `iters`-iteration PDHG burst over a blocked-ELL operator.
 
     Arrays are storage-padded (x side n_pad, y side m_pad, see
@@ -112,9 +143,14 @@ def pdhg_burst(c, tau, xmax, q, sig, ub, keep_n, keep_m,
     iterates in bfloat16 between iterations (fp32 arithmetic; see
     pdhg_spmv.pdhg_update_burst); inputs and outputs are float32 either
     way.  Returns (x, y, worst), `worst` the terminal per-row residual
-    vector.  On CUDA tensors this is the kernel of
+    vector.  `row_work` / `col_work` are the kernel's work lists, as
+    kernels.pdhg_spmv.burst_work gives them: required on the card, and
+    checked wherever they are given (the plain version passes them on).
+    On CUDA tensors this is the kernel of
     kernels/csrc/pdhg_burst.cu, its pdhg_burst_f32 or pdhg_burst_bf16
-    entry; on CPU tensors the plain version,
+    entry, one cooperative launch a burst on as many blocks as fit
+    (`_blocks` > 0 asks for that many instead; a launch the card refuses
+    raises); on CPU tensors the plain version,
     kernels.pdhg_spmv.pdhg_update_burst."""
     global PDHG_BURST_LAUNCHES, PDHG_BURST_BF16_LAUNCHES
     if precision not in _BURST_ENTRY:
@@ -125,19 +161,26 @@ def pdhg_burst(c, tau, xmax, q, sig, ub, keep_n, keep_m,
                  row_val=row_val, col_idx=col_idx, col_val=col_val,
                  x0=x0, y0=y0)
     device = _check_burst_args(named, row_meta, col_meta, iters)
+    for name, work, meta in (("row_work", row_work, row_meta),
+                             ("col_work", col_work, col_meta)):
+        if work is not None or device.type == "cuda":
+            _check_work(name, work, meta, device)
     if device.type == "cpu":
         return ps.pdhg_update_burst(
             x0, y0, c, tau, xmax, q, sig, ub, keep_n, keep_m,
             row_idx, row_val, col_idx, col_val,
             row_meta=row_meta, col_meta=col_meta, iters=iters,
-            precision=precision)
+            precision=precision, row_work=row_work, col_work=col_work)
     if device.type != "cuda":
         raise ValueError(f"pdhg_burst runs on cuda or cpu tensors, got "
                          f"{device}")
-    fn = _burst_fn(precision)
+    fn = getattr(_burst_lib(), _BURST_ENTRY[precision])
     n_pad, m_pad = col_meta[3], row_meta[3]
     row_off, row_w = _meta_tensors(row_meta, device)
     col_off, col_w = _meta_tensors(col_meta, device)
+    row_len, row_order, row_items = row_work
+    col_len, col_order, col_items = col_work
+    n_row_items, n_col_items = row_items.shape[0], col_items.shape[0]
     x_out, x_bar = (torch.empty(n_pad, dtype=_F32, device=device)
                     for _ in range(2))
     y_out, worst = (torch.empty(m_pad, dtype=_F32, device=device)
@@ -149,19 +192,23 @@ def pdhg_burst(c, tau, xmax, q, sig, ub, keep_n, keep_m,
     else:
         x_tmp = torch.empty(n_pad, dtype=_F32, device=device)
         y_tmp = torch.empty(m_pad, dtype=_F32, device=device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(n_pad, m_pad, int(iters), int(row_meta[2]),
-                 int(col_meta[2]),
+        err = fn(n_pad, m_pad, int(iters), int(_blocks), index,
+                 int(row_meta[2]), n_row_items, int(col_meta[2]),
+                 n_col_items,
                  *(t.data_ptr() for t in (
                      c, tau, xmax, q, sig, ub, keep_n, keep_m,
-                     row_off, row_w, row_idx, row_val,
-                     col_off, col_w, col_idx, col_val, x0, y0,
+                     row_off, row_w, row_idx, row_val, row_len, row_order,
+                     row_items, col_off, col_w, col_idx, col_val, col_len,
+                     col_order, col_items, x0, y0,
                      x_out, y_out, worst, x_tmp, y_tmp, x_bar)),
                  stream)
     if err != 0:
-        raise RuntimeError(f"pdhg_burst ({precision}) kernel launch failed: "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"pdhg_burst ({precision}) cooperative launch "
+                           f"failed: CUDA error {err}")
     PDHG_BURST_LAUNCHES += 1
     if precision == "bf16":
         PDHG_BURST_BF16_LAUNCHES += 1
@@ -183,7 +230,8 @@ def _segment_max(values, segments, num_segments: int):
 def pdhg_adaptive(c, tau, xmax, q, sig, ub, row_idx, row_val, col_idx,
                   col_val, x0, y0, tols, inst_n, inst_m, *,
                   num_inst: int, row_meta: tuple, col_meta: tuple,
-                  chunk: int, max_chunks: int, precision: str = "fp32"):
+                  chunk: int, max_chunks: int, precision: str = "fp32",
+                  row_work=None, col_work=None):
     """Adaptive PDHG over a block-stacked instance batch: the reference's
     kernels.ops.pdhg_adaptive, a host loop of `chunk`-iteration bursts.
 
@@ -198,7 +246,8 @@ def pdhg_adaptive(c, tau, xmax, q, sig, ub, row_idx, row_val, col_idx,
     or when every instance is frozen (one host sync a chunk).
 
     Every burst is `pdhg_burst` (the CUDA kernel on CUDA tensors, the
-    plain version on CPU tensors); the masks and segment maxima are
+    plain version on CPU tensors; `row_work`/`col_work` pass to it as
+    they are); the masks and segment maxima are
     plain torch on the same device.  Returns (x, y, per-instance
     residuals, per-instance chunks used), the last two on the device."""
     global PDHG_ADAPTIVE_CALLS
@@ -224,7 +273,8 @@ def pdhg_adaptive(c, tau, xmax, q, sig, ub, row_idx, row_val, col_idx,
         x, y, worst = pdhg_burst(
             c, tau, xmax, q, sig, ub, frozen_ext[inst_n], frozen_ext[inst_m],
             row_idx, row_val, col_idx, col_val, x, y, row_meta=row_meta,
-            col_meta=col_meta, iters=chunk, precision=precision)
+            col_meta=col_meta, iters=chunk, precision=precision,
+            row_work=row_work, col_work=col_work)
         used = torch.where(frozen, used, k + 1)
         frozen = frozen | (residuals(worst) <= tols)
         k += 1
@@ -253,16 +303,18 @@ def _flash_fn():
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
                     softcap: float = 0.0) -> torch.Tensor:
     """Forward attention.  q: (B,S,H,hd); k, v: (B,T,Hkv,hd) with
-    H % Hkv == 0, all contiguous, one dtype (float32 or bfloat16), hd a
-    multiple of 8 up to 256.  Returns (B,S,H,hd) in q's dtype.
+    H % Hkv == 0, all contiguous, one dtype (float32 or bfloat16), hd up
+    to 256.  Returns (B,S,H,hd) in q's dtype.
 
     `window` None or 0 means no sliding window; the softmax scale is
-    1/sqrt(hd).  On CUDA tensors this is the kernel of
-    kernels/csrc/flash_attention.cu, chosen by dtype: bfloat16 runs the
-    tensor-core kernel (its operands on 16-byte boundaries), float32 the
-    SIMT kernel.  On CPU tensors it is the plain version,
-    kernels.flash_attention.flash_attention_plain."""
-    global FLASH_ATTENTION_LAUNCHES
+    1/sqrt(hd).  A head dim that is not a multiple of 8 is zero-padded to
+    the next one and the output sliced back, the scale kept from the real
+    hd, as the reference's wrapper pads to 128 lanes (zero columns add
+    nothing to q.k and give zero output columns).  On CUDA tensors this
+    is the kernel of kernels/csrc/flash_attention.cu, chosen by dtype:
+    bfloat16 runs the tensor-core kernel (its operands on 16-byte
+    boundaries), float32 the SIMT kernel.  On CPU tensors it is the
+    plain version, kernels.flash_attention.flash_attention_plain."""
     named = dict(q=q, k=k, v=v)
     for name, t in named.items():
         if t.dim() != 4:
@@ -278,8 +330,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     devices = {t.device for t in named.values()}
     if len(devices) != 1:
         raise ValueError(f"flash_attention operands span devices {devices}")
-    B, S, H, hd = q.shape
-    T, Hkv = k.shape[1], k.shape[2]
+    B, _, H, hd = q.shape
+    Hkv = k.shape[2]
     if k.shape[0] != B or k.shape[3] != hd or v.shape != k.shape:
         raise ValueError(f"flash_attention: k and v must be ({B}, T, Hkv, "
                          f"{hd}), got {tuple(k.shape)} and "
@@ -287,31 +339,42 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     if Hkv == 0 or H % Hkv:
         raise ValueError(f"flash_attention: {H} query heads do not divide "
                          f"into {Hkv} kv heads")
-    if hd % 8 or not 0 < hd <= 256:
-        raise ValueError(f"flash_attention: head dim {hd} must be a "
-                         f"multiple of 8 up to 256")
+    if not 0 < hd <= 256:
+        raise ValueError(f"flash_attention: head dim {hd} must be from 1 "
+                         f"up to 256")
+    device = devices.pop()
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
+                         f"{device}")
     window = int(window or 0)
     scale = 1.0 / hd ** 0.5
-    device = devices.pop()
-    if device.type == "cpu":
+    if hd % 8 == 0:
+        return _attend(q, k, v, causal, window, softcap, scale)
+    pad = (0, 8 - hd % 8)
+    out = _attend(*(torch.nn.functional.pad(t, pad) for t in (q, k, v)),
+                  causal, window, softcap, scale)
+    return out[..., :hd].contiguous()
+
+
+def _attend(q, k, v, causal, window, softcap, scale):
+    """flash_attention on checked operands whose head dim is a multiple
+    of 8: the plain version on the CPU, the kernel on the card."""
+    global FLASH_ATTENTION_LAUNCHES
+    if q.device.type == "cpu":
         return fa.flash_attention_plain(q, k, v, causal=causal,
                                         window=window, softcap=softcap,
                                         scale=scale)
-    if device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
-                         f"{device}")
-    if B * H > 65535:
-        raise ValueError(f"flash_attention: B*H = {B * H} exceeds the "
-                         f"kernel's grid limit of 65535")
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
-                                         for t in named.values()):
+                                         for t in (q, k, v)):
         raise ValueError("flash_attention: bfloat16 q, k and v must start "
                          "on 16-byte boundaries (the kernel copies 16 bytes "
                          "at a time)")
+    B, S, H, hd = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
     fn = _flash_fn()
     out = torch.empty_like(q)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_FA_DTYPES[q.dtype], B, S, T, H, Hkv, hd, int(causal),
                  window, float(softcap), scale, q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), out.data_ptr(), stream)
@@ -365,9 +428,6 @@ def rglru(a, b, h0=None):
         return rs.rglru_scan_plain(a, b, h0)
     if device.type != "cuda":
         raise ValueError(f"rglru runs on cuda or cpu tensors, got {device}")
-    if B > 65535:
-        raise ValueError(f"rglru: batch {B} exceeds the kernel's grid limit "
-                         f"of 65535")
     fn = _rglru_fn()
     h = torch.empty_like(a)
     h_last = torch.empty((B, R), dtype=_F32, device=device)

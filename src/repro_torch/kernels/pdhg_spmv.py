@@ -8,7 +8,7 @@ whole `iters`-iteration PDHG burst runs over it: K^T.y gather, primal
 prox/clip against xmax, K.x, dual ascent + inequality projection, and
 the terminal residual vector.
 
-This module holds the two halves that are not the CUDA kernel:
+This module holds the parts that are not the CUDA kernel:
 
   * the layout (`ell_blocks_plan` ... `ell_pack`): a numpy copy of the
     reference `repro.kernels.pdhg_spmv` layout, kept bitwise equal to it
@@ -17,7 +17,14 @@ This module holds the two halves that are not the CUDA kernel:
     in torch, fp32 or bf16 iterate storage, with the reference's formulas
     and freeze masks.  The CPU tests run it, and the card compares the
     hand kernel (kernels/csrc/pdhg_burst.cu, wrapped by
-    kernels.ops.pdhg_burst) against it.
+    kernels.ops.pdhg_burst) against it;
+  * the kernel's summation order: which lanes sum which slots of a row
+    (`lane_count`), the warps' work list built from it once per sparsity
+    pattern (`work_list`, carried by every EllBlocks; `burst_work` puts
+    it on a device), and the same sums in plain torch
+    (`spmv_in_kernel_order`, `pdhg_update_burst(order="kernel")`), which
+    the kernel equals bitwise.  Nothing on the main path calls the
+    latter; chip_smoke.py holds the kernel to it.
 
 Blocked-ELL layout
 ------------------
@@ -38,6 +45,16 @@ import torch
 
 
 @dataclasses.dataclass(frozen=True)
+class WorkList:
+    """The CUDA kernel's work list of one direction, a function of the
+    sparsity pattern alone (see `work_list`)."""
+
+    lengths: np.ndarray        # (n_rows_pad,) int32 entries of each row
+    order: np.ndarray          # (n_rows_pad,) int32 rows sorted by L
+    items: np.ndarray          # (n_items, 2) int32 warp tasks
+
+
+@dataclasses.dataclass(frozen=True)
 class EllBlocks:
     """One SpMV direction in blocked-ELL: per stored row, a padded gather.
 
@@ -52,6 +69,7 @@ class EllBlocks:
     bm: int                    # rows per block
     n_rows: int                # true row count
     n_rows_pad: int            # n_blocks * bm
+    work: WorkList             # the kernel's work list
 
     @property
     def meta(self) -> tuple:
@@ -81,6 +99,7 @@ class EllPlanSide:
     bm: int
     n_rows: int
     n_rows_pad: int
+    work: WorkList
 
 
 def ell_blocks_plan(row: np.ndarray, col: np.ndarray, n_rows: int, *,
@@ -125,7 +144,8 @@ def ell_blocks_plan(row: np.ndarray, col: np.ndarray, n_rows: int, *,
     return EllPlanSide(idx=idx, order=order, flat=flat, size=off,
                        offsets=tuple(int(o) for o in offsets_arr),
                        widths=tuple(int(x) for x in widths_arr),
-                       bm=bm, n_rows=n_rows, n_rows_pad=n_blocks * bm)
+                       bm=bm, n_rows=n_rows, n_rows_pad=n_blocks * bm,
+                       work=work_list(cpad))
 
 
 def ell_refill(plan: EllPlanSide, val: np.ndarray) -> EllBlocks:
@@ -135,7 +155,7 @@ def ell_refill(plan: EllPlanSide, val: np.ndarray) -> EllBlocks:
     vals[plan.flat] = np.asarray(val)[plan.order].astype(np.float32)
     return EllBlocks(idx=plan.idx, val=vals, offsets=plan.offsets,
                      widths=plan.widths, bm=plan.bm, n_rows=plan.n_rows,
-                     n_rows_pad=plan.n_rows_pad)
+                     n_rows_pad=plan.n_rows_pad, work=plan.work)
 
 
 def ell_blocks(row: np.ndarray, col: np.ndarray, val: np.ndarray,
@@ -252,13 +272,141 @@ def spmv_blocks(vec, idx_g, val_g, groups: WidthGroups):
     return torch.cat(sums)[groups.unperm]
 
 
+# ---------------------------------------------------------------------------
+# The CUDA kernel's summation order
+# ---------------------------------------------------------------------------
+#
+# The kernel sums each stored row with L lanes of one warp, L a function
+# of the row's length alone (its entry count in the sparsity pattern; the
+# entries fill the row's first slots): `lane_count`.  Lane l adds the
+# slots j = l, l + L, l + 2L, ... below the length in ascending order,
+# from +0.0, each product rounded before it is added; the L partial sums
+# then combine in a fixed butterfly, offsets L/2, L/4, ..., 1, which
+# lane 0 reads as p = p[:L/2] + p[L/2:] repeated.  The order depends on
+# the pattern alone: not on the values, the grid, the scheduling, or the
+# block the row shares with its neighbours, so a member of a
+# block-stacked batch sums each row as it does alone.
+
+LANE_SLOTS = 8       # a row of length n gets L <= n / 8 lanes
+MAX_LANES = 32       # one warp
+
+
+def lane_count(length):
+    """L(n) = min(32, the largest power of two <= max(1, n // 8)): the
+    lanes that sum a row of n entries (an int, a numpy array or a torch
+    tensor of ints)."""
+    k = length // LANE_SLOTS
+    return (1 + (k >= 2) * 1 + (k >= 4) * 2 + (k >= 8) * 4 + (k >= 16) * 8
+            + (k >= 32) * 16)
+
+
+def row_starts(meta: tuple) -> np.ndarray:
+    """The flat start (int64) of every stored row of a layout."""
+    offsets, widths, bm, _ = meta
+    w = np.repeat(np.asarray(widths, np.int64), bm)
+    return (np.repeat(np.asarray(offsets, np.int64), bm)
+            + np.tile(np.arange(bm, dtype=np.int64), len(widths)) * w)
+
+
+def work_list(lengths: np.ndarray) -> WorkList:
+    """The kernel's work list of one direction from each stored row's
+    length (its entry count), built once per sparsity pattern by
+    `ell_blocks_plan`.  `order` lists the rows by L, ascending rows
+    within each L; `items` cuts it into warp tasks of at most 32 / L rows
+    of one L: [position of the task's first row in `order`,
+    log2(L) | rows << 8].  One warp takes one task at a time."""
+    lengths = np.asarray(lengths, np.int64)
+    lanes = lane_count(lengths)
+    order = np.argsort(lanes, kind="stable")
+    sorted_l = lanes[order]
+    pos = np.arange(len(order))
+    first = np.searchsorted(sorted_l, sorted_l)   # start of each L's run
+    heads = np.flatnonzero((pos - first) % (MAX_LANES // sorted_l) == 0)
+    rows = np.diff(np.r_[heads, len(order)])
+    shift = np.log2(sorted_l[heads]).astype(np.int64)
+    items = np.stack([heads, shift | (rows << 8)], axis=1)
+    return WorkList(lengths=lengths.astype(np.int32),
+                    order=order.astype(np.int32),
+                    items=items.astype(np.int32))
+
+
+def burst_work(op: EllOperator, device) -> dict:
+    """The burst's `row_work` / `col_work` keywords for `op`: each
+    direction's (lengths, order, items) as int32 tensors on `device`
+    (kernels.ops.pdhg_burst needs them on the card; the plain version
+    reads the lengths for order="kernel")."""
+    def put(w: WorkList):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                     for a in (w.lengths, w.order, w.items))
+    return dict(row_work=put(op.rows.work), col_work=put(op.cols.work))
+
+
+@dataclasses.dataclass(frozen=True)
+class LanePlan:
+    """Index plan for `spmv_in_kernel_order`: the stored rows grouped by
+    their lane count.  Group g holds `lanes[g]` = L, the stored rows
+    `rows[g]` and `slots[g]` of shape (rows, K * L), whose [:, k * L + l]
+    is the flat slot that lane l adds at its step k (one past the table,
+    a zero, where the row's length ends)."""
+
+    lanes: tuple[int, ...]
+    rows: tuple[torch.Tensor, ...]
+    slots: tuple[torch.Tensor, ...]
+    n_rows_pad: int
+
+
+def lane_plan(meta: tuple, lengths: np.ndarray, device) -> LanePlan:
+    """Build the LanePlan of one direction's layout and row lengths."""
+    offsets, widths, bm, _ = meta
+    start = row_starts(meta)
+    length = np.asarray(lengths, np.int64)
+    lanes = lane_count(length)
+    size = int(offsets[-1] + bm * widths[-1])
+    out_l, out_r, out_s = [], [], []
+    for L in np.unique(lanes):
+        rows = np.flatnonzero(lanes == L)
+        steps = max(int((-(-length[rows] // L)).max()), 1)
+        j = np.arange(steps * L)
+        slots = np.where(j[None, :] < length[rows, None],
+                         start[rows, None] + j[None, :], size)
+        out_l.append(int(L))
+        out_r.append(torch.as_tensor(rows, device=device))
+        out_s.append(torch.as_tensor(slots, device=device))
+    return LanePlan(lanes=tuple(out_l), rows=tuple(out_r),
+                    slots=tuple(out_s), n_rows_pad=len(start))
+
+
+def spmv_in_kernel_order(vec, idx, val, plan: LanePlan):
+    """out[r] = sum_j val[r, j] * vec[idx[r, j]], summed in the CUDA
+    kernel's order (see the note above; every product and sum rounded to
+    fp32, as the kernel built with -fmad=false), so the two agree
+    bitwise.  `idx`/`val` are the tables in storage order."""
+    g = torch.cat([vec[idx] * val, torch.zeros(1, dtype=torch.float32,
+                                               device=vec.device)])
+    out = torch.empty(plan.n_rows_pad, dtype=torch.float32,
+                      device=vec.device)
+    for L, rows, slots in zip(plan.lanes, plan.rows, plan.slots):
+        p = g[slots].view(len(rows), -1, L)
+        acc = torch.zeros((len(rows), L), dtype=torch.float32,
+                          device=vec.device)
+        for k in range(p.shape[1]):
+            acc = acc + p[:, k]
+        while acc.shape[1] > 1:
+            half = acc.shape[1] // 2
+            acc = acc[:, :half] + acc[:, half:]
+        out[rows] = acc[:, 0]
+    return out
+
+
 PRECISIONS = ("fp32", "bf16")
+ORDERS = ("torch", "kernel")
 
 
 def pdhg_update_burst(x0, y0, c, tau, xmax, q, sig, ub, keep_n, keep_m,
                       row_idx, row_val, col_idx, col_val, *,
                       row_meta: tuple, col_meta: tuple, iters: int,
-                      precision: str = "fp32"):
+                      precision: str = "fp32", order: str = "torch",
+                      row_work=None, col_work=None):
     """`iters` iterations of the reference PDHG update over the blocked-
     ELL operator, plus the terminal per-row residual vector
     (|K_eq x - b| on equality rows, max(K_ub x - h, 0) on inequality
@@ -272,22 +420,42 @@ def pdhg_update_burst(x0, y0, c, tau, xmax, q, sig, ub, keep_n, keep_m,
     at the reference's cast points: x0/y0 rounded once at the start,
     each step on the fp32 widening of the stored values (xbar from the
     unrounded x'), x' and y' rounded when stored, and the outputs and
-    the residual on the widened final state.  "fp32" inserts no casts."""
+    the residual on the widened final state.  "fp32" inserts no casts.
+
+    `order="torch"` sums each row with torch's `sum` (the plain version);
+    `order="kernel"` sums it as the CUDA kernel does
+    (`spmv_in_kernel_order`), which gives the kernel's output bitwise;
+    it reads each row's length from `row_work` / `col_work` (as
+    `burst_work` gives them), which "torch" ignores."""
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; "
                          f"have {PRECISIONS}")
+    if order not in ORDERS:
+        raise ValueError(f"unknown order {order!r}; have {ORDERS}")
     dev = x0.device
-    rows_g = width_groups(row_meta, dev)
-    cols_g = width_groups(col_meta, dev)
-    r_idx, r_val = row_idx[rows_g.perm], row_val[rows_g.perm]
-    c_idx, c_val = col_idx[cols_g.perm], col_val[cols_g.perm]
     zero = torch.zeros((), dtype=torch.float32, device=dev)
+    if order == "kernel":
+        if row_work is None or col_work is None:
+            raise ValueError('order="kernel" needs row_work and col_work')
+        r_plan = lane_plan(row_meta, row_work[0].cpu().numpy(), dev)
+        c_plan = lane_plan(col_meta, col_work[0].cpu().numpy(), dev)
 
-    def Kx(x):
-        return spmv_blocks(x, r_idx, r_val, rows_g)
+        def Kx(x):
+            return spmv_in_kernel_order(x, row_idx, row_val, r_plan)
 
-    def KTy(y):
-        return spmv_blocks(y, c_idx, c_val, cols_g)
+        def KTy(y):
+            return spmv_in_kernel_order(y, col_idx, col_val, c_plan)
+    else:
+        rows_g = width_groups(row_meta, dev)
+        cols_g = width_groups(col_meta, dev)
+        r_idx, r_val = row_idx[rows_g.perm], row_val[rows_g.perm]
+        c_idx, c_val = col_idx[cols_g.perm], col_val[cols_g.perm]
+
+        def Kx(x):
+            return spmv_blocks(x, r_idx, r_val, rows_g)
+
+        def KTy(y):
+            return spmv_blocks(y, c_idx, c_val, cols_g)
 
     def update(x, y):
         x_new = torch.minimum(torch.maximum(x - tau * (c + KTy(y)), zero),

@@ -4,7 +4,8 @@
 kernel's plain version; it is held against the reference's
 `repro.kernels.ops.flash_attention` (the Pallas kernel in interpret mode)
 on the grid of tests/test_kernels.py, fp32 at 2e-5 and bf16 at 2e-2 (the
-tolerances of that file), plus hd=120 with a window.  At these sizes the
+tolerances of that file), plus hd=120 with a window and hd=12 and 100,
+which the wrapper zero-pads to a multiple of 8.  At these sizes the
 reference runs one 512-wide kv tile, so the cases where whole kv tiles
 are masked are checked on the card (chip_smoke.py phase 8).
 
@@ -53,6 +54,8 @@ def _qkv(seed, B, S, H, Hkv, hd):
     (512, 6, 2, 80, 0, 0.0, True),       # hd not a power of two
     (512, 4, 2, 120, 64, 0.0, True),     # danube's hd, with a window
     (256, 4, 2, 32, 0, 0.0, False),      # no mask at all
+    (256, 4, 2, 12, 0, 0.0, True),       # hd not a multiple of 8: padded
+    (512, 4, 1, 100, 128, 30.0, True),   # padded, window and softcap
 ])
 def test_flash_attention_matches_reference(S, H, Hkv, hd, window, cap,
                                            causal, dtype):
@@ -108,8 +111,8 @@ def _operands(**over):
     (dict(k=torch.zeros(1, 16, 16, 2).transpose(2, 3)), "contiguous"),
     (dict(q=torch.zeros(1, 16, 3, 16)), "divide"),
     (dict(v=torch.zeros(1, 8, 2, 16)), r"k and v must be"),
-    (dict(q=torch.zeros(1, 16, 4, 12), k=torch.zeros(1, 16, 2, 12),
-          v=torch.zeros(1, 16, 2, 12)), "multiple of 8"),
+    (dict(q=torch.zeros(1, 16, 4, 264), k=torch.zeros(1, 16, 2, 264),
+          v=torch.zeros(1, 16, 2, 264)), "up to 256"),
     (dict(q=torch.zeros(16, 4, 16)), "4-D"),
 ])
 def test_flash_attention_wrapper_checks_operands(over, match):
