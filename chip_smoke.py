@@ -74,18 +74,23 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      share;
  16. the RG-LRU scan kernel vs its plain version on the card: the grid of
      tests/test_kernels.py, R = 200, B = 65,600 (past the 65,535 limit of
-     a grid's y axis), with and without h0, and the serving shape (4,
-     4096, 2560) with a and b as the model makes them; bitwise
-     equal, two launches bitwise equal; a scan that ignores h0 and one
-     that drops the last step must fail the same check;
+     a grid's y axis), S = 1 and 4097, R = 202 and 7, B = 1 at the
+     serving S and R, a and b 4 bytes past a 16-byte boundary, with and
+     without h0, and the serving shape (4, 4096, 2560) with a and b as
+     the model makes them; bitwise equal, two launches bitwise equal; a
+     ring larger than the card's shared memory raises; a scan that
+     ignores h0, one that drops the last step and one that rounds a*h +
+     b once (a fused multiply-add) must fail the same check;
  17. serving path at full width: `launch.serve.main` on recurrentgemma-2b
      (26 layers, batch 4, prompt 4096, 32 tokens), run twice: 18 scan and
      8 attention launches a prefill, identical tokens, finite logits; in
      every layer the recurrent or attention sublayer through its kernel
      agrees with it through the plain version within bf16 places, and
      fails with the dropped step or the dropped kv tile;
- 18. times at recurrentgemma's shapes: the scan kernel, its plain version
-     and its bound (no library call computes the recurrence); attention at
+ 18. times at recurrentgemma's shapes: the scan kernel (its TB/s, its
+     registers, shared memory and blocks an SM, its time at the ring's
+     neighbouring stage lengths and at B = 1), its plain version and its
+     bound (no library call computes the recurrence); attention at
      hd 256 against SDPA with a window mask, its bound and the useful
      TFLOP/s reached; prefill wall,
      decode ms a token, and the device's busy share of one prefill and one
@@ -209,10 +214,18 @@ SWEEP_CPU_CELLS = dict(topos=("spine-leaf", "pon3"), patterns=("uniform",),
 SCAN_REPLACES = "src/repro/kernels/rglru_scan.py:33"
 SCAN_SOURCE = "src/repro_torch/kernels/csrc/rglru_scan.cu"
 # (B, S, R): the grid of tests/test_kernels.py, then R off the 128 lanes,
-# then B past the 65,535 limit of a grid's y axis
+# then B past the 65,535 limit of a grid's y axis; then the ring's edges:
+# S = 1 and S = 4097 (no multiple of a stage), R = 202 and R = 7 (no
+# multiple of 4: 4-byte copies; R < 32: one ragged group), and B = 1 at
+# the serving S and R (80 groups for 132 SMs)
 SCAN_CASES = [(b, s, r) for b in (1, 2, 3) for s in (64, 256)
               for r in (128, 256, 384)] + [(2, 256, 200), (3, 64, 200),
-                                           (65600, 8, 16)]
+                                           (65600, 8, 16), (2, 1, 2560),
+                                           (2, 4097, 2560), (2, 97, 202),
+                                           (3, 100, 7), (1, 4096, 2560)]
+# a and b as contiguous views 4 bytes past a 16-byte boundary (4-byte
+# copies at an R that would take 16-byte ones)
+SCAN_MISALIGNED = [(2, 1000, 2560), (3, 33, 202)]
 # recurrentgemma-2b's prefill scan at the serving shape below
 SCAN_SERVE = (4, 4096, 2560)
 RGEMMA_ARGS = ["--arch", "recurrentgemma-2b", "--batch", "4", "--prompt-len",
@@ -921,6 +934,33 @@ def scan_ignore_h0(a, b, h0=None):
     return scan_plain(a, b, None)
 
 
+def scan_fused(a, b, h0=None):
+    """A wrong scan, the checks' third negative control: each step rounds
+    a*h + b once, as a fused multiply-add does (computed in float64 from
+    the fp32 operands, where the product is exact, then rounded to fp32)."""
+    import torch
+    B, S, R = a.shape
+    h = (torch.zeros((B, R), dtype=a.dtype, device=a.device) if h0 is None
+         else h0)
+    out = torch.empty_like(a)
+    for t in range(S):
+        h = (a[:, t].double() * h.double() + b[:, t].double()).float()
+        out[:, t] = h
+    return out, h.clone()
+
+
+def scan_misaligned(t):
+    """A contiguous copy of `t` that starts 4 bytes past a 16-byte
+    boundary."""
+    import torch
+    flat = torch.empty(t.numel() + 3, dtype=t.dtype, device=t.device)
+    skip = (4 - flat.data_ptr()) % 16 // 4
+    view = flat[skip:skip + t.numel()].view(t.shape)
+    view.copy_(t)
+    require(view.data_ptr() % 16 == 4, "misaligned view not 4 B past 16")
+    return view
+
+
 def scan_equal(got, want) -> bool:
     """h and h_last bitwise equal."""
     import torch
@@ -960,6 +1000,18 @@ def compare_scan(label, a, b, h0) -> float:
     require(same, f"{label}: scan kernel differs from plain by {err:.3e}")
     require(scan_equal(out, again), f"{label}: two scan launches differ")
     return err
+
+
+def scan_bound(B, S, R) -> tuple[float, str, int, int]:
+    """Least time of one scan on this card: a and b read once, h written
+    once, h0 read and h_last written once, against 2 fp32 ops a step.
+    Returns (ms, bound_by, bytes, ops)."""
+    nbytes = (3 * B * S * R + 2 * B * R) * 4
+    nops = 2 * B * S * R
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = nops / FP32_OPS_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, nops)
 
 
 def mixer_patch(block, fn):
@@ -1780,15 +1832,33 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line:
             say(f"    ptxas: {line.strip()}")
     scan_errs = []
-    for seed, (B, S, R) in enumerate(SCAN_CASES + [SCAN_SERVE]):
+    cases = [(B, S, R, False) for B, S, R in SCAN_CASES] + [
+        (B, S, R, True) for B, S, R in SCAN_MISALIGNED] + [
+        (*SCAN_SERVE, False)]
+    for seed, (B, S, R, skew) in enumerate(cases):
         a, b, h0 = scan_inputs(seed, B, S, R, dev)
+        if skew:
+            a, b = scan_misaligned(a), scan_misaligned(b)
         for with_h0 in (False, True):
             scan_errs.append(compare_scan(
-                f"B={B} S={S} R={R} h0={'given' if with_h0 else 'zeros'}",
+                f"B={B} S={S} R={R}{' +4 B' if skew else ''} "
+                f"h0={'given' if with_h0 else 'zeros'}",
                 a, b, h0 if with_h0 else None))
     out = ops.rglru(a, b, h0)
+    # a stage length whose ring the card refuses must raise, not fall back
+    huge = 1 << 12
+    try:
+        ops._rglru_kernel(a, b, h0, huge)
+        refused = False
+    except RuntimeError as e:
+        refused = True
+        say(f"    a ring of {ops.scan_ring_bytes(huge)} B a block "
+            f"(T = {huge}) raises: {e}")
+    require(refused, "a scan launch asking more shared memory than the "
+                     "card has did not raise")
     for name, wrong in (("ignores h0", scan_ignore_h0),
-                        ("drops the last step", scan_drop_last_step)):
+                        ("drops the last step", scan_drop_last_step),
+                        ("rounds a*h + b once", scan_fused)):
         bad = scan_equal(wrong(a, b, h0), out)
         say(f"    negative control at {SCAN_SERVE}: a scan that {name} "
             f"passes the check: {bad}")
@@ -1842,16 +1912,37 @@ def main(argv=None) -> int:
     scan_ms = sorted(time_events(lambda: ops.rglru(a, b), 10)
                      for _ in range(3))[1]
     scan_plain_ms = time_events(lambda: scan_plain(a, b), 1)
-    B, S, R = SCAN_SERVE
-    scan_bytes = (3 * B * S * R + 2 * B * R) * 4
-    scan_flop = 2 * B * S * R
-    t_bytes = scan_bytes / HBM_BYTES_S * 1e3
-    t_ops = scan_flop / FP32_OPS_S * 1e3
-    scan_bound_ms = max(t_bytes, t_ops)
-    scan_bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    scan_bound_ms, scan_bound_by, scan_bytes, scan_flop = scan_bound(
+        *SCAN_SERVE)
+    cfg = ops.rglru_launch_config(*SCAN_SERVE, dev)
+    # the stage length's neighbours, to show what the rule picks
+    steps_ms = {t: sorted(time_events(lambda: ops._rglru_kernel(
+        a, b, None, t), 10) for _ in range(3))[1]
+        for t in sorted({8, cfg["steps"] // 2 // 8 * 8 or 8, cfg["steps"],
+                         2 * cfg["steps"], 4 * cfg["steps"]})}
     del a, b
     say(f"    scan kernel   {scan_ms:.6f} ms a launch (a, b {SCAN_SERVE} "
-        f"fp32; median of 3 runs of 10)")
+        f"fp32; median of 3 runs of 10): "
+        f"{scan_bytes / scan_ms * 1e-9:.3f} TB/s, "
+        f"{scan_ms / scan_bound_ms:.3f}x its bound")
+    say(f"    scan launch   {cfg['groups']} blocks of 32 threads, "
+        f"{cfg['registers']} registers and {cfg['local_bytes']} B of local "
+        f"memory a thread, {cfg['smem_bytes']} B of shared memory a block "
+        f"({cfg['stages']} stages of {cfg['steps']} steps), "
+        f"{cfg['blocks_per_sm']} blocks fit an SM")
+    say("    scan stage length T, ms a launch (median of 3 runs of 10): "
+        + ", ".join(f"T={t}: {ms:.6f}" for t, ms in steps_ms.items()))
+    one = (1, *SCAN_SERVE[1:])
+    a, b, _ = scan_inputs(78, *one, dev)
+    one_ms = sorted(time_events(lambda: ops.rglru(a, b), 10)
+                    for _ in range(3))[1]
+    one_bound_ms, _, one_bytes, _ = scan_bound(*one)
+    one_cfg = ops.rglru_launch_config(*one, dev)
+    del a, b
+    say(f"    scan at B=1   {one_ms:.6f} ms a launch ({one}, "
+        f"{one_cfg['groups']} blocks, T={one_cfg['steps']}): "
+        f"{one_bytes / one_ms * 1e-9:.3f} TB/s; bound {one_bound_ms:.6f} ms, "
+        f"{one_ms / one_bound_ms:.3f}x")
     say(f"    scan plain    {scan_plain_ms:.6f} ms")
     say(f"    scan library  none: no single PyTorch call computes a "
         f"first-order linear recurrence")

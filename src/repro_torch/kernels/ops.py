@@ -389,13 +389,88 @@ def _attend(q, k, v, causal, window, softcap, scale):
 # RG-LRU scan (the recurrent layer's prefill, models.rglru impl="kernel")
 # ---------------------------------------------------------------------------
 
-def _rglru_fn():
+# the scan kernel's ring (kernels/csrc/rglru_scan.cu): a group of
+# SCAN_GROUP features a block, SCAN_STAGES slots of `steps` time steps of
+# a and b in shared memory, SCAN_STAGES - 1 of them in flight
+SCAN_GROUP = 32
+SCAN_STAGES = 4
+# bytes of a and b in flight over the card that the stage length aims at:
+# about the card's memory rate times its latency under load (3.35 TB/s x
+# ~1.2 us); more only queues (chip_smoke.py phase 18 times the neighbours)
+SCAN_IN_FLIGHT = 4 << 20
+# the most blocks an SM holds at once on Hopper
+_SM_BLOCKS = 32
+# device index -> (SMs, shared bytes an SM, bytes a block may ask for,
+# bytes reserved a block)
+_SCAN_LIMITS: dict = {}
+
+
+def _scan_lib() -> ctypes.CDLL:
     lib = build.load("rglru_scan.cu")
-    fn = lib.rglru_scan_f32
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
-        fn.restype = ctypes.c_int
-    return fn
+    if lib.rglru_scan_f32.argtypes is None:
+        lib.rglru_scan_f32.argtypes = ([ctypes.c_int] * 4
+                                       + [ctypes.c_void_p] * 6)
+        lib.rglru_scan_f32.restype = ctypes.c_int
+        lib.rglru_scan_limits.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.rglru_scan_limits.restype = ctypes.c_int
+        lib.rglru_scan_occupancy.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.rglru_scan_occupancy.restype = ctypes.c_int
+    return lib
+
+
+def scan_ring_bytes(steps: int) -> int:
+    """Shared memory a block of the scan kernel asks for at stage length
+    `steps`: SCAN_STAGES slots of a and b, SCAN_GROUP floats a step."""
+    return SCAN_STAGES * 2 * steps * SCAN_GROUP * 4
+
+
+def scan_steps(B: int, S: int, R: int, sms: int, smem_sm: int,
+               smem_block: int, reserved: int) -> int:
+    """T, the time steps of a stage of the scan kernel's ring, for a launch
+    on (B, S, R) on a card of `sms` SMs with `smem_sm` bytes of shared
+    memory an SM, `smem_block` a block may ask for and `reserved` bytes it
+    reserves a block: a multiple of 8, at least 8, that puts about
+    SCAN_IN_FLIGHT bytes in flight over the launch's groups, keeps every
+    group resident at once (ceil(groups / sms) blocks an SM, at most 32)
+    and is no longer than S rounded up to 8.  T changes no bit of the
+    result."""
+    groups = B * -(-R // SCAN_GROUP)
+    per_sm = min(_SM_BLOCKS, max(1, -(-groups // sms)))
+    fit = min(smem_block, smem_sm // per_sm - reserved) // scan_ring_bytes(1)
+    step_bytes = 2 * SCAN_GROUP * 4                 # a_t and b_t of a group
+    want = SCAN_IN_FLIGHT // (groups * (SCAN_STAGES - 1) * step_bytes)
+    return max(8, min(fit, want, -(-max(S, 1) // 8) * 8) // 8 * 8)
+
+
+def _scan_limits(device: torch.device) -> tuple:
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    if index not in _SCAN_LIMITS:
+        out = (ctypes.c_int * 4)()
+        err = _scan_lib().rglru_scan_limits(index, out)
+        if err != 0:
+            raise RuntimeError(f"rglru: reading the card's limits failed: "
+                               f"CUDA error {err}")
+        _SCAN_LIMITS[index] = tuple(out)
+    return _SCAN_LIMITS[index]
+
+
+def rglru_launch_config(B: int, S: int, R: int, device=None) -> dict:
+    """What the scan kernel's launch on (B, S, R) uses on the card: its
+    groups (blocks), stage length, shared memory a block, registers and
+    local (spill) bytes a thread, and the blocks that fit on an SM, for
+    the 16-byte copy kernel (the one the model's fresh a and b take)."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    steps = scan_steps(B, S, R, *_scan_limits(device))
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        err = _scan_lib().rglru_scan_occupancy(steps, out)
+    if err != 0:
+        raise RuntimeError(f"rglru: occupancy query failed: CUDA error {err}")
+    return {"groups": B * -(-R // SCAN_GROUP), "steps": steps,
+            "stages": SCAN_STAGES, "smem_bytes": out[1],
+            "registers": out[0], "blocks_per_sm": out[2],
+            "local_bytes": out[3]}
 
 
 def rglru(a, b, h0=None):
@@ -406,7 +481,6 @@ def rglru(a, b, h0=None):
     On CUDA tensors this is the kernel of kernels/csrc/rglru_scan.cu; on
     CPU tensors its plain version, kernels.rglru_scan.rglru_scan_plain.
     The two agree bitwise."""
-    global RGLRU_SCAN_LAUNCHES
     named = dict(a=a, b=b) if h0 is None else dict(a=a, b=b, h0=h0)
     for name, t in named.items():
         if t.dtype != _F32:
@@ -428,14 +502,23 @@ def rglru(a, b, h0=None):
         return rs.rglru_scan_plain(a, b, h0)
     if device.type != "cuda":
         raise ValueError(f"rglru runs on cuda or cpu tensors, got {device}")
-    fn = _rglru_fn()
+    return _rglru_kernel(a, b, h0, scan_steps(B, S, R, *_scan_limits(device)))
+
+
+def _rglru_kernel(a, b, h0, steps: int):
+    """One launch of the scan kernel on checked CUDA operands, its ring's
+    stages `steps` long; raises on a non-zero CUDA error (a shared-memory
+    request the card refuses among them)."""
+    global RGLRU_SCAN_LAUNCHES
+    B, S, R = a.shape
     h = torch.empty_like(a)
-    h_last = torch.empty((B, R), dtype=_F32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(B, S, R, a.data_ptr(), b.data_ptr(),
-                 None if h0 is None else h0.data_ptr(), h.data_ptr(),
-                 h_last.data_ptr(), stream)
+    h_last = torch.empty((B, R), dtype=_F32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = _scan_lib().rglru_scan_f32(
+            B, S, R, steps, a.data_ptr(), b.data_ptr(),
+            None if h0 is None else h0.data_ptr(), h.data_ptr(),
+            h_last.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"rglru kernel launch failed: CUDA error {err}")
     RGLRU_SCAN_LAUNCHES += 1

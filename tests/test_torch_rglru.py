@@ -13,7 +13,9 @@ equal to a numpy loop of separate roundings instead.  It is also held
 against the reference's oracle `ref.rglru_ref`, an associative scan
 that sums in another order, to 1e-5 as tests/test_kernels.py holds the
 kernel.  R = 200 is not a multiple of the Pallas kernel's 128 lanes, so
-there the oracle and a numpy loop stand in for it.
+there the oracle and a numpy loop stand in for it; so at the card's ring
+edges (S = 1, odd S and R, R < 32).  The CUDA kernel's stage length, which
+the wrapper picks from the card's limits, is checked against an H100's.
 
 One recurrent layer of the recurrentgemma smoke config (weights from the
 reference's `init_params`) is then held against the reference's
@@ -88,7 +90,13 @@ def test_scan_matches_pallas_kernel(B, S, R, with_h0):
     np.testing.assert_array_equal(got_last.numpy(), got.numpy()[:, -1])
 
 
-@pytest.mark.parametrize("B,S,R", GRID + [(2, 64, 200), (3, 256, 200)])
+# the card's ring edges (chip_smoke.py phase 16): S = 1, S and R odd,
+# R < 32, and the serving R at a short S
+RING_EDGES = [(1, 1, 7), (2, 97, 202), (1, 33, 2560)]
+
+
+@pytest.mark.parametrize("B,S,R", GRID + [(2, 64, 200), (3, 256, 200)]
+                         + RING_EDGES)
 def test_scan_matches_reference_oracle(B, S, R):
     a, b, h0 = _inputs(B + S + R, B, S, R)
     want = np.asarray(jref.rglru_ref(jnp.asarray(a), jnp.asarray(b)))
@@ -101,6 +109,43 @@ def test_scan_matches_reference_oracle(B, S, R):
                               torch.from_numpy(h0))
     np.testing.assert_array_equal(got.numpy(), _loop(a, b, h0))
     np.testing.assert_array_equal(got_last.numpy(), got.numpy()[:, -1])
+
+
+# an H100 SXM's limits as rglru_scan_limits reads them: SMs, shared bytes
+# an SM, bytes a block may ask for, bytes reserved a block
+H100 = (132, 233472, 232448, 1024)
+
+
+@pytest.mark.parametrize("B,S,R", [(4, 4096, 2560), (2, 4096, 2560),
+                                   (1, 4096, 2560), (2, 1, 2560),
+                                   (2, 4097, 2560), (3, 100, 7),
+                                   (65600, 8, 16), (64, 4096, 2560)])
+def test_scan_stage_length_fills_the_card(B, S, R):
+    steps = ops.scan_steps(B, S, R, *H100)
+    sms, smem_sm, smem_block, reserved = H100
+    groups = B * -(-R // ops.SCAN_GROUP)
+    assert steps >= 8 and steps % 8 == 0
+    assert steps <= max(8, -(-S // 8) * 8)
+    ring = ops.scan_ring_bytes(steps)
+    assert ring <= smem_block
+    if groups <= 32 * sms and steps > 8:
+        # every group resident at once
+        per_sm = -(-groups // sms)
+        assert per_sm * (ring + reserved) <= smem_sm
+    # about SCAN_IN_FLIGHT bytes of a and b in flight, never past it
+    # unless the shortest stage does
+    in_flight = groups * (ops.SCAN_STAGES - 1) * steps * 2 * 32 * 4
+    assert in_flight <= ops.SCAN_IN_FLIGHT or steps == 8
+
+
+def test_scan_stage_length_at_the_serving_shapes():
+    # recurrentgemma-2b's prefill: 320 groups, 12 KB in flight a group
+    assert ops.scan_steps(4, 4096, 2560, *H100) == 16
+    assert ops.scan_ring_bytes(16) == 16384
+    # B = 1: 80 groups, each with more in flight
+    assert ops.scan_steps(1, 4096, 2560, *H100) == 64
+    # a short S takes a short stage
+    assert ops.scan_steps(2, 1, 2560, *H100) == 8
 
 
 def test_wrapper_on_cpu_runs_plain_version_and_counts_nothing():
