@@ -94,7 +94,34 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      hd 256 against SDPA with a window mask, its bound and the useful
      TFLOP/s reached; prefill wall,
      decode ms a token, and the device's busy share of one prefill and one
-     decode step by kernel.
+     decode step by kernel;
+ 19. failures at full size: phase 13's 8-stack degraded under link3 and
+     switch (one scenario a seed, a sparsity pattern a member), re-solved
+     by solve_fast_ensemble warm from the healthy results and cold:
+     every schedule certified, warm served equal to cold to 1e-6, energy
+     within 5%, fewer warm iterations, the warm dispatch repeated and
+     each member solved alone from its projected start bitwise equal,
+     the bf16 warm ensemble certified; the burst bitwise equal to its
+     summation-order model from the projected start (fp32 and bf16, 1
+     and 250 iterations) and timed at the warm degraded stack beside its
+     plain version, two CSR mat-vecs and its bound; the ensemble's stage
+     clock (projection, LP builds, ELL plans and work lists, the adaptive
+     driver, assembly);
+ 20. online arrivals: tests/test_arrivals.py's heavy trace through
+     run_online on the card, against the CPU within 1e-4 or, where the
+     two differ, bitwise equal to the CPU in the kernel's summation
+     order; its one-epoch case equal to solve_fast on the card (the same
+     rule); the flagship shuffle arriving as a 4-co-flow poisson trace on
+     fat-tree k=16, warm and cold: epochs, iterations, conservation, the
+     wall an epoch split into the adaptive driver and the host;
+ 21. chaos replay: the storm preset over both traces, twice on the card
+     (byte-identical chaos logs, event traces and epochs), every epoch
+     certified, demand conserved, the storm hitting an epoch with demand;
+     the heavy trace also on the CPU under phase 20's rule;
+ 22. the sweep's --failures and --arrivals axes at their tests' sizes,
+     each row against the CPU under phase 20's rule; --chaos refused
+     naming its ROADMAP item; plan_collectives(v5e_fabric()) on the card
+     against the CPU.
 
 The last lines are one JSON object describing the kernels, the card's
 name and power limit, and `{"ok": true, "device": {...}}`.  Imports
@@ -230,6 +257,49 @@ SCAN_MISALIGNED = [(2, 1000, 2560), (3, 33, 202)]
 SCAN_SERVE = (4, 4096, 2560)
 RGEMMA_ARGS = ["--arch", "recurrentgemma-2b", "--batch", "4", "--prompt-len",
                "4096", "--gen", "32", "--impl", "kernel"]
+# failures: the 8-stack degraded under these presets (one scenario a seed),
+# held to the reference's bands (tests/test_failures.py): warm served
+# equal to cold to 1e-6, energy within 5%
+FAIL_PRESETS = ("link3", "switch")
+WARM_SERVED_RTOL = 1e-6
+WARM_ENERGY_BAND = 0.05
+# the warm burst against its summation-order model: one step and one
+# adaptive chunk from the projected start
+WARM_ORDER_ITERS = (1, 250)
+# online arrivals: tests/test_arrivals.py's heavy trace (spine-leaf,
+# uniform 4 x 3 of 48 Gbit, 4 poisson co-flows 2 s apart on average,
+# seed 0, epochs of 1 s) and its one-epoch case (3 co-flows of 6 Gbit at
+# t = 0); then the flagship shuffle (fat-tree k=16, uniform 20 x 12 of
+# 120 Gbit, shortest paths) arriving as a poisson trace, cut to
+# FT_COFLOWS co-flows for time, with epochs of one slot so that flows
+# carry residuals from epoch to epoch
+HEAVY = dict(n_map=4, n_reduce=3, total_gbits=48.0)
+LIGHT = dict(n_map=4, n_reduce=3, total_gbits=6.0)
+ONLINE_KW = dict(epoch_s=1.0, iters=3000)
+FT_COFLOWS = 4
+FT_ONLINE_KW = dict(epoch_s=1.0, path_slack=0)
+# chaos: the storm preset's trace seed for each of those traces.  Seed 0's
+# first storm is active at the heavy trace's boundaries from 3 s on; on
+# the fat-tree trace its storms fall between the boundaries at 1 s and
+# 4 s and net to no change, so that trace takes seed 1, whose first
+# storm is active at the 4 s boundary, where its fourth co-flow arrives
+STORM_SEEDS = {"heavy": 0, "ft": 1}
+# the sweep's new axes at their tests' sizes (tests/test_failures.py and
+# tests/test_arrivals.py)
+SWEEP_FAILURES_ARGS = ["--topos", "spine-leaf", "--objectives", "energy",
+                       "--patterns", "uniform", "--seeds", "2",
+                       "--total-gbits", "6", "--n-map", "4", "--n-reduce",
+                       "3", "--iters", "1200", "--oracle-check", "0",
+                       "--failures", "link1"]
+SWEEP_ARRIVALS_ARGS = ["--topos", "spine-leaf", "--objectives", "energy",
+                       "--patterns", "uniform", "--seeds", "1",
+                       "--total-gbits", "8", "--n-map", "4", "--n-reduce",
+                       "3", "--iters", "1200", "--oracle-check", "0",
+                       "--arrivals", "poisson", "--arrival-coflows", "3"]
+# the columns a sweep row is held to across devices
+SWEEP_ROW_COLS = ("energy_j", "completion_s", "survivability",
+                  "degradation_ratio", "mean_response_s", "backlog_gbits",
+                  "epochs", "remaining_gbits")
 
 
 def card_line() -> str:
@@ -1150,6 +1220,558 @@ def report_busy(label, fn, wall) -> None:
         say(f"    profiler: {name} x{count}: {us * 1e-3:.3f} ms")
 
 
+# ---------------------------------------------------------------------------
+# phases 19-22: failures and warm re-solves, online arrivals, chaos, the
+# sweep's new axes
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def recording(mod, name):
+    """While the block runs, append each call's (args, kwargs) of
+    `mod.name` to the list it yields, and call through."""
+    calls = []
+    fn = getattr(mod, name)
+
+    def rec(*a, **kw):
+        calls.append((a, kw))
+        return fn(*a, **kw)
+
+    with mock.patch.object(mod, name, rec):
+        yield calls
+
+
+def warm_stack_args(lps, starts, dev):
+    """The burst's operands for a warm-started stack exactly as
+    solve_lp_batch hands them over: the block-stacked LP packed in
+    blocked ELL, nothing frozen, and the projected float64 starts cast to
+    float32 ([equalities; inequalities] for y).  Returns (op, args)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import solver
+    g = solver.block_stack(lps).lp
+    op, vecs, ell = solver._pack_ell(g.c, g.row, g.col, g.val, g.b, g.h,
+                                     g.xmax, g.m_eq, dev)
+    x0 = np.concatenate([s[0] for s in starts])
+    y0 = np.concatenate([s[1][:lp.m_eq] for s, lp in zip(starts, lps)]
+                        + [s[1][lp.m_eq:] for s, lp in zip(starts, lps)])
+    keep = (torch.zeros(op.n_pad, dtype=torch.bool, device=dev),
+            torch.zeros(op.m_pad, dtype=torch.bool, device=dev))
+    start = tuple(torch.from_numpy(np.pad(np.asarray(v, np.float32),
+                                          (0, pad - len(v)))).to(dev)
+                  for v, pad in ((x0, op.n_pad), (y0, op.m_pad)))
+    return g, op, vecs + keep + ell + start
+
+
+def csr_pair_ms(lp, dev) -> float:
+    """The library yardstick: one torch CSR mat-vec each way (cuSPARSE),
+    the sparse work of one PDHG iteration; the port never calls it."""
+    import numpy as np
+    import torch
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # CSR is beta
+        K = torch.sparse_coo_tensor(
+            torch.from_numpy(np.stack([lp.row, lp.col])),
+            torch.from_numpy(lp.val.astype(np.float32)), (lp.m, lp.n),
+            check_invariants=True).coalesce()
+        Kc = K.to_sparse_csr().to(dev)
+        KTc = K.t().coalesce().to_sparse_csr().to(dev)
+    xv = torch.rand(lp.n, 1, device=dev)
+    yv = torch.rand(lp.m, 1, device=dev)
+    return time_events(lambda: (Kc @ xv, KTc @ yv), 200)
+
+
+def failure_phase(probs8, healthy, dev, sms, bf16_presets) -> dict:
+    """Phase 19: the healthy 8-stack degraded under each of FAIL_PRESETS,
+    re-solved warm (solve_fast_ensemble(warm=healthy)) and cold on the
+    card; bf16 storage for `bf16_presets`; the warm burst held to its
+    summation-order model from the projected start; the burst timed at
+    the warm degraded stack.  Returns the launch counts of the warm,
+    cold and bf16 ensembles and the times of row 1d."""
+    import numpy as np
+    from repro_torch.core import failures, solver, verify
+    from repro_torch.kernels import ops, pdhg_spmv
+    out = {"launches": 0, "bf16_launches": 0}
+    stages = (("projection (project_warm_start)", solver,
+               "project_warm_start"),) + batch_stages()
+    for preset in FAIL_PRESETS:
+        t0 = time.perf_counter()
+        dprobs = [failures.degrade_problem(
+            p, failures.sample(p.topo, preset, seed))
+            for seed, p in zip(BATCH_SEEDS, probs8)]
+        t_degrade = time.perf_counter() - t0
+        keys = {solver._structure_key(q, "energy") for q in dprobs}
+        lost = [failures.degradation_ratio(p.topo, q.topo)
+                for p, q in zip(probs8, dprobs)]
+        say(f"    {preset}: {len(dprobs)} degraded problems in {t_degrade:.3f} s; "
+            f"capacity lost {min(lost):.4f}..{max(lost):.4f}; offered "
+            f"{min(q.coflow.total_gbits for q in dprobs):.1f}.."
+            f"{max(q.coflow.total_gbits for q in dprobs):.1f} Gbit of 120; "
+            f"{len(keys)} distinct sparsity patterns among them")
+        require(len(keys) > 1, f"{preset}: the degraded members share one "
+                               f"sparsity pattern")
+        snap = solver.build_cache_stats().snapshot()
+        ops.PDHG_BURST_LAUNCHES = 0
+        ops.PDHG_ADAPTIVE_CALLS = 0
+        with recording(solver, "solve_lp_batch") as calls, \
+                stage_clock(stages) as spent:
+            t0 = time.perf_counter()
+            warm = solver.solve_fast_ensemble(dprobs, "energy", warm=healthy,
+                                              device=dev)
+            warm_wall = time.perf_counter() - t0
+        warm_launches = ops.PDHG_BURST_LAUNCHES
+        warm_calls = ops.PDHG_ADAPTIVE_CALLS
+        d = solver.build_cache_stats()
+        ops.PDHG_BURST_LAUNCHES = 0
+        with stage_clock(stages) as cold_spent:
+            t0 = time.perf_counter()
+            cold = solver.solve_fast_ensemble(dprobs, "energy", device=dev)
+            cold_wall = time.perf_counter() - t0
+        cold_launches = ops.PDHG_BURST_LAUNCHES
+        out["launches"] += warm_launches + cold_launches
+        say(f"    {preset}: warm ensemble wall {warm_wall:.3f} s "
+            f"({warm_calls} pdhg_adaptive calls, {warm_launches} bursts, "
+            f"chunk {calls[0][1]['chunk']}; ELL plans built "
+            f"{d.ell_misses - snap.ell_misses}, LP structures built "
+            f"{d.structure_misses - snap.structure_misses}); cold "
+            f"{cold_wall:.3f} s ({cold_launches} bursts)")
+        for label, sec in spent.items():
+            say(f"        stage {label}: {sec:.4f} s "
+                f"({sec / warm_wall:.4f} of the wall; cold "
+                f"{cold_spent[label]:.4f} s)")
+        say(f"        decomposed paths: warm {sum(len(w.paths) for w in warm)}"
+            f", cold {sum(len(c.paths) for c in cold)}")
+        require(calls[0][1]["chunk"] == 250, "the warm ensemble's chunk "
+                                             "is not 250")
+        for seed, q, w, c in zip(BATCH_SEEDS, dprobs, warm, cold):
+            verify.check_schedule(q, w.schedule).assert_ok(
+                f"{preset} seed {seed} warm")
+            verify.check_schedule(q, c.schedule).assert_ok(
+                f"{preset} seed {seed} cold")
+            sw, sc = float(w.metrics.served.sum()), float(c.metrics.served.sum())
+            dE = rel_diff(w.metrics.energy_j, c.metrics.energy_j)
+            say(f"      seed {seed}: warm E={w.metrics.energy_j:.6f} J "
+                f"served {sw:.6f} iters {w.iterations} | cold "
+                f"E={c.metrics.energy_j:.6f} J served {sc:.6f} iters "
+                f"{c.iterations} | dE {dE:.2e}; certified")
+            require(rel_diff(sw, sc) <= WARM_SERVED_RTOL,
+                    f"{preset} seed {seed}: warm serves {sw}, cold {sc}")
+            require(dE <= WARM_ENERGY_BAND,
+                    f"{preset} seed {seed}: warm energy {dE:.3e} off cold")
+        w_it = sum(w.iterations for w in warm)
+        c_it = sum(c.iterations for c in cold)
+        say(f"    {preset}: iterations warm {w_it} against cold {c_it}")
+        require(w_it < c_it, f"{preset}: warm iterations {w_it} not below "
+                             f"cold {c_it}")
+        # the warm dispatch again, and each member alone (its solo
+        # solve_fast_warm's LP solve): bitwise
+        lps, kw = calls[0][0][0], calls[0][1]
+        starts = kw["warm_starts"]
+        again = solver.solve_lp_batch(lps, chunk=250, warm_starts=starts,
+                                      device=dev)
+        require(all(np.array_equal(a.x, w.lp_x) and np.array_equal(a.y, w.lp_y)
+                    and a.iterations == w.iterations
+                    for a, w in zip(again, warm)),
+                f"{preset}: two warm runs differ")
+        solo_same = []
+        for lp, st, w in zip(lps, starts, warm):
+            s = solver.solve_lp_batch([lp], chunk=250, warm_starts=[st],
+                                      device=dev)[0]
+            solo_same.append(np.array_equal(s.x, w.lp_x)
+                             and np.array_equal(s.y, w.lp_y)
+                             and s.iterations == w.iterations)
+        say(f"    {preset}: the warm dispatch run again: bitwise equal; "
+            f"each member alone from its projected start: bitwise equal "
+            f"for {sum(solo_same)} of {len(solo_same)}")
+        require(all(solo_same), f"{preset}: a stacked member differs from "
+                                f"its solo solve")
+        if preset in bf16_presets:
+            ops.PDHG_BURST_BF16_LAUNCHES = 0
+            t0 = time.perf_counter()
+            bf = solver.solve_fast_ensemble(dprobs, "energy", warm=healthy,
+                                            precision="bf16", device=dev)
+            bf_wall = time.perf_counter() - t0
+            out["bf16_launches"] += ops.PDHG_BURST_BF16_LAUNCHES
+            for seed, q, b in zip(BATCH_SEEDS, dprobs, bf):
+                verify.check_schedule(q, b.schedule).assert_ok(
+                    f"{preset} seed {seed} bf16 warm")
+            say(f"    {preset}: bf16 warm ensemble wall {bf_wall:.3f} s, "
+                f"{ops.PDHG_BURST_BF16_LAUNCHES} bf16 bursts, {len(bf)} schedules "
+                f"certified; iterations "
+                f"{[b.iterations for b in bf]} (fp32 {[w.iterations for w in warm]})")
+        if preset == FAIL_PRESETS[0]:
+            x0 = np.concatenate([s[0] for s in starts])
+            y0 = np.concatenate([s[1] for s in starts])
+            say(f"    {preset}: the projected start has {np.count_nonzero(x0)}"
+                f" of {len(x0)} x and {np.count_nonzero(y0)} of {len(y0)} y "
+                f"non-zero")
+            require(np.count_nonzero(x0) and np.count_nonzero(y0),
+                    "the projected start is zero")
+            g, op, args = warm_stack_args(lps, starts, dev)
+            lay = layout(op, dev)
+            for precision in ("fp32", "bf16"):
+                for iters in WARM_ORDER_ITERS:
+                    k = ops.pdhg_burst(*args, **lay, iters=iters,
+                                       precision=precision)
+                    check_kernel_order(f"warm {preset} 8-stack", op, args,
+                                       iters, precision, k, sms)
+            n_k = 1000
+            ms = sorted(time_events(lambda: ops.pdhg_burst(
+                *args, iters=n_k, **lay), 1) / n_k for _ in range(3))[1]
+            plain_ms = time_events(lambda: pdhg_spmv.pdhg_update_burst(
+                args[12], args[13], *args[:12], iters=5, **lay), 1) / 5
+            library_ms = csr_pair_ms(g, dev)
+            bound_ms, bound_by, nbytes, nops = burst_bound(op, len(g.val))
+            say(f"    warm {preset} 8-stack: n={g.n} m={g.m} nnz={len(g.val)}; "
+                f"ELL n_pad={op.n_pad} m_pad={op.m_pad}")
+            say(f"    kernel  {ms:.6f} ms/iter (burst of {n_k}, median of 3)")
+            say(f"    plain   {plain_ms:.6f} ms/iter (burst of 5)")
+            say(f"    library {library_ms:.6f} ms per K.x + K^T.y pair "
+                f"(torch CSR matmul)")
+            say(f"    bound   {bound_ms:.6f} ms/iter ({bound_by}: {nbytes} B "
+                f"at 3.35 TB/s, {nops} fp32 ops at 67 TFLOP/s)")
+            out.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound_ms)
+    return out
+
+
+def epoch_rows(res) -> list[dict]:
+    """A run_online result's epochs as dicts, the wall clock left out."""
+    return [{k: v for k, v in dataclasses.asdict(e).items()
+             if k != "solve_s"} for e in res.epochs]
+
+
+def online_summary(res) -> dict:
+    """What a run_online result reports, epochs and wall clock aside."""
+    return {"n_epochs": res.n_epochs, "total_energy_j": res.total_energy_j,
+            "makespan_s": res.makespan_s,
+            "mean_response_s": res.mean_response_s,
+            "backlog_gbits": res.backlog_gbits,
+            "total_iterations": res.total_iterations,
+            "availability": res.availability,
+            "stranded_gbits": res.stranded_gbits,
+            "deferred_failure_gbits": res.deferred_failure_gbits,
+            "recoveries": list(res.recoveries),
+            "chaos_log": list(res.chaos_log),
+            "t_done": [c.t_done for c in res.coflows]}
+
+
+def online_differs(a, b, rtol=METRIC_RTOL) -> list[str]:
+    """Where two run_online results differ by more than `rtol` (numbers)
+    or at all (anything else)."""
+    def off(x, y):
+        if isinstance(x, float) and isinstance(y, float):
+            if math.isnan(x) or math.isnan(y):
+                return not (math.isnan(x) and math.isnan(y))
+            return rel_diff(x, y) > rtol and abs(x - y) > 1e-9
+        return x != y
+    bad = [f"epochs: {a.n_epochs} vs {b.n_epochs}"] \
+        if a.n_epochs != b.n_epochs else []
+    for i, (ea, eb) in enumerate(zip(epoch_rows(a), epoch_rows(b))):
+        bad += [f"epoch {i} {k}: {ea[k]} vs {eb[k]}" for k in ea
+                if off(ea[k], eb[k])]
+    sa, sb = online_summary(a), online_summary(b)
+    for k in sa:
+        if isinstance(sa[k], list):
+            if len(sa[k]) != len(sb[k]) or any(
+                    off(x, y) for x, y in zip(sa[k], sb[k])):
+                bad.append(f"{k} differs")
+        elif off(sa[k], sb[k]):
+            bad.append(f"{k}: {sa[k]} vs {sb[k]}")
+    return bad
+
+
+def online_bitwise(a, b) -> bool:
+    """Two run_online results equal in every reported bit but the wall
+    clock."""
+    return (epoch_rows(a) == epoch_rows(b)
+            and repr(online_summary(a)) == repr(online_summary(b)))
+
+
+def hold_card_to_cpu(label, run, card) -> None:
+    """The order rule: the card's result against the same run on the CPU
+    (the plain version in torch's order) within METRIC_RTOL; where they
+    differ more, the plain version summing each row in the kernel's order
+    must reproduce the card's result bitwise."""
+    t0 = time.perf_counter()
+    cpu = run("cpu")
+    bad = online_differs(card, cpu)
+    say(f"    {label}: the CPU run ({time.perf_counter() - t0:.1f} s) "
+        f"{'agrees within ' + format(METRIC_RTOL, 'g') if not bad else 'differs: ' + '; '.join(bad[:4])}")
+    if bad:
+        with in_kernel_order():
+            ko = run("cpu")
+        same = online_bitwise(card, ko)
+        say(f"    {label}: the CPU run in the kernel's summation order "
+            f"reproduces the card's bitwise: {same}")
+        require(same, f"{label}: the card differs from the CPU run and "
+                      f"from its kernel-order model: {bad[:4]}")
+
+
+def report_online(label, res, trace, wall, driver_s) -> None:
+    """Epochs, iterations, warm epochs, conservation and the wall split
+    of one run_online result; conservation (shipped + backlog + deferred
+    = offered to 1e-9) and feasibility are required."""
+    offered = sum(a.coflow.total_gbits for a in trace)
+    shipped = sum(e.shipped_gbits for e in res.epochs)
+    left = shipped + res.backlog_gbits + res.deferred_failure_gbits
+    n = max(res.n_epochs, 1)
+    say(f"    {label}: {res.n_epochs} epochs ({sum(e.warm for e in res.epochs)}"
+        f" warm), {res.total_iterations} iterations (warm epochs "
+        f"{res.warm_iterations:.1f} on average), shipped {shipped:.6f} of "
+        f"{offered:.6f} Gbit (backlog {res.backlog_gbits:.3e}, deferred "
+        f"{res.deferred_failure_gbits:.3e}), E={res.total_energy_j:.3f} J, "
+        f"makespan {res.makespan_s:.6f} s, response {res.mean_response_s:.6f} s;"
+        f" wall {wall:.3f} s, {wall / n:.3f} s an epoch: adaptive driver "
+        f"(bursts, a sync a chunk) {driver_s / n:.3f}, host "
+        f"{(wall - driver_s) / n:.3f}")
+    require(abs(left - offered) <= 1e-9 * offered,
+            f"{label}: {left} Gbit accounted of {offered}")
+    require(all(e.feasible for e in res.epochs), f"{label}: an infeasible "
+                                                 f"epoch")
+
+
+def online_phase(dev) -> dict:
+    """Phase 20: tests/test_arrivals.py's heavy trace on the card and the
+    CPU, its one-epoch case against solve_fast, and the flagship shuffle
+    as a poisson trace, warm and cold.  Returns the traces, for phase 21,
+    and the launch count."""
+    from repro_torch.core import arrivals, solver, timeslot, topology, traffic
+    from repro_torch.kernels import ops
+    sl = topology.build("spine-leaf")
+    heavy = arrivals.generate_trace(
+        sl, traffic.pattern("uniform", **HEAVY),
+        arrivals.ArrivalSpec(family="poisson", n_coflows=4,
+                             mean_interarrival_s=2.0), seed=0)
+    launches = 0
+    ops.PDHG_BURST_LAUNCHES = 0
+    t0 = time.perf_counter()
+    card = arrivals.run_online(sl, heavy, "energy", **ONLINE_KW,
+                               device=dev)
+    wall = time.perf_counter() - t0
+    launches += ops.PDHG_BURST_LAUNCHES
+    report_online("spine-leaf heavy trace, card", card, heavy, wall, 0.0)
+    require(card.n_epochs > 1 and any(e.warm for e in card.epochs[1:]),
+            "the heavy trace did not roll warm")
+    hold_card_to_cpu("spine-leaf heavy trace", lambda d: arrivals.run_online(
+        sl, heavy, "energy", **ONLINE_KW, device=d), card)
+    # one epoch: all co-flows at t = 0 reproduce solve_fast exactly
+    cfs = [traffic.generate(sl, traffic.pattern("uniform", **LIGHT), s)
+           for s in range(3)]
+    merged = traffic.concat_coflows(cfs, sl.n_vertices)
+    p = timeslot.ScheduleProblem(
+        sl, merged, n_slots=timeslot.suggest_n_slots(sl, merged),
+        path_slack=2)
+
+    def one_epoch(d):
+        res = arrivals.run_online(sl, arrivals.trace_at_t0(cfs), "energy",
+                                  iters=3000, tol=2e-3, device=d)
+        ref = solver.solve_fast(p, "energy", iters=3000, tol=2e-3, device=d)
+        return res, ref
+
+    ops.PDHG_BURST_LAUNCHES = 0
+    res, ref = one_epoch("cuda")
+    launches += ops.PDHG_BURST_LAUNCHES
+    got = (res.last_result.metrics.energy_j,
+           res.last_result.metrics.completion_s, res.total_energy_j)
+    want = (ref.metrics.energy_j, ref.metrics.completion_s,
+            ref.metrics.energy_j)
+    require(res.n_epochs == 1 and not res.epochs[0].warm
+            and res.backlog_gbits == 0.0, "one-epoch run: not one cold "
+                                          "epoch that drains")
+    say(f"    one epoch (3 co-flows at t = 0) on the card: E, M, total E "
+        f"{got}; solve_fast on the card {want}: exact {got == want}")
+    if got != want:
+        with in_kernel_order():
+            kres, kref = one_epoch("cpu")
+        same = (kres.last_result.schedule.tobytes()
+                == res.last_result.schedule.tobytes()
+                and kref.schedule.tobytes() == ref.schedule.tobytes())
+        say(f"    the two in the kernel's summation order on the CPU "
+            f"reproduce the card's schedules bitwise: {same}")
+        require(same, "one-epoch run: the card's difference from solve_fast"
+                      " is not its summation order's")
+    # the flagship shuffle arriving online
+    ft = topology.build(FULL[0], **FULL[1])
+    ft_trace = arrivals.generate_trace(
+        ft, traffic.pattern("uniform", **FULL[2]),
+        arrivals.ArrivalSpec(family="poisson", n_coflows=FT_COFLOWS,
+                             mean_interarrival_s=2.0), seed=0)
+    say(f"    {ft.name}: {FT_COFLOWS} co-flows of the flagship shuffle "
+        f"(cut from the sweep's 5 for time), arriving at "
+        f"{[round(a.t_arrive, 6) for a in ft_trace]} s; epochs of "
+        f"{FT_ONLINE_KW['epoch_s']} s, shortest paths")
+    ft_runs = {}
+    for warm in (True, False):
+        ops.PDHG_BURST_LAUNCHES = 0
+        with stage_clock((("driver", ops, "pdhg_adaptive"),)) as spent:
+            t0 = time.perf_counter()
+            r = arrivals.run_online(ft, ft_trace, "energy", **FT_ONLINE_KW,
+                                    warm=warm, device=dev)
+            wall = time.perf_counter() - t0
+        launches += ops.PDHG_BURST_LAUNCHES
+        report_online(f"{ft.name}, warm={warm}", r, ft_trace, wall,
+                      spent["driver"])
+        ft_runs[warm] = r
+    w = ft_runs[True]
+    require(w.n_epochs >= 3 and any(e.warm for e in w.epochs),
+            f"fat-tree trace: {w.n_epochs} epochs, "
+            f"{sum(e.warm for e in w.epochs)} warm; needs 3 and 1")
+    require(w.backlog_gbits <= 1e-6 and ft_runs[False].backlog_gbits <= 1e-6,
+            "fat-tree trace: demand left")
+    return {"launches": launches, "heavy": heavy, "ft": ft,
+            "ft_trace": ft_trace}
+
+
+def chaos_phase(traces, dev) -> int:
+    """Phase 21: the storm preset replayed over phase 20's traces, twice on
+    the card (byte-identical chaos logs and event traces), the heavy
+    trace also on the CPU under the order rule.  Returns the launch
+    count."""
+    from repro_torch.core import arrivals, chaos, topology
+    from repro_torch.kernels import ops
+    sl = topology.build("spine-leaf")
+    launches = 0
+    cases = (("spine-leaf heavy trace", sl, traces["heavy"], ONLINE_KW,
+              STORM_SEEDS["heavy"]),
+             (f"{traces['ft'].name} trace", traces["ft"],
+              traces["ft_trace"], FT_ONLINE_KW, STORM_SEEDS["ft"]))
+    for label, topo, trace, kw, seed in cases:
+        runs, texts = [], []
+        for rep in range(2):
+            events = chaos.generate_preset_events(topo, ("storm",), seed)
+            texts.append(chaos.format_trace(events))
+            ops.PDHG_BURST_LAUNCHES = 0
+            t0 = time.perf_counter()
+            r = arrivals.run_online(topo, trace, "energy", **kw,
+                                    chaos=events, device=dev)
+            wall = time.perf_counter() - t0
+            launches += ops.PDHG_BURST_LAUNCHES
+            runs.append(r)
+            if rep == 0:
+                report_online(f"{label} + storm, card", r, trace, wall, 0.0)
+        a, b = runs
+        say(f"    {label} + storm (seed {seed}): "
+            f"{len(texts[0].splitlines())} events, "
+            f"{sum(e.chaos_events for e in a.epochs)} applied at epoch "
+            f"boundaries, {sum(e.degraded for e in a.epochs)} degraded "
+            f"epochs; availability {a.availability:.6f}; stranded "
+            f"{a.stranded_gbits:.6f} Gbit, deferred "
+            f"{sum(e.deferred_gbits for e in a.epochs):.6f} Gbit (at the end "
+            f"{a.deferred_failure_gbits:.6f}); recoveries "
+            f"{[round(float(t), 6) for t in a.recoveries]} s")
+        for line in a.chaos_log:
+            say(f"      {line}")
+        require(texts[0] == texts[1], f"{label}: two event traces differ")
+        require("\n".join(a.chaos_log) == "\n".join(b.chaos_log)
+                and online_bitwise(a, b), f"{label}: two card runs differ")
+        require(0.0 <= a.availability < 1.0
+                and any(e.degraded and e.n_flows for e in a.epochs),
+                f"{label}: the storm did not hit an epoch with demand")
+        require(all(e.certified for e in a.epochs),
+                f"{label}: an epoch's schedule has no ok certificate")
+        say(f"    {label} + storm: two card runs byte-identical (chaos log, "
+            f"event trace, every epoch); every epoch certified")
+        if topo is sl:
+            cpu_events = chaos.generate_preset_events(sl, ("storm",), seed)
+            require(chaos.format_trace(cpu_events) == texts[0],
+                    f"{label}: the CPU run's event trace differs")
+            hold_card_to_cpu(f"{label} + storm", lambda d: arrivals.run_online(
+                sl, trace, "energy", **kw, chaos=cpu_events, device=d), a)
+    return launches
+
+
+def run_cli(args) -> tuple[int, str]:
+    """python -m repro_torch.sweep in this process: (exit code, stdout)."""
+    import io
+    from repro_torch.sweep import __main__ as sweep_main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            rc = sweep_main.main(args)
+        except SystemExit as e:
+            rc = e.code
+    return rc, buf.getvalue()
+
+
+def sweep_axes_phase(dev) -> int:
+    """Phase 22: the sweep's --failures and --arrivals axes on the card,
+    row by row against the CPU under the order rule; --chaos still
+    refused; plan_collectives on the card and the CPU.  Returns the
+    launch count."""
+    import numpy as np
+    from repro_torch.core import fabric
+    from repro_torch.kernels import ops
+    launches = 0
+    for args in (SWEEP_FAILURES_ARGS, SWEEP_ARRIVALS_ARGS):
+        with tempfile.TemporaryDirectory() as tmp:
+            ops.PDHG_BURST_LAUNCHES = 0
+            t0 = time.perf_counter()
+            rc, text = run_cli(args + ["--out", tmp])
+            wall = time.perf_counter() - t0
+            launches += ops.PDHG_BURST_LAUNCHES
+            card_rows = list(csv.DictReader(open(pathlib.Path(tmp)
+                                                 / "results.csv")))
+            md = (pathlib.Path(tmp) / "results.md").read_text()
+        last = text.strip().splitlines()[-1]
+        say(f"    {' '.join(args[-2:] if args is SWEEP_FAILURES_ARGS else args[-4:])}: "
+            f"exit {rc}, {len(card_rows)} rows, {wall:.1f} s: {last}")
+        require(rc == 0 and "(0 infeasible)" in last,
+                f"sweep {args[-2:]}: exit {rc}")
+        require(("Degraded fabrics" if args is SWEEP_FAILURES_ARGS
+                 else "Online arrivals") in md, "sweep: the table is missing")
+
+        def cpu_rows():
+            with tempfile.TemporaryDirectory() as tmp:
+                rc, _ = run_cli(args + ["--device", "cpu", "--out", tmp])
+                require(rc == 0, "sweep on the CPU failed")
+                return list(csv.DictReader(open(pathlib.Path(tmp)
+                                                / "results.csv")))
+
+        def differs(rows):
+            return [(i, c) for i, (a, b) in enumerate(zip(card_rows, rows))
+                    for c in SWEEP_ROW_COLS
+                    if (math.isnan(float(a[c])) != math.isnan(float(b[c])))
+                    or (not math.isnan(float(a[c]))
+                        and rel_diff(float(a[c]), float(b[c])) > METRIC_RTOL
+                        and abs(float(a[c]) - float(b[c])) > 1e-9)]
+
+        bad = differs(cpu_rows())
+        say(f"      against the same run on the CPU: "
+            f"{'every row within ' + format(METRIC_RTOL, 'g') if not bad else 'differs at ' + str(bad)}")
+        if bad:
+            with in_kernel_order():
+                ko = cpu_rows()
+            same = all({k: v for k, v in a.items() if k != "solve_s"}
+                       == {k: v for k, v in b.items() if k != "solve_s"}
+                       for a, b in zip(card_rows, ko))
+            say(f"      in the kernel's summation order the CPU reproduces "
+                f"the card's rows bitwise: {same}")
+            require(same, f"sweep {args[-2:]}: card and CPU rows differ")
+    rc, _ = run_cli(["--chaos", "storm"])
+    say(f"    --chaos storm: {rc}")
+    require(isinstance(rc, str) and "item 8" in rc, "--chaos is not refused "
+                                                    "naming item 8")
+    layers = [(f"l{i}", 50e6) for i in range(16)]
+    buckets = fabric.grad_buckets_for(layers, bucket_bytes=100e6,
+                                      data_axes=(0, 1))
+    ops.PDHG_BURST_LAUNCHES = 0
+    plan = fabric.plan_collectives(fabric.v5e_fabric(), buckets,
+                                   n_slots=10, device=dev)
+    launches += ops.PDHG_BURST_LAUNCHES
+    cpu = fabric.plan_collectives(fabric.v5e_fabric(), buckets, n_slots=10,
+                                  device="cpu")
+    d_share = float(np.abs(plan.share - cpu.share).max())
+    say(f"    plan_collectives(v5e_fabric(), {len(buckets)} buckets): card "
+        f"completion {plan.completion_s:.9f} s, energy {plan.energy_j:.9f} "
+        f"J; CPU {cpu.completion_s:.9f} s, {cpu.energy_j:.9f} J; max share "
+        f"difference {d_share:.3e}; slot order {plan.slot_order()}")
+    require(plan.n_slots == cpu.n_slots and d_share <= METRIC_RTOL
+            and rel_diff(plan.completion_s, cpu.completion_s) <= METRIC_RTOL
+            and rel_diff(plan.energy_j, cpu.energy_j) <= METRIC_RTOL,
+            "plan_collectives: card and CPU plans differ")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep-out", default="",
@@ -2001,10 +2623,58 @@ def main(argv=None) -> int:
     say(f"    peak device memory in phases 17-18 "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; total "
         f"{time.perf_counter() - t_start:.1f} s")
+    del rmodel, rtoks, rprefill, rdecode, g, tok
+    torch.cuda.empty_cache()
+
+    # -- phase 19: failures and warm re-solves at full size ----------------
+    say(f"[19] failures: phase 13's 8-stack (fat-tree k=16, seeds "
+        f"{BATCH_SEEDS[0]}-{BATCH_SEEDS[-1]}, energy) degraded under "
+        f"{', '.join(FAIL_PRESETS)}, re-solved warm from its healthy "
+        f"results and cold ({card})")
+    t_phase = time.perf_counter()
+    fail = failure_phase(probs8, batch, dev, sms, FAIL_PRESETS[:1])
+    say(f"    pdhg_burst launches on this phase's ensembles: "
+        f"{fail['launches']}; pdhg_burst_bf16: {fail['bf16_launches']}; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    require(fail["launches"] > 0 and fail["bf16_launches"] > 0,
+            "phase 19 did not go through the kernels")
+
+    # -- phase 20: online arrivals ------------------------------------------
+    say("[20] online arrivals: run_online on the card")
+    t_phase = time.perf_counter()
+    online = online_phase(dev)
+    say(f"    pdhg_burst launches on this phase's runs: "
+        f"{online['launches']}; phase {time.perf_counter() - t_phase:.1f} s")
+    require(online["launches"] > 0, "phase 20 did not go through the kernel")
+
+    # -- phase 21: chaos replay ---------------------------------------------
+    say("[21] chaos replay: the storm preset over phase 20's traces")
+    t_phase = time.perf_counter()
+    chaos_launches = chaos_phase(online, dev)
+    say(f"    pdhg_burst launches on this phase's runs: {chaos_launches}; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    require(chaos_launches > 0, "phase 21 did not go through the kernel")
+
+    # -- phase 22: the sweep's new axes and the collective plan ------------
+    say("[22] the sweep's --failures and --arrivals axes and "
+        "plan_collectives on the card")
+    t_phase = time.perf_counter()
+    axes_launches = sweep_axes_phase(dev)
+    say(f"    pdhg_burst launches on this phase's runs: {axes_launches}; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    require(axes_launches > 0, "phase 22 did not go through the kernel")
+    path_launches = (full_launches + fail["launches"] + online["launches"]
+                     + chaos_launches + axes_launches)
+    path_bf16 = bf16_launches + fail["bf16_launches"]
+    say(f"    pdhg_burst launches on the main paths: {path_launches} (phase "
+        f"5 {full_launches}, phases 19-22 {path_launches - full_launches}); "
+        f"pdhg_burst_bf16: {path_bf16} (phase 12 {bf16_launches}, phase 19 "
+        f"{fail['bf16_launches']}); total {time.perf_counter() - t_start:.1f}"
+        f" s")
 
     kernels = {"kernels": [{
         "name": "pdhg_burst", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": full_launches,
+        "replaces": REPLACES, "launches": path_launches,
         "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms}, {
@@ -2014,7 +2684,7 @@ def main(argv=None) -> int:
         "bound_ms": fa_bound_ms, "bound_by": fa_bound_by,
         "library_ms": fa_lib_ms}, {
         "name": "pdhg_burst_bf16", "route": "cuda", "source": SOURCE,
-        "replaces": BF16_REPLACES, "launches": bf16_launches,
+        "replaces": BF16_REPLACES, "launches": path_bf16,
         "max_abs_err": bf16_max_err, "ms": bf16_ms,
         "plain_ms": bf16_plain_ms, "bound_ms": bf16_bound_ms,
         "bound_by": bf16_bound_by, "library_ms": library_ms}, {

@@ -1,15 +1,21 @@
 """Carry a problem, or a model's weights, across packages as plain arrays.
 
 For the scheduler what crosses between the reference package and the
-port is the problem itself (and, for warm starts, the PDHG state, which
-`core.solver.solve_lp`/`solve_fast` take as numpy `x0`/`y0`).
+port is the problem itself and, for warm starts, a finished solve's
+state.  Each `*_to_arrays` function flattens an object into a dict of
+numpy arrays and Python scalars, reading only public fields, so it
+accepts the reference's object as well as the port's; the matching
+`*_from_arrays` rebuilds the port's object from it:
 
-`problem_to_arrays` flattens a ScheduleProblem into a dict of numpy
-arrays and Python scalars; `problem_from_arrays` rebuilds the port's
-ScheduleProblem from it.  `problem_to_arrays` reads only public fields,
-so it accepts the reference's ScheduleProblem as well — which is how a
-problem the port cannot build yet (a degraded fabric, say) is handed to
-it.
+  * `problem_to_arrays` / `problem_from_arrays`: a ScheduleProblem
+    (a degraded fabric included: a degraded topology is an ordinary
+    Topology with smaller capacities);
+  * `fast_result_to_arrays` / `fast_result_from_arrays`: a
+    FastPathResult with the warm state `project_warm_start` reads
+    (schedule, lp_x, lp_y, index, paths, lp_cscale) and its metrics;
+  * `scenario_to_arrays` / `scenario_from_arrays`: a FailureScenario;
+  * `events_to_arrays` / `events_from_arrays`: a list of ChaosEvents;
+  * `trace_to_arrays` / `trace_from_arrays`: an arrival trace.
 
 For the model zoo, `params_from_numpy` turns the reference's
 `transformer.init_params` tree (its leaves made numpy arrays) into a
@@ -21,7 +27,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.timeslot import ScheduleProblem
+from .core.arrivals import Arrival
+from .core.chaos import ChaosEvent
+from .core.failures import FailureScenario
+from .core.solver import FastPathResult, FlowPath, RoutingIndex
+from .core.timeslot import Metrics, ScheduleProblem
 from .core.topology import Device, Topology
 from .core.traffic import CoflowSet
 from .models.common import ModelConfig
@@ -98,6 +108,141 @@ def problem_from_arrays(d: dict) -> ScheduleProblem:
         path_slack=None if d.get("path_slack") is None
         else int(d["path_slack"]),
         flow_weight=opt("flow_weight", np.float64))
+
+
+def _opt_array(a, dtype=None):
+    return None if a is None else np.array(a, dtype=dtype)
+
+
+def _keys(keys) -> list | None:
+    """Row identities as plain tuples of Python ints and strings."""
+    if keys is None:
+        return None
+    return [tuple(k if isinstance(k, str) else int(k) for k in key)
+            for key in keys]
+
+
+def fast_result_to_arrays(r) -> dict:
+    """Plain fields of a FastPathResult (either package's): its metrics,
+    the schedule and the PDHG state a warm start projects."""
+    m = r.metrics
+    idx = r.index
+    return {
+        "schedule": _opt_array(r.schedule, np.float64),
+        "metrics": {
+            "energy_j": float(m.energy_j),
+            "completion_s": float(m.completion_s),
+            "fairness_term": float(m.fairness_term),
+            "feasible": bool(m.feasible),
+            "max_violation": float(m.max_violation),
+            "psi": np.array(m.psi, dtype=np.float64),
+            "active_devices": np.array(m.active_devices, dtype=bool),
+            "served": np.array(m.served, dtype=np.float64)},
+        "lp_lower_bound": float(r.lp_lower_bound),
+        "lp_primal_residual": float(r.lp_primal_residual),
+        "remaining_gbits": float(r.remaining_gbits),
+        "lp_x": _opt_array(r.lp_x, np.float64),
+        "lp_y": _opt_array(r.lp_y, np.float64),
+        "index": None if idx is None else {
+            "kf": np.array(idx.kf, dtype=np.int64),
+            "ke": np.array(idx.ke, dtype=np.int64),
+            "kw": np.array(idx.kw, dtype=np.int64),
+            "n_inj": int(idx.n_inj), "n_theta": int(idx.n_theta),
+            "eq_keys": _keys(idx.eq_keys), "ub_keys": _keys(idx.ub_keys)},
+        "paths": None if r.paths is None else [
+            {"flow": int(fp.flow),
+             "triples": np.array(fp.triples, dtype=np.int64),
+             "volume": float(fp.volume),
+             "tx_wavelength": int(fp.tx_wavelength)} for fp in r.paths],
+        "iterations": int(r.iterations),
+        "lp_cscale": float(r.lp_cscale),
+        "warm_started": bool(getattr(r, "warm_started", False)),
+    }
+
+
+def fast_result_from_arrays(d: dict) -> FastPathResult:
+    """The port's FastPathResult from `fast_result_to_arrays`' fields."""
+    m = d["metrics"]
+    idx = d["index"]
+    return FastPathResult(
+        schedule=_opt_array(d["schedule"], np.float64),
+        metrics=Metrics(
+            energy_j=float(m["energy_j"]),
+            completion_s=float(m["completion_s"]),
+            fairness_term=float(m["fairness_term"]),
+            feasible=bool(m["feasible"]),
+            max_violation=float(m["max_violation"]),
+            psi=np.array(m["psi"], dtype=np.float64),
+            active_devices=np.array(m["active_devices"], dtype=bool),
+            served=np.array(m["served"], dtype=np.float64)),
+        lp_lower_bound=float(d["lp_lower_bound"]),
+        lp_primal_residual=float(d["lp_primal_residual"]),
+        remaining_gbits=float(d["remaining_gbits"]),
+        lp_x=_opt_array(d["lp_x"], np.float64),
+        lp_y=_opt_array(d["lp_y"], np.float64),
+        index=None if idx is None else RoutingIndex(
+            np.array(idx["kf"], dtype=np.int64),
+            np.array(idx["ke"], dtype=np.int64),
+            np.array(idx["kw"], dtype=np.int64),
+            int(idx["n_inj"]), int(idx["n_theta"]),
+            eq_keys=_keys(idx["eq_keys"]), ub_keys=_keys(idx["ub_keys"])),
+        paths=None if d["paths"] is None else [
+            FlowPath(int(fp["flow"]),
+                     np.array(fp["triples"], dtype=np.int64),
+                     float(fp["volume"]), int(fp["tx_wavelength"]))
+            for fp in d["paths"]],
+        iterations=int(d["iterations"]),
+        lp_cscale=float(d["lp_cscale"]),
+        warm_started=bool(d["warm_started"]))
+
+
+def scenario_to_arrays(s) -> dict:
+    """Plain fields of a FailureScenario (either package's)."""
+    return {"name": str(s.name),
+            "cut_edges": [int(e) for e in s.cut_edges],
+            "failed_devices": [int(v) for v in s.failed_devices],
+            "cap_scale": float(s.cap_scale),
+            "edge_scale": [(int(e), float(f)) for e, f in s.edge_scale]}
+
+
+def scenario_from_arrays(d: dict) -> FailureScenario:
+    """The port's FailureScenario from `scenario_to_arrays`' fields."""
+    return FailureScenario(
+        str(d["name"]), cut_edges=tuple(int(e) for e in d["cut_edges"]),
+        failed_devices=tuple(int(v) for v in d["failed_devices"]),
+        cap_scale=float(d["cap_scale"]),
+        edge_scale=tuple((int(e), float(f)) for e, f in d["edge_scale"]))
+
+
+def events_to_arrays(events) -> list[dict]:
+    """Plain fields of a list of ChaosEvents (either package's)."""
+    return [{"t": float(ev.t), "kind": str(ev.kind),
+             "event_id": int(ev.event_id),
+             "scenario": scenario_to_arrays(ev.scenario)} for ev in events]
+
+
+def events_from_arrays(rows: list[dict]) -> list[ChaosEvent]:
+    """The port's ChaosEvents from `events_to_arrays`' fields."""
+    return [ChaosEvent(float(r["t"]), str(r["kind"]), int(r["event_id"]),
+                       scenario_from_arrays(r["scenario"])) for r in rows]
+
+
+def trace_to_arrays(trace) -> list[dict]:
+    """Plain fields of an arrival trace (a list of either package's
+    Arrivals)."""
+    return [{"t_arrive": float(a.t_arrive), "coflow_id": int(a.coflow_id),
+             "src": np.array(a.coflow.src), "dst": np.array(a.coflow.dst),
+             "size": np.array(a.coflow.size, dtype=np.float64),
+             "n_vertices": int(a.coflow.n_vertices)} for a in trace]
+
+
+def trace_from_arrays(rows: list[dict]) -> list[Arrival]:
+    """The port's arrival trace from `trace_to_arrays`' fields."""
+    return [Arrival(float(r["t_arrive"]),
+                    CoflowSet(np.array(r["src"]), np.array(r["dst"]),
+                              np.array(r["size"], dtype=np.float64),
+                              int(r["n_vertices"])),
+                    int(r["coflow_id"])) for r in rows]
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict:

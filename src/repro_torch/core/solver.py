@@ -19,6 +19,12 @@ The batched form (`solve_lp_batch`, `solve_fast_batch`,
 level of its restart ladder as one adaptive dispatch of the same kernel
 (kernels.ops.pdhg_adaptive), freezing each instance as it converges.
 
+The incremental re-solves (`project_warm_start`, `resolve_incremental`,
+`solve_fast_warm`, `solve_fast_group` and `solve_fast_ensemble(warm=...)`)
+start PDHG from a finished solve's state projected onto a degraded
+fabric (core.failures) or the next epoch of an arrival trace
+(core.arrivals), through the same kernel.
+
 The port has one PDHG lowering, the reference's blocked-ELL
 `backend="pallas"` one, with its iters/tol/restart semantics.  The
 reference's COO `backend="xla"` lowering is not ported: it is built on
@@ -963,8 +969,8 @@ class FastPathResult:
     paths: list[FlowPath] | None = None
     iterations: int = 0       # PDHG iterations actually spent
     lp_cscale: float = 1.0    # max|c| the LP was normalized by (duals scale)
-    # True iff PDHG started from a projected warm state (the reference's
-    # warm-start drivers set it; they are not ported yet)
+    # True iff PDHG started from a projected warm state (set by
+    # solve_fast_warm and solve_fast_group)
     warm_started: bool = False
     # core.verify.Certificate when the producer attached one (the policy
     # zoo always does); the LP fast path leaves it None and callers
@@ -1312,25 +1318,364 @@ def solve_fast_ensemble(problems: list[ScheduleProblem],
                         precision: str = "fp32",
                         device: str | torch.device = "cuda"
                         ) -> list[FastPathResult]:
-    """Batched fast path over a (possibly heterogeneous) instance list:
-    one routing LP per problem, stacked and solved by solve_lp_batch
-    (chunk 500 by default), then packed and re-scored per instance.
+    """Batched fast path over a (possibly heterogeneous) instance list.
 
-    Cold starts only: the reference's `warm=` (each member started from
-    its healthy result projected by project_warm_start) is not ported
-    yet (ROADMAP.md queue 1 item 6) and raises NotImplementedError."""
-    if warm is not None:
-        raise NotImplementedError(
-            "solve_fast_ensemble(warm=...) needs project_warm_start, which "
-            "is not ported yet: ROADMAP.md queue 1 item 6")
+    Unlike solve_fast_batch this does not require a shared topology —
+    the block-diagonal stacking never did — so a whole failure ensemble
+    (one degraded topology per member) solves in the same stacked
+    adaptive dispatches as a seed vector.  With `warm[i]` set to the
+    healthy result that instance i degrades, every member starts from
+    its projected healthy state (project_warm_start) and the adaptive
+    driver freezes it within one residual-check chunk of convergence.
+    `chunk` defaults to 250 with warm starts and 500 without, as in the
+    reference.  `device` as in solve_fast_batch."""
     dev = _device.resolve(device)
     if not problems:
         return []
     built = [build_routing_lp(p, objective) for p in problems]
     lps = [lp for lp, _ in built]
+    warm_starts = None
+    if warm is not None:
+        assert len(warm) == len(problems)
+        warm_starts = [project_warm_start(w, p, lp, idx)
+                       for w, p, (lp, idx) in zip(warm, problems, built)]
+    if chunk is None:
+        # warm starts usually converge within a burst or two, so check
+        # residuals at a finer grain than the cold default
+        chunk = 250 if warm_starts is not None else 500
     results = solve_lp_batch(lps, iters=iters, tol=tol, adaptive=adaptive,
-                             chunk=500 if chunk is None else chunk,
+                             chunk=chunk, warm_starts=warm_starts,
                              bucket=bucket, shards=shards,
                              precision=precision, device=dev)
     return [_assemble_fast_result(p, lp, idx, res)
             for p, (lp, idx), res in zip(problems, built, results)]
+
+
+# ---------------------------------------------------------------------------
+# Incremental re-solves (degraded topologies, core.failures; arrival
+# epochs, core.arrivals)
+# ---------------------------------------------------------------------------
+
+def project_warm_start(warm: FastPathResult, p_dst: ScheduleProblem,
+                       lp_dst: StructuredLP, idx_dst: RoutingIndex, *,
+                       flow_map: np.ndarray | None = None
+                       ) -> tuple[np.ndarray, np.ndarray]:
+    """Map a finished solve's PDHG state onto a structurally related LP.
+
+    Intended for healthy -> degraded re-solves where `p_dst` keeps the
+    source instance's device/edge indexing (core.failures preserves it):
+
+      * the healthy routing is re-used *by path* — each decomposed
+        src->dst path whose every (edge, wavelength) hop is still
+        admissible keeps its volume; paths crossing a failed link are
+        dropped and their volume is re-routed onto any surviving
+        admissible route (found by the same wavelength-continuity DFS
+        path_decompose uses), so the primal start conserves flow exactly;
+      * duals transfer row-by-row through RoutingIndex.eq_keys/ub_keys
+        (rows that vanished with their edges are dropped, new rows start
+        at zero).
+
+    Returns float64 (x0, y0) with x0 clipped into [0, xmax]; feed them to
+    solve_lp or solve_lp_batch(warm_starts=...), which cast them to
+    float32 for the burst.  The projection is a heuristic start, not a
+    feasible point — PDHG repairs the remaining demand/capacity mismatch,
+    which for localized failures takes a small fraction of a cold
+    solve's iterations.
+
+    `flow_map` generalizes the projection to LPs whose *flow indexing*
+    differs from the source solve's (the rolling-horizon arrival engine,
+    core.arrivals, carries residual flows forward under new indices and
+    appends newly arrived flows): flow_map[i] is the source-instance
+    flow that dst flow i continues, or -1 for a brand-new flow (which
+    starts cold).  None keeps the identity mapping.
+
+    A numpy copy of the reference's projection: the same inputs give
+    bitwise-equal starts (tests/test_torch_warm.py)."""
+    src_idx = warm.index
+    if src_idx is None or warm.lp_x is None:
+        raise ValueError("warm result lacks PDHG state (lp_x/index); "
+                         "it must come from solve_fast/solve_fast_batch")
+    F, E, W, _ = p_dst.shape_x
+    if flow_map is not None:
+        flow_map = np.asarray(flow_map, dtype=np.int64)
+        if flow_map.shape != (F,):
+            raise ValueError(f"flow_map shape {flow_map.shape} != ({F},)")
+    # dst flow of each source flow (identity when flow_map is None)
+    dst_of = ({int(s): i for i, s in enumerate(flow_map) if s >= 0}
+              if flow_map is not None else None)
+
+    def src_key(key):
+        """Translate a dst row identity to the source instance's."""
+        if flow_map is not None and key[0] in ("c", "d"):
+            fs = int(flow_map[key[1]])
+            if fs < 0:
+                return None
+            return (key[0], fs) + key[2:]
+        return key
+
+    K_dst = len(idx_dst.kf)
+    key_dst = (idx_dst.kf * E + idx_dst.ke) * W + idx_dst.kw   # sorted
+
+    def dst_pos(f, e, w):
+        key = (f * E + e) * W + w
+        j = int(np.searchsorted(key_dst, key))
+        return j if j < K_dst and key_dst[j] == key else -1
+
+    x0 = np.zeros(lp_dst.n)
+    ke_s, kw_s = src_idx.ke, src_idx.kw
+    size_dst = p_dst.coflow.size
+    lost = np.zeros(F)
+    shipped = np.zeros(F)
+    for path in warm.paths or []:
+        f = (path.flow if dst_of is None else dst_of.get(path.flow, -1))
+        if f < 0 or f >= F or size_dst[f] <= 0.0 or path.volume <= 0.0:
+            continue
+        hops = [(int(ke_s[k]), int(kw_s[k])) for k in path.triples]
+        pos = [dst_pos(f, e, w) for e, w in hops]
+        vol = min(path.volume, float(size_dst[f]) - shipped[f])
+        if vol <= 0.0:
+            continue
+        if all(j >= 0 for j in pos):
+            for j in pos:
+                x0[j] += vol
+            x0[K_dst + f * W + hops[0][1]] += vol
+            shipped[f] += vol
+        else:
+            lost[f] += vol
+
+    # re-route volume stranded by failed hops onto any surviving route
+    out_edges = _out_edges(p_dst)
+    convert_ok = p_dst.is_server | p_dst.is_switch
+    for f in np.flatnonzero(lost > 0.0):
+        f = int(f)
+        vol = min(lost[f], float(size_dst[f]) - shipped[f])
+        if vol <= 0.0:
+            continue
+        trail = _route_search(
+            p_dst, out_edges, int(p_dst.coflow.src[f]),
+            int(p_dst.coflow.dst[f]),
+            lambda e, w, f=f: dst_pos(f, e, w) >= 0, convert_ok)
+        if not trail:
+            continue
+        for e, w in trail:
+            x0[dst_pos(f, e, w)] += vol
+        x0[K_dst + f * W + trail[0][1]] += vol
+        shipped[f] += vol
+
+    if idx_dst.n_theta:
+        # theta couples every capacity row (sum x <= limit * theta); the
+        # healthy theta is stale on a degraded fabric, so lift it to the
+        # smallest value that makes the projected routing capacity-feasible
+        # — otherwise the warm start dumps residual on every coupled row
+        theta = float(warm.lp_x[-1]) if src_idx.n_theta else 0.0
+        kx = np.zeros(lp_dst.m)
+        np.add.at(kx, lp_dst.row, lp_dst.val * x0[lp_dst.col])
+        th = (lp_dst.col == lp_dst.n - 1) & (lp_dst.row >= lp_dst.m_eq)
+        if th.any():
+            limits = -lp_dst.val[th]
+            need = kx[lp_dst.row[th]] / np.maximum(limits, 1e-12)
+            theta = max(theta, float(need.max(initial=0.0)))
+        x0[-1] = theta
+    x0 = np.clip(x0, 0.0, np.where(np.isfinite(lp_dst.xmax),
+                                   lp_dst.xmax, 1e12))
+
+    y0 = np.zeros(lp_dst.m)
+    if (warm.lp_y is not None and src_idx.eq_keys is not None
+            and idx_dst.eq_keys is not None):
+        # both LPs are solved with max-normalized objectives (c / cscale);
+        # duals of the normalized problems relate by the cscale ratio, so
+        # rescale before transplanting (matters when a failure changes the
+        # cost vector, e.g. halved capacities double the device-cost terms)
+        cscale_dst = max(float(np.abs(lp_dst.c).max(initial=0.0)), 1e-12)
+        rescale = warm.lp_cscale / cscale_dst
+        m_eq_src = len(src_idx.eq_keys)
+        src_eq = {k: i for i, k in enumerate(src_idx.eq_keys)}
+        src_ub = {k: i for i, k in enumerate(src_idx.ub_keys)}
+        for i, k in enumerate(idx_dst.eq_keys):
+            ks = src_key(k)
+            j = src_eq.get(ks) if ks is not None else None
+            if j is not None:
+                y0[i] = warm.lp_y[j] * rescale
+        for i, k in enumerate(idx_dst.ub_keys):
+            j = src_ub.get(k)          # capacity rows carry no flow index
+            if j is not None:
+                y0[lp_dst.m_eq + i] = warm.lp_y[m_eq_src + j] * rescale
+    return x0, y0
+
+
+def stranded_volume(warm: FastPathResult, p_dst: ScheduleProblem, *,
+                    flow_map: np.ndarray | None = None) -> np.ndarray:
+    """(F_dst,) Gbits of `warm`'s decomposed path volume whose hops died.
+
+    A path is *stranded* when any of its (edge, wavelength) hops is no
+    longer admissible under `p_dst` (capacity zeroed by a failure, or
+    the hop pruned from the flow's edge mask).  This is exactly the
+    volume `project_warm_start` drops and re-routes via the surviving
+    admissible routes — core.arrivals.run_online reports its sum as
+    stranded Gbits re-routed.  `flow_map` has project_warm_start's
+    semantics; per-flow totals are clipped to the dst residual demand.
+    Returns zeros when the warm result carries no decomposed paths."""
+    F = p_dst.coflow.n_flows
+    stranded = np.zeros(F)
+    if warm.index is None or not warm.paths:
+        return stranded
+    dst_of = ({int(s): i for i, s in enumerate(np.asarray(flow_map))
+               if s >= 0} if flow_map is not None else None)
+    ke_s, kw_s = warm.index.ke, warm.index.kw
+    for path in warm.paths:
+        f = (path.flow if dst_of is None else dst_of.get(path.flow, -1))
+        if f < 0 or f >= F or path.volume <= 0.0:
+            continue
+        dead = any(not (p_dst.edge_w_ok[int(ke_s[k]), int(kw_s[k])]
+                        and p_dst.flow_edge_mask[f, int(ke_s[k])])
+                   for k in path.triples)
+        if dead:
+            stranded[f] += path.volume
+    return np.minimum(stranded, p_dst.coflow.size)
+
+
+def resolve_incremental(p: ScheduleProblem, objective: str,
+                        warm: FastPathResult, *, iters: int = 4000,
+                        tol: float | None = None, shards: int = 1,
+                        precision: str = "fp32",
+                        device: str | torch.device = "cuda"
+                        ) -> FastPathResult:
+    """Re-solve a degraded instance starting from a healthy solution.
+
+    `p` is the degraded problem (same coflow/flow indexing as the healthy
+    one — core.failures.degrade_problem builds it); `warm` is the healthy
+    instance's FastPathResult.  Routes over failed edges are dropped,
+    affected flows are re-routed via the decomposed healthy paths, and
+    PDHG restarts from the projected primal/dual state instead of zero
+    (solve_lp's ladder, on `device` as in solve_fast).  Output is a full
+    FastPathResult (packed, exactly re-scored) and can itself warm-start
+    further re-solves (cascading failures)."""
+    dev = _device.resolve(device)
+    lp, idx = build_routing_lp(p, objective)
+    x0, y0 = project_warm_start(warm, p, lp, idx)
+    res = solve_lp(lp, iters=iters, tol=tol, x0=x0, y0=y0, shards=shards,
+                   precision=precision, device=dev)
+    return _assemble_fast_result(p, lp, idx, res)
+
+
+def _warm_usable(w: FastPathResult | None, p: ScheduleProblem) -> bool:
+    """Does `w` carry PDHG state over `p`'s edge/wavelength indexing?"""
+    return (w is not None and w.index is not None and w.lp_x is not None
+            and w.schedule is not None
+            and w.schedule.shape[1:3] == (p.topo.n_edges,
+                                          p.topo.n_wavelengths))
+
+
+def solve_fast_warm(p: ScheduleProblem, objective: str = "energy", *,
+                    warm: FastPathResult | None = None,
+                    flow_map: np.ndarray | None = None,
+                    iters: int = 4000, tol: float | None = None,
+                    chunk: int = 250, bucket: bool = True, shards: int = 1,
+                    precision: str = "fp32",
+                    device: str | torch.device = "cuda") -> FastPathResult:
+    """Single-instance fast path with an optional projected warm start and
+    the adaptive convergence loop.
+
+    This is the epoch re-solve primitive of the rolling-horizon arrival
+    engine (core.arrivals): unlike solve_fast — whose restart ladder
+    always spends its full first rung — the adaptive chunked dispatch
+    (solve_lp_batch with B=1) freezes within one `chunk`-iteration
+    residual check of convergence, so a good warm start actually shows
+    up as saved iterations and wall time.
+
+    `warm` is a previous FastPathResult to project onto this problem
+    (project_warm_start); `flow_map[i]` names the warm instance's flow
+    that flow i of `p` continues (-1 = new flow, identity when None).
+    The start degrades to cold, as the reference's does: if `warm` lacks
+    PDHG state, its topology shape differs from `p`'s (different
+    edge/wavelength indexing — the projection would be meaningless), or
+    the projection itself raises, the solve starts from zero, and
+    `warm_started` on the result records which ran.  Only the projection
+    is guarded; a failure of the solve itself propagates.  `device` as in
+    solve_fast."""
+    dev = _device.resolve(device)
+    lp, idx = build_routing_lp(p, objective)
+    warm_starts = None
+    if _warm_usable(warm, p):
+        try:
+            warm_starts = [project_warm_start(warm, p, lp, idx,
+                                              flow_map=flow_map)]
+        except (ValueError, KeyError, IndexError):
+            warm_starts = None         # structure changed -> cold start
+    res = solve_lp_batch([lp], iters=iters, tol=tol, chunk=chunk,
+                         warm_starts=warm_starts, bucket=bucket,
+                         shards=shards, precision=precision, device=dev)[0]
+    out = _assemble_fast_result(p, lp, idx, res)
+    out.warm_started = warm_starts is not None
+    return out
+
+
+def solve_fast_group(problems: list[ScheduleProblem],
+                     objectives: list[str] | str = "energy", *,
+                     warm: list[FastPathResult | None] | None = None,
+                     flow_maps: list[np.ndarray | None] | None = None,
+                     iters: int = 4000, tol: float | None = None,
+                     adaptive: bool = True, chunk: int = 250,
+                     bucket: bool = True, shards: int = 1,
+                     precision: str = "fp32",
+                     device: str | torch.device = "cuda"
+                     ) -> list[FastPathResult]:
+    """One stacked dispatch over a heterogeneous tenant group.
+
+    Like solve_fast_ensemble it block-stacks arbitrary instances into
+    one adaptive PDHG dispatch, but each member carries its *own*
+    objective ("energy" or "time") and its own rolling-horizon warm
+    state.
+
+    `warm[i]` is member i's previous-epoch FastPathResult (or None for
+    a cold member) and `flow_maps[i]` names, per flow of `problems[i]`,
+    the warm instance's flow it continues (-1 = new; see
+    project_warm_start).  Warm projection degrades per member exactly
+    like solve_fast_warm: a member whose warm state is missing,
+    shape-incompatible, or whose projection raises starts cold (zero
+    iterates) without disturbing its group-mates; the returned results'
+    `warm_started` flags record what really ran.
+
+    Because stacked PDHG decouples exactly over the blocks, every
+    member's trajectory — and therefore its schedule and metrics —
+    matches its own solve_fast_warm solve with the same `chunk`, up to
+    the order of each row's sum.  Degenerate members (zero flows) solve
+    in closed form inside solve_lp_batch and never widen the dispatch.
+    `device` as in solve_fast."""
+    dev = _device.resolve(device)
+    if not problems:
+        return []
+    B = len(problems)
+    if isinstance(objectives, str):
+        objectives = [objectives] * B
+    if len(objectives) != B:
+        raise ValueError(f"{len(objectives)} objectives for {B} problems")
+    warm_list = warm if warm is not None else [None] * B
+    maps = flow_maps if flow_maps is not None else [None] * B
+    if len(warm_list) != B or len(maps) != B:
+        raise ValueError("warm/flow_maps length must match problems")
+    built = [build_routing_lp(p, o) for p, o in zip(problems, objectives)]
+    starts: list[tuple[np.ndarray, np.ndarray]] = []
+    flags: list[bool] = []
+    for p, (lp, idx), w, fm in zip(problems, built, warm_list, maps):
+        x0y0 = None
+        if _warm_usable(w, p):
+            try:
+                x0y0 = project_warm_start(w, p, lp, idx, flow_map=fm)
+            except (ValueError, KeyError, IndexError):
+                x0y0 = None            # structure changed -> cold member
+        starts.append(x0y0 if x0y0 is not None
+                      else (np.zeros(lp.n), np.zeros(lp.m)))
+        flags.append(x0y0 is not None)
+    lps = [lp for lp, _ in built]
+    results = solve_lp_batch(lps, iters=iters, tol=tol, adaptive=adaptive,
+                             chunk=chunk,
+                             warm_starts=starts if any(flags) else None,
+                             bucket=bucket, shards=shards,
+                             precision=precision, device=dev)
+    out = []
+    for p, (lp, idx), res, f in zip(problems, built, results, flags):
+        r = _assemble_fast_result(p, lp, idx, res)
+        r.warm_started = f
+        out.append(r)
+    return out

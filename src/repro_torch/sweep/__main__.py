@@ -7,7 +7,9 @@ Example (the paper's full grid, 8 seeds per cell):
         --seeds 8 --out results/sweep-torch
 
 Writes <out>/results.csv (one row per instance, exact paper-model
-metrics) and <out>/results.md (mean +/- std tables per objective).
+metrics) and <out>/results.md (mean +/- std tables per objective, plus
+the degraded-fabric table with --failures and the online-arrivals table
+with --arrivals).
 Takes the reference's flags (python -m repro.sweep) plus --device
 ("cuda", the default, raises without a card; "cpu" runs the burst
 kernel's plain version).  The flags of axes the port does not run yet
@@ -20,15 +22,15 @@ import argparse
 import pathlib
 import time
 
-from ..core import topology, traffic
+from ..core import arrivals, failures, topology, traffic
 from .report import write_csv, write_markdown
 from .runner import ALL_TOPOS, OBJECTIVES, UNPORTED, SweepSpec, run_sweep
 
-# the reference's axis flags, by the SweepSpec field each fills; the port
-# does not run these axes yet and SweepSpec.validate names their items
-_AXIS_FLAGS = {"failures": "--failures", "policies": "--policy",
-               "placement_search": "--placement-search",
-               "arrivals": "--arrivals", "chaos": "--chaos"}
+# the reference's axis flags the port does not run yet, by the SweepSpec
+# field each fills; SweepSpec.validate names their ROADMAP items
+_UNPORTED_FLAGS = {"policies": "--policy",
+                   "placement_search": "--placement-search",
+                   "chaos": "--chaos"}
 
 
 def _csv_list(value: str, universe, what: str) -> tuple[str, ...]:
@@ -56,7 +58,24 @@ def main(argv=None) -> int:
                          f"({', '.join(traffic.PATTERNS)})")
     ap.add_argument("--seeds", type=int, default=8,
                     help="number of seeds per grid cell (0..N-1)")
-    for field, flag in _AXIS_FLAGS.items():
+    ap.add_argument("--failures", nargs="?", const="all", default="",
+                    help="failure presets for degraded-fabric re-solves: "
+                         f"comma list or 'all' "
+                         f"({', '.join(k for k in failures.SCENARIOS if k != 'none')}); "
+                         "bare --failures means 'all'")
+    ap.add_argument("--arrivals", nargs="?", const="all", default="",
+                    help="online-arrival families for rolling-horizon "
+                         "re-solves (core.arrivals): comma list or 'all' "
+                         f"({', '.join(arrivals.FAMILIES)}); "
+                         "bare --arrivals means 'all'")
+    ap.add_argument("--arrival-coflows", type=int, default=5,
+                    help="co-flows per arrival trace")
+    ap.add_argument("--arrival-mean-s", type=float, default=2.0,
+                    help="mean inter-arrival gap in seconds")
+    ap.add_argument("--epoch-s", type=float, default=0.0,
+                    help="rolling-horizon re-plan period in seconds "
+                         "(default: 4 slot durations)")
+    for field, flag in _UNPORTED_FLAGS.items():
         ap.add_argument(flag, dest=field, nargs="?", const="all",
                         default="",
                         help=f"not ported yet (ROADMAP {UNPORTED[field]})")
@@ -107,13 +126,23 @@ def main(argv=None) -> int:
                          "is not ported yet (ROADMAP queue 1, the COO "
                          "lowering question)")
 
+    fail_universe = {k: v for k, v in failures.SCENARIOS.items()
+                     if k != "none"}
     spec = SweepSpec(
         topos=_csv_list(args.topos, topology.BUILDERS, "topology"),
         objectives=_csv_list(args.objectives, OBJECTIVES, "objective"),
         patterns=_csv_list(args.patterns, traffic.PATTERNS, "pattern"),
         seeds=tuple(range(args.seeds)),
+        failures=(_csv_list(args.failures, fail_universe, "failure preset")
+                  if args.failures else ()),
+        arrivals=(_csv_list(args.arrivals, arrivals.FAMILIES,
+                            "arrival family")
+                  if args.arrivals else ()),
+        arrival_coflows=args.arrival_coflows,
+        arrival_mean_s=args.arrival_mean_s,
+        epoch_s=args.epoch_s or None,
         **{field: (getattr(args, field),) if getattr(args, field) else ()
-           for field in _AXIS_FLAGS},
+           for field in _UNPORTED_FLAGS},
         total_gbits=args.total_gbits, n_map=args.n_map,
         n_reduce=args.n_reduce, n_slots=args.slots or None,
         iters=args.iters, mesh=args.mesh, precision=args.precision,

@@ -1,6 +1,7 @@
-"""Sweep driver: topology x objective x pattern x seeds, on the card.
+"""Sweep driver: topology x objective x pattern x seeds (x failures x
+arrivals), on the card.
 
-The port of the reference's repro.sweep.runner healthy grid.  Per
+The port of the reference's repro.sweep.runner.  Per
 (topology, pattern): one `generate_batch` builds the seed vector of
 co-flow sets; per objective the whole vector solves in a few stacked
 adaptive PDHG dispatches (core.solver.solve_fast_batch, every burst the
@@ -10,12 +11,25 @@ deterministic subsample (the cheapest instances first) can be re-solved
 with the core.oracle MILP, recording the optimality gap of the fast path
 against the exact branch-and-cut schedule.
 
+With `SweepSpec.failures` set (CLI `--failures`), every healthy cell
+additionally re-solves under degraded fabrics: per seed a deterministic
+scenario is drawn (core.failures.sample), the degraded instance keeps
+the healthy edge indexing, and the whole failure ensemble re-solves in
+one warm-started stacked dispatch (core.solver.solve_fast_ensemble)
+seeded from the healthy solutions.  Records carry the capacity
+degradation ratio and survivability (served / offered Gbits).
+
+With `SweepSpec.arrivals` set (CLI `--arrivals`), every cell also runs,
+per family and seed, a deterministic arrival trace through the
+rolling-horizon driver (core.arrivals.run_online, warm-started epoch
+re-solves); one record summarizes each trace.
+
 Records keep every column of the reference's SweepRecord.  `backend`
 reads "pallas": the port reproduces the reference's blocked-ELL
 lowering, so its rows line up with the reference's `--backend pallas`
-rows.  The reference's other axes (failures, policies, placement
-search, arrivals, chaos, mesh > 1) are not ported yet; SweepSpec.validate
-rejects them naming their ROADMAP item.
+rows.  The reference's other axes (policies, placement search, chaos,
+mesh > 1) are not ported yet; SweepSpec.validate rejects them naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -25,7 +39,8 @@ from typing import Callable
 
 import numpy as np
 
-from ..core import oracle, solver, timeslot, topology, traffic
+from ..core import (arrivals, failures, oracle, solver, timeslot,
+                    topology, traffic)
 
 # user-facing objective name -> core.solver/oracle internal name
 OBJECTIVES = {"energy": "energy", "completion": "time"}
@@ -38,9 +53,7 @@ BACKEND = "pallas"
 # sweep axes of the reference that the port does not run yet, and where
 # ROADMAP.md queues them
 UNPORTED = {
-    "failures": "queue 1 item 6: warm starts and failures",
-    "arrivals": "queue 1 item 7: online arrivals and chaos",
-    "chaos": "queue 1 item 7: online arrivals and chaos",
+    "chaos": "queue 1 item 8: needs the scf fallback policy",
     "policies": "queue 1 item 8: policies and placement search",
     "placement_search": "queue 1 item 8: policies and placement search",
 }
@@ -52,12 +65,21 @@ class SweepSpec:
     objectives: tuple[str, ...] = ("energy", "completion")
     patterns: tuple[str, ...] = ("uniform", "skew", "packed")
     seeds: tuple[int, ...] = tuple(range(8))
-    # the reference's further axes; the port rejects anything but empty
-    # (see UNPORTED)
+    # failure presets (core.failures.SCENARIOS names); per preset each seed
+    # draws one deterministic scenario and re-solves warm-started
     failures: tuple[str, ...] = ()
+    # the reference's policy and placement-search axes; the port rejects
+    # anything but empty (see UNPORTED)
     policies: tuple[str, ...] = ()
     placement_search: tuple[str, ...] = ()
+    # online-arrival families (core.arrivals.FAMILIES); per family each seed
+    # draws one deterministic trace and runs the rolling-horizon driver
+    # (warm-started epoch re-solves) instead of a one-shot solve
     arrivals: tuple[str, ...] = ()
+    arrival_coflows: int = 5          # co-flows per trace
+    arrival_mean_s: float = 2.0       # mean inter-arrival gap, seconds
+    epoch_s: float | None = None      # re-plan period (None = 4 slots)
+    # the reference's chaos axis; rejected (see UNPORTED)
     chaos: tuple[str, ...] = ()
     total_gbits: float = 30.0
     n_map: int = 10
@@ -110,6 +132,17 @@ class SweepSpec:
                 raise ValueError(f"unknown pattern {pt!r}; "
                                  f"have {sorted(traffic.PATTERNS)}")
         solver._check_scale_opts(self.mesh, self.precision)
+        for fl in self.failures:
+            if fl not in failures.SCENARIOS or fl == "none":
+                # "none" is rejected too: its records would carry
+                # failure="none" and be misfiled as healthy rows in the
+                # report — an empty `failures` tuple is the healthy run
+                raise ValueError(f"unknown failure preset {fl!r}; "
+                                 f"have {sorted(k for k in failures.SCENARIOS if k != 'none')}")
+        for fam in self.arrivals:
+            if fam not in arrivals.FAMILIES:
+                raise ValueError(f"unknown arrival family {fam!r}; "
+                                 f"have {sorted(arrivals.FAMILIES)}")
 
 
 @dataclasses.dataclass
@@ -133,7 +166,8 @@ class SweepRecord:
     degradation_ratio: float = 0.0    # fraction of aggregate Gbps lost
     survivability: float = 1.0        # served / offered Gbits
     backend: str = BACKEND            # PDHG lowering that produced this row
-    # online-arrival rows; arrivals == "none" marks an offline row
+    # online-arrival rows (core.arrivals rolling-horizon driver);
+    # arrivals == "none" marks an offline (one-shot) row
     arrivals: str = "none"            # arrival-process family
     epochs: int = 0                   # rolling-horizon epochs run
     mean_response_s: float = 0.0      # mean co-flow (t_done - t_arrive), s
@@ -222,10 +256,78 @@ def _solve_group(probs, internal_obj: str, spec: SweepSpec):
     return results, (time.perf_counter() - t0) / max(len(probs), 1)
 
 
+def _solve_failure_group(healthy_probs, healthy_results, fail_name: str,
+                         internal_obj: str, spec: SweepSpec):
+    """Degrade every healthy instance under one failure preset and re-solve
+    the whole ensemble in a single warm-started stacked dispatch."""
+    t0 = time.perf_counter()
+    probs = [failures.degrade_problem(
+                 p, failures.sample(p.topo, fail_name, int(seed)))
+             for seed, p in zip(spec.seeds, healthy_probs)]
+    results = solver.solve_fast_ensemble(probs, internal_obj,
+                                         warm=healthy_results,
+                                         iters=spec.iters, tol=spec.tol,
+                                         shards=spec.mesh,
+                                         precision=spec.precision,
+                                         device=spec.device)
+    _retry_unfinished(probs, results, internal_obj, spec)
+    return probs, results, (time.perf_counter() - t0) / max(len(probs), 1)
+
+
+def _solve_arrival_cell(topo, pat, fam: str, internal_obj: str,
+                        spec: SweepSpec, seed: int):
+    """One rolling-horizon run: a deterministic arrival trace for `seed`
+    re-planned per epoch with warm-started re-solves (core.arrivals)."""
+    aspec = arrivals.ArrivalSpec(family=fam,
+                                 n_coflows=spec.arrival_coflows,
+                                 mean_interarrival_s=spec.arrival_mean_s)
+    trace = arrivals.generate_trace(topo, pat, aspec, int(seed))
+    t0 = time.perf_counter()
+    res = arrivals.run_online(topo, trace, internal_obj,
+                              epoch_s=spec.epoch_s, rho=spec.rho,
+                              path_slack=spec.path_slack, iters=spec.iters,
+                              tol=spec.tol, device=spec.device)
+    return trace, res, time.perf_counter() - t0
+
+
+def _arrival_record(topo_name, obj, pat_name, seed, fam: str,
+                    trace: list, res, wall_s: float) -> SweepRecord:
+    """One SweepRecord summarizing a whole rolling-horizon trace.  The
+    E/M columns hold the trace totals (executed-prefix energy summed
+    over epochs, last co-flow completion); per-epoch LP provenance
+    collapses to the worst epoch; lp_lower_bound is not meaningful
+    across epochs and is recorded as 0."""
+    offered = float(sum(a.coflow.total_gbits for a in trace))
+    return SweepRecord(
+        topo=topo_name, objective=obj, pattern=pat_name, seed=int(seed),
+        n_flows=int(sum(a.coflow.n_flows for a in trace)),
+        total_gbits=offered,
+        n_slots=max((e.n_slots for e in res.epochs), default=0),
+        energy_j=res.total_energy_j, completion_s=res.makespan_s,
+        feasible=all(e.feasible for e in res.epochs),
+        max_violation=max((e.max_violation for e in res.epochs),
+                          default=0.0),
+        lp_lower_bound=0.0,
+        lp_primal_residual=max((e.lp_primal_residual for e in res.epochs),
+                               default=0.0),
+        remaining_gbits=res.backlog_gbits,
+        solve_s=wall_s / max(res.n_epochs, 1),
+        survivability=(offered - res.backlog_gbits) / max(offered, 1e-12),
+        arrivals=fam, epochs=res.n_epochs,
+        # NaN (no co-flow finished) passes through: a 0.0 here would
+        # make the worst possible run read as instant completion
+        mean_response_s=res.mean_response_s,
+        backlog_gbits=res.backlog_gbits,
+        warm_iterations=res.warm_iterations)
+
+
 def _record(topo_name, obj, pat_name, seed, p, r, per_inst_s, *,
-            offered: float) -> SweepRecord:
-    """One SweepRecord from a solved instance.  `offered` is the demand
-    in Gbits that survivability is measured against."""
+            offered: float, failure: str = "none",
+            degradation_ratio: float = 0.0) -> SweepRecord:
+    """One SweepRecord from a solved instance.  `offered` is the healthy
+    demand in Gbits (a degraded instance's own coflow excludes flows the
+    failure disconnected, but survivability is measured against what the
+    job wanted to ship)."""
     m = r.metrics
     return SweepRecord(
         topo=topo_name, objective=obj, pattern=pat_name,
@@ -236,6 +338,7 @@ def _record(topo_name, obj, pat_name, seed, p, r, per_inst_s, *,
         lp_lower_bound=r.lp_lower_bound,
         lp_primal_residual=r.lp_primal_residual,
         remaining_gbits=r.remaining_gbits, solve_s=per_inst_s,
+        failure=failure, degradation_ratio=degradation_ratio,
         survivability=float(m.served.sum()) / max(offered, 1e-12))
 
 
@@ -248,6 +351,11 @@ def run_sweep(spec: SweepSpec, *, log: Callable[[str], None] | None = None
     problems: list[timeslot.ScheduleProblem] = []
     for topo_name in spec.topos:
         topo = topology.build(topo_name)
+        # one placeholder per topology for arrival rows (keeps records/
+        # problems index-aligned, nothing ever reads it)
+        placeholder = (timeslot.ScheduleProblem(
+            topo, traffic.empty_coflow(topo.n_vertices), n_slots=2,
+            rho=spec.rho) if spec.arrivals else None)
         for pat_name in spec.patterns:
             pat = traffic.pattern(pat_name, n_map=spec.n_map,
                                   n_reduce=spec.n_reduce,
@@ -281,6 +389,55 @@ def run_sweep(spec: SweepSpec, *, log: Callable[[str], None] | None = None
                 if spec.profile:
                     _profile_line(say, f"{topo_name}/{pat_name}/min-{obj}",
                                   snap, t_cell)
+                for fail_name in spec.failures:
+                    snap = solver.build_cache_stats().snapshot()
+                    t_cell = time.perf_counter()
+                    f_probs, f_results, f_s = _solve_failure_group(
+                        probs, results, fail_name, OBJECTIVES[obj], spec)
+                    t_cell = time.perf_counter() - t_cell
+                    ratios, survs = [], []
+                    for seed, hp, off, fp, fr in zip(
+                            spec.seeds, probs, offered, f_probs, f_results):
+                        ratio = failures.degradation_ratio(hp.topo, fp.topo)
+                        rec = _record(topo_name, obj, pat_name, seed, fp, fr,
+                                      f_s, offered=off, failure=fail_name,
+                                      degradation_ratio=ratio)
+                        ratios.append(ratio)
+                        survs.append(rec.survivability)
+                        records.append(rec)
+                        problems.append(fp)
+                    say(f"{topo_name:10s} {pat_name:8s} min-{obj:10s} "
+                        f"+{fail_name:9s} "
+                        f"cap-{np.mean(ratios):5.1%}  "
+                        f"surv={np.mean(survs):6.1%}  "
+                        f"({f_s*1e3:.0f} ms/inst warm)")
+                    if spec.profile:
+                        _profile_line(
+                            say, f"{topo_name}/{pat_name}/min-{obj}"
+                                 f"+{fail_name}", snap, t_cell)
+                for fam in spec.arrivals:
+                    fam_recs = []
+                    snap = solver.build_cache_stats().snapshot()
+                    t_cell = time.perf_counter()
+                    for seed in spec.seeds:
+                        trace, res, wall = _solve_arrival_cell(
+                            topo, pat, fam, OBJECTIVES[obj], spec, seed)
+                        rec = _arrival_record(topo_name, obj, pat_name,
+                                              seed, fam, trace, res, wall)
+                        fam_recs.append(rec)
+                        records.append(rec)
+                        # _spot_check skips arrival rows, so nothing
+                        # ever reads the placeholder
+                        problems.append(placeholder)
+                    say(f"{topo_name:10s} {pat_name:8s} min-{obj:10s} "
+                        f"~{fam:9s} "
+                        f"epochs={np.mean([r.epochs for r in fam_recs]):4.1f}  "
+                        f"resp={np.mean([r.mean_response_s for r in fam_recs]):6.2f} s  "
+                        f"backlog={np.mean([r.backlog_gbits for r in fam_recs]):5.2f} Gbit")
+                    if spec.profile:
+                        _profile_line(
+                            say, f"{topo_name}/{pat_name}/min-{obj}~{fam}",
+                            snap, time.perf_counter() - t_cell)
     if spec.oracle_check:
         _spot_check(records, problems, spec, say)
     return records, problems
@@ -289,8 +446,10 @@ def run_sweep(spec: SweepSpec, *, log: Callable[[str], None] | None = None
 def _spot_check(records, problems, spec: SweepSpec, say) -> None:
     """Re-solve the cheapest `oracle_check` instances with the exact MILP
     and record the fast path's optimality gap on the primary metric."""
+    # arrival rows aggregate many epoch problems — there is no single
+    # instance the MILP could certify, so they are never spot-checked
     order = sorted(
-        range(len(records)),
+        (i for i in range(len(records)) if records[i].arrivals == "none"),
         key=lambda i: (problems[i].coflow.n_flows
                        * problems[i].topo.n_edges
                        * problems[i].topo.n_wavelengths

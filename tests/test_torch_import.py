@@ -27,7 +27,10 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.models.transformer, repro_torch.runtime.steps, "
             "repro_torch.launch.serve, repro_torch.configs, "
             "repro_torch.core.oracle, repro_torch.sweep, "
-            "repro_torch.sweep.__main__; "
+            "repro_torch.sweep.__main__, repro_torch.core.failures, "
+            "repro_torch.core.chaos, repro_torch.core.arrivals, "
+            "repro_torch.core.fabric, repro_torch.core.heuristics, "
+            "repro_torch.core.wavelength; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')); print(bad)")

@@ -119,13 +119,18 @@ def test_cli_on_the_cpu_writes_results(tmp_path):
     (["--topos", "nope"], "unknown topology"),
     (["--patterns", "nope"], "unknown pattern"),
     (["--objectives", "nope"], "unknown objective"),
-    (["--failures"], "failures axis is not ported yet (ROADMAP queue 1 "
-                     "item 6"),
+    # ported since: the test ids name what these cases once checked
+    pytest.param(["--failures", "none"], "unknown failure preset 'none'",
+                 id="args3-failures axis is not ported yet (ROADMAP queue 1 "
+                    "item 6"),
     (["--policy", "scf"], "policies axis is not ported yet (ROADMAP queue "
                           "1 item 8"),
     (["--placement-search"], "item 8"),
-    (["--arrivals", "poisson"], "item 7"),
-    (["--chaos"], "item 7"),
+    pytest.param(["--arrivals", "weekly"], "unknown arrival family",
+                 id="args6-item 7"),
+    pytest.param(["--chaos"], "chaos axis is not ported yet (ROADMAP queue "
+                              "1 item 8: needs the scf fallback policy)",
+                 id="args7-item 7"),
     (["--service", "2"], "item 9"),
     (["--jax-cache", "cache"], "item 5"),
     (["--backend", "xla"], "COO"),
@@ -140,16 +145,16 @@ def test_cli_rejects_bad_names_and_unported_flags(args, match):
 
 
 def test_cli_unported_flag_exits_1_cleanly():
-    proc = _cli("--device", "cpu", "--failures", "link1")
+    proc = _cli("--device", "cpu", "--chaos", "storm")
     assert proc.returncode == 1
     assert proc.stderr.strip() == (
-        "error: the failures axis is not ported yet (ROADMAP queue 1 item "
-        "6: warm starts and failures)")
+        "error: the chaos axis is not ported yet (ROADMAP queue 1 item "
+        "8: needs the scf fallback policy)")
 
 
 def test_spec_rejects_unported_axes_naming_the_roadmap_item():
-    with pytest.raises(ValueError, match="failures axis .*item 6"):
-        runner.SweepSpec(failures=("link1",)).validate()
+    with pytest.raises(ValueError, match="chaos axis .*item 8"):
+        runner.SweepSpec(chaos=("storm",)).validate()
     with pytest.raises(ValueError, match="item 10"):
         runner.SweepSpec(mesh=2).validate()
 
