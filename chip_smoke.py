@@ -114,18 +114,44 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      rule); the flagship shuffle arriving as a 4-co-flow poisson trace on
      fat-tree k=16, warm and cold: epochs, iterations, conservation, the
      wall an epoch split into the adaptive driver and the host;
- 21. chaos replay: the storm preset over both traces, twice on the card
-     (byte-identical chaos logs, event traces and epochs), every epoch
-     certified, demand conserved, the storm hitting an epoch with demand;
-     the heavy trace also on the CPU under phase 20's rule;
- 22. the sweep's --failures and --arrivals axes at their tests' sizes,
-     each row against the CPU under phase 20's rule; --chaos refused
-     naming its ROADMAP item; plan_collectives(v5e_fabric()) on the card
-     against the CPU.
+ 21. chaos replay: the storm preset over both traces with the "scf"
+     fallback tier, as the reference's chaos cells run it, twice on the
+     card (byte-identical chaos logs, event traces and epochs), every
+     epoch certified, demand conserved, the storm hitting an epoch with
+     demand; the heavy trace also on the CPU under phase 20's rule;
+ 22. the sweep's --failures, --arrivals and --chaos axes at their tests'
+     sizes, each row against the CPU under phase 20's rule, and --chaos's
+     chaos_events.log; plan_collectives(v5e_fabric()) on the card against
+     the CPU;
+ 23. baseline policies: the golden policy grid (spine-leaf and pon3 x
+     energy/time x ecmp, least-loaded, scf) on the card against its pins
+     (metrics within 1e-4, gaps within 5e-3), then policy_bench's default
+     cells (spine-leaf and pon3, 10 x 6 of 30 Gbit) and the flagship
+     (against phase 5's LP): all five policies, fair-lp through the
+     burst kernel, each certified with gap_vs_lp >= 1 - 1e-4, the
+     heuristics bitwise their CPU run, each policy's wall beside the LP's;
+ 24. placement search: the four pinned SA runs, each twice on the card
+     (identical trajectories: every dispatch's candidates and scores),
+     against their pins, or where the port's CPU run misses a pin too
+     (spine-leaf min-time) against that run; the committed placement
+     run (docs/PLACEMENT.md, 144 rows, no oracle spot-check) against
+     results/placement/results.csv under phase 14's rule, a row off it
+     re-derived on the host CPU in both summation orders; evaluations a
+     second, dispatches, and one generation's stage clock;
+ 25. the multi-tenant service: the golden two-tenant run (verified
+     schedules) against its pin, two card runs with byte-identical
+     event logs; service_bench's workload (12 tenants a topology) in
+     "measured" mode coalesced against serial: equal tenant metrics,
+     co-flows a second, p50/p99 decision latency, dispatches a window,
+     the device's idle share; two fat-tree k=16 tenants of the flagship
+     shuffle (2 poisson co-flows each, shortest paths); the sweep's
+     --service 2 mode and its service_events.log.
 
 The last lines are one JSON object describing the kernels, the card's
 name and power limit, and `{"ok": true, "device": {...}}`.  Imports
-torch, numpy, scipy and repro_torch only.
+torch, numpy, scipy and repro_torch only.  Phase 24 starts helper
+processes of this script (--placement-cpu, on the host CPU only) and
+waits for all of them before it goes on.
 """
 from __future__ import annotations
 
@@ -296,10 +322,57 @@ SWEEP_ARRIVALS_ARGS = ["--topos", "spine-leaf", "--objectives", "energy",
                        "--total-gbits", "8", "--n-map", "4", "--n-reduce",
                        "3", "--iters", "1200", "--oracle-check", "0",
                        "--arrivals", "poisson", "--arrival-coflows", "3"]
+SWEEP_CHAOS_ARGS = ["--topos", "spine-leaf", "--objectives", "energy",
+                    "--patterns", "uniform", "--seeds", "1",
+                    "--total-gbits", "8", "--n-map", "4", "--n-reduce", "3",
+                    "--iters", "1200", "--oracle-check", "0", "--chaos",
+                    "storm"]
 # the columns a sweep row is held to across devices
 SWEEP_ROW_COLS = ("energy_j", "completion_s", "survivability",
                   "degradation_ratio", "mean_response_s", "backlog_gbits",
-                  "epochs", "remaining_gbits")
+                  "epochs", "remaining_gbits", "availability",
+                  "stranded_gbits", "recover_s", "deferred_gbits")
+# policies: tests/test_golden_metrics.py's policy grid, held to its pins
+# (metrics within METRIC_RTOL, gaps within GAP_RTOL: the LP denominator
+# moves with the lowering); then benchmarks/policy_bench.py's default
+# cells and the flagship, all five policies against the LP
+GOLDEN_POLICIES = ("ecmp", "least-loaded", "scf")
+GAP_RTOL = 5e-3
+POLICY_BENCH_PATTERN = dict(n_map=10, n_reduce=6, total_gbits=30.0)
+# placement search: tests/test_golden_metrics.py's pinned SA runs, then
+# the committed placement run (docs/PLACEMENT.md; its results.csv holds
+# the uniform pattern's rows only), without its oracle spot-check (the
+# MILP is host work the card does not touch)
+SEARCH_CFG = dict(method="sa", seed=0, generations=2, population=6,
+                  iters=1500)
+# the pin the port's CPU run misses, and where the test that names the
+# flipped comparison lives (ROADMAP queue 3)
+SEARCH_PIN_FLIPS = {("spine-leaf", "time"): "the seed generation's "
+                    "incumbent choice flips on a one-ulp tie; "
+                    "tests/test_torch_search.py"}
+PLACEMENT_ARGS = ["--topos", "spine-leaf,pon3", "--patterns", "uniform",
+                  "--placement-search", "sa,ga", "--seeds", "4", "--n-map",
+                  "6", "--n-reduce", "4", "--total-gbits", "20",
+                  "--oracle-check", "0"]
+PLACEMENT_RESULTS = ROOT / "results" / "placement" / "results.csv"
+# a card row off the committed one is re-derived on the host CPU (its
+# search, or its LP cell), in torch's and the kernel's summation order,
+# in processes of this script's own, this many at a time
+PLACEMENT_CPU_WORKERS = 6
+# the service: the golden two-tenant run (tests/test_golden_metrics.py),
+# benchmarks/service_bench.py's default workload (per topology 12
+# tenants of 3 poisson co-flows, 3 x 2 flows of 36 Gbit, 1 s apart on
+# average, tol 2e-3), and two flagship tenants on fat-tree k=16 with the
+# flagship cell's shortest paths (path_slack 0; the service's default
+# of 2 admits about twice the edges, and the run took 53-67 s)
+SERVICE_BENCH = dict(tenants=12, coflows=3, mean_s=1.0, iters=3000,
+                     tol=2e-3, pattern=dict(n_map=3, n_reduce=2,
+                                            total_gbits=36.0))
+SERVICE_FT_COFLOWS = 2
+SERVICE_SWEEP_ARGS = ["--service", "2", "--topos", "spine-leaf,pon3",
+                      "--patterns", "uniform", "--total-gbits", "8",
+                      "--n-map", "4", "--n-reduce", "3",
+                      "--arrival-coflows", "2"]
 
 
 def card_line() -> str:
@@ -1623,7 +1696,8 @@ def online_phase(dev) -> dict:
 
 
 def chaos_phase(traces, dev) -> int:
-    """Phase 21: the storm preset replayed over phase 20's traces, twice on
+    """Phase 21: the storm preset replayed over phase 20's traces with the
+    "scf" fallback tier (as the reference's chaos cells run it), twice on
     the card (byte-identical chaos logs and event traces), the heavy
     trace also on the CPU under the order rule.  Returns the launch
     count."""
@@ -1643,7 +1717,8 @@ def chaos_phase(traces, dev) -> int:
             ops.PDHG_BURST_LAUNCHES = 0
             t0 = time.perf_counter()
             r = arrivals.run_online(topo, trace, "energy", **kw,
-                                    chaos=events, device=dev)
+                                    chaos=events, fallback_policy="scf",
+                                    device=dev)
             wall = time.perf_counter() - t0
             launches += ops.PDHG_BURST_LAUNCHES
             runs.append(r)
@@ -1658,7 +1733,8 @@ def chaos_phase(traces, dev) -> int:
             f"{a.stranded_gbits:.6f} Gbit, deferred "
             f"{sum(e.deferred_gbits for e in a.epochs):.6f} Gbit (at the end "
             f"{a.deferred_failure_gbits:.6f}); recoveries "
-            f"{[round(float(t), 6) for t in a.recoveries]} s")
+            f"{[round(float(t), 6) for t in a.recoveries]} s; scf fallback "
+            f"epochs {sum(' fallback ' in line for line in a.chaos_log)}")
         for line in a.chaos_log:
             say(f"      {line}")
         require(texts[0] == texts[1], f"{label}: two event traces differ")
@@ -1676,7 +1752,8 @@ def chaos_phase(traces, dev) -> int:
             require(chaos.format_trace(cpu_events) == texts[0],
                     f"{label}: the CPU run's event trace differs")
             hold_card_to_cpu(f"{label} + storm", lambda d: arrivals.run_online(
-                sl, trace, "energy", **kw, chaos=cpu_events, device=d), a)
+                sl, trace, "energy", **kw, chaos=cpu_events,
+                fallback_policy="scf", device=d), a)
     return launches
 
 
@@ -1694,15 +1771,18 @@ def run_cli(args) -> tuple[int, str]:
 
 
 def sweep_axes_phase(dev) -> int:
-    """Phase 22: the sweep's --failures and --arrivals axes on the card,
-    row by row against the CPU under the order rule; --chaos still
-    refused; plan_collectives on the card and the CPU.  Returns the
-    launch count."""
+    """Phase 22: the sweep's --failures, --arrivals and --chaos axes on
+    the card, row by row against the CPU under the order rule, and the
+    chaos axis's event-trace log; plan_collectives on the card and the
+    CPU.  Returns the launch count."""
     import numpy as np
     from repro_torch.core import fabric
     from repro_torch.kernels import ops
     launches = 0
-    for args in (SWEEP_FAILURES_ARGS, SWEEP_ARRIVALS_ARGS):
+    axes = ((SWEEP_FAILURES_ARGS, "Degraded fabrics", 2),
+            (SWEEP_ARRIVALS_ARGS, "Online arrivals", 4),
+            (SWEEP_CHAOS_ARGS, "Availability under chaos", 2))
+    for args, table, n_flag in axes:
         with tempfile.TemporaryDirectory() as tmp:
             ops.PDHG_BURST_LAUNCHES = 0
             t0 = time.perf_counter()
@@ -1712,13 +1792,22 @@ def sweep_axes_phase(dev) -> int:
             card_rows = list(csv.DictReader(open(pathlib.Path(tmp)
                                                  / "results.csv")))
             md = (pathlib.Path(tmp) / "results.md").read_text()
+            events_log = pathlib.Path(tmp) / "chaos_events.log"
+            events_text = (events_log.read_text() if events_log.exists()
+                           else None)
         last = text.strip().splitlines()[-1]
-        say(f"    {' '.join(args[-2:] if args is SWEEP_FAILURES_ARGS else args[-4:])}: "
-            f"exit {rc}, {len(card_rows)} rows, {wall:.1f} s: {last}")
+        say(f"    {' '.join(args[-n_flag:])}: exit {rc}, {len(card_rows)} "
+            f"rows, {wall:.1f} s: {last}")
         require(rc == 0 and "(0 infeasible)" in last,
-                f"sweep {args[-2:]}: exit {rc}")
-        require(("Degraded fabrics" if args is SWEEP_FAILURES_ARGS
-                 else "Online arrivals") in md, "sweep: the table is missing")
+                f"sweep {args[-n_flag:]}: exit {rc}")
+        require(table in md, f"sweep {args[-n_flag:]}: the table is missing")
+        if args is SWEEP_CHAOS_ARGS:
+            require(events_text is not None and events_text.startswith(
+                "# topo=spine-leaf chaos=storm seed=0\n")
+                and " fail " in events_text,
+                "--chaos storm: chaos_events.log missing or empty")
+            say(f"      chaos_events.log: "
+                f"{len(events_text.splitlines())} lines")
 
         def cpu_rows():
             with tempfile.TemporaryDirectory() as tmp:
@@ -1746,11 +1835,8 @@ def sweep_axes_phase(dev) -> int:
                        for a, b in zip(card_rows, ko))
             say(f"      in the kernel's summation order the CPU reproduces "
                 f"the card's rows bitwise: {same}")
-            require(same, f"sweep {args[-2:]}: card and CPU rows differ")
-    rc, _ = run_cli(["--chaos", "storm"])
-    say(f"    --chaos storm: {rc}")
-    require(isinstance(rc, str) and "item 8" in rc, "--chaos is not refused "
-                                                    "naming item 8")
+            require(same, f"sweep {args[-n_flag:]}: card and CPU rows "
+                          f"differ")
     layers = [(f"l{i}", 50e6) for i in range(16)]
     buckets = fabric.grad_buckets_for(layers, bucket_bytes=100e6,
                                       data_axes=(0, 1))
@@ -1772,12 +1858,582 @@ def sweep_axes_phase(dev) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 23-25: baseline policies, placement search, the service
+# ---------------------------------------------------------------------------
+
+def fresh(p):
+    """An equal problem that shares no memo with `p` (policies memoise
+    their path sets on the instance)."""
+    from repro_torch.core import timeslot
+    return timeslot.ScheduleProblem(p.topo, p.coflow, n_slots=p.n_slots,
+                                    rho=p.rho, q_weight=p.q_weight,
+                                    path_slack=p.path_slack)
+
+
+def policy_phase(dev, p_full, full_lp, full_lp_s) -> int:
+    """Phase 23: the golden policy grid on the card against its pins,
+    then policy_bench's default cells and the flagship: all five
+    policies, certified, gap >= 1 - 1e-4 against the LP of the same
+    problem (the flagship's from phase 5), the heuristics bitwise their
+    CPU run, each policy's wall beside the LP solve's.  Returns the
+    launch count."""
+    from repro_torch.core import policies, solver
+    from repro_torch.kernels import ops
+    golden = json.loads(GOLDEN.read_text())
+    launches, worst = 0, (-1.0, "")
+    for name in GOLDEN_TOPOS:
+        for obj in OBJECTIVES:
+            p_lp = problem(name, {}, GOLDEN_PATTERN, 2)
+            ops.PDHG_BURST_LAUNCHES = 0
+            lp = solver.solve_fast(p_lp, obj, device=dev)
+            launches += ops.PDHG_BURST_LAUNCHES
+            for pol in GOLDEN_POLICIES:
+                p = problem(name, {}, GOLDEN_PATTERN, 2)
+                r = policies.get(pol).solve(p, obj, device=dev)
+                r.certificate.assert_ok(f"policy {pol}/{name}/{obj}")
+                gap = policies.gap_vs_lp(obj, p, r.schedule, p_lp, lp)
+                want = golden[f"policy/{name}/min-{obj}/{pol}/seed0"]
+                d = rel_diff(gap, want["gap_vs_lp"])
+                worst = max(worst, (d, f"{pol}/{name}/{obj}"))
+                require(gap >= 1.0 - 1e-4 and d <= GAP_RTOL
+                        and all(math.isclose(getattr(r.metrics, k), want[k],
+                                             rel_tol=METRIC_RTOL,
+                                             abs_tol=1e-9)
+                                for k in ("energy_j", "completion_s")),
+                        f"policy {pol}/{name}/{obj}: gap {gap} E "
+                        f"{r.metrics.energy_j} M {r.metrics.completion_s} "
+                        f"vs pin {want}")
+    say(f"    golden policy grid ({len(GOLDEN_TOPOS) * len(OBJECTIVES) * len(GOLDEN_POLICIES)}"
+        f" cells): every pin held (metrics within {METRIC_RTOL:g}, gaps "
+        f"within {GAP_RTOL:g}; worst gap {worst[0]:.3e} at {worst[1]}); "
+        f"every schedule certified")
+    cells = [(f"{n} 10x6 30 Gbit", problem(n, {}, POLICY_BENCH_PATTERN, 2),
+              None, None) for n in ("spine-leaf", "pon3")]
+    cells.append(("fat-tree k=16 flagship (phase 5's LP)", p_full,
+                  full_lp, full_lp_s))
+    for label, p, lp, lp_s in cells:
+        if lp is None:
+            ops.PDHG_BURST_LAUNCHES = 0
+            t0 = time.perf_counter()
+            lp = solver.solve_fast(p, "energy", iters=3000, device=dev)
+            lp_s = time.perf_counter() - t0
+            launches += ops.PDHG_BURST_LAUNCHES
+        parts = []
+        for pol in policies.POLICIES:
+            ops.PDHG_BURST_LAUNCHES = 0
+            t0 = time.perf_counter()
+            r = policies.get(pol).solve(p, "energy", device=dev)
+            wall = time.perf_counter() - t0
+            n = ops.PDHG_BURST_LAUNCHES
+            launches += n
+            r.certificate.assert_ok(f"policy {pol}/{label}")
+            gap = policies.gap_vs_lp("energy", p, r.schedule, p, lp)
+            require(gap >= 1.0 - 1e-4 and r.remaining_gbits <= 1e-6,
+                    f"policy {pol}/{label}: gap {gap}, remaining "
+                    f"{r.remaining_gbits}")
+            same = ""
+            if pol != "fair-lp":
+                require(n == 0, f"{pol} launched the kernel")
+                c = policies.get(pol).solve(fresh(p), "energy", device="cpu")
+                require(c.schedule.tobytes() == r.schedule.tobytes()
+                        and c.lp_x.tobytes() == r.lp_x.tobytes()
+                        and c.metrics.energy_j == r.metrics.energy_j,
+                        f"policy {pol}/{label}: card and CPU differ")
+                same = ", bitwise the CPU's"
+            parts.append(f"{pol} {wall:.3f} s gap {gap:.4f}"
+                         f"{' (' + str(n) + ' bursts)' if n else ''}{same}")
+        say(f"    {label}: LP {lp_s:.3f} s (E={lp.metrics.energy_j:.3f} J); "
+            + "; ".join(parts) + "; every schedule certified")
+    return launches
+
+
+@contextlib.contextmanager
+def trajectory():
+    """While the block runs, append each placement-search dispatch's
+    candidates, as (mappers, reducers, score) tuples, to the list it
+    yields."""
+    from repro_torch.search import optimize
+    calls, real = [], optimize.evaluate_placements
+
+    def rec(*a, **kw):
+        out = real(*a, **kw)
+        calls.append([(c.placement.mappers.tolist(),
+                       c.placement.reducers.tolist(), c.score) for c in out])
+        return out
+
+    with mock.patch.object(optimize, "evaluate_placements", rec):
+        yield calls
+
+
+def search_summary(res) -> dict:
+    from repro_torch import convert
+    d = convert.search_result_to_arrays(res)
+    for c in [d["best"], *d["baselines"].values()]:
+        c["mappers"], c["reducers"] = (c["mappers"].tolist(),
+                                       c["reducers"].tolist())
+    return d
+
+
+def search_matches(a: dict, b: dict, rtol=METRIC_RTOL) -> list[str]:
+    """Where two search summaries differ: placements, names and counts
+    exactly, scores, gain and history within `rtol`."""
+    bad = []
+    for key in ("baseline_best", "evaluations", "dispatches"):
+        if a[key] != b[key]:
+            bad.append(f"{key}: {a[key]} vs {b[key]}")
+    pairs = [("best", a["best"], b["best"])] + [
+        (k, a["baselines"][k], b["baselines"][k]) for k in a["baselines"]]
+    for k, x, y in pairs:
+        if (x["mappers"], x["reducers"]) != (y["mappers"], y["reducers"]):
+            bad.append(f"{k} placement: {x['mappers']}/{x['reducers']} vs "
+                       f"{y['mappers']}/{y['reducers']}")
+        if rel_diff(x["score"], y["score"]) > rtol:
+            bad.append(f"{k} score: {x['score']} vs {y['score']}")
+    if rel_diff(a["gain"], b["gain"]) > rtol:
+        bad.append(f"gain: {a['gain']} vs {b['gain']}")
+    return bad
+
+
+def placement_cpu_cell(spec: str) -> int:
+    """The --placement-cpu mode: rows of the committed placement run
+    re-derived on the host CPU, TOPO:OBJECTIVE:METHOD:SEED:OUT[:kernel]
+    (METHOD "none": the LP rows of that seed), written to OUT/results.csv;
+    with :kernel the burst's plain version sums each row in the kernel's
+    order."""
+    import torch
+    from repro_torch.core import topology
+    from repro_torch.sweep import report, runner
+    torch.set_num_threads(1)
+    topo, obj, method, seed, out, *order = spec.split(":")
+    # PLACEMENT_ARGS' cell, one seed of it
+    sw = runner.SweepSpec(topos=(topo,), objectives=(obj,),
+                          patterns=("uniform",), seeds=(int(seed),),
+                          n_map=6, n_reduce=4, total_gbits=20.0,
+                          device="cpu")
+    records, problems = [], []
+    with (in_kernel_order() if order == ["kernel"]
+          else contextlib.nullcontext()):
+        if method == "none":
+            records, _ = runner.run_sweep(sw)
+        else:
+            runner._placement_records(records, problems, sw,
+                                      lambda _: None, topo,
+                                      topology.build(topo), obj, method)
+    report.write_csv(records, pathlib.Path(out) / "results.csv")
+    return 0
+
+
+def cpu_placement_rows(searches) -> dict:
+    """Re-derive the named searches (topo, objective, method, seed;
+    method "none": the LP rows) on the host CPU in torch's and in the
+    kernel's summation order, each in a process of this script's own
+    (--placement-cpu), PLACEMENT_CPU_WORKERS at a time.  Returns
+    {order: {row key: row}}."""
+    import os
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    procs: list[subprocess.Popen] = []
+
+    def run(spec):
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--placement-cpu",
+             spec], env=env, cwd=str(ROOT), stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True)
+        procs.append(proc)
+        _, err = proc.communicate()
+        require(proc.returncode == 0, f"--placement-cpu {spec}: exit "
+                                      f"{proc.returncode}: {err[-2000:]}")
+
+    out = {"torch": {}, "kernel": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = []
+        for i, (topo, obj, method, seed) in enumerate(searches):
+            for order in out:
+                d = pathlib.Path(tmp) / f"{i}-{order}"
+                spec = f"{topo}:{obj}:{method}:{seed}:{d}" + (
+                    ":kernel" if order == "kernel" else "")
+                jobs.append((order, d, spec))
+        pool = ThreadPoolExecutor(PLACEMENT_CPU_WORKERS)
+        try:
+            list(pool.map(run, [spec for _, _, spec in jobs]))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+            pool.shutdown(wait=True, cancel_futures=True)
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+        for order, d, _ in jobs:
+            out[order].update(placement_rows(d / "results.csv"))
+    return out
+
+
+def placement_rows(path) -> dict:
+    """results.csv rows keyed (topo, objective, pattern, seed,
+    placement_search)."""
+    with open(path, newline="") as fh:
+        return {(r["topo"], r["objective"], r["pattern"], int(r["seed"]),
+                 r["placement_search"]): r for r in csv.DictReader(fh)}
+
+
+def placement_row_diff(a: dict, b: dict) -> float:
+    return max(rel_diff(float(a[c]), float(b[c]))
+               for c in ("energy_j", "completion_s", "placement_gain"))
+
+
+def placement_phase(dev) -> dict:
+    """Phase 24: the pinned SA runs twice on the card (identical
+    trajectories) against their pins or, where the port's CPU run misses
+    a pin too, against that CPU run; the committed placement run against
+    results/placement/results.csv under phase 14's rule; evaluations a
+    second, dispatches, and the stage clock of one generation.  Returns
+    the launch count and the rates."""
+    import numpy as np
+    from repro_torch import search
+    from repro_torch.core import topology, traffic
+    from repro_torch.kernels import ops
+    from repro_torch.search import optimize
+    golden = json.loads(GOLDEN.read_text())
+    launches = 0
+    pat = traffic.pattern("uniform", **GOLDEN_PATTERN)
+    for name in GOLDEN_TOPOS:
+        topo = topology.build(name)
+        for obj in OBJECTIVES:
+            runs = []
+            for rep in range(2):
+                ops.PDHG_BURST_LAUNCHES = 0
+                t0 = time.perf_counter()
+                with trajectory() as traj:
+                    res = search.optimize_placement(topo, pat, obj,
+                                                    device=dev, **SEARCH_CFG)
+                wall = time.perf_counter() - t0
+                launches += ops.PDHG_BURST_LAUNCHES
+                res.best.result.certificate.assert_ok(f"search {name}/{obj}")
+                runs.append((search_summary(res), traj, wall))
+            (a, ta, wall), (b, tb, _) = runs
+            require(repr(a) == repr(b) and repr(ta) == repr(tb),
+                    f"search {name}/{obj}: two card runs differ")
+            want = golden[f"search/{name}/min-{obj}/sa/seed0"]
+            pin = {"best": {"mappers": want["best_mappers"],
+                            "reducers": want["best_reducers"],
+                            "score": want["best_score"]},
+                   "baselines": {k: {"mappers": a["baselines"][k]["mappers"],
+                                     "reducers": a["baselines"][k]["reducers"],
+                                     "score": v}
+                                 for k, v in want["baselines"].items()},
+                   **{k: want[k] for k in ("baseline_best", "evaluations",
+                                           "dispatches", "gain")}}
+            off = search_matches(a, pin)
+            verdict = "the pin held"
+            if off:
+                # phase 14's rule: the CPU in the kernel's order gives the
+                # card's run bitwise, and in torch's order the pin, but
+                # for a pin the port's CPU run misses too, where the
+                # test names the flipped comparison
+                cpu = search_summary(search.optimize_placement(
+                    topo, pat, obj, device="cpu", **SEARCH_CFG))
+                if search_matches(a, cpu):
+                    with in_kernel_order():
+                        ko = search_summary(search.optimize_placement(
+                            topo, pat, obj, device="cpu", **SEARCH_CFG))
+                    require(repr(ko) == repr(a), f"search {name}/{obj}: the "
+                            f"card differs from its kernel-order model")
+                    verdict = ("the CPU in the kernel's order gives the "
+                               "card's run bitwise; ")
+                else:
+                    verdict = "the card's run is the CPU's; "
+                cpu_off = search_matches(cpu, pin)
+                if not cpu_off:
+                    verdict += ("in torch's order the CPU holds the pin: "
+                                "flipped by the summation order")
+                else:
+                    require((name, obj) in SEARCH_PIN_FLIPS,
+                            f"search {name}/{obj}: the CPU misses the pin "
+                            f"too: {cpu_off}")
+                    verdict += (f"the pin, which the port's CPU run misses "
+                                f"too ({SEARCH_PIN_FLIPS[name, obj]}), "
+                                f"missed in {off}")
+            say(f"    SA {name}/{obj}: best {a['best']['mappers']}/"
+                f"{a['best']['reducers']} score {a['best']['score']!r} gain "
+                f"{a['gain']:.6f}, {a['evaluations']} evaluations in "
+                f"{a['dispatches']} dispatches, {wall:.2f} s; two card runs "
+                f"identical ({len(ta)} dispatches' candidates and scores); "
+                f"{verdict}")
+    # one generation's stages at the committed run's size (pon3 energy,
+    # 8 candidates)
+    topo = topology.build("pon3")
+    ppat = traffic.pattern("uniform", n_map=6, n_reduce=4, total_gbits=20.0)
+    cfg = search.SearchConfig(device=dev)
+    rng = np.random.default_rng(0)
+    pls = [traffic.sample_placement(topo, ppat, rng) for _ in range(8)]
+    map_out = traffic._map_outputs(ppat, np.random.default_rng(1))
+    from repro_torch.core import timeslot
+    n_slots = max(timeslot.suggest_n_slots(
+        topo, traffic.generate_from_placement(topo, ppat, pl,
+                                              map_out=map_out))
+        for pl in pls)
+    ops.PDHG_BURST_LAUNCHES = 0
+    with stage_clock(batch_stages()) as spent:
+        t0 = time.perf_counter()
+        optimize.evaluate_placements(topo, ppat, pls, "energy",
+                                     map_out=map_out, n_slots=n_slots,
+                                     cfg=cfg)
+        gen_wall = time.perf_counter() - t0
+    launches += ops.PDHG_BURST_LAUNCHES
+    say(f"    one generation (pon3, 6x4 of 20 Gbit, 8 candidates, one "
+        f"stacked dispatch): {gen_wall:.3f} s: "
+        + ", ".join(f"{k.strip()} {v:.3f}" for k, v in spent.items()))
+    # the committed run
+    evals, n_disp, in_eval = [0], [0], [0.0]
+    real = optimize.evaluate_placements
+
+    def counted(topo_, pat_, placements, *a, **kw):
+        t1 = time.perf_counter()
+        try:
+            return real(topo_, pat_, placements, *a, **kw)
+        finally:
+            in_eval[0] += time.perf_counter() - t1
+            evals[0] += len(placements)
+            n_disp[0] += 1
+
+    walls = []
+    real_opt = search.optimize_placement
+
+    def timed(*a, **kw):
+        t1 = time.perf_counter()
+        try:
+            return real_opt(*a, **kw)
+        finally:
+            walls.append(time.perf_counter() - t1)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ops.PDHG_BURST_LAUNCHES = 0
+        t0 = time.perf_counter()
+        with mock.patch.object(optimize, "evaluate_placements", counted), \
+                mock.patch.object(search, "optimize_placement", timed):
+            rc, text = run_cli(PLACEMENT_ARGS + ["--out", tmp])
+        wall = time.perf_counter() - t0
+        launches += ops.PDHG_BURST_LAUNCHES
+        rows = placement_rows(pathlib.Path(tmp) / "results.csv")
+        md = (pathlib.Path(tmp) / "results.md").read_text()
+    last = text.strip().splitlines()[-1]
+    n_search = sum(k[4] != "none" for k in rows)
+    say(f"    the committed placement run ({' '.join(PLACEMENT_ARGS)}): exit "
+        f"{rc}, {len(rows)} rows ({n_search} of the search) in {wall:.1f} s;"
+        f" {len(walls)} searches, {sum(walls):.1f} s: {evals[0]} "
+        f"evaluations in {n_disp[0]} stacked dispatches "
+        f"({evals[0] / sum(walls):.1f} evaluations a second of search, "
+        f"{evals[0] / in_eval[0]:.1f} a second of dispatch)")
+    require(rc == 0 and "(0 infeasible)" in last and "Placement search" in md,
+            f"placement run: exit {rc}: {last}")
+    ref = placement_rows(PLACEMENT_RESULTS)
+    require(rows.keys() == ref.keys(), "placement run: other rows than the "
+                                       "committed run's")
+    off = {k: placement_row_diff(rows[k], ref[k]) for k in rows}
+    off = {k: d for k, d in off.items() if d > SWEEP_RTOL}
+    say(f"    against results/placement/results.csv (the reference's run): "
+        f"{len(rows) - len(off)} of {len(rows)} rows within {SWEEP_RTOL:g} "
+        f"on energy_j, completion_s and placement_gain; "
+        f"{len(off)} off: {sorted(off)}")
+    searches = sorted({(k[0], k[1], k[4], k[3]) for k in off})
+    t0 = time.perf_counter()
+    cpu = cpu_placement_rows(searches)
+    ko, own = cpu["kernel"], cpu["torch"]
+    say(f"    the {len(searches)} searches or LP cells holding them re-run "
+        f"on the host CPU in both summation orders "
+        f"({PLACEMENT_CPU_WORKERS} processes at a time): "
+        f"{time.perf_counter() - t0:.1f} s")
+    cpu_too = []
+    for k in sorted(off):
+        bad = [c for c in rows[k] if c != "solve_s"
+               and rows[k][c] != ko[k][c]]
+        require(not bad, f"placement row {k}: off the committed row by "
+                         f"{off[k]:.3e}, and the kernel-order CPU run "
+                         f"differs from the card in {bad}")
+        d_own = placement_row_diff(own[k], ref[k])
+        if d_own > SWEEP_RTOL:
+            cpu_too.append(k)
+    say(f"    every off row is the kernel-order CPU run's bitwise (every "
+        f"column but solve_s), and in torch's order the committed row within "
+        f"{SWEEP_RTOL:g}: flipped by the summation order")
+    require(not cpu_too, f"placement rows the CPU run in torch's order "
+                         f"misses too: {cpu_too}")
+    return {"launches": launches, "evals_s": evals[0] / sum(walls),
+            "dispatches": n_disp[0]}
+
+
+def service_tenants(topo_name, k0=0):
+    from repro_torch import service
+    from repro_torch.core import arrivals, topology, traffic
+    b = SERVICE_BENCH
+    topo = topology.build(topo_name)
+    pat = traffic.pattern("uniform", **b["pattern"])
+    spec = arrivals.ArrivalSpec(n_coflows=b["coflows"],
+                                mean_interarrival_s=b["mean_s"])
+    return [service.TenantSpec(f"tenant{k}", topo, pat, spec, seed=k)
+            for k in range(k0, k0 + b["tenants"])]
+
+
+def tenant_metrics(res) -> list[tuple]:
+    return [(t.energy_j, t.makespan_s, t.shipped_gbits, t.n_done)
+            for t in res.tenants]
+
+
+def service_phase(dev) -> int:
+    """Phase 25: the golden two-tenant service run on the card against its
+    pin (or the CPU under the order rule), two card runs with
+    byte-identical event logs, service_bench's workload coalesced and
+    serial in "measured" mode, two flagship tenants on fat-tree k=16,
+    and the sweep's --service mode.  Returns the launch count."""
+    import numpy as np
+    from repro_torch import service
+    from repro_torch.core import arrivals, topology, traffic
+    from repro_torch.kernels import ops
+    golden = json.loads(GOLDEN.read_text())["service/spine-leaf+pon3/seed0"]
+    spec = arrivals.ArrivalSpec(n_coflows=2, mean_interarrival_s=2.0)
+    pat = traffic.pattern("uniform", **GOLDEN_PATTERN)
+    tenants = [service.TenantSpec("dcn", topology.build("spine-leaf"), pat,
+                                  spec, seed=0, objective="energy"),
+               service.TenantSpec("pon", topology.build("pon3"), pat, spec,
+                                  seed=0, objective="time")]
+    launches = 0
+
+    def golden_run(d):
+        return service.run_service(tenants, service.ServiceConfig(
+            iters=3000, tol=2e-3, device=d, verify_schedules=True))
+
+    runs = []
+    for rep in range(2):
+        ops.PDHG_BURST_LAUNCHES = 0
+        t0 = time.perf_counter()
+        runs.append(golden_run(dev))
+        wall = time.perf_counter() - t0
+        launches += ops.PDHG_BURST_LAUNCHES
+    a, b = runs
+    require(a.event_log() == b.event_log(), "service: two card runs' event "
+                                            "logs differ")
+    got = {"total_energy_j": a.total_energy_j, "makespan_s": a.makespan_s,
+           "tenant_energy_j": [t.energy_j for t in a.tenants],
+           "tenant_shipped_gbits": [t.shipped_gbits for t in a.tenants],
+           "tenant_makespan_s": [t.makespan_s for t in a.tenants]}
+    exact = {"n_done": sum(r.status == "done" for r in a.requests),
+             "arrived": a.counters.arrived, "admitted": a.counters.admitted}
+    off = [k for k, v in got.items() if not np.allclose(
+        v, golden[k], rtol=METRIC_RTOL, atol=1e-9)]
+    off += [k for k, v in exact.items() if v != golden[k]]
+    say(f"    golden two-tenant run (spine-leaf energy + pon3 time), card: "
+        f"{len(a.events)} events, {a.counters.windows} windows, "
+        f"{a.counters.dispatches} dispatches, {wall:.2f} s; E="
+        f"{a.total_energy_j} J makespan {a.makespan_s:.6f} s; two card "
+        f"runs byte-identical ('iterations' cost mode); "
+        f"{'the pin held' if not off else 'off the pin in ' + str(off)}")
+    if off:
+        cpu = golden_run("cpu")
+        if cpu.event_log() != a.event_log():
+            with in_kernel_order():
+                ko = golden_run("cpu")
+            require(ko.event_log() == a.event_log(), "service: the card "
+                    "differs from its kernel-order model")
+        say("    the CPU run reproduces the card's event log (in the "
+            "kernel's order where torch's differs)")
+    # service_bench's workload, coalesced against serial, "measured" mode
+    measured = service.SolveCostModel(mode="measured")
+    for topo_name in ("spine-leaf", "pon3"):
+        ten = service_tenants(topo_name)
+        res, walls = {}, {}
+        for coalesce in (False, True):
+            cfg = service.ServiceConfig(
+                iters=SERVICE_BENCH["iters"], tol=SERVICE_BENCH["tol"],
+                device=dev, coalesce=coalesce, overlap_build=coalesce,
+                cost=measured)
+            ops.PDHG_BURST_LAUNCHES = 0
+            t0 = time.perf_counter()
+            res[coalesce] = service.run_service(ten, cfg)
+            walls[coalesce] = time.perf_counter() - t0
+            launches += ops.PDHG_BURST_LAUNCHES
+            require(res[coalesce].backlog_gbits <= 1e-6,
+                    f"service bench {topo_name}: demand left")
+        for x, y in zip(tenant_metrics(res[True]), tenant_metrics(res[False])):
+            require(all(math.isclose(u, v, rel_tol=METRIC_RTOL, abs_tol=1e-9)
+                        for u, v in zip(x, y)),
+                    f"service bench {topo_name}: coalesced {x} vs serial {y}")
+        busy = profile_device(lambda: service.run_service(ten, cfg))
+        require(busy is not None, f"service bench {topo_name}: the "
+                                  f"profiler saw no device time")
+        busy_s = sum(us for _, us in busy.values()) * 1e-6
+        for coalesce in (False, True):
+            r, w = res[coalesce], walls[coalesce]
+            done = sum(q.status == "done" for q in r.requests)
+            say(f"    service_bench {topo_name}, {len(ten)} tenants, "
+                f"{'coalesced' if coalesce else 'serial   '}: {done} co-flows"
+                f" in {w:.3f} s = {done / w:.2f} co-flows/s; decision latency"
+                f" p50 {r.latency.p50:.4f} s p99 {r.latency.p99:.4f} s; "
+                f"{r.counters.dispatches} dispatches in "
+                f"{r.counters.windows} windows "
+                f"({r.counters.dispatches / r.counters.windows:.2f} a "
+                f"window), {r.counters.solver_dispatches} stacked kernel "
+                f"dispatches")
+        say(f"    service_bench {topo_name}: coalesced/serial throughput "
+            f"{walls[False] / walls[True]:.3f}x; every tenant's metrics "
+            f"equal within {METRIC_RTOL:g}; device busy {busy_s:.4f} s in a "
+            f"profiled coalesced run, of the unprofiled run's "
+            f"{walls[True]:.3f} s (idle share "
+            f"{1.0 - busy_s / walls[True]:.3f})")
+    # two flagship tenants
+    ft = topology.build(FULL[0], **FULL[1])
+    fpat = traffic.pattern("uniform", **FULL[2])
+    fspec = arrivals.ArrivalSpec(n_coflows=SERVICE_FT_COFLOWS,
+                                 mean_interarrival_s=2.0)
+    ften = [service.TenantSpec(f"ft{k}", ft, fpat, fspec, seed=k)
+            for k in range(2)]
+    ops.PDHG_BURST_LAUNCHES = 0
+    with stage_clock((("driver", ops, "pdhg_adaptive"),)) as spent:
+        t0 = time.perf_counter()
+        fr = service.run_service(ften, service.ServiceConfig(
+            device=dev, path_slack=FULL[3]))
+        wall = time.perf_counter() - t0
+    n = ops.PDHG_BURST_LAUNCHES
+    launches += n
+    c = fr.counters
+    say(f"    {ft.name}: 2 tenants, {SERVICE_FT_COFLOWS} poisson co-flows of "
+        f"the flagship shuffle each (seeds 0, 1; shortest paths): "
+        f"{c.windows} windows, "
+        f"{c.dispatches} dispatches ({c.solver_dispatches} stacked, {n} "
+        f"bursts), {c.retries} retries, {c.fallbacks} fallbacks; wall "
+        f"{wall:.1f} s (adaptive driver {spent['driver']:.2f} s); latency "
+        f"p50 {fr.latency.p50:.4f} s p99 {fr.latency.p99:.4f} s (virtual, "
+        f"'iterations' model); makespan {fr.makespan_s:.4f} s, backlog "
+        f"{fr.backlog_gbits:.3e} Gbit")
+    require(fr.backlog_gbits <= 1e-6 and all(
+        q.status == "done" for q in fr.requests), "flagship service: demand "
+                                                  "left")
+    with tempfile.TemporaryDirectory() as tmp:
+        ops.PDHG_BURST_LAUNCHES = 0
+        rc, text = run_cli(SERVICE_SWEEP_ARGS + ["--out", tmp])
+        launches += ops.PDHG_BURST_LAUNCHES
+        log = pathlib.Path(tmp) / "service_events.log"
+        n_lines = len(log.read_text().splitlines()) if log.exists() else 0
+    say(f"    {' '.join(SERVICE_SWEEP_ARGS)}: exit {rc}, "
+        f"service_events.log {n_lines} lines; "
+        + " | ".join(line.strip() for line in text.strip().splitlines()[1:3]))
+    require(rc == 0 and n_lines > 0, f"--service 2: exit {rc}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep-out", default="",
                     help="directory for phase 14's results.csv and "
                          "results.md (default: a new temporary directory)")
-    sweep_out = ap.parse_args(argv).sweep_out
+    # phase 24's helper processes (see cpu_placement_rows)
+    ap.add_argument("--placement-cpu", default="", help=argparse.SUPPRESS)
+    opts = ap.parse_args(argv)
+    if opts.placement_cpu:
+        return placement_cpu_cell(opts.placement_cpu)
+    sweep_out = opts.sweep_out
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1912,12 +2568,14 @@ def main(argv=None) -> int:
     ops.PDHG_BURST_LAUNCHES = 0
     full_iters = 0
     full_fp32 = {}
+    full_lp, full_lp_s = {}, {}   # for phase 23
     for obj in OBJECTIVES:
         runs = []
         for rep in range(2):
             t0 = time.perf_counter()
             r = solver.solve_fast(p_full, obj, device="cuda")
             wall = time.perf_counter() - t0
+            full_lp[obj], full_lp_s[obj] = r, wall
             t1 = time.perf_counter()
             verify.check_schedule(p_full, r.schedule).assert_ok(
                 f"fat-tree-k16/{obj} run {rep}")
@@ -2656,21 +3314,49 @@ def main(argv=None) -> int:
     require(chaos_launches > 0, "phase 21 did not go through the kernel")
 
     # -- phase 22: the sweep's new axes and the collective plan ------------
-    say("[22] the sweep's --failures and --arrivals axes and "
+    say("[22] the sweep's --failures, --arrivals and --chaos axes and "
         "plan_collectives on the card")
     t_phase = time.perf_counter()
     axes_launches = sweep_axes_phase(dev)
     say(f"    pdhg_burst launches on this phase's runs: {axes_launches}; "
         f"phase {time.perf_counter() - t_phase:.1f} s")
     require(axes_launches > 0, "phase 22 did not go through the kernel")
+
+    # -- phase 23: baseline policies ----------------------------------------
+    say(f"[23] baseline policies beside the LP on the card ({card})")
+    t_phase = time.perf_counter()
+    policy_launches = policy_phase(dev, p_full, full_lp["energy"],
+                                   full_lp_s["energy"])
+    say(f"    pdhg_burst launches on this phase: {policy_launches}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    require(policy_launches > 0, "phase 23 did not go through the kernel")
+
+    # -- phase 24: placement search -----------------------------------------
+    say(f"[24] placement search on the card ({card})")
+    t_phase = time.perf_counter()
+    placement = placement_phase(dev)
+    say(f"    pdhg_burst launches on this phase: {placement['launches']}; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    require(placement["launches"] > 0, "phase 24 did not go through the "
+                                       "kernel")
+
+    # -- phase 25: the multi-tenant service ---------------------------------
+    say(f"[25] the multi-tenant scheduler service on the card ({card})")
+    t_phase = time.perf_counter()
+    service_launches = service_phase(dev)
+    say(f"    pdhg_burst launches on this phase: {service_launches}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    require(service_launches > 0, "phase 25 did not go through the kernel")
+    new_launches = policy_launches + placement["launches"] + service_launches
     path_launches = (full_launches + fail["launches"] + online["launches"]
-                     + chaos_launches + axes_launches)
+                     + chaos_launches + axes_launches + new_launches)
     path_bf16 = bf16_launches + fail["bf16_launches"]
     say(f"    pdhg_burst launches on the main paths: {path_launches} (phase "
-        f"5 {full_launches}, phases 19-22 {path_launches - full_launches}); "
-        f"pdhg_burst_bf16: {path_bf16} (phase 12 {bf16_launches}, phase 19 "
-        f"{fail['bf16_launches']}); total {time.perf_counter() - t_start:.1f}"
-        f" s")
+        f"5 {full_launches}, phases 19-22 "
+        f"{path_launches - full_launches - new_launches}, phases 23-25 "
+        f"{new_launches}); pdhg_burst_bf16: {path_bf16} (phase 12 "
+        f"{bf16_launches}, phase 19 {fail['bf16_launches']}); total "
+        f"{time.perf_counter() - t_start:.1f} s")
 
     kernels = {"kernels": [{
         "name": "pdhg_burst", "route": "cuda", "source": SOURCE,

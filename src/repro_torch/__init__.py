@@ -16,13 +16,19 @@ Three paths run on the card:
   * serving the dense language models, `launch.serve` (`runtime.steps`,
     `models.transformer`): prefill with attention through the
     hand-written flash-attention kernel (kernels/csrc/flash_attention.cu),
-    then greedy decode against KV caches.
+    then greedy decode against KV caches;
+  * the scheduler as an operator runs it: baseline policies beside the
+    LP (`core.policies`), placement search over stacked dispatches
+    (`search`), re-planning under failures and arrivals
+    (`core.failures`, `core.arrivals`) and the multi-tenant service
+    (`service.run_service`), every PDHG burst the same kernel.
 
 Device rule (`device.resolve`): entry points default to device="cuda"
 and raise when no card is available; only an explicit device="cpu" runs
 on the host, through the kernels' plain PyTorch versions.
 """
-from . import configs, convert, core, device, kernels, models, runtime, sweep
+from . import (configs, convert, core, device, kernels, models, runtime,
+               search, service, sweep)
 
 __all__ = ["configs", "convert", "core", "device", "kernels", "models",
-           "runtime", "sweep"]
+           "runtime", "search", "service", "sweep"]

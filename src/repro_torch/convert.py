@@ -15,7 +15,14 @@ accepts the reference's object as well as the port's; the matching
     (schedule, lp_x, lp_y, index, paths, lp_cscale) and its metrics;
   * `scenario_to_arrays` / `scenario_from_arrays`: a FailureScenario;
   * `events_to_arrays` / `events_from_arrays`: a list of ChaosEvents;
-  * `trace_to_arrays` / `trace_from_arrays`: an arrival trace.
+  * `trace_to_arrays` / `trace_from_arrays`: an arrival trace;
+  * `placement_to_arrays` / `placement_from_arrays`: a task Placement;
+  * `tenant_to_arrays` / `tenant_from_arrays`: a service TenantSpec (its
+    topology, traffic pattern, arrival spec and explicit trace);
+  * `service_config_to_arrays` / `service_config_from_arrays`: a
+    ServiceConfig, whose `backend` becomes the port's `device`;
+  * `search_result_to_arrays`: a SearchResult's placements, scores and
+    counts, for comparison (there is no port object to rebuild).
 
 For the model zoo, `params_from_numpy` turns the reference's
 `transformer.init_params` tree (its leaves made numpy arrays) into a
@@ -24,28 +31,27 @@ packages run the same weights and nothing is downloaded.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from .core.arrivals import Arrival
+from .core.arrivals import Arrival, ArrivalSpec
 from .core.chaos import ChaosEvent
 from .core.failures import FailureScenario
 from .core.solver import FastPathResult, FlowPath, RoutingIndex
 from .core.timeslot import Metrics, ScheduleProblem
 from .core.topology import Device, Topology
-from .core.traffic import CoflowSet
+from .core.traffic import CoflowSet, Placement, TrafficPattern
+from .service.clock import SolveCostModel
+from .service.loop import ServiceConfig, TenantSpec
 from .models.common import ModelConfig
 from .models.transformer import check_supported
 
 
-def problem_to_arrays(p) -> dict:
-    """Plain numpy/scalar fields of a ScheduleProblem (either package's)."""
-    t = p.topo
+def topology_to_arrays(t) -> dict:
+    """Plain numpy/scalar fields of a Topology (either package's)."""
     sigma = sorted(t.switch_sigma.items())
-
-    def opt(a, dtype):
-        return None if a is None else np.array(a, dtype=dtype)
-
     return {
         "name": t.name,
         "device_names": [d.name for d in t.devices],
@@ -62,21 +68,11 @@ def problem_to_arrays(p) -> dict:
         "awgr_in_ports": [int(i) for i in t.awgr_in_ports],
         "sigma_vertices": np.array([k for k, _ in sigma], dtype=np.int64),
         "sigma_gbps": np.array([v for _, v in sigma], dtype=np.float64),
-        "src": np.array(p.coflow.src),
-        "dst": np.array(p.coflow.dst),
-        "size": np.array(p.coflow.size, dtype=np.float64),
-        "n_vertices": int(p.coflow.n_vertices),
-        "n_slots": int(p.n_slots),
-        "rho": float(p.rho),
-        "q_weight": float(p.q_weight),
-        "release_slot": opt(p.release_slot, np.int64),
-        "path_slack": None if p.path_slack is None else int(p.path_slack),
-        "flow_weight": opt(p.flow_weight, np.float64),
     }
 
 
-def problem_from_arrays(d: dict) -> ScheduleProblem:
-    """The port's ScheduleProblem from `problem_to_arrays`' fields."""
+def topology_from_arrays(d: dict) -> Topology:
+    """The port's Topology from `topology_to_arrays`' fields."""
     devices = [Device(str(n), str(k), float(pm), float(e))
                for n, k, pm, e in zip(d["device_names"], d["device_kinds"],
                                       d["p_max"], d["eps"])]
@@ -94,6 +90,34 @@ def problem_from_arrays(d: dict) -> ScheduleProblem:
     if topo.cap.shape != (topo.n_edges, topo.n_wavelengths):
         raise ValueError(f"cap has shape {topo.cap.shape}, expected "
                          f"({topo.n_edges}, {topo.n_wavelengths})")
+    return topo
+
+
+def problem_to_arrays(p) -> dict:
+    """Plain numpy/scalar fields of a ScheduleProblem (either package's):
+    its topology's (`topology_to_arrays`) and its own."""
+
+    def opt(a, dtype):
+        return None if a is None else np.array(a, dtype=dtype)
+
+    return {
+        **topology_to_arrays(p.topo),
+        "src": np.array(p.coflow.src),
+        "dst": np.array(p.coflow.dst),
+        "size": np.array(p.coflow.size, dtype=np.float64),
+        "n_vertices": int(p.coflow.n_vertices),
+        "n_slots": int(p.n_slots),
+        "rho": float(p.rho),
+        "q_weight": float(p.q_weight),
+        "release_slot": opt(p.release_slot, np.int64),
+        "path_slack": None if p.path_slack is None else int(p.path_slack),
+        "flow_weight": opt(p.flow_weight, np.float64),
+    }
+
+
+def problem_from_arrays(d: dict) -> ScheduleProblem:
+    """The port's ScheduleProblem from `problem_to_arrays`' fields."""
+    topo = topology_from_arrays(d)
     coflow = CoflowSet(np.array(d["src"]), np.array(d["dst"]),
                        np.array(d["size"], dtype=np.float64),
                        int(d["n_vertices"]))
@@ -243,6 +267,83 @@ def trace_from_arrays(rows: list[dict]) -> list[Arrival]:
                               np.array(r["size"], dtype=np.float64),
                               int(r["n_vertices"])),
                     int(r["coflow_id"])) for r in rows]
+
+
+def placement_to_arrays(pl) -> dict:
+    """Plain fields of a Placement (either package's)."""
+    return {"mappers": np.array(pl.mappers, dtype=np.int64),
+            "reducers": np.array(pl.reducers, dtype=np.int64)}
+
+
+def placement_from_arrays(d: dict) -> Placement:
+    """The port's Placement from `placement_to_arrays`' fields."""
+    return Placement(np.array(d["mappers"], dtype=np.int64),
+                     np.array(d["reducers"], dtype=np.int64))
+
+
+def _scalar_fields(obj, cls) -> dict:
+    """`cls`'s dataclass fields read off `obj` (either package's)."""
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)}
+
+
+def tenant_to_arrays(spec) -> dict:
+    """Plain fields of a service TenantSpec (either package's)."""
+    return {
+        "name": str(spec.name), "seed": int(spec.seed),
+        "objective": str(spec.objective),
+        "topo": topology_to_arrays(spec.topo),
+        "pattern": _scalar_fields(spec.pattern, TrafficPattern),
+        "arrivals": (None if spec.arrivals is None
+                     else _scalar_fields(spec.arrivals, ArrivalSpec)),
+        "trace": None if spec.trace is None else trace_to_arrays(spec.trace),
+    }
+
+
+def tenant_from_arrays(d: dict) -> TenantSpec:
+    """The port's TenantSpec from `tenant_to_arrays`' fields."""
+    return TenantSpec(
+        name=d["name"], topo=topology_from_arrays(d["topo"]),
+        pattern=TrafficPattern(**d["pattern"]),
+        arrivals=(None if d["arrivals"] is None
+                  else ArrivalSpec(**d["arrivals"])),
+        seed=d["seed"], objective=d["objective"],
+        trace=None if d["trace"] is None else trace_from_arrays(d["trace"]))
+
+
+def service_config_to_arrays(cfg) -> dict:
+    """Plain fields of a ServiceConfig (either package's), the solver
+    backend or device left out: the port's ServiceConfig takes `device`
+    in its place."""
+    out = {f.name: getattr(cfg, f.name)
+           for f in dataclasses.fields(ServiceConfig)
+           if f.name not in ("device", "cost")}
+    out["chaos"] = tuple(str(c) for c in out["chaos"])
+    out["cost"] = _scalar_fields(cfg.cost, SolveCostModel)
+    return out
+
+
+def service_config_from_arrays(d: dict, *,
+                               device: str | torch.device = "cuda"
+                               ) -> ServiceConfig:
+    """The port's ServiceConfig from `service_config_to_arrays`' fields,
+    on `device`."""
+    return ServiceConfig(**{**d, "cost": SolveCostModel(**d["cost"])},
+                         device=device)
+
+
+def search_result_to_arrays(res) -> dict:
+    """Plain fields of a SearchResult (either package's): the optimized
+    and baseline placements with their scores, and the run's counts."""
+    def cand(c):
+        return {**placement_to_arrays(c.placement), "score": float(c.score)}
+
+    return {"method": str(res.method), "objective": str(res.objective),
+            "topo_name": str(res.topo_name), "best": cand(res.best),
+            "baselines": {k: cand(c) for k, c in res.baselines.items()},
+            "baseline_best": str(res.baseline_best),
+            "gain": float(res.gain), "evaluations": int(res.evaluations),
+            "dispatches": int(res.dispatches),
+            "history": [float(h) for h in res.history]}
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict:

@@ -14,12 +14,15 @@
                 capacity degradation) feeding the incremental re-solves
   chaos       - seeded failure/repair event traces replayed mid-run
   heuristics  - rule-based baseline schedules (FIFO, fair, SEBF)
+  policies    - baseline scheduler policies (ECMP, least-loaded, SCF,
+                fair share, the fair LP) beside the LP, and the gap
   oracle      - the exact MILP (scipy HiGHS), the sweep's spot-check
   wavelength  - AWGR cell wiring + wavelength assignment MILP (§III)
   fabric      - collective slot plans over an accelerator interconnect
 """
 from . import (arrivals, chaos, fabric, failures, heuristics, oracle,
-               solver, timeslot, topology, traffic, verify, wavelength)
+               policies, solver, timeslot, topology, traffic, verify,
+               wavelength)
 from .arrivals import Arrival, ArrivalSpec, OnlineResult, generate_trace, \
     run_online
 from .fabric import Bucket, FabricSpec, SlotPlan, plan_collectives, v5e_fabric
@@ -40,7 +43,7 @@ __all__ = [
     "build_routing_lp", "build_topology", "chaos", "concat_coflows",
     "empty_coflow", "evaluate", "fabric", "failures", "generate",
     "generate_batch", "generate_trace", "heuristics", "oracle", "pattern",
-    "plan_collectives", "run_online", "shuffle_traffic", "solve_fast",
+    "plan_collectives", "policies", "run_online", "shuffle_traffic", "solve_fast",
     "solve_fast_batch", "solve_fast_ensemble", "solve_lp", "solve_lp_batch",
     "solver", "suggest_n_slots", "timeslot", "topology", "traffic",
     "verify", "v5e_fabric", "wavelength",

@@ -23,7 +23,7 @@ module turns the one-shot optimizer into a simulated online scheduler:
     projection failures fall back to a cold solve);
   * :func:`interleave_traces` / :func:`merge_traces` merge per-tenant
     traces into one deterministic global stream — the request feed of
-    the reference's multi-tenant scheduler service (not ported yet).
+    the multi-tenant scheduler service (:mod:`repro_torch.service`).
 
 Epoch lifecycle (see docs/ARCHITECTURE.md "The arrivals engine"):
 
@@ -154,7 +154,7 @@ def trace_at_t0(coflows: list[CoflowSet]) -> list[Arrival]:
 
 
 # ---------------------------------------------------------------------------
-# Multi-tenant trace interleaving (the reference's scheduler service)
+# Multi-tenant trace interleaving (the scheduler service, repro_torch.service)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -347,11 +347,12 @@ def run_online(topo: Topology, trace: list[Arrival],
     reported as stranded), demand on fully-disconnected endpoints is
     parked as *deferred-by-failure* (re-admitted once the fabric heals,
     never silently shed), and every epoch schedule is certified via
-    core.verify.  `fallback_policy` names the reference's core.policies
-    baseline that takes the epoch when the rehorizon retry ladder
-    exhausts; the policies are not ported yet (ROADMAP queue 1 item 8),
-    so any value but None (the default, the retry-only ladder) raises
-    NotImplementedError.
+    core.verify.  `fallback_policy` names a core.policies baseline that
+    takes the epoch when the rehorizon retry ladder exhausts (accepted
+    only if it certifies feasible and drains the demand) — the service
+    loop's hardened ladder; None (default) keeps the retry-only
+    behavior.  It is a scheduling tier, taken on those conditions only:
+    an error of the solve itself propagates.
 
     `device` is where every epoch's PDHG bursts run: "cuda" (default;
     the CUDA kernel, raising without a card) or "cpu" (its plain
@@ -362,10 +363,6 @@ def run_online(topo: Topology, trace: list[Arrival],
     the eq. 39 in-slot transmission-time convention."""
     if objective not in ("energy", "time"):
         raise ValueError(f"objective {objective!r} not in ('energy', 'time')")
-    if fallback_policy is not None:
-        raise NotImplementedError(
-            f"fallback_policy={fallback_policy!r} needs core.policies, "
-            f"which is not ported yet: ROADMAP.md queue 1 item 8")
     dev = _device.resolve(device)
     D = topo.slot_duration
     if epoch_s is None:
@@ -379,6 +376,11 @@ def run_online(topo: Topology, trace: list[Arrival],
     unfinished = {a.coflow_id: int(a.coflow.n_flows) for a in pending}
 
     fabric = chaosmod.FabricState(topo, chaos) if chaos else None
+    if fallback_policy is not None:
+        from . import policies as policy_zoo
+        fallback = policy_zoo.get(fallback_policy)
+    else:
+        fallback = None
     chaos_log: list[str] = []
     recoveries: list[float] = []
     recover_open: float | None = None
@@ -499,6 +501,18 @@ def run_online(topo: Topology, trace: list[Arrival],
                                        chunk=chunk, device=dev)
             spent += r.iterations
             tries += 1
+        if (fallback is not None and len(src) > 0
+                and (r.remaining_gbits > 1e-6 or not r.metrics.feasible)):
+            # final ladder rung (mirrors the service loop): hand the
+            # epoch to a certified baseline policy on a stretched
+            # horizon; accepted only if it drains the demand feasibly
+            p_fb = rehorizon(p, 2 * p.n_slots)
+            fb = fallback.solve(p_fb, objective, device=dev)
+            if fb.metrics.feasible and fb.remaining_gbits <= 1e-6:
+                p, r = p_fb, fb
+                tries += 1
+                chaos_log.append(f"t={t_now:.6f} fallback "
+                                 f"policy={fallback_policy}")
         # an epoch that needed cold retries is not a clean warm sample —
         # its iteration count would attribute the retries' cold work to
         # the warm-start machinery (warm_iterations in the sweep CSV)

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import threading
 import time
 
 import numpy as np
@@ -112,22 +113,23 @@ def _ell_operator_cached(row, col, val, m, n):
     refresh the coefficient values in O(nnz) instead of re-packing
     (`ell_fill`).  Keyed by a content digest, so equal patterns hit
     regardless of which problem object produced them; counters land in
-    BUILD_STATS."""
+    BUILD_STATS.  Lookup, insertion, eviction and the counters hold
+    _CACHE_LOCK (see there); the plan itself is built outside it."""
     key = (m, n, len(val),
            hashlib.blake2b(np.ascontiguousarray(row).tobytes()
                            + np.ascontiguousarray(col).tobytes(),
                            digest_size=16).digest())
-    plan = _ELL_PLAN_CACHE.get(key)
+    with _CACHE_LOCK:
+        plan = _ELL_PLAN_CACHE.get(key)
+        if plan is not None:
+            BUILD_STATS.ell_hits += 1
     if plan is None:
         t0 = time.perf_counter()
         plan = pdhg_spmv.ell_plan(row, col, m, n)
-        BUILD_STATS.ell_misses += 1
-        BUILD_STATS.ell_s += time.perf_counter() - t0
-        if len(_ELL_PLAN_CACHE) >= _ELL_PLAN_CACHE_MAX:
-            _ELL_PLAN_CACHE.pop(next(iter(_ELL_PLAN_CACHE)))
-        _ELL_PLAN_CACHE[key] = plan
-    else:
-        BUILD_STATS.ell_hits += 1
+        with _CACHE_LOCK:
+            BUILD_STATS.ell_misses += 1
+            BUILD_STATS.ell_s += time.perf_counter() - t0
+            _cache_put(_ELL_PLAN_CACHE, _ELL_PLAN_CACHE_MAX, key, plan)
     return pdhg_spmv.ell_fill(plan, val)
 
 
@@ -411,6 +413,19 @@ _STRUCTURE_CACHE: dict = {}
 _STRUCTURE_CACHE_MAX = 256
 _ELL_PLAN_CACHE: dict = {}
 _ELL_PLAN_CACHE_MAX = 256
+# The service loop builds the next group's LPs on a worker thread while
+# the main thread solves (service.loop.run_service): both read and evict
+# these caches and bump BUILD_STATS.  Every such access holds this lock,
+# so an eviction never meets another thread's insertion and no counter
+# increment is lost.
+_CACHE_LOCK = threading.Lock()
+
+
+def _cache_put(cache: dict, cap: int, key, value) -> None:
+    """Insert into a FIFO-evicted cache; the caller holds _CACHE_LOCK."""
+    if key not in cache and len(cache) >= cap:
+        cache.pop(next(iter(cache)))
+    cache[key] = value
 
 
 def build_cache_stats() -> BuildCacheStats:
@@ -420,10 +435,11 @@ def build_cache_stats() -> BuildCacheStats:
 
 def reset_build_caches() -> None:
     """Drop the structure and ELL-plan caches and zero the counters."""
-    _STRUCTURE_CACHE.clear()
-    _ELL_PLAN_CACHE.clear()
-    for f in dataclasses.fields(BuildCacheStats):
-        setattr(BUILD_STATS, f.name, f.default)
+    with _CACHE_LOCK:
+        _STRUCTURE_CACHE.clear()
+        _ELL_PLAN_CACHE.clear()
+        for f in dataclasses.fields(BuildCacheStats):
+            setattr(BUILD_STATS, f.name, f.default)
 
 
 @dataclasses.dataclass
@@ -671,21 +687,22 @@ def build_routing_lp(p: ScheduleProblem, objective: str, *,
     # reweighted c vector; see _fill_lp and docs/POLICIES.md
     assert objective in ("energy", "time", "fair")
     key = _structure_key(p, objective) if cache else None
-    st = _STRUCTURE_CACHE.get(key) if cache else None
+    with _CACHE_LOCK:
+        st = _STRUCTURE_CACHE.get(key) if cache else None
+        if st is not None:
+            BUILD_STATS.structure_hits += 1
     if st is None:
         t0 = time.perf_counter()
         st = _build_structure(p, objective)
-        BUILD_STATS.structure_misses += 1
-        BUILD_STATS.structure_s += time.perf_counter() - t0
-        if cache:
-            if len(_STRUCTURE_CACHE) >= _STRUCTURE_CACHE_MAX:
-                _STRUCTURE_CACHE.pop(next(iter(_STRUCTURE_CACHE)))
-            _STRUCTURE_CACHE[key] = st
-    else:
-        BUILD_STATS.structure_hits += 1
+        with _CACHE_LOCK:
+            BUILD_STATS.structure_misses += 1
+            BUILD_STATS.structure_s += time.perf_counter() - t0
+            if cache:
+                _cache_put(_STRUCTURE_CACHE, _STRUCTURE_CACHE_MAX, key, st)
     t0 = time.perf_counter()
     lp = _fill_lp(st, p)
-    BUILD_STATS.fill_s += time.perf_counter() - t0
+    with _CACHE_LOCK:
+        BUILD_STATS.fill_s += time.perf_counter() - t0
     return lp, st.idx
 
 

@@ -8,13 +8,17 @@ Example (the paper's full grid, 8 seeds per cell):
 
 Writes <out>/results.csv (one row per instance, exact paper-model
 metrics) and <out>/results.md (mean +/- std tables per objective, plus
-the degraded-fabric table with --failures and the online-arrivals table
-with --arrivals).
+the degraded-fabric table with --failures, the policy table with
+--policy, the placement table with --placement-search, the online-
+arrivals table with --arrivals and the chaos table with --chaos, whose
+replayed event traces also go to <out>/chaos_events.log).  --service N
+runs the multi-tenant scheduler service instead and writes its event
+log to <out>/service_events.log.
 Takes the reference's flags (python -m repro.sweep) plus --device
 ("cuda", the default, raises without a card; "cpu" runs the burst
-kernel's plain version).  The flags of axes the port does not run yet
-exit 1 naming their ROADMAP item.  Exit code 1 when any instance is
-infeasible.
+kernel's plain version).  --mesh > 1, --backend xla and --jax-cache are
+not ported and exit 1 naming their ROADMAP item.  Exit code 1 when any
+instance is infeasible.
 """
 from __future__ import annotations
 
@@ -22,15 +26,12 @@ import argparse
 import pathlib
 import time
 
+from .. import search
 from ..core import arrivals, failures, topology, traffic
+from ..core import chaos as chaosmod
+from ..core import policies as policy_zoo
 from .report import write_csv, write_markdown
-from .runner import ALL_TOPOS, OBJECTIVES, UNPORTED, SweepSpec, run_sweep
-
-# the reference's axis flags the port does not run yet, by the SweepSpec
-# field each fills; SweepSpec.validate names their ROADMAP items
-_UNPORTED_FLAGS = {"policies": "--policy",
-                   "placement_search": "--placement-search",
-                   "chaos": "--chaos"}
+from .runner import ALL_TOPOS, OBJECTIVES, SweepSpec, run_sweep
 
 
 def _csv_list(value: str, universe, what: str) -> tuple[str, ...]:
@@ -42,6 +43,73 @@ def _csv_list(value: str, universe, what: str) -> tuple[str, ...]:
             raise SystemExit(f"unknown {what} {v!r}; choose from "
                              f"{sorted(universe)} or 'all'")
     return items
+
+
+def _run_service_smoke(args) -> int:
+    """The --service mode: one deterministic virtual-clock service run.
+
+    Builds N tenants cycling through the requested topologies and
+    patterns (seeded 0..N-1, poisson arrivals of --arrival-coflows
+    co-flows at --arrival-mean-s), runs repro_torch.service.run_service
+    on --device under the deterministic "iterations" cost model, prints
+    the latency/SLO/admission summary, and writes the canonical event
+    log.  Exit code 1 if any demand leaked (nonzero backlog with an
+    un-truncated run)."""
+    from .. import service
+
+    topos = _csv_list(args.topos, topology.BUILDERS, "topology")
+    pats = _csv_list(args.patterns, traffic.PATTERNS, "pattern")
+    spec = arrivals.ArrivalSpec(n_coflows=args.arrival_coflows,
+                                mean_interarrival_s=args.arrival_mean_s)
+    tenants = [
+        service.TenantSpec(
+            name=f"tenant{k}", topo=topology.build(topos[k % len(topos)]),
+            pattern=traffic.pattern(pats[k % len(pats)],
+                                    total_gbits=args.total_gbits,
+                                    n_map=args.n_map,
+                                    n_reduce=args.n_reduce),
+            arrivals=spec, seed=k)
+        for k in range(args.service)]
+    chaos = (_csv_list(args.chaos, chaosmod.PRESETS, "chaos preset")
+             if args.chaos else ())
+    cfg = service.ServiceConfig(window_s=args.epoch_s or None,
+                                iters=args.iters, device=args.device,
+                                slo_p99_s=args.slo_s,
+                                chaos=chaos, chaos_seed=args.chaos_seed)
+    t0 = time.perf_counter()
+    res = service.run_service(tenants, cfg)
+    wall = time.perf_counter() - t0
+    c, lat = res.counters, res.latency
+    print(f"service: {args.service} tenants, {c.arrived} arrivals, "
+          f"{c.windows} windows in {wall:.1f} s wall")
+    print(f"  latency p50={lat.p50:.6f} p99={lat.p99:.6f} "
+          f"p999={lat.p999:.6f} s (SLO {args.slo_s:g} s, "
+          f"{c.slo_breaches} breaches)")
+    print(f"  admitted={c.admitted} shed={c.shed} deferred={c.deferred}")
+    print(f"  dispatches={c.dispatches} (solver {c.solver_dispatches}, "
+          f"bucket hits {c.bucket_hits}) retries={c.retries}")
+    print(f"  makespan={res.makespan_s:.3f} s "
+          f"energy={res.total_energy_j:.1f} J "
+          f"backlog={res.backlog_gbits:.6f} Gbits")
+    if chaos:
+        rb, dlat = res.robustness, res.latency_degraded
+        print(f"  Availability={rb.availability:.4f} "
+              f"(events={rb.events_applied}, "
+              f"degraded {rb.degraded_s:.2f}/{rb.span_s:.2f} tenant-s)")
+        print(f"  stranded={rb.stranded_gbits:.6f} Gbits re-routed, "
+              f"deferred-by-failure={rb.deferred_gbits:.6f} Gbits, "
+              f"recoveries={len(rb.recoveries)} "
+              f"(mean ttr={rb.mean_recover_s:.3f} s)")
+        print(f"  degraded-mode latency p99={dlat.p99:.6f} s "
+              f"({dlat.count} decisions under degradation)")
+    out = pathlib.Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    log_path = out / "service_events.log"
+    log_path.write_text(res.event_log() + "\n")
+    print(f"  event log -> {log_path} ({len(res.events)} events)")
+    # deferred-by-failure demand is a fabric outcome, not a leak; only
+    # routable demand left behind fails the smoke
+    return 1 if res.backlog_gbits > 1e-6 else 0
 
 
 def main(argv=None) -> int:
@@ -63,11 +131,43 @@ def main(argv=None) -> int:
                          f"comma list or 'all' "
                          f"({', '.join(k for k in failures.SCENARIOS if k != 'none')}); "
                          "bare --failures means 'all'")
+    ap.add_argument("--policy", nargs="?", const="all", default="",
+                    help="baseline-policy axis (core.policies): run each "
+                         "named policy on every LP instance and record "
+                         "the optimal-vs-practical gap; comma list or "
+                         "'all'; bare --policy means 'all'")
+    ap.add_argument("--placement-search", nargs="?", const="all",
+                    default="",
+                    help="joint placement + routing axis "
+                         "(repro_torch.search): per topology x objective "
+                         "x seed, optimize the task placement with the "
+                         "named methods and record optimized-vs-fixed "
+                         "gain rows; comma list or 'all' "
+                         f"({', '.join(search.METHODS)}); bare "
+                         "--placement-search means 'all'")
+    ap.add_argument("--placement-budget", type=int, default=6,
+                    help="placement-search generations per run (each is "
+                         "one stacked batched evaluator dispatch)")
+    ap.add_argument("--placement-population", type=int, default=8,
+                    help="placement candidates per stacked dispatch")
     ap.add_argument("--arrivals", nargs="?", const="all", default="",
                     help="online-arrival families for rolling-horizon "
                          "re-solves (core.arrivals): comma list or 'all' "
                          f"({', '.join(arrivals.FAMILIES)}); "
                          "bare --arrivals means 'all'")
+    ap.add_argument("--chaos", nargs="?", const="all", default="",
+                    help="chaos-replay axis (core.chaos): per preset and "
+                         "seed, replay a deterministic failure/repair "
+                         "event trace under a rolling-horizon poisson "
+                         "run, recording availability, stranded Gbits, "
+                         "time-to-recover, and deferred-by-failure "
+                         "demand; comma list or 'all' "
+                         f"({', '.join(chaosmod.PRESETS)}); bare --chaos "
+                         "means 'all'; also writes the per-cell event "
+                         "traces to <out>/chaos_events.log")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="offset added to per-cell seeds when drawing "
+                         "chaos event traces (--service mode)")
     ap.add_argument("--arrival-coflows", type=int, default=5,
                     help="co-flows per arrival trace")
     ap.add_argument("--arrival-mean-s", type=float, default=2.0,
@@ -75,12 +175,17 @@ def main(argv=None) -> int:
     ap.add_argument("--epoch-s", type=float, default=0.0,
                     help="rolling-horizon re-plan period in seconds "
                          "(default: 4 slot durations)")
-    for field, flag in _UNPORTED_FLAGS.items():
-        ap.add_argument(flag, dest=field, nargs="?", const="all",
-                        default="",
-                        help=f"not ported yet (ROADMAP {UNPORTED[field]})")
     ap.add_argument("--service", type=int, default=0, metavar="N",
-                    help="not ported yet (ROADMAP queue 1 item 9)")
+                    help="smoke-run the multi-tenant scheduler service "
+                         "(repro_torch.service) with N tenants cycling "
+                         "through --topos/--patterns instead of "
+                         "sweeping; prints decision-latency p50/p99/p999, "
+                         "shed/defer/bucket-hit counters, and writes the "
+                         "canonical event log to "
+                         "<out>/service_events.log")
+    ap.add_argument("--slo-s", type=float, default=0.25,
+                    help="decision-latency SLO for --service breach "
+                         "accounting (seconds)")
     ap.add_argument("--jax-cache", default="",
                     help="not ported: the port compiles nothing with JAX "
                          "(ROADMAP queue 1 item 5)")
@@ -115,9 +220,6 @@ def main(argv=None) -> int:
                     help="output directory for results.csv / results.md")
     args = ap.parse_args(argv)
 
-    if args.service:
-        raise SystemExit("error: --service is not ported yet (ROADMAP "
-                         "queue 1 item 9)")
     if args.jax_cache:
         raise SystemExit("error: --jax-cache is not ported: the port "
                          "compiles nothing with JAX (ROADMAP queue 1 item 5)")
@@ -125,6 +227,8 @@ def main(argv=None) -> int:
         raise SystemExit("error: --backend xla (the COO scatter lowering) "
                          "is not ported yet (ROADMAP queue 1, the COO "
                          "lowering question)")
+    if args.service:
+        return _run_service_smoke(args)
 
     fail_universe = {k: v for k, v in failures.SCENARIOS.items()
                      if k != "none"}
@@ -138,11 +242,18 @@ def main(argv=None) -> int:
         arrivals=(_csv_list(args.arrivals, arrivals.FAMILIES,
                             "arrival family")
                   if args.arrivals else ()),
+        chaos=(_csv_list(args.chaos, chaosmod.PRESETS, "chaos preset")
+               if args.chaos else ()),
+        policies=(_csv_list(args.policy, policy_zoo.POLICIES, "policy")
+                  if args.policy else ()),
+        placement_search=(_csv_list(args.placement_search, search.METHODS,
+                                    "placement-search method")
+                          if args.placement_search else ()),
+        placement_generations=args.placement_budget,
+        placement_population=args.placement_population,
         arrival_coflows=args.arrival_coflows,
         arrival_mean_s=args.arrival_mean_s,
         epoch_s=args.epoch_s or None,
-        **{field: (getattr(args, field),) if getattr(args, field) else ()
-           for field in _UNPORTED_FLAGS},
         total_gbits=args.total_gbits, n_map=args.n_map,
         n_reduce=args.n_reduce, n_slots=args.slots or None,
         iters=args.iters, mesh=args.mesh, precision=args.precision,
@@ -161,6 +272,23 @@ def main(argv=None) -> int:
     t_report = time.perf_counter()
     csv_path = write_csv(records, out / "results.csv")
     md_path = write_markdown(records, out / "results.md")
+    if spec.chaos:
+        # the replayed event traces, regenerated byte-identically: they
+        # are pure functions of (topology, preset, seed), so this is
+        # exactly what every chaos cell above saw
+        trace_lines = []
+        for topo_name in spec.topos:
+            topo = topology.build(topo_name)
+            for preset in spec.chaos:
+                for seed in spec.seeds:
+                    evs = chaosmod.generate_preset_events(
+                        topo, (preset,), int(seed))
+                    trace_lines.append(f"# topo={topo_name} "
+                                       f"chaos={preset} seed={seed}")
+                    trace_lines.append(chaosmod.format_trace(evs))
+        trace_path = out / "chaos_events.log"
+        trace_path.write_text("\n".join(trace_lines) + "\n")
+        print(f"chaos event traces -> {trace_path}")
     if args.profile:
         print(f"    profile report: "
               f"{(time.perf_counter() - t_report) * 1e3:.1f} ms")

@@ -19,17 +19,33 @@ one warm-started stacked dispatch (core.solver.solve_fast_ensemble)
 seeded from the healthy solutions.  Records carry the capacity
 degradation ratio and survivability (served / offered Gbits).
 
+With `SweepSpec.policies` set (CLI `--policy`), every healthy AND
+failure cell additionally runs each named baseline scheduler from
+core.policies next to the LP.  Policy rows carry `policy` (the LP's
+own rows say "lp") and `gap_vs_lp` — the shared LP-objective
+functional (core.policies.lp_cost) evaluated on the policy's packed
+schedule over the LP's; every policy schedule is certified by
+core.verify.check_schedule before it is recorded.
+
+With `SweepSpec.placement_search` set (CLI `--placement-search`), each
+topology x objective x seed optimizes the task placement jointly with
+the routing (repro_torch.search, one stacked dispatch a generation) and
+records the optimized row beside the three fixed placements.
+
 With `SweepSpec.arrivals` set (CLI `--arrivals`), every cell also runs,
 per family and seed, a deterministic arrival trace through the
 rolling-horizon driver (core.arrivals.run_online, warm-started epoch
-re-solves); one record summarizes each trace.
+re-solves); one record summarizes each trace.  With `SweepSpec.chaos`
+(CLI `--chaos`), per preset and seed a poisson trace runs while a
+seeded failure/repair event trace (core.chaos) degrades the fabric, the
+retry ladder ending in the certified "scf" fallback tier, as in the
+reference's chaos cells.
 
 Records keep every column of the reference's SweepRecord.  `backend`
 reads "pallas": the port reproduces the reference's blocked-ELL
 lowering, so its rows line up with the reference's `--backend pallas`
-rows.  The reference's other axes (policies, placement search, chaos,
-mesh > 1) are not ported yet; SweepSpec.validate rejects them naming
-their ROADMAP item.
+rows.  Row-sharded PDHG (mesh > 1) is not ported yet; SweepSpec.validate
+rejects it naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -39,8 +55,11 @@ from typing import Callable
 
 import numpy as np
 
+from .. import search
 from ..core import (arrivals, failures, oracle, solver, timeslot,
                     topology, traffic)
+from ..core import chaos as chaosmod
+from ..core import policies as policy_zoo
 
 # user-facing objective name -> core.solver/oracle internal name
 OBJECTIVES = {"energy": "energy", "completion": "time"}
@@ -49,14 +68,6 @@ ALL_TOPOS = tuple(topology.BUILDERS)
 
 # the one PDHG lowering the port has (the reference's blocked-ELL one)
 BACKEND = "pallas"
-
-# sweep axes of the reference that the port does not run yet, and where
-# ROADMAP.md queues them
-UNPORTED = {
-    "chaos": "queue 1 item 8: needs the scf fallback policy",
-    "policies": "queue 1 item 8: policies and placement search",
-    "placement_search": "queue 1 item 8: policies and placement search",
-}
 
 
 @dataclasses.dataclass
@@ -68,10 +79,15 @@ class SweepSpec:
     # failure presets (core.failures.SCENARIOS names); per preset each seed
     # draws one deterministic scenario and re-solves warm-started
     failures: tuple[str, ...] = ()
-    # the reference's policy and placement-search axes; the port rejects
-    # anything but empty (see UNPORTED)
+    # baseline policies (core.policies.POLICIES names) to run next to the
+    # LP in every healthy and failure cell, recording gap_vs_lp rows
     policies: tuple[str, ...] = ()
+    # placement-search methods (repro_torch.search.METHODS): per topology
+    # x objective x seed, jointly optimize task placement + routing and
+    # record optimized-vs-fixed-placement gain rows
     placement_search: tuple[str, ...] = ()
+    placement_generations: int = 6    # move rounds per search run
+    placement_population: int = 8     # candidates per stacked dispatch
     # online-arrival families (core.arrivals.FAMILIES); per family each seed
     # draws one deterministic trace and runs the rolling-horizon driver
     # (warm-started epoch re-solves) instead of a one-shot solve
@@ -79,7 +95,10 @@ class SweepSpec:
     arrival_coflows: int = 5          # co-flows per trace
     arrival_mean_s: float = 2.0       # mean inter-arrival gap, seconds
     epoch_s: float | None = None      # re-plan period (None = 4 slots)
-    # the reference's chaos axis; rejected (see UNPORTED)
+    # chaos presets (core.chaos.PRESETS names); per preset each seed
+    # replays a deterministic failure/repair event trace under a
+    # rolling-horizon poisson run (mid-run degradation, stranded-flow
+    # recovery, deferred-by-failure accounting — see docs/CHAOS.md)
     chaos: tuple[str, ...] = ()
     total_gbits: float = 30.0
     n_map: int = 10
@@ -92,7 +111,9 @@ class SweepSpec:
     tol: float = 2e-3
     # scale knobs: precision="bf16" stores the PDHG iterates in bfloat16
     # between iterations (fp32 arithmetic); mesh > 1 (row-sharded PDHG)
-    # is not ported yet
+    # is not ported yet.  Applied to the LP fast path (healthy + failure
+    # cells); baseline policies, placement search and rolling-horizon
+    # runs stay fp32, as in the reference
     mesh: int = 1
     precision: str = "fp32"
     path_slack: int | None = 2        # near-shortest route pruning; None = off
@@ -107,10 +128,6 @@ class SweepSpec:
     device: str = "cuda"
 
     def validate(self) -> None:
-        for axis, item in UNPORTED.items():
-            if getattr(self, axis):
-                raise ValueError(f"the {axis} axis is not ported yet "
-                                 f"(ROADMAP {item})")
         if self.mesh > 1:
             raise ValueError("mesh > 1 (row-sharded PDHG) is not ported yet "
                              "(ROADMAP queue 1 item 10)")
@@ -143,6 +160,24 @@ class SweepSpec:
             if fam not in arrivals.FAMILIES:
                 raise ValueError(f"unknown arrival family {fam!r}; "
                                  f"have {sorted(arrivals.FAMILIES)}")
+        for cz in self.chaos:
+            if cz not in chaosmod.PRESETS:
+                raise ValueError(f"unknown chaos preset {cz!r}; "
+                                 f"have {sorted(chaosmod.PRESETS)}")
+        for pol in self.policies:
+            if pol not in policy_zoo.POLICIES:
+                raise ValueError(f"unknown policy {pol!r}; "
+                                 f"have {sorted(policy_zoo.POLICIES)}")
+        for method in self.placement_search:
+            if method not in search.METHODS:
+                raise ValueError(f"unknown placement-search method "
+                                 f"{method!r}; have {search.METHODS}")
+        if self.placement_search:
+            # fail before solving anything, not inside the search loop
+            search.SearchConfig(
+                generations=self.placement_generations,
+                population=self.placement_population,
+                device=self.device).validate()
 
 
 @dataclasses.dataclass
@@ -178,13 +213,23 @@ class SweepRecord:
     oracle_gap: float | None = None   # (fast - oracle) / oracle, primary metric
     oracle_mip_gap: float | None = None
     # which scheduler produced this row: "lp" (the fast path) or a
-    # baseline policy name (not ported yet)
+    # core.policies baseline name; policy rows carry the shared-functional
+    # optimality ratio vs the cell's LP solve (core.policies.gap_vs_lp)
     policy: str = "lp"
     gap_vs_lp: float = 1.0
-    # placement-search rows: "none" marks ordinary rows
+    # placement-search rows (repro_torch.search): "none" marks ordinary
+    # rows.  A search run emits one optimized row (pattern="optimized")
+    # plus one row per fixed baseline placement (pattern="spread"/
+    # "packed"/"local"), all tagged with the method.  placement_gain is
+    # the best FIXED placement's primary metric over THIS row's
     placement_search: str = "none"
     placement_gain: float = 1.0
-    # chaos-replay rows: "none" marks a healthy row
+    # chaos-replay rows (core.chaos event traces over a rolling-horizon
+    # run); chaos == "none" marks a healthy row.  availability is the
+    # trace-exact fraction of the run with full admissible capacity;
+    # recover_s is the mean time-to-recover over the row's episodes
+    # (NaN when no failure ever stranded or deferred demand);
+    # deferred_gbits is demand still deferred-by-failure at exit
     chaos: str = "none"
     availability: float = 1.0
     stranded_gbits: float = 0.0
@@ -274,6 +319,132 @@ def _solve_failure_group(healthy_probs, healthy_results, fail_name: str,
     return probs, results, (time.perf_counter() - t0) / max(len(probs), 1)
 
 
+def _solve_policy_group(probs, pol_name: str, internal_obj: str,
+                        spec: SweepSpec):
+    """Per-instance baseline-policy solves with the same horizon-doubling
+    retry ladder as the LP path.  Heuristic policies are pure numpy and
+    orders of magnitude cheaper than a PDHG solve, so no batching is
+    needed; every returned schedule carries a core.verify certificate
+    (attached by Policy.solve) and is asserted feasible-and-complete or
+    retried."""
+    pol = policy_zoo.get(pol_name)
+    out_p, out_r = [], []
+    for p in probs:
+        r = pol.solve(p, internal_obj, iters=spec.iters, tol=spec.tol,
+                      device=spec.device)
+        tries = 0
+        while ((r.remaining_gbits > 1e-6 or not r.metrics.feasible)
+               and tries < 2):
+            p = timeslot.rehorizon(
+                p, 2 * p.n_slots,
+                path_slack=p.path_slack if tries == 0 else None)
+            r = pol.solve(p, internal_obj, iters=spec.iters, tol=spec.tol,
+                          device=spec.device)
+            tries += 1
+        out_p.append(p)
+        out_r.append(r)
+    return out_p, out_r
+
+
+def _policy_records(records, problems, spec: SweepSpec, say,
+                    topo_name, obj, pat_name, lp_probs, lp_results,
+                    offered, *, failure: str = "none",
+                    ratios=None) -> None:
+    """Run every spec.policies baseline over one solved cell (healthy or
+    failure) and append its gap rows.
+
+    The recorded lp rows come from the standard-budget batched solve,
+    which on hard cells (min-time + packed placement) can stop a few
+    percent above the LP optimum — and an unconverged PDHG
+    `lp_lower_bound` is an estimate that may sit ABOVE the optimum, so
+    it cannot rescue the denominator.  A baseline that "beats" such a
+    reference would record a meaningless sub-1.0 gap; instead the
+    reference instance is re-solved once at a much higher budget
+    (solve_fast's restart ladder, shared across all policies in the
+    cell) and the gap recomputed.  A gap still below 1.0 after
+    tightening passes through loudly."""
+    tight: dict[int, object] = {}
+    for pol_name in spec.policies:
+        t0 = time.perf_counter()
+        p_probs, p_results = _solve_policy_group(
+            list(lp_probs), pol_name, OBJECTIVES[obj], spec)
+        pol_s = (time.perf_counter() - t0) / max(len(lp_probs), 1)
+        gaps = []
+        for i, (seed, lp_p, lp_r, pp, pr, off) in enumerate(zip(
+                spec.seeds, lp_probs, lp_results, p_probs, p_results,
+                offered)):
+            gap = policy_zoo.gap_vs_lp(OBJECTIVES[obj], pp, pr.schedule,
+                                       lp_p, tight.get(i, lp_r))
+            if gap < 1.0 and i not in tight:
+                tight[i] = solver.solve_fast(
+                    lp_p, OBJECTIVES[obj], tol=spec.tol,
+                    iters=max(8 * spec.iters, 24000), device=spec.device)
+                gap = policy_zoo.gap_vs_lp(OBJECTIVES[obj], pp,
+                                           pr.schedule, lp_p, tight[i])
+            gaps.append(gap)
+            records.append(_record(
+                topo_name, obj, pat_name, seed, pp, pr, pol_s,
+                offered=off, failure=failure,
+                degradation_ratio=ratios[i] if ratios else 0.0,
+                policy=pol_name, gap_vs_lp=gap))
+            problems.append(pp)
+        tag = f"+{failure}" if failure != "none" else ""
+        say(f"{topo_name:10s} {pat_name:8s} min-{obj:10s} "
+            f"@{pol_name + tag:14s} "
+            f"gap={np.mean(gaps):6.3f}x  ({pol_s*1e3:.1f} ms/inst)")
+
+
+def _placement_records(records, problems, spec: SweepSpec, say,
+                       topo_name: str, topo, obj: str,
+                       method: str) -> None:
+    """One placement-search cell: per seed, jointly optimize placement +
+    routing (repro_torch.search.optimize_placement, one stacked batched
+    dispatch per generation) and append the optimized row plus the three
+    fixed-placement baseline rows it was measured against.
+
+    The search runs once per topology x objective x seed — the sweep's
+    pattern axis IS the placement being optimized, so search cells hang
+    off the topology, not off any one pattern; skew/scale come from the
+    spec's shared knobs."""
+    pat = traffic.pattern("uniform", n_map=spec.n_map,
+                          n_reduce=spec.n_reduce,
+                          total_gbits=spec.total_gbits)
+    cfg = search.SearchConfig(
+        generations=spec.placement_generations,
+        population=spec.placement_population,
+        iters=spec.iters, tol=spec.tol, device=spec.device,
+        rho=spec.rho, path_slack=spec.path_slack,
+        n_slots=spec.n_slots)
+    if not spec.seeds:
+        return
+    gains, walls = [], []
+    for seed in spec.seeds:
+        t0 = time.perf_counter()
+        res = search.optimize_placement(
+            topo, pat, OBJECTIVES[obj], method=method,
+            cfg=dataclasses.replace(cfg, seed=int(seed)))
+        wall = time.perf_counter() - t0
+        base_score = res.baselines[res.baseline_best].score
+        for pat_label, cand, gain in (
+                [("optimized", res.best, res.gain)]
+                + [(kind, c, (base_score / c.score if c.score > 0
+                              and np.isfinite(c.score) else 0.0))
+                   for kind, c in res.baselines.items()]):
+            rec = _record(topo_name, obj, pat_label, seed, cand.problem,
+                          cand.result, wall,
+                          offered=cand.problem.coflow.total_gbits)
+            rec.placement_search = method
+            rec.placement_gain = float(gain)
+            records.append(rec)
+            problems.append(cand.problem)
+        gains.append(res.gain)
+        walls.append(wall)
+    say(f"{topo_name:10s} searched min-{obj:10s} @{method:14s} "
+        f"gain={np.mean(gains):6.3f}x "
+        f"(best {np.max(gains):.3f}x, {np.mean(walls):.1f} s/seed, "
+        f"{res.evaluations} evals/{res.dispatches} dispatches each)")
+
+
 def _solve_arrival_cell(topo, pat, fam: str, internal_obj: str,
                         spec: SweepSpec, seed: int):
     """One rolling-horizon run: a deterministic arrival trace for `seed`
@@ -321,9 +492,52 @@ def _arrival_record(topo_name, obj, pat_name, seed, fam: str,
         warm_iterations=res.warm_iterations)
 
 
+def _solve_chaos_cell(topo, pat, preset: str, internal_obj: str,
+                      spec: SweepSpec, seed: int):
+    """One chaos-replay cell: a deterministic poisson arrival trace run
+    through the rolling-horizon driver while a seeded failure/repair
+    event trace (core.chaos) degrades and repairs the fabric at epoch
+    boundaries.  The hardened retry ladder ends in the certified "scf"
+    fallback tier; unroutable demand parks as deferred-by-failure."""
+    aspec = arrivals.ArrivalSpec(family="poisson",
+                                 n_coflows=spec.arrival_coflows,
+                                 mean_interarrival_s=spec.arrival_mean_s)
+    trace = arrivals.generate_trace(topo, pat, aspec, int(seed))
+    events = chaosmod.generate_preset_events(topo, (preset,), int(seed))
+    t0 = time.perf_counter()
+    res = arrivals.run_online(topo, trace, internal_obj,
+                              epoch_s=spec.epoch_s, rho=spec.rho,
+                              path_slack=spec.path_slack, iters=spec.iters,
+                              tol=spec.tol, device=spec.device,
+                              chaos=events, fallback_policy="scf")
+    return trace, res, time.perf_counter() - t0
+
+
+def _chaos_record(topo_name, obj, pat_name, seed, preset: str,
+                  trace: list, res, wall_s: float) -> SweepRecord:
+    """One SweepRecord summarizing a chaos replay (an arrival row plus
+    the robustness columns)."""
+    rec = _arrival_record(topo_name, obj, pat_name, seed, "poisson",
+                          trace, res, wall_s)
+    rec.chaos = preset
+    rec.availability = res.availability
+    rec.stranded_gbits = res.stranded_gbits
+    rec.deferred_gbits = res.deferred_failure_gbits
+    rec.recover_s = (float(np.mean(res.recoveries)) if res.recoveries
+                     else float("nan"))
+    # backlog excludes deferred-by-failure demand (it was never
+    # routable); survivability measures what the fabric allowed
+    offered = float(sum(a.coflow.total_gbits for a in trace))
+    rec.survivability = ((offered - res.backlog_gbits
+                          - res.deferred_failure_gbits)
+                         / max(offered, 1e-12))
+    return rec
+
+
 def _record(topo_name, obj, pat_name, seed, p, r, per_inst_s, *,
             offered: float, failure: str = "none",
-            degradation_ratio: float = 0.0) -> SweepRecord:
+            degradation_ratio: float = 0.0, policy: str = "lp",
+            gap_vs_lp: float = 1.0) -> SweepRecord:
     """One SweepRecord from a solved instance.  `offered` is the healthy
     demand in Gbits (a degraded instance's own coflow excludes flows the
     failure disconnected, but survivability is measured against what the
@@ -339,7 +553,8 @@ def _record(topo_name, obj, pat_name, seed, p, r, per_inst_s, *,
         lp_primal_residual=r.lp_primal_residual,
         remaining_gbits=r.remaining_gbits, solve_s=per_inst_s,
         failure=failure, degradation_ratio=degradation_ratio,
-        survivability=float(m.served.sum()) / max(offered, 1e-12))
+        survivability=float(m.served.sum()) / max(offered, 1e-12),
+        policy=policy, gap_vs_lp=gap_vs_lp)
 
 
 def run_sweep(spec: SweepSpec, *, log: Callable[[str], None] | None = None
@@ -355,7 +570,7 @@ def run_sweep(spec: SweepSpec, *, log: Callable[[str], None] | None = None
         # problems index-aligned, nothing ever reads it)
         placeholder = (timeslot.ScheduleProblem(
             topo, traffic.empty_coflow(topo.n_vertices), n_slots=2,
-            rho=spec.rho) if spec.arrivals else None)
+            rho=spec.rho) if (spec.arrivals or spec.chaos) else None)
         for pat_name in spec.patterns:
             pat = traffic.pattern(pat_name, n_map=spec.n_map,
                                   n_reduce=spec.n_reduce,
@@ -389,6 +604,8 @@ def run_sweep(spec: SweepSpec, *, log: Callable[[str], None] | None = None
                 if spec.profile:
                     _profile_line(say, f"{topo_name}/{pat_name}/min-{obj}",
                                   snap, t_cell)
+                _policy_records(records, problems, spec, say, topo_name,
+                                obj, pat_name, probs, results, offered)
                 for fail_name in spec.failures:
                     snap = solver.build_cache_stats().snapshot()
                     t_cell = time.perf_counter()
@@ -415,6 +632,10 @@ def run_sweep(spec: SweepSpec, *, log: Callable[[str], None] | None = None
                         _profile_line(
                             say, f"{topo_name}/{pat_name}/min-{obj}"
                                  f"+{fail_name}", snap, t_cell)
+                    _policy_records(records, problems, spec, say,
+                                    topo_name, obj, pat_name, f_probs,
+                                    f_results, offered,
+                                    failure=fail_name, ratios=ratios)
                 for fam in spec.arrivals:
                     fam_recs = []
                     snap = solver.build_cache_stats().snapshot()
@@ -438,6 +659,36 @@ def run_sweep(spec: SweepSpec, *, log: Callable[[str], None] | None = None
                         _profile_line(
                             say, f"{topo_name}/{pat_name}/min-{obj}~{fam}",
                             snap, time.perf_counter() - t_cell)
+                for preset in spec.chaos:
+                    cz_recs = []
+                    snap = solver.build_cache_stats().snapshot()
+                    t_cell = time.perf_counter()
+                    for seed in spec.seeds:
+                        trace, res, wall = _solve_chaos_cell(
+                            topo, pat, preset, OBJECTIVES[obj], spec, seed)
+                        rec = _chaos_record(topo_name, obj, pat_name,
+                                            seed, preset, trace, res, wall)
+                        cz_recs.append(rec)
+                        records.append(rec)
+                        problems.append(placeholder)
+                    recov = [r.recover_s for r in cz_recs
+                             if np.isfinite(r.recover_s)]
+                    say(f"{topo_name:10s} {pat_name:8s} min-{obj:10s} "
+                        f"!{preset:9s} "
+                        f"avail={np.mean([r.availability for r in cz_recs]):6.1%}  "
+                        f"strand={np.mean([r.stranded_gbits for r in cz_recs]):5.2f} Gbit  "
+                        f"ttr={np.mean(recov) if recov else float('nan'):5.2f} s")
+                    if spec.profile:
+                        _profile_line(
+                            say, f"{topo_name}/{pat_name}/min-{obj}"
+                                 f"!{preset}", snap,
+                            time.perf_counter() - t_cell)
+        # placement-search cells hang off topology x objective (the
+        # pattern axis is exactly what the search optimizes over)
+        for obj in spec.objectives:
+            for method in spec.placement_search:
+                _placement_records(records, problems, spec, say,
+                                   topo_name, topo, obj, method)
     if spec.oracle_check:
         _spot_check(records, problems, spec, say)
     return records, problems
@@ -447,9 +698,14 @@ def _spot_check(records, problems, spec: SweepSpec, say) -> None:
     """Re-solve the cheapest `oracle_check` instances with the exact MILP
     and record the fast path's optimality gap on the primary metric."""
     # arrival rows aggregate many epoch problems — there is no single
-    # instance the MILP could certify, so they are never spot-checked
+    # instance the MILP could certify, so they are never spot-checked;
+    # policy rows are heuristics, not the fast path, so the optimality
+    # spot-check skips them too (their gap column is gap_vs_lp), and so
+    # are the placement search's rows
     order = sorted(
-        (i for i in range(len(records)) if records[i].arrivals == "none"),
+        (i for i in range(len(records))
+         if records[i].arrivals == "none" and records[i].policy == "lp"
+         and records[i].placement_search == "none"),
         key=lambda i: (problems[i].coflow.n_flows
                        * problems[i].topo.n_edges
                        * problems[i].topo.n_wavelengths

@@ -8,19 +8,23 @@ the reference's blocked-ELL lowering (`backend="pallas"`, Pallas in
 interpret mode): the same events applied at the same boundaries, epoch
 metrics within 1e-4, and the reference's own gates (a no-op storm takes
 the healthy run's decisions, stranded volume is re-routed, no demand
-leaks).  The reference runs without a fallback policy, which the port
-does not have yet (ROADMAP queue 1 item 8).
+leaks), with the certified "scf" fallback tier as the reference's
+chaos cells run it.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro.core import arrivals as r_arrivals
 from repro.core import chaos as r_chaos
+from repro.core import solver as r_solver
 from repro.core import topology as r_topology
 from repro.core import traffic as r_traffic
 from repro_torch import convert
-from repro_torch.core import arrivals, chaos, failures, topology, traffic
+from repro_torch.core import (arrivals, chaos, failures, solver, topology,
+                              traffic)
 
 TOPOS = ["fat-tree", "spine-leaf", "bcube", "dcell", "pon3", "pon5"]
 TOPO = topology.build("spine-leaf")
@@ -177,7 +181,7 @@ def test_online_storm_replay_matches_reference():
     trace = convert.trace_from_arrays(convert.trace_to_arrays(rtrace))
     revs = r_chaos.generate_preset_events(R_TOPO, ("storm",), 0)
     evs = convert.events_from_arrays(convert.events_to_arrays(revs))
-    kw = dict(iters=1500, tol=5e-3)
+    kw = dict(iters=1500, tol=5e-3, fallback_policy="scf")
     want = r_arrivals.run_online(R_TOPO, rtrace, "energy", chaos=revs,
                                  backend="pallas", **kw)
     got = arrivals.run_online(TOPO, trace, "energy", chaos=evs,
@@ -236,7 +240,7 @@ def test_online_spine_outage_strands_and_recovers():
            chaos.ChaosEvent(2.0, "repair", 0, scen)]
     res = arrivals.run_online(TOPO, trace, "energy", epoch_s=0.5,
                               iters=1500, tol=5e-3, chaos=evs,
-                              device="cpu")
+                              fallback_policy="scf", device="cpu")
     assert res.stranded_gbits > 1.0
     assert any(" strand " in line for line in res.chaos_log)
     assert res.recoveries and all(t >= 0.0 for t in res.recoveries)
@@ -248,8 +252,52 @@ def test_online_spine_outage_strands_and_recovers():
         chaos.availability(evs, t_end), rel=1e-9)
 
 
-def test_fallback_policy_names_its_roadmap_item():
-    trace = small_trace(traffic, arrivals, TOPO)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        arrivals.run_online(TOPO, trace, "energy", chaos=storm_events(),
-                            fallback_policy="scf", device="cpu")
+def test_fallback_policy_names_its_roadmap_item(monkeypatch):
+    """The scf tier of run_online (ROADMAP queue 1 item 8, ported)
+    against the reference's run_online(fallback_policy="scf",
+    backend="pallas").  Both solvers are starved (every epoch result
+    claims residual demand), so the retry ladder exhausts in every epoch
+    and the tier takes each one: the policy is numpy, so from there on
+    both runs carry the same flows and the chaos logs, epochs and
+    energies agree bit for bit.  The tier is a scheduling rung, not an
+    error handler: an error of the solve propagates."""
+    def starve(mod):
+        real = mod.solve_fast_warm
+        monkeypatch.setattr(mod, "solve_fast_warm", lambda *a, **k:
+                            dataclasses.replace(real(*a, **k),
+                                                remaining_gbits=1.0))
+
+    starve(solver)
+    starve(r_solver)
+    rtrace = small_trace(r_traffic, r_arrivals, R_TOPO, n_coflows=3)
+    trace = convert.trace_from_arrays(convert.trace_to_arrays(rtrace))
+    revs = r_chaos.generate_preset_events(R_TOPO, ("storm",), 0)
+    evs = convert.events_from_arrays(convert.events_to_arrays(revs))
+    kw = dict(iters=200, tol=5e-3, fallback_policy="scf")
+    want = r_arrivals.run_online(R_TOPO, rtrace, "energy", chaos=revs,
+                                 backend="pallas", **kw)
+    got = arrivals.run_online(TOPO, trace, "energy", chaos=evs,
+                              device="cpu", **kw)
+    falls = [line for line in got.chaos_log if " fallback " in line]
+    assert len(falls) == got.n_epochs > 1
+    assert all(line.endswith("policy=scf") for line in falls)
+    assert got.chaos_log == want.chaos_log
+    assert got.n_epochs == want.n_epochs
+    for g, w in zip(got.epochs, want.epochs):
+        assert ((g.t_start, g.n_flows, g.n_slots, g.energy_j,
+                 g.shipped_gbits, g.certified, g.feasible)
+                == (w.t_start, w.n_flows, w.n_slots, w.energy_j,
+                    w.shipped_gbits, w.certified, w.feasible))
+        assert g.certified and g.feasible
+    assert got.backlog_gbits <= 1e-6 and got.total_energy_j \
+        == want.total_energy_j
+    assert [c.t_done for c in got.coflows] == [c.t_done for c in
+                                               want.coflows]
+
+    def broken(*a, **k):
+        raise RuntimeError("burst failed")
+
+    monkeypatch.setattr(solver, "solve_fast_warm", broken)
+    with pytest.raises(RuntimeError, match="burst failed"):
+        arrivals.run_online(TOPO, trace, "energy", chaos=evs,
+                            device="cpu", **kw)

@@ -30,7 +30,11 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.sweep.__main__, repro_torch.core.failures, "
             "repro_torch.core.chaos, repro_torch.core.arrivals, "
             "repro_torch.core.fabric, repro_torch.core.heuristics, "
-            "repro_torch.core.wavelength; "
+            "repro_torch.core.wavelength, repro_torch.core.policies, "
+            "repro_torch.search, repro_torch.search.moves, "
+            "repro_torch.search.optimize, repro_torch.service, "
+            "repro_torch.service.clock, repro_torch.service.metrics, "
+            "repro_torch.service.loop; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')); print(bad)")

@@ -119,19 +119,22 @@ def test_cli_on_the_cpu_writes_results(tmp_path):
     (["--topos", "nope"], "unknown topology"),
     (["--patterns", "nope"], "unknown pattern"),
     (["--objectives", "nope"], "unknown objective"),
-    # ported since: the test ids name what these cases once checked
+    # ported since: the test ids name what these cases once checked, and
+    # test_cli_runs_each_ported_axis_on_the_cpu runs each axis
     pytest.param(["--failures", "none"], "unknown failure preset 'none'",
                  id="args3-failures axis is not ported yet (ROADMAP queue 1 "
                     "item 6"),
-    (["--policy", "scf"], "policies axis is not ported yet (ROADMAP queue "
-                          "1 item 8"),
-    (["--placement-search"], "item 8"),
+    pytest.param(["--policy", "lottery"], "unknown policy 'lottery'",
+                 id="args4-policies axis is not ported yet (ROADMAP queue 1 "
+                    "item 8"),
+    pytest.param(["--placement-search", "tabu"],
+                 "unknown placement-search method 'tabu'", id="args5-item 8"),
     pytest.param(["--arrivals", "weekly"], "unknown arrival family",
                  id="args6-item 7"),
-    pytest.param(["--chaos"], "chaos axis is not ported yet (ROADMAP queue "
-                              "1 item 8: needs the scf fallback policy)",
-                 id="args7-item 7"),
-    (["--service", "2"], "item 9"),
+    pytest.param(["--chaos", "hurricane"], "unknown chaos preset "
+                                           "'hurricane'", id="args7-item 7"),
+    pytest.param(["--service", "2", "--chaos", "hurricane"],
+                 "unknown chaos preset 'hurricane'", id="args8-item 9"),
     (["--jax-cache", "cache"], "item 5"),
     (["--backend", "xla"], "COO"),
     (["--mesh", "2"], "item 10"),
@@ -144,17 +147,64 @@ def test_cli_rejects_bad_names_and_unported_flags(args, match):
     assert isinstance(exc.value.code, str) and match in exc.value.code
 
 
+# each axis of the reference's at its test's size (tests/test_policies.py,
+# tests/test_search.py, tests/test_chaos.py, tests/test_service.py)
+SMALL = ["--device", "cpu", "--topos", "spine-leaf", "--objectives",
+         "energy", "--patterns", "uniform", "--seeds", "1", "--total-gbits",
+         "8", "--n-map", "4", "--n-reduce", "3", "--iters", "1200",
+         "--oracle-check", "0"]
+
+
+@pytest.mark.parametrize("args,table,log", [
+    pytest.param(["--policy", "ecmp,scf,fair"], "Optimal-vs-practical gap",
+                 None, id="policy"),
+    pytest.param(["--placement-search", "sa,ga", "--placement-budget", "1",
+                  "--placement-population", "4"], "Placement search", None,
+                 id="placement-search"),
+    pytest.param(["--chaos", "storm", "--arrival-coflows", "2"],
+                 "Availability under chaos", "chaos_events.log", id="chaos"),
+    pytest.param(["--service", "2", "--topos", "spine-leaf,pon3",
+                  "--arrival-coflows", "2"], None, "service_events.log",
+                 id="service"),
+])
+def test_cli_runs_each_ported_axis_on_the_cpu(args, table, log, tmp_path,
+                                              capsys):
+    rc = sweep_main.main([*SMALL, *args, "--out", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    if table is not None:
+        assert "(0 infeasible)" in out.strip().splitlines()[-1]
+        assert table in (tmp_path / "results.md").read_text()
+    else:
+        assert "latency p50=" in out and "backlog=0.000000" in out
+    if log is not None:
+        text = (tmp_path / log).read_text()
+        assert text.startswith("# topo=spine-leaf chaos=storm seed=0\n"
+                               if log == "chaos_events.log" else "t=")
+        assert (" fail " in text if log == "chaos_events.log"
+                else " done " in text)
+
+
 def test_cli_unported_flag_exits_1_cleanly():
-    proc = _cli("--device", "cpu", "--chaos", "storm")
+    proc = _cli("--device", "cpu", "--mesh", "2")
     assert proc.returncode == 1
     assert proc.stderr.strip() == (
-        "error: the chaos axis is not ported yet (ROADMAP queue 1 item "
-        "8: needs the scf fallback policy)")
+        "error: mesh > 1 (row-sharded PDHG) is not ported yet (ROADMAP "
+        "queue 1 item 10)")
 
 
 def test_spec_rejects_unported_axes_naming_the_roadmap_item():
-    with pytest.raises(ValueError, match="chaos axis .*item 8"):
-        runner.SweepSpec(chaos=("storm",)).validate()
+    runner.SweepSpec(chaos=("storm",), policies=("scf",),
+                     placement_search=("sa",), device="cpu").validate()
+    for bad, match in ((dict(chaos=("nope",)), "unknown chaos preset"),
+                       (dict(policies=("nope",)), "unknown policy"),
+                       (dict(placement_search=("nope",)),
+                        "unknown placement-search method"),
+                       (dict(placement_search=("sa",),
+                             placement_population=0),
+                        "population >= 1")):
+        with pytest.raises(ValueError, match=match):
+            runner.SweepSpec(**bad, device="cpu").validate()
     with pytest.raises(ValueError, match="item 10"):
         runner.SweepSpec(mesh=2).validate()
 
