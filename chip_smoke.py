@@ -145,7 +145,27 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      co-flows a second, p50/p99 decision latency, dispatches a window,
      the device's idle share; two fat-tree k=16 tenants of the flagship
      shuffle (2 poisson co-flows each, shortest paths); the sweep's
-     --service 2 mode and its service_events.log.
+     --service 2 mode and its service_events.log;
+ 26. serving the rest of the zoo at full width, batch 4, prompt 2048, 16
+     tokens, impl=kernel, one config's weights on the card at a time:
+     granite-moe-1b-a400m (24 layers), qwen2-moe-a2.7b (12 of its 24
+     layers, for memory), xlstm-1.3b (48 blocks), seamless-m4t-large-v2
+     (24 decoder and 24 encoder layers, 32 encoder frames) and
+     internvl2-1b (256 image tokens before the prompt), each served twice
+     (serve.main, or build + generate): identical tokens, finite logits,
+     24, 12, 0, 24 and 24 attention launches a prefill; in every
+     attention layer the self-attention sublayer through the kernel
+     within bf16 places of the plain version, failing with the dropped
+     kv tile; in every MoE layer the routing (top-k in order, slots, kept
+     pairs, expert counts) bitwise the CPU's from the card's router
+     logits; the first mLSTM and sLSTM blocks of xlstm against the CPU
+     (their recurrences on the same fp32 inputs within 1e-4 of scale,
+     the blocks within 2e-2);
+ 27. times at those shapes: each config's prefill wall, decode ms a
+     token, the device's busy share of one prefill and one decode step
+     and its peak device memory; the attention kernel at granite's shape
+     (H 16, Hkv 8, hd 64, S 2048) and internvl2's (H 14, Hkv 2, hd 64,
+     S 2304) against its plain version, torch SDPA and its bound.
 
 The last lines are one JSON object describing the kernels, the card's
 name and power limit, and `{"ok": true, "device": {...}}`.  Imports
@@ -373,6 +393,24 @@ SERVICE_SWEEP_ARGS = ["--service", "2", "--topos", "spine-leaf,pon3",
                       "--patterns", "uniform", "--total-gbits", "8",
                       "--n-map", "4", "--n-reduce", "3",
                       "--arrival-coflows", "2"]
+# the rest of the model zoo at full width (phases 26-27): (arch, layers
+# kept, None for all), each at batch 4, prompt 2048, 16 tokens.
+# qwen2-moe keeps 12 of its 24 layers: its fp32 weights and their bf16
+# copies take about 86 GB at 24 layers, 45 GB at 12
+ZOO = [("granite-moe-1b-a400m", None), ("qwen2-moe-a2.7b", 12),
+       ("xlstm-1.3b", None), ("seamless-m4t-large-v2", None),
+       ("internvl2-1b", None)]
+ZOO_BATCH, ZOO_PROMPT, ZOO_GEN = 4, 2048, 16
+# the xLSTM recurrences, card against CPU on the same fp32 inputs, of
+# each output's scale: fp32 sums of up to 1,024 terms in cuBLAS's order
+# and the CPU's (8.9e-6 measured at xlstm-1.3b's first mLSTM layer, on
+# an NVIDIA H100 80GB HBM3); the whole block, whose bf16 products may
+# round differently on the two, within the CPU tests' one-layer 2e-2
+XLSTM_RTOL = 1e-4
+XLSTM_BLOCK_RTOL = 2e-2
+# phase 27's attention shapes: (name, B, S, H, Hkv, hd), causal, bf16
+ZOO_FA = [("granite-moe", 4, 2048, 16, 8, 64),
+          ("internvl2", 4, 2304, 14, 2, 64)]
 
 
 def card_line() -> str:
@@ -620,27 +658,28 @@ def burst_bound(op, nnz: int, it: int = 4,
 
 def profile_device(fn) -> dict | None:
     """Device time by kernel name over one call of `fn`, from
-    torch.profiler: {name: (launches, total microseconds)}, or None when
-    the profiler reports no device time."""
+    torch.profiler's device activity: {name: (launches, total
+    microseconds)}, or None when the profiler reports no device time.
+    The device events are read off the trace as the profiler recorded
+    them (`kineto_results`): building its per-op tables takes a minute
+    or more for a call of 300,000 kernels, such as xlstm's prefill."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     out = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue          # host-side ops; their kernels are listed too
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        if us > 0 and e.count > 0:
-            name = e.key.replace("(anonymous namespace)::", "")
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue          # the host's runtime calls
+        us = e.duration_ns() * 1e-3
+        if us > 0:
+            name = e.name().replace("(anonymous namespace)::", "")
             if not name.startswith(("Memcpy", "Memset")):
                 name = name.split("(")[0].strip()[:60]   # drop signature
             c0, us0 = out.get(name, (0, 0.0))
-            out[name] = (c0 + e.count, us0 + float(us))
+            out[name] = (c0 + 1, us0 + us)
     return out or None
 
 
@@ -1191,28 +1230,32 @@ def sublayer_excess(block, x, pos, broken=None) -> float:
                   / (BF16_PLACE * (want.abs() + rms))).max())
 
 
-def compare_sublayers(label, model, toks) -> float:
-    """sublayer_excess in every layer, on the hidden state of the kernel
-    path; requires it at most 1 everywhere, and above 1 in the first layer
-    of each kind when its kernel is replaced by a broken one (an attention
+def compare_sublayers(label, model, batch) -> float:
+    """sublayer_excess in every attention and recurrent layer, on the
+    hidden state of the kernel path (from a prefill batch: the tokens, and
+    an encoder-decoder model's frames or a VLM's image embeddings);
+    requires it at most 1 everywhere, and above 1 in the first layer of
+    each kind when its kernel is replaced by a broken one (an attention
     that drops the last kv tile, a scan that drops the last step), so the
-    check can fail.  Returns the worst ratio."""
+    check can fail.  xLSTM layers run their kernel-free path unchecked.
+    Returns the worst ratio."""
     import torch
     from repro_torch.models import transformer
-    x = transformer._embed(model, toks)
-    pos = torch.arange(toks.shape[1], device=toks.device)[None, :]
     worst, broken, count = {}, {}, {}
     with torch.no_grad():
+        x, memory = transformer._inputs(model, batch)
+        pos = torch.arange(x.shape[1], device=x.device)[None, :]
         for i, block in enumerate(model.blocks):
-            kind = "rglru" if block.kind == "rglru" else "attention"
-            count[kind] = count.get(kind, 0) + 1
-            if kind not in broken:
-                broken[kind] = (i, sublayer_excess(
-                    block, x, pos, scan_drop_last_step if kind == "rglru"
-                    else fa_drop_last_tile))
-            worst[kind] = max(worst.get(kind, 0.0),
-                              sublayer_excess(block, x, pos))
-            x, _ = block(x, pos, mode="train", impl="kernel")
+            if block.kind not in ("mlstm", "slstm"):
+                kind = "rglru" if block.kind == "rglru" else "attention"
+                count[kind] = count.get(kind, 0) + 1
+                if kind not in broken:
+                    broken[kind] = (i, sublayer_excess(
+                        block, x, pos, scan_drop_last_step if kind == "rglru"
+                        else fa_drop_last_tile))
+                worst[kind] = max(worst.get(kind, 0.0),
+                                  sublayer_excess(block, x, pos))
+            x = block(x, pos, mode="train", impl="kernel", memory=memory)[0]
             require(bool(torch.isfinite(x).all()),
                     f"{label} layer {i}: not finite")
     for kind in worst:
@@ -2423,6 +2466,274 @@ def service_phase(dev) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 26-27: the rest of the model zoo (MoE, xLSTM, encoder-decoder, VLM)
+# ---------------------------------------------------------------------------
+
+def recording_moe_inputs():
+    """A patch under which every MoE layer's call records (layer, its
+    input) in the returned list before it runs."""
+    from repro_torch.models import moe
+    seen, real = [], moe.MoE.forward
+
+    def record(self, x):
+        seen.append((self, x))
+        return real(self, x)
+    return mock.patch.object(moe.MoE, "forward", record), seen
+
+
+def check_routing(label, seen) -> None:
+    """Each MoE layer's routing on the card against the port on the CPU.
+    From the router logits the card computed, the routing (top-k in its
+    order, each pair's slot, which pairs fit, the expert counts) must be
+    bitwise the CPU's.  From the layer input, the CPU's router product
+    sums in another order than cuBLAS, so a logit may round to the next
+    bf16 place, and a choice between two experts within a place may turn:
+    how many logits and (token, k) choices differ is reported."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.common import matmul
+    n_logits = n_turned = n_pairs = n_dropped = 0
+    for i, (layer, x) in enumerate(seen):
+        cfg = layer.cfg.moe
+        xt = layer.groups(x)
+        logits = layer.router_logits(xt)
+        card = moe.route_logits(cfg, logits)
+        cpu = moe.route_logits(cfg, logits.cpu())
+        for name in ("topi", "slot", "keep", "counts"):
+            require(torch.equal(getattr(card, name).cpu(),
+                                getattr(cpu, name)),
+                    f"{label} MoE layer {i}: {name} on the card is not the "
+                    f"CPU's from the same logits")
+        require(card.cap == cpu.cap and card.counts.dtype == torch.int64,
+                f"{label} MoE layer {i}: capacity or count type")
+        host = matmul(xt.cpu(), layer.weight("router", x.dtype).cpu())
+        n_logits += int((host.float() != logits.cpu()).sum())
+        n_turned += int((moe.route_logits(cfg, host.float()).topi
+                         != card.topi.cpu()).sum())
+        n_pairs += card.topi.numel()
+        n_dropped += int((~card.keep).sum())
+    say(f"    {label}, routing in {len(seen)} MoE layers ({n_pairs} (token, "
+        f"k) pairs, {n_dropped} past capacity and dropped): top-k, slots, "
+        f"kept pairs and expert counts bitwise the CPU's from the card's "
+        f"logits; from the layer input the CPU's router product differs "
+        f"in {n_logits} logits by bf16 places and turns {n_turned} "
+        f"choices (reported, not bounded)")
+
+
+def scale_err(got, want) -> float:
+    """max |got - want| over want's largest magnitude, on the CPU."""
+    want = want.float().cpu()
+    return float((got.float().cpu() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def check_xlstm(model, batch) -> None:
+    """The first mLSTM and sLSTM blocks on the card against the port on
+    the CPU, on batch row 0 along the kernel path: each recurrence (the
+    mLSTM's chunks, the sLSTM's steps) on the same fp32 inputs within
+    XLSTM_RTOL of each output's scale, and the whole block within
+    XLSTM_BLOCK_RTOL."""
+    import torch
+    from repro_torch.models import transformer, xlstm
+    from repro_torch.models.common import rms_norm
+    cpu = torch.device("cpu")
+    kinds = [b.kind for b in model.blocks]
+    x, _ = transformer._inputs(model, {"tokens": batch["tokens"][:1]})
+    pos = torch.arange(x.shape[1], device=x.device)[None, :]
+    done = 0
+    with torch.no_grad():
+        for kind in ("mlstm", "slstm"):
+            i = kinds.index(kind)
+            for block in model.blocks[done:i]:
+                x = block(x, pos, mode="train")[0]
+            cell = model.blocks[i].cell
+            h = rms_norm(x, model.blocks[i].ln1, model.cfg.rms_eps)
+            host = type(cell)(model.cfg, generator=torch.Generator(),
+                              device=cpu)
+            host.load_state_dict({k: v.cpu()
+                                  for k, v in cell.state_dict().items()})
+            t0 = time.perf_counter()
+            if kind == "mlstm":
+                q, k, v, logf, logi, _, _ = cell.project(h)
+                got, got_state = cell.chunks(q, k, v, logf, logi)
+                want, want_state = xlstm.MLSTM.chunks(
+                    *(t.cpu() for t in (q, k, v, logf, logi)))
+                # h = num / max(|q.n|, exp(-m)) a row: where q.n cancels,
+                # a row's scale moves with the order of the sums; the
+                # block uses h through the group norm, which removes it
+                got, want = (xlstm.group_norm(t.transpose(1, 2), w)
+                             for t, w in ((got, cell.gn), (want, host.gn)))
+                names = ("group_norm(h)", "S", "n", "m")
+            else:
+                wx, _ = cell.project(h)
+                B, D = h.shape[0], h.shape[2]
+                z = torch.zeros((B, D), device=h.device)
+                start = (z, z, z, torch.full((B, D), -1e30, device=h.device))
+                got, got_state = cell.scan(wx, start)
+                want, want_state = host.scan(
+                    wx.cpu(), tuple(t.cpu() for t in start))
+                names = ("h", "c", "n", "h_last", "m")
+            errs = [scale_err(a, b) for a, b in
+                    zip((got, *got_state), (want, *want_state))]
+            out = cell(h, mode="train")[0]
+            block_err = scale_err(out, host(h.cpu(), mode="train")[0])
+            say(f"    xlstm layer {i} ({kind}), batch row 0, card vs CPU: "
+                f"the recurrence on the same fp32 inputs, max |card-cpu| / "
+                f"scale " + ", ".join(f"{n} {e:.3e}" for n, e in
+                                      zip(names, errs))
+                + f" (limit {XLSTM_RTOL:g}); the whole block {block_err:.3e}"
+                f" (limit {XLSTM_BLOCK_RTOL:g}); {time.perf_counter() - t0:.1f}"
+                f" s")
+            require(max(errs) <= XLSTM_RTOL, f"xlstm layer {i} ({kind}): "
+                    f"the card's recurrence is off the CPU's by "
+                    f"{max(errs):.3e} of its scale")
+            require(block_err <= XLSTM_BLOCK_RTOL, f"xlstm layer {i}: the "
+                    f"block is off the CPU's by {block_err:.3e}")
+            x = model.blocks[i](x, pos, mode="train")[0]
+            done = i + 1
+            del host
+
+
+def zoo_phase(card: str) -> dict:
+    """Phases 26-27 for each ZOO config in turn (the weights of one at a
+    time on the card): serve it twice, check it, time it.  Returns the
+    attention launches of one prefill of each config, summed."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.runtime import steps
+    dev = torch.device("cuda", 0)
+    B, P, G = ZOO_BATCH, ZOO_PROMPT, ZOO_GEN
+    launches = 0
+    for arch, layers in ZOO:
+        t_phase = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = configs.get(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        n_att = sum(k in ("attn", "attn_local")
+                    for k in cfg.pattern_for(cfg.n_layers))
+        pos0 = P + serve.prefix_len(cfg)
+        say(f"[26] serving path: {cfg.name} at full width, {cfg.n_layers}"
+            f"{f' of {layers * 2}' if layers else ''} layers"
+            f"{f' + {cfg.n_enc_layers} encoder layers' if cfg.n_enc_layers else ''}"
+            f", batch {B}, prompt {P}"
+            f"{f' after {cfg.n_img_tokens} image tokens' if pos0 > P else ''}"
+            f"{f' and {serve.ENC_FRAMES} encoder frames' if cfg.family == 'encdec' else ''}"
+            f", {G} tokens, impl=kernel")
+        served = []
+        for rep in range(2):
+            ops.FLASH_ATTENTION_LAUNCHES = 0
+            ops.RGLRU_SCAN_LAUNCHES = 0
+            ops.PDHG_BURST_LAUNCHES = 0
+            t0 = time.perf_counter()
+            if layers is None and rep == 0:
+                served.append(serve.main([
+                    "--arch", arch, "--batch", str(B), "--prompt-len",
+                    str(P), "--gen", str(G), "--impl", "kernel"]))
+            else:
+                model = inputs = g = None     # one model on the card
+                model, inputs = serve.build(cfg, B, P, 0, dev)
+                g = serve.generate(model, inputs, G, impl="kernel")
+                served.append(g.tokens.cpu().numpy())
+            wall = time.perf_counter() - t0
+            fa = ops.FLASH_ATTENTION_LAUNCHES
+            say(f"    run {rep} ({'serve.main' if layers is None and rep == 0 else 'build + generate'}): "
+                f"wall {wall:.3f} s (weights drawn on the card included); "
+                f"flash_attention launches {fa}, rglru_scan "
+                f"{ops.RGLRU_SCAN_LAUNCHES}, pdhg_burst "
+                f"{ops.PDHG_BURST_LAUNCHES}")
+            require(fa == n_att and ops.RGLRU_SCAN_LAUNCHES == 0,
+                    f"{cfg.name} prefill launched the attention kernel {fa} "
+                    f"times, expected {n_att}")
+        launches += n_att
+        require(served[0].shape == (B, G), f"tokens {served[0].shape}")
+        require(np.array_equal(served[0], served[1]),
+                f"two {cfg.name} serving runs differ")
+        require(bool(torch.isfinite(g.prefill_logits).all()),
+                f"{cfg.name} prefill logits not finite")
+        require(np.array_equal(g.prefill_logits[:, -1].argmax(-1).cpu()
+                               .numpy(), served[0][:, 0]),
+                f"{cfg.name}: the first tokens are not the prefill's argmax")
+        say(f"    two runs: identical tokens; {served[0][0][:8].tolist()} "
+            f"...; prefill logits finite")
+        if n_att:
+            patch, seen = recording_moe_inputs()
+            with patch:
+                compare_sublayers(f"{cfg.name} prefill", model, inputs)
+            if cfg.moe:
+                check_routing(f"{cfg.name} prefill", seen)
+            del seen
+        else:
+            check_xlstm(model, inputs)
+
+        # -- phase 27 for this config --
+        say(f"[27] times: {cfg.name} ({card})")
+        prefill = steps.make_prefill_step(cfg, impl="kernel",
+                                          max_len=pos0 + G)
+        # run 1's prefill and two more (one more past a second: xlstm's)
+        walls = [g.prefill_s]
+        while len(walls) < (3 if g.prefill_s < 1.0 else 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill(model, inputs)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall = sorted(walls)[(len(walls) - 1) // 2]
+        say(f"    prefill wall {wall * 1e3:.3f} ms (the lower median of "
+            + " / ".join(f"{w * 1e3:.3f}" for w in walls)
+            + f", run 1's first); decode {g.decode_s / (G - 1) * 1e3:.3f} "
+            f"ms a token ({G - 1} steps, batch {B})")
+        report_busy("prefill", lambda: prefill(model, inputs), wall)
+        decode = steps.make_decode_step(cfg, impl="kernel")
+        memory = None
+        if cfg.family == "encdec":
+            with torch.no_grad():
+                from repro_torch.models import transformer
+                memory = transformer.encode(model, inputs["enc_embeds"])
+        tok = g.tokens[:, -1:]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode(model, g.caches, tok, pos0 + G - 1, memory)
+        torch.cuda.synchronize()
+        report_busy("decode step", lambda: decode(model, g.caches, tok,
+                                                  pos0 + G - 1, memory),
+                    time.perf_counter() - t0)
+        say(f"    peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+            f" GiB; phases 26-27 for {cfg.name} {time.perf_counter() - t_phase:.1f} s")
+        del model, inputs, g, prefill, decode, tok, memory
+        torch.cuda.empty_cache()
+
+    say(f"[27] the attention kernel at the zoo's new shapes ({card})")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for seed, (name, Bq, S, H, Hkv, hd) in enumerate(ZOO_FA):
+        q, k, v = fa_inputs(200 + seed, Bq, S, H, Hkv, hd, torch.bfloat16,
+                            dev)
+        err = compare_attention(f"{name} S={S} H={H}/{Hkv} hd={hd}", q, k,
+                                v, 0, 0.0, True)
+        ms = sorted(time_events(lambda: ops.flash_attention(q, k, v), 10)
+                    for _ in range(3))[1]
+        plain_ms = time_events(lambda: fa_plain(q, k, v, 0, 0.0), 3)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib_ms = time_events(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                          enable_gqa=True), 10)
+        bound_ms, bound_by, nbytes, flop = attention_bound(
+            Bq, S, H, Hkv, hd, 0, 2)
+        del q, k, v, qt, kt, vt
+        say(f"    {name}: attention kernel {ms:.6f} ms a launch (q ({Bq}, "
+            f"{S}, {H}, {hd}), k/v ({Bq}, {S}, {Hkv}, {hd}), bf16, causal; "
+            f"median of 3 runs of 10); plain {plain_ms:.6f} ms; library "
+            f"{lib_ms:.6f} ms (torch scaled_dot_product_attention, "
+            f"is_causal, enable_gqa); bound {bound_ms:.6f} ms ({bound_by}: "
+            f"{flop} flop at 989 TFLOP/s bf16, {nbytes} B at 3.35 TB/s); "
+            f"{flop / ms * 1e-9:.3f} TFLOP/s, {ms / bound_ms:.3f}x its bound,"
+            f" {ms / lib_ms:.3f}x the library; max|kernel-plain| {err:.3e}")
+    return {"launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep-out", default="",
@@ -2456,8 +2767,13 @@ def main(argv=None) -> int:
         f"{torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products summed in fp32 and rounded once (models/common.py's
+    # matmul), as the serve CLI sets it: no split-K reduction in bf16
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     say(f"    allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
-        f"cudnn={torch.backends.cudnn.allow_tf32}")
+        f"cudnn={torch.backends.cudnn.allow_tf32}; bf16 reduced-precision "
+        f"reduction "
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
     dev = torch.device("cuda", 0)
 
     # -- phase 2: build (the three kernels, one nvcc each, started together)
@@ -2715,7 +3031,8 @@ def main(argv=None) -> int:
     require(served[0].shape == (4, 32), f"tokens {served[0].shape}")
     require(np.array_equal(served[0], served[1]), "two serving runs differ")
     say("    two runs: identical tokens")
-    model, toks = serve.build(cfg, 4, 2048, 0, dev)
+    model, inputs = serve.build(cfg, 4, 2048, 0, dev)
+    toks = inputs["tokens"]
     prefill = steps.make_prefill_step(cfg, impl="kernel", max_len=2048 + 32)
     logits_k, _ = prefill(model, {"tokens": toks})
     with attention_patch(fa_plain):
@@ -2726,14 +3043,15 @@ def main(argv=None) -> int:
             "serve.main's first tokens are not this prefill's argmax")
     report_logits("phi4 prefill", logits_k, logits_p)
     del logits_k, logits_p
-    compare_sublayers("phi4 prefill", model, toks)
+    compare_sublayers("phi4 prefill", model, inputs)
 
     say("    h2o-danube-3-4b at full width, 4 layers (window 4096, hd 120), "
         "batch 1, prompt 6144, 8 tokens")
     dcfg = dataclasses.replace(configs.get("h2o-danube-3-4b"), n_layers=4)
-    dmodel, dtoks = serve.build(dcfg, 1, 6144, 0, dev)
+    dmodel, dinputs = serve.build(dcfg, 1, 6144, 0, dev)
+    dtoks = dinputs["tokens"]
     ops.FLASH_ATTENTION_LAUNCHES = 0
-    g = serve.generate(dmodel, dtoks, 8, impl="kernel")
+    g = serve.generate(dmodel, dinputs, 8, impl="kernel")
     dl = ops.FLASH_ATTENTION_LAUNCHES
     cache0 = g.caches[0]
     say(f"    prefill {g.prefill_s * 1e3:.1f} ms, 7 decode steps "
@@ -2745,7 +3063,7 @@ def main(argv=None) -> int:
             cache0["len"] == 6144 + 7, "danube ring cache")
     require(bool(torch.isfinite(g.prefill_logits).all()),
             "danube logits not finite")
-    compare_sublayers("danube prefill", dmodel, dtoks)
+    compare_sublayers("danube prefill", dmodel, dinputs)
     check_ring(dmodel, dtoks, g.tokens[:, :1])
     del dmodel, g
 
@@ -2781,7 +3099,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     prefill_wall = sorted(walls)[1]
-    g = serve.generate(model, toks, 32, impl="kernel")
+    g = serve.generate(model, inputs, 32, impl="kernel")
     say(f"    phi4 prefill wall {prefill_wall * 1e3:.3f} ms (median of 3); "
         f"decode {g.decode_s / 31 * 1e3:.3f} ms a token (31 steps, batch 4)")
     report_busy("prefill", lambda: prefill(model, {"tokens": toks}),
@@ -2796,7 +3114,7 @@ def main(argv=None) -> int:
                 time.perf_counter() - t0)
     say(f"    peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB; total {time.perf_counter() - t_start:.1f} s")
-    del model, toks, g, tok           # phi4's weights and caches
+    del model, inputs, toks, g, tok   # phi4's weights and caches
     torch.cuda.empty_cache()
 
     # -- phase 11: the bf16-storage burst vs its plain version -------------
@@ -3173,7 +3491,8 @@ def main(argv=None) -> int:
     require(np.array_equal(rserved[0], rserved[1]),
             "two recurrentgemma serving runs differ")
     say(f"    two runs: identical tokens; {rserved[0][0][:8].tolist()} ...")
-    rmodel, rtoks = serve.build(rcfg, 4, 4096, 0, dev)
+    rmodel, rinputs = serve.build(rcfg, 4, 4096, 0, dev)
+    rtoks = rinputs["tokens"]
     rprefill = steps.make_prefill_step(rcfg, impl="kernel",
                                        max_len=4096 + 32)
     rlogits, _ = rprefill(rmodel, {"tokens": rtoks})
@@ -3184,7 +3503,7 @@ def main(argv=None) -> int:
                            rserved[0][:, 0]),
             "serve.main's first tokens are not this prefill's argmax")
     del rlogits
-    compare_sublayers("recurrentgemma prefill", rmodel, rtoks)
+    compare_sublayers("recurrentgemma prefill", rmodel, rinputs)
 
     # -- phase 18: times at recurrentgemma's shapes ------------------------
     say(f"[18] times at recurrentgemma-2b's shapes ({card})")
@@ -3263,7 +3582,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     rprefill_wall = sorted(walls)[1]
-    g = serve.generate(rmodel, rtoks, 32, impl="kernel")
+    g = serve.generate(rmodel, rinputs, 32, impl="kernel")
     say(f"    recurrentgemma prefill wall {rprefill_wall * 1e3:.3f} ms "
         f"(median of 3); decode {g.decode_s / 31 * 1e3:.3f} ms a token (31 "
         f"steps, batch 4)")
@@ -3281,7 +3600,7 @@ def main(argv=None) -> int:
     say(f"    peak device memory in phases 17-18 "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; total "
         f"{time.perf_counter() - t_start:.1f} s")
-    del rmodel, rtoks, rprefill, rdecode, g, tok
+    del rmodel, rinputs, rtoks, rprefill, rdecode, g, tok
     torch.cuda.empty_cache()
 
     # -- phase 19: failures and warm re-solves at full size ----------------
@@ -3358,6 +3677,15 @@ def main(argv=None) -> int:
         f"{bf16_launches}, phase 19 {fail['bf16_launches']}); total "
         f"{time.perf_counter() - t_start:.1f} s")
 
+    # -- phases 26-27: the rest of the model zoo ------------------------------
+    t_phase = time.perf_counter()
+    zoo = zoo_phase(card)
+    fa_launches = serve_launches + zoo["launches"]
+    say(f"    flash_attention launches on the serving paths: {fa_launches} "
+        f"(phase 9 {serve_launches}, phase 26 {zoo['launches']} a prefill "
+        f"of each config); phases 26-27 {time.perf_counter() - t_phase:.1f} "
+        f"s; total {time.perf_counter() - t_start:.1f} s")
+
     kernels = {"kernels": [{
         "name": "pdhg_burst", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": path_launches,
@@ -3365,7 +3693,7 @@ def main(argv=None) -> int:
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms}, {
         "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
-        "replaces": FA_REPLACES, "launches": serve_launches,
+        "replaces": FA_REPLACES, "launches": fa_launches,
         "max_abs_err": fa_max_err, "ms": fa_ms, "plain_ms": fa_plain_ms,
         "bound_ms": fa_bound_ms, "bound_by": fa_bound_by,
         "library_ms": fa_lib_ms}, {

@@ -364,7 +364,11 @@ def params_from_numpy(cfg: ModelConfig, tree: dict) -> dict:
     The reference stacks the layers of each block-pattern slot: slot i's
     tensors `tree["groups"][i]` carry a leading group axis, and group g
     of slot i is layer g * len(block_pattern) + i; the layers left over,
-    `tree["rem"][i]`, are layers n_groups * len(block_pattern) + i."""
+    `tree["rem"][i]`, are layers n_groups * len(block_pattern) + i.  An
+    encoder-decoder model's encoder is one slot stacked n_enc_layers deep
+    (`tree["enc_groups"][0]`, layer g at g) with `enc_ln`; a VLM adds
+    `img_proj`.  A layer's sublayers keep the reference's names (`attn`,
+    `xattn`, `ln_x`, `rec`, `cell`, `ffn` for the MLP or the MoE)."""
     check_supported(cfg)
     P = len(cfg.block_pattern)
     n_groups = cfg.n_layers // P
@@ -377,17 +381,29 @@ def params_from_numpy(cfg: ModelConfig, tree: dict) -> dict:
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.float32))
 
-    sd = {name: t(tree[name]) for name in ("embed", "final_ln", "unembed")
+    sd = {name: t(tree[name])
+          for name in ("embed", "final_ln", "unembed", "enc_ln", "img_proj")
           if name in tree}
-    for i, slot in enumerate(tree["groups"]):
+
+    def unstack(slot, depth, prefix, layer_of):
         for name, stacked in _flatten(slot).items():
-            if stacked.shape[0] != n_groups:
-                raise ValueError(f"groups[{i}].{name} stacks "
+            if stacked.shape[0] != depth:
+                raise ValueError(f"{prefix}.{name} stacks "
                                  f"{stacked.shape[0]} layers, expected "
-                                 f"{n_groups}")
-            for g in range(n_groups):
-                sd[f"blocks.{g * P + i}.{name}"] = t(stacked[g])
+                                 f"{depth}")
+            for g in range(depth):
+                sd[f"{layer_of(g)}.{name}"] = t(stacked[g])
+
+    for i, slot in enumerate(tree["groups"]):
+        unstack(slot, n_groups, f"groups[{i}]",
+                lambda g, i=i: f"blocks.{g * P + i}")
     for i, layer in enumerate(tree["rem"]):
         for name, leaf in _flatten(layer).items():
             sd[f"blocks.{n_groups * P + i}.{name}"] = t(leaf)
+    if "enc_groups" in tree:
+        if len(tree["enc_groups"]) != 1:
+            raise ValueError(f"{cfg.name}: expected one stacked encoder "
+                             f"slot, got {len(tree['enc_groups'])}")
+        unstack(tree["enc_groups"][0], cfg.n_enc_layers, "enc_groups[0]",
+                lambda g: f"enc_blocks.{g}")
     return sd

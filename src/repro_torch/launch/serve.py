@@ -1,17 +1,23 @@
 """Batched serving: prefill a batch of prompts, then decode.
 
 The port's counterpart of the reference's `launch/serve.py`: the serving
-path (prefill -> caches -> decode loop) with greedy sampling, for the
-language models the port runs (the dense phi4-mini, nemotron, gemma2 and
-h2o-danube, and the recurrent hybrid recurrentgemma).  Weights and prompt
-tokens come from a `torch.Generator` seeded with --seed, on the device.
+path (prefill -> caches -> decode loop) with greedy sampling, for every
+architecture of the zoo: the dense phi4-mini, nemotron, gemma2 and
+h2o-danube, the MoE granite-moe and qwen2-moe, the recurrent hybrid
+recurrentgemma, xlstm, the encoder-decoder seamless-m4t and the VLM
+internvl2.  Weights, prompt tokens and the stub frontends' inputs come
+from one `torch.Generator` seeded with --seed, on the device, in that
+order: an encoder-decoder model draws frame embeddings (B, 32, d), whose
+encoding (the memory) is computed once and fed to every decode step; a
+VLM draws image embeddings (B, n_img_tokens, d), and its caches and
+decode positions count those tokens before the prompt's.
 
---impl kernel (the default) runs the prefill's attention and RG-LRU scan
-through the hand-written CUDA kernels on the card and through their plain
-versions on the CPU; --impl einsum runs the einsum attention and the
-associative scan, which is what the reference serve CLI runs (its steps
-default to impl="xla").  --device defaults to
-cuda and fails without a card; pass --device cpu to run on the host.
+--impl kernel (the default) runs the prefill's causal self-attention and
+RG-LRU scan through the hand-written CUDA kernels on the card and
+through their plain versions on the CPU; --impl einsum runs the einsum
+attention and the associative scan, which is what the reference serve
+CLI runs (its steps default to impl="xla").  --device defaults to cuda
+and fails without a card; pass --device cpu to run on the host.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
@@ -32,6 +38,9 @@ from ..models import attention, transformer
 from ..models.common import ModelConfig
 from ..runtime import steps as rsteps
 
+# an encoder-decoder model's stub audio frontend: frames a prompt
+ENC_FRAMES = 32
+
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
@@ -49,27 +58,48 @@ class Generation:
 
 def build(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
           device: torch.device):
-    """The model and the prompt tokens, both drawn from one generator
-    seeded with `seed` on `device`."""
+    """The model and a prefill batch ({"tokens"}, plus "enc_embeds" for an
+    encoder-decoder model, "img_embeds" for a VLM), all drawn from one
+    generator seeded with `seed` on `device`."""
     gen = torch.Generator(device=device).manual_seed(seed)
     model = transformer.Transformer(cfg, generator=gen, device=device)
-    toks = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
-                         generator=gen, device=device)
-    return model, toks
+    inputs = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                                      generator=gen, device=device)}
+    if cfg.family == "encdec":
+        inputs["enc_embeds"] = torch.randn((batch, ENC_FRAMES, cfg.d_model),
+                                           generator=gen, device=device)
+    if cfg.family == "vlm":
+        inputs["img_embeds"] = torch.randn(
+            (batch, cfg.n_img_tokens, cfg.d_model), generator=gen,
+            device=device)
+    return model, inputs
 
 
-def generate(model: transformer.Transformer, toks: torch.Tensor, gen: int,
+def prefix_len(cfg: ModelConfig) -> int:
+    """Positions before the prompt's: a VLM's image tokens."""
+    return cfg.n_img_tokens if cfg.family == "vlm" else 0
+
+
+def generate(model: transformer.Transformer, inputs: dict, gen: int,
              *, impl: str) -> Generation:
-    """Prefill `toks`, then decode greedily (argmax over the padded
-    vocabulary; the first maximum wins) to `gen` tokens in all."""
-    cfg, device = model.cfg, toks.device
+    """Prefill `inputs` (build's batch), then decode greedily (argmax over
+    the padded vocabulary; the first maximum wins) to `gen` tokens in
+    all."""
+    cfg = model.cfg
+    toks = inputs["tokens"]
+    device = toks.device
     P = toks.shape[1]
-    prefill = rsteps.make_prefill_step(cfg, impl=impl, max_len=P + gen)
+    pos0 = P + prefix_len(cfg)
+    prefill = rsteps.make_prefill_step(cfg, impl=impl, max_len=pos0 + gen)
     decode = rsteps.make_decode_step(cfg, impl=impl)
+    memory = None
+    if cfg.family == "encdec":
+        with torch.no_grad():
+            memory = transformer.encode(model, inputs["enc_embeds"])
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, caches = prefill(model, {"tokens": toks})
+    logits, caches = prefill(model, inputs)
     _sync(device)
     t_prefill = time.perf_counter() - t0
     prefill_logits = logits
@@ -77,7 +107,8 @@ def generate(model: transformer.Transformer, toks: torch.Tensor, gen: int,
     out_tokens = [torch.argmax(logits[:, -1], dim=-1)]
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        logits, caches = decode(model, caches, out_tokens[-1][:, None], P + i)
+        logits, caches = decode(model, caches, out_tokens[-1][:, None],
+                                pos0 + i, memory)
         out_tokens.append(torch.argmax(logits[:, -1], dim=-1))
     _sync(device)
     t_decode = time.perf_counter() - t0
@@ -99,9 +130,12 @@ def main(argv=None) -> np.ndarray:
 
     cfg = configs.get(args.arch, smoke=args.smoke)
     device = resolve(args.device)
+    # bf16 products summed in fp32 and rounded once, as the reference's
+    # bf16 dots are (models/common.py::matmul): no bf16 split-K sums
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     B, P = args.batch, args.prompt_len
-    model, toks = build(cfg, B, P, args.seed, device)
-    g = generate(model, toks, args.gen, impl=args.impl)
+    model, inputs = build(cfg, B, P, args.seed, device)
+    g = generate(model, inputs, args.gen, impl=args.impl)
 
     gen_tokens = g.tokens.cpu().numpy()
     print(f"arch={cfg.name} batch={B} prompt={P} gen={args.gen} "

@@ -150,17 +150,44 @@ class Attention(CastWeights):
         self.wv = init_normal((d, hkv, hd), **kw)
         self.wo = init_normal((hq, hd, d), **kw)
 
-    def _qkv(self, x, positions):
+    def _proj(self, name, x):
+        """x (B, S, d) through w (d, heads, hd) -> (B, S, heads, hd)."""
         B, S, d = x.shape
+        w = self.weight(name, x.dtype)
+        return matmul(x, w.reshape(d, -1)).view(B, S, w.shape[1], w.shape[2])
 
-        def proj(name):
-            w = self.weight(name, x.dtype)
-            return matmul(x, w.reshape(d, -1)).view(B, S, w.shape[1], w.shape[2])
-
+    def _qkv(self, x, positions):
         theta = self.cfg.rope_theta
-        q = rope(proj("wq"), positions, theta)
-        k = rope(proj("wk"), positions, theta)
-        return q, k, proj("wv")
+        q = rope(self._proj("wq", x), positions, theta)
+        k = rope(self._proj("wk", x), positions, theta)
+        return q, k, self._proj("wv", x)
+
+    def _out(self, out):
+        """Attention output (B, S, hq, hd) through wo -> (B, S, d)."""
+        B, S = out.shape[:2]
+        wo = self.weight("wo", out.dtype)
+        return matmul(out.reshape(B, S, -1), wo.reshape(-1, wo.shape[2]))
+
+    def bidirectional(self, x, positions):
+        """The encoder's attention (the reference's
+        `transformer._bidir_attention`): RoPE'd q and k, every position
+        attending to every other, on the einsum path for every impl."""
+        q, k, v = self._qkv(x, positions)
+        S = x.shape[1]
+        mask = torch.ones((1, 1, S, S), dtype=torch.bool, device=x.device)
+        return self._out(_sdpa(q, k, v, mask, self.cfg))
+
+    def cross(self, x, memory):
+        """Cross-attention of x (B, S, d) onto memory (B, T, d) (the
+        reference's `transformer._cross_attention`): no RoPE and no
+        cache, so memory's keys and values are recomputed every call;
+        every query attends to every memory position, on the einsum
+        path."""
+        q = self._proj("wq", x)
+        k, v = self._proj("wk", memory), self._proj("wv", memory)
+        mask = torch.ones((1, 1, x.shape[1], memory.shape[1]),
+                          dtype=torch.bool, device=x.device)
+        return self._out(_sdpa(q, k, v, mask, self.cfg))
 
     def forward(self, x, positions, *, mode: str, cache: dict | None = None,
                 impl: str = "einsum", max_len: int = 0):
@@ -169,7 +196,7 @@ class Attention(CastWeights):
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         cfg = self.cfg
-        B, S, _ = x.shape
+        S = x.shape[1]
         q, k, v = self._qkv(x, positions)
         local = self.kind == "attn_local"
         new_cache = None
@@ -193,6 +220,4 @@ class Attention(CastWeights):
         else:
             raise ValueError(mode)
 
-        wo = self.weight("wo", x.dtype)
-        out = matmul(out.reshape(B, S, -1), wo.reshape(-1, wo.shape[2]))
-        return out, new_cache
+        return self._out(out), new_cache

@@ -132,7 +132,10 @@ class CastWeights(torch.nn.Module):
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b in a's dtype, accumulated in fp32 and rounded once.
 
-    cuBLAS does that for bf16 on the card.  PyTorch's bf16 matmul on the
+    cuBLAS does that for bf16 on the card when PyTorch's
+    `allow_bf16_reduced_precision_reduction` is off (the serve CLI turns
+    it off; with it on, a split-K product may sum its partial results in
+    bf16, a place or more off).  PyTorch's bf16 matmul on the
     CPU can round partial sums, which moves the last bf16 place, so on
     the CPU the product is taken in fp32 and rounded once: that is also
     what the reference's bf16 dots compute on the CPU."""

@@ -1,0 +1,200 @@
+"""Token-choice top-k MoE with an optional shared expert (GShard-style).
+
+The port's counterpart of `repro.models.moe`.  Tokens are grouped
+(group_size tokens a group); within a group every expert accepts up to
+C = max(ceil(g * top_k * cf / E), top_k) tokens, in token order, and the
+(token, k) pairs past an expert's capacity are dropped, as in the
+reference.
+
+The dispatch `disp` and combine `comb` tensors (n, g, E, C) go into the
+reference's einsums with the tokens and the experts' outputs.  The
+reference builds them from a one-hot (n, g, K, E, C + 1) of every
+(token, k)'s slot, 1.35 GB in bf16 at granite's prefill; here each kept
+(token, k) pair writes its 1 and its bf16 gate at (token, expert, slot)
+by index instead.  No slot is written twice, so nothing is accumulated
+and the result does not hang on the order of writes; `dispatch_onehot`
+is the reference's one-hot form, and the CPU tests hold the two to each
+other bit for bit.
+
+Top-k is a stable descending sort sliced to k (`top_k`): the order of
+`jax.lax.top_k`, ties to the lower expert index.  That order decides each
+(token, k)'s capacity slot, so which tokens are dropped.  Expert counts
+are integer counts; no float scatter-add (atomic on CUDA) is used.
+
+Configs served:
+  granite-moe-1b : 32 experts, top-8, d_expert 512, no shared expert
+  qwen2-moe-a2.7b: 60 routed experts, top-4, d_expert 1408, one shared
+                   expert (5632) with a sigmoid gate
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from .common import (CastWeights, ModelConfig, MoEConfig, einsum, init_normal,
+                     matmul)
+from .mlp import sigmoid, silu
+
+
+def padded_experts(moe: MoEConfig, tp: int) -> int:
+    if tp <= 1:
+        return moe.n_experts
+    return math.ceil(moe.n_experts / tp) * tp
+
+
+def top_k(probs: torch.Tensor, k: int):
+    """(values, indices) of the k largest along the last axis, largest
+    first, ties to the lower index: `jax.lax.top_k`'s order.  A stable
+    sort keeps equal values in index order (torch.topk promises no order
+    among ties on CUDA)."""
+    values, indices = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+@dataclasses.dataclass
+class Routing:
+    """One MoE call's routing over (n groups, g tokens, k choices)."""
+    probs: torch.Tensor    # (n, g, E) fp32 router softmax
+    topv: torch.Tensor     # (n, g, K) fp32 gates, renormalised
+    topi: torch.Tensor     # (n, g, K) int64 chosen experts, largest first
+    slot: torch.Tensor     # (n, g, K) int64 position in the expert's queue
+    keep: torch.Tensor     # (n, g, K) bool: slot < cap
+    counts: torch.Tensor   # (E,) int64 (token, k) pairs an expert
+    cap: int               # slots an expert takes a group
+    aux: torch.Tensor      # () fp32 load-balance loss
+
+
+def route_logits(moe: MoEConfig, logits: torch.Tensor) -> Routing:
+    """The routing of router logits (n, g, E) fp32: the softmax over the
+    real experts, top-k, each (token, k)'s slot in its expert's queue in
+    token then k order, which slots fit the capacity, the expert counts
+    and the load-balance loss.  Everything after the softmax is integer
+    or a stable sort, so it is the same on any device for the same
+    logits."""
+    n, g, ep = logits.shape
+    K = moe.top_k
+    n_real = moe.n_experts
+    logits = torch.where(torch.arange(ep, device=logits.device) < n_real,
+                         logits, -1e30)
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = e / e.sum(dim=-1, keepdim=True)
+    topv, topi = top_k(probs, K)
+    topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
+
+    onehot = torch.nn.functional.one_hot(topi.reshape(n, g * K), ep)
+    # load balance (Switch-style): E * sum_e fraction_e * prob_e
+    counts = onehot.sum(dim=(0, 1))
+    me = probs.mean(dim=(0, 1))
+    ce = counts.float() / (n * g * K)
+    aux = n_real * torch.sum(me * ce)
+
+    cap = max(int(math.ceil(g * K * moe.capacity_factor / n_real)), K)
+    # slot of (token, k): the (token', k') pairs up to it, in token then
+    # k order, that chose the same expert, less one (a running count
+    # along each expert's row of the one-hot)
+    upto = torch.cumsum(onehot.transpose(1, 2), dim=2,
+                        dtype=torch.int32)                     # (n,E,gK)
+    slot = torch.gather(upto, 1, topi.reshape(n, 1, g * K)).reshape(
+        n, g, K).long() - 1
+    return Routing(probs, topv, topi, slot, slot < cap, counts, cap, aux)
+
+
+class MoE(CastWeights):
+    """router (d, E), w_gate and w_up (E, d, f), w_down (E, f, d); with a
+    shared expert also shared_gate, shared_up (d, fs), shared_down (fs, d)
+    and shared_mix (d, 1).  fp32, read in the activation's dtype."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
+                 device: torch.device):
+        super().__init__()
+        moe = cfg.moe
+        self.cfg = cfg
+        d, f = cfg.d_model, moe.d_expert
+        ep = padded_experts(moe, 1)      # one card: no expert padding
+        kw = dict(generator=generator, device=device)
+        self.router = init_normal((d, ep), **kw)
+        self.w_gate = init_normal((ep, d, f), **kw)
+        self.w_up = init_normal((ep, d, f), **kw)
+        self.w_down = init_normal((ep, f, d), **kw)
+        if moe.n_shared:
+            fs = moe.d_shared
+            self.shared_gate = init_normal((d, fs), **kw)
+            self.shared_up = init_normal((d, fs), **kw)
+            self.shared_down = init_normal((fs, d), **kw)
+            self.shared_mix = init_normal((d, 1), **kw)
+
+    def groups(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, S, D) as (n, g, D) dispatch groups."""
+        B, S, D = x.shape
+        n_tok = B * S
+        n_groups = max(n_tok // min(self.cfg.moe.group_size, n_tok), 1)
+        return x.reshape(n_groups, n_tok // n_groups, D)
+
+    def router_logits(self, xt: torch.Tensor) -> torch.Tensor:
+        """The router's logits (n, g, E) for groups xt (n, g, D): a
+        product in xt's dtype, then fp32."""
+        return matmul(xt, self.weight("router", xt.dtype)).float()
+
+    def route(self, xt: torch.Tensor) -> Routing:
+        """The routing of groups xt (n, g, D)."""
+        return route_logits(self.cfg.moe, self.router_logits(xt))
+
+    def experts(self, xin: torch.Tensor) -> torch.Tensor:
+        """The expert FFNs on their queues xin (n, E, C, D)."""
+        dt = xin.dtype
+        gate = einsum("necd,edf->necf", xin, self.weight("w_gate", dt))
+        up = einsum("necd,edf->necf", xin, self.weight("w_up", dt))
+        return einsum("necf,efd->necd", silu(gate) * up,
+                      self.weight("w_down", dt))
+
+    def dispatch(self, r: Routing, dtype: torch.dtype):
+        """The dispatch and combine tensors (n, g, E, C) of routing r,
+        written by index: 1 and the bf16 gate at (token, expert, slot) of
+        each kept (token, k) pair, each slot written once.  A dropped pair
+        writes to a spare slot C, cut off after (no host sync to select
+        the kept pairs)."""
+        n, g, _ = r.topi.shape
+        ep = self.router.shape[-1]
+        dev = r.topi.device
+        at = (torch.arange(n, device=dev)[:, None, None],
+              torch.arange(g, device=dev)[None, :, None], r.topi,
+              torch.where(r.keep, r.slot, r.cap))
+        disp = torch.zeros((n, g, ep, r.cap + 1), dtype=dtype, device=dev)
+        comb = torch.zeros_like(disp)
+        disp[at] = 1
+        comb[at] = r.topv.to(dtype)
+        return disp[..., :r.cap], comb[..., :r.cap]
+
+    def dispatch_onehot(self, r: Routing, dtype: torch.dtype):
+        """The same tensors as the reference builds them: one-hot experts
+        and slots (n, g, K, E, C + 1) contracted over k by einsum.  Each
+        sum has one non-zero term, so the result is exact."""
+        ep = self.router.shape[-1]
+        onehot = torch.nn.functional.one_hot(r.topi, ep)
+        pos = torch.where(onehot.bool() & r.keep[..., None],
+                          r.slot[..., None], r.cap)
+        pos_oh = torch.nn.functional.one_hot(
+            pos, r.cap + 1)[..., :r.cap].float()
+        disp = torch.einsum("ngke,ngkec->ngec", onehot.float(), pos_oh)
+        comb = torch.einsum("ngk,ngke,ngkec->ngec",
+                            r.topv.to(dtype).float(), onehot.float(), pos_oh)
+        return disp.to(dtype), comb.to(dtype)
+
+    def forward(self, x: torch.Tensor):
+        """x: (B, S, D) -> (out (B, S, D), aux)."""
+        B, S, D = x.shape
+        dt = x.dtype
+        xt = self.groups(x)
+        r = self.route(xt)
+        disp, comb = self.dispatch(r, dt)
+        xin = einsum("ngec,ngd->necd", disp, xt)
+        out = einsum("ngec,necd->ngd", comb, self.experts(xin))
+        if self.cfg.moe.n_shared:
+            sg = matmul(xt, self.weight("shared_gate", dt))
+            su = matmul(xt, self.weight("shared_up", dt))
+            sh = matmul(silu(sg) * su, self.weight("shared_down", dt))
+            mix = sigmoid(matmul(xt, self.weight("shared_mix", dt)))
+            out = out + mix * sh
+        return out.reshape(B, S, D), r.aux

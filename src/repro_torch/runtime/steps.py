@@ -3,9 +3,13 @@
 
 Each factory returns a function of the model (the reference's params)
 that runs without autograd.  `impl` is "kernel" (the counterpart of the
-reference's "pallas": the prefill's attention and RG-LRU scan go through
-the CUDA kernels) or "einsum" (the counterpart of "xla").  A sharding `strategy`
-is not ported; the training step waits for the training slice.
+reference's "pallas": the prefill's causal self-attention and RG-LRU
+scan go through the CUDA kernels) or "einsum" (the counterpart of
+"xla").  A prefill batch is {"tokens"} plus "enc_embeds" for an
+encoder-decoder model and "img_embeds" for a VLM; a decode step takes the
+encoder's memory as its fifth argument, as the reference's does.  A
+sharding `strategy` is not ported; the training step waits for the
+training slice.
 """
 from __future__ import annotations
 
@@ -47,8 +51,8 @@ def make_decode_step(cfg: ModelConfig, *, impl: str = "einsum",
     _check(cfg, impl, strategy)
 
     @torch.no_grad()
-    def decode_step(model, caches, tokens, position):
+    def decode_step(model, caches, tokens, position, memory=None):
         _same_config(cfg, model)
         return transformer.decode_step(model, caches, tokens, position,
-                                       impl=impl)
+                                       memory=memory, impl=impl)
     return decode_step
