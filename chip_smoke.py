@@ -165,7 +165,27 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      token, the device's busy share of one prefill and one decode step
      and its peak device memory; the attention kernel at granite's shape
      (H 16, Hkv 8, hd 64, S 2048) and internvl2's (H 14, Hkv 2, hd 64,
-     S 2304) against its plain version, torch SDPA and its bound.
+     S 2304) against its plain version, torch SDPA and its bound;
+ 28. training at full width through `launch.train.main` (the einsum path
+     under autograd with remat, deterministic algorithms on; no kernel:
+     none has a backward): phi4-mini-3.8b cut to 8 of its 32 layers
+     (batch 2 x 2048, 6 steps, checkpoints every 3 steps) and
+     granite-moe-1b-a400m uncut (batch 4 x 2048, 4 steps), each run twice
+     from --seed 0 with losses, grad norms and a checksum of the final
+     parameters bitwise equal, every loss and norm finite (granite's aux
+     finite and positive); phi4's step-6 checkpoint deleted and the run
+     resumed from step 3 through the stale-LATEST fallback, repeating
+     losses 3-5 bitwise; remat on and off bitwise (granite at 4 layers);
+     granite's loss falling over 8 steps on one batch; microbatches=2
+     against 1 at tests/test_microbatch.py's tolerance; the ten smoke
+     configs' gradients on the card against the host CPU (loss 2e-2,
+     norm 2e-2, each leaf 5e-2 of its scale as the CPU tests hold the
+     port to the reference; MoE routing bitwise from the card's logits);
+ 29. times of a train step at phase 28's shapes: the median step, tokens
+     a second, model TFLOP/s (counted as printed), the device's busy
+     share, the forward, backward and AdamW parts, peak device memory,
+     granite's MoE dispatch against its backward, and each checkpoint's
+     write and read.
 
 The last lines are one JSON object describing the kernels, the card's
 name and power limit, and `{"ok": true, "device": {...}}`.  Imports
@@ -181,8 +201,10 @@ import csv
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -411,6 +433,31 @@ XLSTM_BLOCK_RTOL = 2e-2
 # phase 27's attention shapes: (name, B, S, H, Hkv, hd), causal, bf16
 ZOO_FA = [("granite-moe", 4, 2048, 16, 8, 64),
           ("internvl2", 4, 2304, 14, 2, 64)]
+
+
+# phases 28-29: training through launch.train.main at full width (phi4-mini
+# cut to 8 of its 32 layers: its fp32 weights, gradients and moments take
+# 61 GB at 32 layers, and the bf16 casts and the CE's fp32 logits push the
+# step to about 75 GB of the card's 80)
+TRAIN_RUNS = [("phi4-mini-3.8b", ["--n-layers", "8", "--batch", "2",
+                                  "--seq", "2048"], 6),
+              ("granite-moe-1b-a400m", ["--batch", "4", "--seq", "2048"], 4)]
+TRAIN_RESUME = "phi4-mini-3.8b"
+# granite's remat and learning checks
+TRAIN_CHECK_BS = (4, 2048)
+TRAIN_CKPT_EVERY = 3
+TRAIN_SMOKE = ("phi4_mini_3_8b", "nemotron_4_15b", "gemma2_27b",
+               "h2o_danube_3_4b", "recurrentgemma_2b", "granite_moe_1b_a400m",
+               "qwen2_moe_a2_7b", "seamless_m4t_large_v2", "internvl2_1b",
+               "xlstm_1_3b")
+# tests/test_torch_train.py's tolerances against the reference
+TRAIN_LOSS_TOL = 2e-2
+TRAIN_NORM_RTOL = 2e-2
+TRAIN_GRAD_TOL = 5e-2
+# tests/test_microbatch.py's
+MB_LOSS_TOL = 1e-5
+MB_ATOL = 2e-5
+MB_RTOL = 2e-4
 
 
 def card_line() -> str:
@@ -2734,6 +2781,506 @@ def zoo_phase(card: str) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phases 28-29: training
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def recording_train_steps():
+    """While the block runs, every train step that
+    `runtime.steps.make_train_step` builds records its wall (synchronised
+    on both sides), its metrics and the model and optimizer state it
+    returns, in the dict it yields."""
+    import torch
+    from repro_torch.runtime import steps
+    real = steps.make_train_step
+    rec = {"walls": [], "metrics": [], "model": None, "opt": None}
+
+    def factory(*a, **kw):
+        step = real(*a, **kw)
+
+        def timed(model, opt_state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(model, opt_state, batch)
+            torch.cuda.synchronize()
+            rec["walls"].append(time.perf_counter() - t0)
+            rec["metrics"].append({k: v.detach().clone()
+                                   for k, v in out[2].items()})
+            rec["model"], rec["opt"] = out[0], out[1]
+            return out
+        return timed
+
+    with mock.patch.object(steps, "make_train_step", factory):
+        yield rec
+
+
+@contextlib.contextmanager
+def timing_checkpoints():
+    """While the block runs, each CheckpointManager.save and .restore
+    appends (what, seconds, bytes of its arrays.npz) to the list it
+    yields."""
+    from repro_torch.ft import checkpoint
+    done = []
+
+    def wrap(name):
+        real = getattr(checkpoint.CheckpointManager, name)
+
+        def timed(self, *a, **kw):
+            t0 = time.perf_counter()
+            out = real(self, *a, **kw)
+            step = a[0] if name == "save" else out[1]["step"]
+            path = self.dir / f"step_{step:08d}" / "arrays.npz"
+            done.append((name, time.perf_counter() - t0,
+                         path.stat().st_size))
+            return out
+        return timed
+
+    with mock.patch.object(checkpoint.CheckpointManager, "save",
+                           wrap("save")), \
+            mock.patch.object(checkpoint.CheckpointManager, "restore",
+                              wrap("restore")):
+        yield done
+
+
+def report_checkpoints(done) -> None:
+    for name, secs, nbytes in done:
+        say(f"    checkpoint {name}: {secs:.2f} s for {nbytes / 1e9:.3f} GB "
+            f"of arrays.npz ({nbytes / secs / 1e9:.3f} GB/s, the copy "
+            f"between card and host included)")
+
+
+def param_checksum(model) -> list[int]:
+    """Each parameter's fp32 bit patterns summed as int64: a change of
+    any bit of one weight changes it."""
+    import torch
+    return [int(p.detach().view(torch.int32).sum(dtype=torch.int64))
+            for p in model.parameters()]
+
+
+def train_batch_np(cfg, seed, B, S):
+    """numpy inputs as tests/test_torch_train.py makes them: tokens,
+    labels with two -1 columns, and the stub frontends' embeddings."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)),
+           "labels": rng.integers(0, cfg.vocab_size, (B, S))}
+    out["labels"][:, :2] = -1
+    out = {k: v.astype(np.int32) for k, v in out.items()}
+    if cfg.family == "encdec":
+        out["enc_embeds"] = rng.standard_normal(
+            (B, 12, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        out["img_embeds"] = rng.standard_normal(
+            (B, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def gate_biases(model) -> list[str]:
+    """The xLSTM gate biases tests/test_torch_train.py holds to a share of
+    their gate weight's gradient (their own gradients cancel to a tenth
+    or less of their terms)."""
+    out = []
+    for i, block in enumerate(model.blocks):
+        if block.kind in ("mlstm", "slstm"):
+            out.append(f"blocks.{i}.cell.b_i")
+        if block.kind == "mlstm":
+            out.append(f"blocks.{i}.cell.b_f")
+    return out
+
+
+def grads_card_vs_cpu(arch, dev) -> str:
+    """One gradient computation of a smoke config on the card and on the
+    host CPU from the same weights and batch: loss, aux, the global norm
+    and every gradient leaf, at the CPU tests' tolerances against the
+    reference; each MoE layer's routing bitwise the CPU's from the card's
+    router logits (phase 26's rule).  Returns a line to print."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.runtime import steps
+    from repro_torch.train import optimizer as opt
+    cfg = configs.get(arch, smoke=True)
+    host = transformer.Transformer(
+        cfg, generator=torch.Generator().manual_seed(0),
+        device=torch.device("cpu"))
+    card = transformer.Transformer(
+        cfg, generator=torch.Generator(device=dev), device=dev)
+    card.load_state_dict(host.state_dict())
+    batch = {k: torch.from_numpy(v)
+             for k, v in train_batch_np(cfg, 11, 2, 16).items()}
+    patch, seen = recording_moe_inputs()
+    with patch:
+        loss, aux = steps.compute_grads(
+            cfg, card, {k: v.to(dev) for k, v in batch.items()},
+            remat=False)
+    hloss, haux = steps.compute_grads(cfg, host, batch, remat=False)
+    grads = {k: p.grad for k, p in card.named_parameters()}
+    hgrads = {k: p.grad for k, p in host.named_parameters()}
+    norm, hnorm = (float(opt.global_norm(g)) for g in (grads, hgrads))
+    require(abs(float(loss) - float(hloss)) < TRAIN_LOSS_TOL,
+            f"{arch} smoke: loss {float(loss)} on the card, {float(hloss)} "
+            f"on the CPU")
+    require(abs(float(aux) - float(haux)) <= 1e-3 * abs(float(haux)) + 1e-6,
+            f"{arch} smoke: aux {float(aux)} vs {float(haux)}")
+    require(abs(norm - hnorm) <= TRAIN_NORM_RTOL * hnorm,
+            f"{arch} smoke: grad norm {norm} vs {hnorm}")
+    biases = gate_biases(host)
+    worst, worst_k = 0.0, ""
+    for k, want in hgrads.items():
+        got = grads[k].cpu()
+        if k in biases:
+            scale = float(hgrads[k.replace(".b_", ".w_")].abs().max())
+        else:
+            scale = float(want.abs().max())
+        err = float((got - want).abs().max()) / max(scale, 1e-30)
+        if err > worst:
+            worst, worst_k = err, k
+    require(worst <= TRAIN_GRAD_TOL, f"{arch} smoke: gradient {worst_k} "
+            f"off the CPU's by {worst:.3e} of its scale")
+    if cfg.moe:
+        with torch.no_grad():
+            check_routing(f"{cfg.name} train", seen)
+    return (f"{cfg.name}: loss {float(loss):.6f} (CPU {float(hloss):.6f}), "
+            f"grad norm {norm:.6f} (CPU {hnorm:.6f}), worst leaf {worst_k} "
+            f"{worst:.3e} of its scale")
+
+
+def train_flops(cfg, B, S) -> tuple[float, float]:
+    """(model FLOPs of one train step, the remat recompute's FLOPs) for an
+    attention-only config, counted: 6 x (the matmul weights a token
+    meets: attention projections, the MLP or the top-k experts and the
+    router, the unembedding) x tokens, plus attention's score and value
+    products over all S keys (the einsum path computes the masked half
+    too) x 3 for forward and backward; remat runs each layer's forward
+    once more (2 x the layer weights x tokens, plus attention's forward).
+    The MoE's dispatch and combine einsums and its capacity padding are
+    not counted."""
+    d, hd = cfg.d_model, cfg.hd
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    layer = 2 * d * H * hd + 2 * d * Hkv * hd
+    if cfg.moe:
+        m = cfg.moe
+        layer += d * m.n_experts + m.top_k * 3 * d * m.d_expert
+    else:
+        gated = cfg.mlp_kind in ("swiglu", "geglu")
+        layer += (3 if gated else 2) * d * cfg.d_ff
+    T = B * S
+    L = cfg.n_layers
+    attn = 4 * S * H * hd * L
+    model = T * (6 * (L * layer + d * cfg.padded_vocab(1)) + 3 * attn)
+    remat = T * (2 * L * layer + attn)
+    return float(model), float(remat)
+
+
+def time_step_parts(cfg, model, opt_state, batch, ocfg):
+    """One train step split on the card: the forward with its graph (CE
+    included), the backward (remat's recompute included) and the AdamW
+    update, each timed by CUDA events, in ms."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.models.common import cross_entropy
+    from repro_torch.runtime import steps
+    from repro_torch.train import optimizer as opt
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.grad = None
+    torch.cuda.synchronize()
+    ev[0].record()
+    with torch.enable_grad():
+        logits, aux = transformer.train_logits(model, batch, remat=True)
+        loss = cross_entropy(logits, batch["labels"],
+                             n_real_vocab=cfg.vocab_size)
+        del logits
+        total = loss + steps.AUX_WEIGHT * aux
+        ev[1].record()
+        total.backward()
+    ev[2].record()
+    grads = {k: p.grad for k, p in params.items()}
+    opt.adamw_update(ocfg, params, grads, opt_state)
+    ev[3].record()
+    torch.cuda.synchronize()
+    for p in params.values():
+        p.grad = None
+    return tuple(ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+
+
+def dispatch_ms(layer, x) -> float:
+    """One MoE layer's dispatch at the layer's training shape, forward and
+    backward, in ms (CUDA events, median of 3): the routing, the dispatch
+    and combine tensors and their two einsums, with the gradient of the
+    combine into the gates and of both einsums into the tokens and the
+    experts' outputs.  The experts' own products are not in it."""
+    import torch
+    from repro_torch.models.common import einsum
+    xt = layer.groups(x).detach().requires_grad_(True)
+    with torch.no_grad():
+        r0 = layer.route(xt)
+    eout = torch.randn((xt.shape[0], r0.probs.shape[-1], r0.cap,
+                        xt.shape[-1]), device=x.device,
+                       dtype=x.dtype).requires_grad_(True)
+
+    def run():
+        with torch.enable_grad():
+            r = layer.route(xt)
+            disp, comb = layer.dispatch(r, xt.dtype)
+            xin = einsum("ngec,ngd->necd", disp, xt)
+            out = einsum("ngec,necd->ngd", comb, eout)
+            torch.autograd.backward([xin, out],
+                                    [torch.ones_like(xin),
+                                     torch.ones_like(out)])
+    return sorted(time_events(run, 3) for _ in range(3))[1]
+
+
+def train_phase(card: str, dev=None) -> dict:
+    """Phases 28-29: the launcher on phi4-mini (8 layers) and granite-moe
+    at full width, twice each, phi4 resumed from its step-3 checkpoint;
+    remat and micro-batching on the card; a run that must learn; the ten
+    smoke configs card against CPU; then the times of a step."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    from repro_torch.runtime import steps
+    from repro_torch.train import optimizer as opt
+    dev = torch.device("cuda", 0) if dev is None else dev
+    out = {}
+    ckpt = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-ckpt-"))
+    try:
+        for arch, args, n_steps in TRAIN_RUNS:
+            cfg = train.scale_config(configs.get(arch),
+                                     n_layers=int(args[args.index(
+                                         "--n-layers") + 1])
+                                     if "--n-layers" in args else None)
+            B = int(args[args.index("--batch") + 1])
+            S = int(args[args.index("--seq") + 1])
+            argv = ["--arch", arch, "--device", str(dev), "--steps",
+                    str(n_steps), "--log-every", "1", "--seed", "0", *args]
+            with_ckpt = arch == TRAIN_RESUME
+            say(f"[28] training: {cfg.name} at full width, {cfg.n_layers} "
+                f"layers, batch {B} x seq {S}, {n_steps} steps through "
+                f"launch.train.main, twice"
+                + (f"; checkpoints every {TRAIN_CKPT_EVERY} steps in the "
+                   f"first run, then resumed" if with_ckpt else ""))
+            runs = []
+            for rep in range(2):
+                extra = (["--ckpt-dir", str(ckpt), "--ckpt-every",
+                          str(TRAIN_CKPT_EVERY)]
+                         if with_ckpt and rep == 0 else [])
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                with recording_train_steps() as rec, \
+                        timing_checkpoints() as io:
+                    losses = train.main(argv + extra)
+                wall = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                norms = [m["grad_norm"] for m in rec["metrics"]]
+                auxes = [float(m["aux_loss"]) for m in rec["metrics"]]
+                runs.append(dict(losses=losses, norms=norms, auxes=auxes,
+                                 walls=rec["walls"], peak=peak,
+                                 sum=param_checksum(rec["model"])))
+                say(f"    run {rep}: {wall:.1f} s (weights drawn, co-flow "
+                    f"plan{', 2 checkpoints' if extra else ''} included); "
+                    f"losses " + " ".join(f"{x:.6f}" for x in losses)
+                    + "; grad norms " + " ".join(
+                        f"{float(n):.6f}" for n in norms)
+                    + (f"; aux " + " ".join(f"{a:.6f}" for a in auxes)
+                       if cfg.moe else "")
+                    + f"; step walls " + " ".join(
+                        f"{w * 1e3:.1f}" for w in rec["walls"])
+                    + f" ms; peak device memory {peak:.2f} GiB")
+                require(all(math.isfinite(x) for x in losses)
+                        and all(bool(torch.isfinite(n)) for n in norms),
+                        f"{cfg.name}: a loss or grad norm is not finite")
+                if cfg.moe:
+                    require(all(math.isfinite(a) and a > 0 for a in auxes),
+                            f"{cfg.name}: aux loss {auxes}")
+                report_checkpoints(io)
+                if rep == 1:
+                    model, opt_state = rec["model"], rec["opt"]
+                rec.clear()
+            a, b = runs
+            require(a["losses"] == b["losses"]
+                    and all(torch.equal(x, y)
+                            for x, y in zip(a["norms"], b["norms"]))
+                    and a["sum"] == b["sum"],
+                    f"{cfg.name}: two runs from --seed 0 differ")
+            say(f"    two runs bitwise equal: losses, grad norms and the "
+                f"final parameters' checksum (the sum of their fp32 bit "
+                f"patterns a tensor, {len(a['sum'])} tensors)")
+            # -- phase 29 for this config --
+            say(f"[29] times: {cfg.name} train step, batch {B} x seq {S} "
+                f"({card})")
+            walls = b["walls"][1:]
+            step_s = float(np.median(walls))
+            tokens = B * S
+            model_flop, remat_flop = train_flops(cfg, B, S)
+            ocfg = opt.AdamWConfig(lr=3e-4, total_steps=n_steps,
+                                   warmup_steps=5)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                     pipeline._batch_at(pipeline.DataConfig(
+                         vocab_size=cfg.vocab_size, batch=B, seq=S,
+                         seed=0), n_steps).items()}
+            with train.reproducible(dev):
+                fwd, bwd, upd = time_step_parts(cfg, model, opt_state, batch,
+                                                ocfg)
+                step = steps.make_train_step(cfg, ocfg, remat=True)
+                report_busy("train step", lambda: step(model, opt_state,
+                                                       batch), step_s)
+                disp = None
+                if cfg.moe:
+                    patch, seen = recording_moe_inputs()
+                    with patch, torch.no_grad():
+                        transformer.train_logits(model, batch)
+                    disp = dispatch_ms(seen[0][0], seen[0][1])
+                    del seen
+            parts = fwd + bwd + upd
+            say(f"    train step {step_s * 1e3:.3f} ms (median of steps "
+                f"1-{len(b['walls']) - 1} of run 1, "
+                + " / ".join(f"{w * 1e3:.3f}" for w in walls)
+                + f"); {tokens / step_s:.1f} tokens a second; "
+                f"peak device memory {b['peak']:.2f} GiB")
+            say(f"    model {model_flop / step_s * 1e-12:.3f} TFLOP/s "
+                f"({model_flop:.4e} flop a step: 6 x matmul weights x tokens"
+                f" + attention's S x S products x 3); with the remat "
+                f"recompute {(model_flop + remat_flop) / step_s * 1e-12:.3f}"
+                f" TFLOP/s (+{remat_flop:.4e} flop); of 989 TFLOP/s bf16")
+            say(f"    one step in parts (CUDA events): forward with its "
+                f"graph and the CE {fwd:.3f} ms, backward (remat recompute "
+                f"included) {bwd:.3f} ms, AdamW update {upd:.3f} ms: the "
+                f"optimizer's share {upd / parts:.3f} of {parts:.3f} ms")
+            if disp is not None:
+                L = cfg.n_layers
+                say(f"    MoE dispatch (routing, dispatch and combine "
+                    f"tensors, their two einsums, forward and backward) "
+                    f"{disp:.3f} ms a layer at the layer's shape, x {L} "
+                    f"layers = {disp * L:.3f} ms: {disp * L / bwd:.3f} of "
+                    f"the backward")
+            out[arch] = dict(step_ms=step_s * 1e3, tokens_s=tokens / step_s,
+                             peak_gib=b["peak"], opt_share=upd / parts)
+            del model, opt_state, batch, step, runs, b
+            torch.cuda.empty_cache()
+            if with_ckpt:
+                latest = (ckpt / "LATEST").read_text()
+                shutil.rmtree(ckpt / f"step_{n_steps:08d}")
+                with recording_train_steps() as rec, \
+                        timing_checkpoints() as io:
+                    resumed = train.main(argv + ["--ckpt-dir", str(ckpt),
+                                                 "--resume"])
+                first = int(rec["metrics"][0]["step"])
+                rec.clear()
+                require(latest == f"step_{n_steps:08d}" and
+                        first == TRAIN_CKPT_EVERY + 1,
+                        f"resume did not start from step "
+                        f"{TRAIN_CKPT_EVERY}: LATEST {latest}, first step "
+                        f"{first}")
+                require(resumed == a["losses"][TRAIN_CKPT_EVERY:],
+                        f"the resumed run's losses {resumed} are not the "
+                        f"first run's {a['losses'][TRAIN_CKPT_EVERY:]}")
+                report_checkpoints(io)
+                say(f"[28] resume: step_{n_steps:08d} deleted (LATEST still "
+                    f"named it): --resume restarted from step "
+                    f"{TRAIN_CKPT_EVERY} "
+                    f"and repeated losses {TRAIN_CKPT_EVERY}-{n_steps - 1} "
+                    f"bitwise")
+
+            del a
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+    with train.reproducible(dev):
+        # remat changes memory, not numbers (granite cut to 4 layers)
+        cfg = dataclasses.replace(configs.get("granite-moe-1b-a400m"),
+                                  n_layers=4)
+        model = transformer.Transformer(
+            cfg, generator=torch.Generator(device=dev).manual_seed(1),
+            device=dev)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 train_batch_np(cfg, 3, *TRAIN_CHECK_BS).items()}
+        start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        got = []
+        for remat in (True, False):
+            model.load_state_dict(start)
+            loss, aux = steps.compute_grads(cfg, model, batch, remat=remat)
+            grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+            state = opt.adamw_init(dict(model.named_parameters()))
+            step = steps.make_train_step(cfg, opt.AdamWConfig(),
+                                         remat=remat)
+            _, _, m = step(model, state, batch)
+            got.append((loss, aux, grads, m["loss"],
+                        {k: p.detach().clone()
+                         for k, p in model.named_parameters()}))
+        (l1, a1, g1, s1, p1), (l2, a2, g2, s2, p2) = got
+        require(torch.equal(l1, l2) and torch.equal(a1, a2)
+                and torch.equal(s1, s2)
+                and all(torch.equal(g1[k], g2[k]) for k in g1)
+                and all(torch.equal(p1[k], p2[k]) for k in p1),
+                "remat on and off differ")
+        say(f"[28] remat on and off, {cfg.name} at 4 layers, batch "
+            f"{TRAIN_CHECK_BS[0]} x {TRAIN_CHECK_BS[1]}:"
+            f" loss {float(l1):.6f}, aux {float(a1):.6f}, all {len(g1)} "
+            f"gradients and one step's parameters bitwise equal")
+        del got, g1, g2, p1, p2, grads, start
+
+        # it learns: 8 steps on one repeated batch
+        cfg = configs.get("granite-moe-1b-a400m")
+        model = transformer.Transformer(
+            cfg, generator=torch.Generator(device=dev).manual_seed(2),
+            device=dev)
+        state = opt.adamw_init(dict(model.named_parameters()))
+        step = steps.make_train_step(cfg, opt.AdamWConfig(
+            lr=1e-3, warmup_steps=1, total_steps=8))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 pipeline._batch_at(pipeline.DataConfig(
+                     vocab_size=cfg.vocab_size, batch=TRAIN_CHECK_BS[0],
+                     seq=TRAIN_CHECK_BS[1], seed=1),
+                     0).items()}
+        losses = []
+        for _ in range(8):
+            model, state, m = step(model, state, batch)
+            losses.append(float(m["loss"]))
+        require(losses[-1] < losses[0], f"granite did not learn: {losses}")
+        say(f"[28] {cfg.name}, 8 steps on one batch (lr 1e-3, warm-up 1):"
+            f" losses " + " ".join(f"{x:.4f}" for x in losses))
+        del model, state, step, batch
+        torch.cuda.empty_cache()
+
+        # micro-batching against the whole batch (tests/test_microbatch.py)
+        cfg = configs.get("phi4-mini-3.8b", smoke=True)
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in train_batch_np(cfg, 5, 4, 64).items()}
+        res = []
+        for n in (1, 2):
+            model = transformer.Transformer(
+                cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                device=dev)
+            state = opt.adamw_init(dict(model.named_parameters()))
+            res.append(steps.make_train_step(
+                cfg, opt.AdamWConfig(total_steps=10), microbatches=n)(
+                    model, state, batch))
+        (m1, _, r1), (m2, _, r2) = res
+        dl = abs(float(r1["loss"]) - float(r2["loss"]))
+        with torch.no_grad():
+            dp = max(float(((a - b).abs() - MB_ATOL - MB_RTOL * b.abs())
+                           .max())
+                     for a, b in zip(m1.parameters(), m2.parameters()))
+        require(dl < MB_LOSS_TOL and dp <= 0, f"microbatches=2 against 1: "
+                f"loss {dl:.3e}, parameters {dp:.3e} past the tolerance")
+        say(f"[28] microbatches=2 against 1 ({cfg.name}, batch 4 x 64): "
+            f"loss within {dl:.3e} (limit {MB_LOSS_TOL:g}), parameters "
+            f"within atol {MB_ATOL:g} + rtol {MB_RTOL:g}")
+        del res, m1, m2
+
+        say("[28] the ten smoke configs, one gradient on the card and on "
+            "the host CPU from the same weights and batch")
+        for arch in TRAIN_SMOKE:
+            say("    " + grads_card_vs_cpu(arch, dev))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep-out", default="",
@@ -2745,6 +3292,9 @@ def main(argv=None) -> int:
     if opts.placement_cpu:
         return placement_cpu_cell(opts.placement_cpu)
     sweep_out = opts.sweep_out
+    # phase 28's bitwise repeatable training needs cuBLAS's workspace
+    # fixed before the process's first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3685,6 +4235,22 @@ def main(argv=None) -> int:
         f"(phase 9 {serve_launches}, phase 26 {zoo['launches']} a prefill "
         f"of each config); phases 26-27 {time.perf_counter() - t_phase:.1f} "
         f"s; total {time.perf_counter() - t_start:.1f} s")
+
+    # -- phases 28-29: training ---------------------------------------------
+    t_phase = time.perf_counter()
+    ops.FLASH_ATTENTION_LAUNCHES = 0
+    ops.RGLRU_SCAN_LAUNCHES = 0
+    ops.PDHG_BURST_LAUNCHES = 0
+    train_phase(card)
+    say(f"    training launched flash_attention {ops.FLASH_ATTENTION_LAUNCHES}"
+        f" and rglru_scan {ops.RGLRU_SCAN_LAUNCHES} times (it runs the "
+        f"einsum path: no kernel has a backward) and pdhg_burst "
+        f"{ops.PDHG_BURST_LAUNCHES} (the launcher's co-flow plan); phases "
+        f"28-29 {time.perf_counter() - t_phase:.1f} s; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+    require(ops.FLASH_ATTENTION_LAUNCHES == 0
+            and ops.RGLRU_SCAN_LAUNCHES == 0,
+            "training went through a kernel that has no backward")
 
     kernels = {"kernels": [{
         "name": "pdhg_burst", "route": "cuda", "source": SOURCE,

@@ -27,7 +27,9 @@ accepts the reference's object as well as the port's; the matching
 For the model zoo, `params_from_numpy` turns the reference's
 `transformer.init_params` tree (its leaves made numpy arrays) into a
 state dict for the port's `models.transformer.Transformer`, so both
-packages run the same weights and nothing is downloaded.
+packages run the same weights and nothing is downloaded;
+`opt_state_from_numpy` carries the reference's AdamW state across the
+same way (its moments are trees of the parameters' shapes).
 """
 from __future__ import annotations
 
@@ -407,3 +409,14 @@ def params_from_numpy(cfg: ModelConfig, tree: dict) -> dict:
         unstack(tree["enc_groups"][0], cfg.n_enc_layers, "enc_groups[0]",
                 lambda g: f"enc_blocks.{g}")
     return sd
+
+
+def opt_state_from_numpy(cfg: ModelConfig, state: dict) -> dict:
+    """The port's AdamW state ({"m", "v", "step"}, `train.optimizer`) from
+    the reference's `adamw_init`/`adamw_update` state with numpy leaves:
+    each moment tree through `params_from_numpy`, so its keys are the
+    model's parameter names, and the step an int32 scalar."""
+    return {"m": params_from_numpy(cfg, state["m"]),
+            "v": params_from_numpy(cfg, state["v"]),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32)}

@@ -36,6 +36,21 @@ _META_CACHE: dict = {}
 _META_CACHE_MAX = 64
 
 
+def _no_backward(name: str, **tensors) -> None:
+    """Raise where autograd would need the kernel's gradient: the kernels
+    (and the ctypes launch) have no backward, so their outputs would
+    carry none and training would silently get zero gradient through
+    them.  Train on impl="einsum", as the reference trains on "xla"."""
+    if torch.is_grad_enabled():
+        need = [n for n, t in tensors.items()
+                if t is not None and t.requires_grad]
+        if need:
+            raise RuntimeError(
+                f"{name}: {', '.join(need)} require grad, but the kernel "
+                f"has no backward; train with impl='einsum' or call it "
+                f"under torch.no_grad()")
+
+
 # the burst's iterate storage types and their entry points in pdhg_burst.cu
 _BURST_ENTRY = {"fp32": "pdhg_burst_f32", "bf16": "pdhg_burst_bf16"}
 
@@ -314,7 +329,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     is the kernel of kernels/csrc/flash_attention.cu, chosen by dtype:
     bfloat16 runs the tensor-core kernel (its operands on 16-byte
     boundaries), float32 the SIMT kernel.  On CPU tensors it is the
-    plain version, kernels.flash_attention.flash_attention_plain."""
+    plain version, kernels.flash_attention.flash_attention_plain.
+    Raises RuntimeError under autograd: there is no backward."""
+    _no_backward("flash_attention", q=q, k=k, v=v)
     named = dict(q=q, k=k, v=v)
     for name, t in named.items():
         if t.dim() != 4:
@@ -480,7 +497,9 @@ def rglru(a, b, h0=None):
 
     On CUDA tensors this is the kernel of kernels/csrc/rglru_scan.cu; on
     CPU tensors its plain version, kernels.rglru_scan.rglru_scan_plain.
-    The two agree bitwise."""
+    The two agree bitwise.  Raises RuntimeError under autograd: there is
+    no backward."""
+    _no_backward("rglru", a=a, b=b, h0=h0)
     named = dict(a=a, b=b) if h0 is None else dict(a=a, b=b, h0=h0)
     for name, t in named.items():
         if t.dtype != _F32:

@@ -51,7 +51,8 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
     scores = einsum("bskgd,btkd->bkgst", qg, k).float() / math.sqrt(hd)
     scores = softcap(scores, cfg.attn_softcap)
     scores = torch.where(mask[:, :, None], scores, NEG_INF)
-    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    # the max is a constant of the softmax's gradient, as in jax.nn.softmax
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True).detach())
     probs = (e / e.sum(dim=-1, keepdim=True)).to(q.dtype)
     out = einsum("bkgst,btkd->bskgd", probs, v)
     return out.reshape(B, S, Hq, hd)

@@ -1,13 +1,13 @@
 """Config schema, parameter initialisation, and shared layer primitives.
 
-The port's counterpart of `repro.models.common`, restricted to what the
-dense serving path needs: `MoEConfig` and `ModelConfig` (copied as they
-are, so every config file reads the same), `rms_norm`, `softcap` and
-`rope` on torch tensors, `init_normal` for the parameter draws, and
-`matmul`/`einsum` with one rounding.  The reference's activation-sharding
-annotations (`shard`) have no counterpart: the port runs on one card and
-has no mesh yet.  The loss (`cross_entropy`) waits for the training
-slice.
+The port's counterpart of `repro.models.common`: `MoEConfig` and
+`ModelConfig` (copied as they are, so every config file reads the same),
+`rms_norm`, `softcap` and `rope` on torch tensors, `init_normal` for the
+parameter draws, `CastWeights` (fp32 masters read in the activation's
+dtype), `matmul`/`einsum` with one rounding, and the training loss
+`cross_entropy`.  The reference's activation-sharding annotations
+(`shard`) have no counterpart: the port runs on one card and has no mesh
+yet.
 """
 from __future__ import annotations
 
@@ -110,8 +110,12 @@ class CastWeights(torch.nn.Module):
 
     `weight(name, dtype)` keeps one cast copy per weight and refreshes it
     when the weight changes (a new storage or an in-place write such as
-    `load_state_dict`), so serving reads bf16 weights without casting
-    the fp32 ones on every step."""
+    `load_state_dict` or an optimizer step), so serving reads bf16
+    weights without casting the fp32 ones on every step.  While grad
+    mode is on and the weight requires grad, it returns a fresh cast in
+    the graph instead: that cast's gradient is taken in its dtype and
+    cast back to fp32 for the master, as `jax.grad` of `astype` does, and
+    two reads of one weight are two casts whose fp32 gradients add."""
 
     def __init__(self):
         super().__init__()
@@ -121,6 +125,8 @@ class CastWeights(torch.nn.Module):
         w = getattr(self, name)
         if w.dtype == dtype:
             return w
+        if w.requires_grad and torch.is_grad_enabled():
+            return w.to(dtype)
         key = (dtype, w.data_ptr(), w._version)
         hit = self._casts.get(name)
         if hit is None or hit[0] != key:
@@ -179,3 +185,20 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().split(half, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
+                  n_real_vocab: int, final_cap: float = 0.0) -> torch.Tensor:
+    """Mean CE over tokens, in fp32: `final_cap` softcap first, the padded
+    vocabulary entries (index >= n_real_vocab) filled with -1e30, the
+    logsumexp, and the mean of the tokens whose label is not -1 (a VLM's
+    image positions, say) over max(count, 1)."""
+    logits = softcap(logits.float(), final_cap)
+    pad = torch.arange(logits.shape[-1], device=logits.device) >= n_real_vocab
+    logits = torch.where(pad, -1e30, logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    valid = labels >= 0
+    safe = labels.clamp_min(0).long()
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = torch.where(valid, lse - gold, 0.0)
+    return nll.sum() / valid.sum().clamp_min(1)

@@ -78,7 +78,8 @@ def route_logits(moe: MoEConfig, logits: torch.Tensor) -> Routing:
     n_real = moe.n_experts
     logits = torch.where(torch.arange(ep, device=logits.device) < n_real,
                          logits, -1e30)
-    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    # the max is a constant of the softmax's gradient, as in jax.nn.softmax
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True).detach())
     probs = e / e.sum(dim=-1, keepdim=True)
     topv, topi = top_k(probs, K)
     topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)

@@ -14,9 +14,11 @@ Parameters are fp32 with the reference's shapes and scales, drawn from a
 `torch.Generator` on the device (their values are not the reference's:
 `convert.params_from_numpy` carries the reference's values across).
 
-The passes mirror the reference: `train_logits` (the forward only; the
-tests' teacher-forced reference; it returns the MoE load-balance loss
-summed over the layers), `init_cache`, `prefill` (last-token logits and
+The passes mirror the reference: `train_logits` (the full-sequence
+forward; under autograd it is the training path, each decoder layer
+recomputed in the backward with `remat`, as the reference's
+`jax.checkpoint` does; it returns the MoE load-balance loss summed over
+the layers, in the graph), `init_cache`, `prefill` (last-token logits and
 one cache per layer: keys and values for an attention layer, the state
 and conv history for a recurrent one) and `decode_step` (one token
 against the caches; attention caches are updated in place).  As in the
@@ -29,6 +31,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention, mlp, moe, rglru, xlstm
 from .common import (CastWeights, ModelConfig, init_normal, matmul, rms_norm,
@@ -179,15 +182,24 @@ def _inputs(model: Transformer, batch: dict):
 
 
 def _run_stack(model: Transformer, x, positions, *, mode: str, caches=None,
-               impl: str = "einsum", max_len: int = 0, memory=None):
+               impl: str = "einsum", max_len: int = 0, memory=None,
+               remat: bool = False):
     """The decoder layers in order: (x, new caches or None, the summed
-    aux loss (fp32))."""
+    aux loss (fp32)).  With `remat` and grad mode on, each layer keeps
+    only its input for the backward and runs again there (the
+    reference's `jax.checkpoint` with `nothing_saveable`): the same ops
+    on the same inputs, so the numbers do not change."""
     new_caches = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = remat and torch.is_grad_enabled()
     for i, block in enumerate(model.blocks):
-        x, nc, aux = block(x, positions, mode=mode,
-                           cache=None if caches is None else caches[i],
-                           impl=impl, max_len=max_len, memory=memory)
+        kw = dict(mode=mode, cache=None if caches is None else caches[i],
+                  impl=impl, max_len=max_len, memory=memory)
+        if remat:
+            x, nc, aux = checkpoint(block, x, positions, use_reentrant=False,
+                                    **kw)
+        else:
+            x, nc, aux = block(x, positions, **kw)
         new_caches.append(nc)
         aux_total = aux_total + aux
     return (x, new_caches if mode in ("prefill", "decode") else None,
@@ -205,17 +217,20 @@ def encode(model: Transformer, enc_embeds):
     return rms_norm(x, model.enc_ln, model.cfg.rms_eps)
 
 
-def train_logits(model: Transformer, batch: dict, *, impl: str = "einsum"):
+def train_logits(model: Transformer, batch: dict, *, impl: str = "einsum",
+                 remat: bool = True):
     """Full-sequence forward.  batch: {"tokens": (B,S) int, plus
     "enc_embeds" (B, S_enc, d) for an encoder-decoder model and
     "img_embeds" (B, n_img, d) for a VLM}.  Returns (logits (B,S,Vp) of
     the text positions, aux: the MoE load-balance loss summed over the
-    layers, 0 without MoE)."""
+    layers, 0 without MoE).  `remat` recomputes each decoder layer in the
+    backward (it matters only under autograd); impl="kernel" has no
+    backward, and its kernels raise under autograd."""
     cfg = model.cfg
     x, memory = _inputs(model, batch)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, _, aux = _run_stack(model, x, positions, mode="train", impl=impl,
-                           memory=memory)
+                           memory=memory, remat=remat)
     x = rms_norm(x, model.final_ln, cfg.rms_eps)
     if cfg.family == "vlm":
         x = x[:, -batch["tokens"].shape[1]:]

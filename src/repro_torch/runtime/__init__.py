@@ -1,4 +1,5 @@
-"""Step factories (runtime.steps): the serving path's prefill and decode."""
-from . import steps
+"""Step factories (runtime.steps: training, prefill and decode) and
+gradient compression (runtime.compression)."""
+from . import compression, steps
 
-__all__ = ["steps"]
+__all__ = ["compression", "steps"]

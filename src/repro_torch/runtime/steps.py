@@ -1,22 +1,29 @@
-"""Step factories for serving: the port's counterpart of the reference's
-`runtime/steps.py::make_prefill_step` and `make_decode_step`.
+"""Step factories: the port's counterpart of the reference's
+`runtime/steps.py` (`make_train_step`, `make_prefill_step`,
+`make_decode_step` and `synthetic_batch_shapes`).
 
-Each factory returns a function of the model (the reference's params)
-that runs without autograd.  `impl` is "kernel" (the counterpart of the
-reference's "pallas": the prefill's causal self-attention and RG-LRU
-scan go through the CUDA kernels) or "einsum" (the counterpart of
-"xla").  A prefill batch is {"tokens"} plus "enc_embeds" for an
-encoder-decoder model and "img_embeds" for a VLM; a decode step takes the
-encoder's memory as its fifth argument, as the reference's does.  A
-sharding `strategy` is not ported; the training step waits for the
-training slice.
+Each factory returns a function of the model (the reference's params).
+The train step computes the loss CE + AUX_WEIGHT * aux under autograd,
+its gradients into the parameters' `.grad` (`compute_grads`), and an
+AdamW update in place; it trains on impl="einsum", the counterpart of
+the reference's "xla": no kernel has a backward, in the reference or
+here, so impl="kernel" raises.  The serving steps run without autograd;
+`impl` is "kernel" (the counterpart of the reference's "pallas": the
+prefill's causal self-attention and RG-LRU scan go through the CUDA
+kernels) or "einsum".  A batch is {"tokens"} (and "labels" to train)
+plus "enc_embeds" for an encoder-decoder model and "img_embeds" for a
+VLM; a decode step takes the encoder's memory as its fifth argument, as
+the reference's does.  A sharding `strategy` is not ported.
 """
 from __future__ import annotations
 
 import torch
 
 from ..models import attention, transformer
-from ..models.common import ModelConfig
+from ..models.common import ModelConfig, cross_entropy
+from ..train import optimizer as opt
+
+AUX_WEIGHT = 0.01     # MoE load-balance loss weight
 
 
 def _check(cfg: ModelConfig, impl: str, strategy) -> None:
@@ -33,6 +40,94 @@ def _same_config(cfg: ModelConfig, model: transformer.Transformer) -> None:
     if model.cfg != cfg:
         raise ValueError(f"step built for {cfg.name}, model is "
                          f"{model.cfg.name}")
+
+
+def _check_train(impl: str) -> None:
+    if impl != "einsum":
+        raise ValueError(f"training runs impl='einsum'; impl={impl!r} has "
+                         f"no backward (no kernel has one, in the reference "
+                         f"or the port)")
+
+
+def _slice(batch: dict, i: int, n: int) -> dict:
+    """Microbatch i of n: contiguous rows of every batch tensor."""
+    out = {}
+    for k, v in batch.items():
+        mb = v.shape[0] // n
+        out[k] = v[i * mb:(i + 1) * mb]
+    return out
+
+
+def compute_grads(cfg: ModelConfig, model: transformer.Transformer,
+                  batch: dict, *, impl: str = "einsum", remat: bool = True,
+                  microbatches: int = 1):
+    """The gradient of CE + AUX_WEIGHT * aux into each parameter's `.grad`
+    (fp32, replacing what was there; the parameters are made to require
+    grad).  With microbatches > 1 the batch's rows are cut into that many
+    contiguous slices, each slice's gradient summed into `.grad` in fp32
+    and the sum divided by the count, as the reference's scan does.
+    Returns (CE, aux), each averaged over the microbatches."""
+    _same_config(cfg, model)
+    _check_train(impl)
+    params = list(model.parameters())
+    for p in params:
+        p.requires_grad_(True)
+        p.grad = None
+    loss_sum = aux_sum = None
+    with torch.enable_grad():
+        for i in range(microbatches):
+            mb = batch if microbatches == 1 else _slice(batch, i,
+                                                        microbatches)
+            logits, aux = transformer.train_logits(model, mb, impl=impl,
+                                                   remat=remat)
+            loss = cross_entropy(logits, mb["labels"],
+                                 n_real_vocab=cfg.vocab_size)
+            del logits
+            aux = torch.as_tensor(aux, dtype=torch.float32,
+                                  device=loss.device)
+            (loss + AUX_WEIGHT * aux).backward()
+            loss, aux = loss.detach(), aux.detach()
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+            aux_sum = aux if aux_sum is None else aux_sum + aux
+    for p in params:
+        if p.grad is None:       # a weight the batch does not reach
+            p.grad = torch.zeros_like(p)
+    if microbatches > 1:
+        n = torch.full((), microbatches, dtype=torch.float32,
+                       device=loss_sum.device)
+        for p in params:
+            p.grad.div_(n)
+        loss_sum, aux_sum = loss_sum / n, aux_sum / n
+    return loss_sum, aux_sum
+
+
+def make_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig, *,
+                    impl: str = "einsum", remat: bool = True,
+                    strategy=None, microbatches: int = 1):
+    """Train-step factory: train_step(model, opt_state, batch) -> (model,
+    opt_state, metrics), the model's parameters and the optimizer state
+    updated in place.  metrics: "loss" (the CE alone), "aux_loss",
+    "grad_norm" and "step", 0-dim tensors on the device.  `remat`
+    recomputes each layer in the backward (memory, not numbers);
+    microbatches > 1 accumulates the gradient over batch slices."""
+    _check(cfg, impl, strategy)
+    _check_train(impl)
+    if microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+
+    def train_step(model, opt_state, batch):
+        loss, aux = compute_grads(cfg, model, batch, impl=impl, remat=remat,
+                                  microbatches=microbatches)
+        params = dict(model.named_parameters())
+        grads = {k: p.grad for k, p in params.items()}
+        _, opt_state, gnorm = opt.adamw_update(ocfg, params, grads,
+                                               opt_state)
+        for p in params.values():
+            p.grad = None
+        metrics = {"loss": loss, "aux_loss": aux, "grad_norm": gnorm,
+                   "step": opt_state["step"]}
+        return model, opt_state, metrics
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, *, impl: str = "einsum",
@@ -56,3 +151,24 @@ def make_decode_step(cfg: ModelConfig, *, impl: str = "einsum",
         return transformer.decode_step(model, caches, tokens, position,
                                        memory=memory, impl=impl)
     return decode_step
+
+
+def synthetic_batch_shapes(cfg: ModelConfig, batch: int, seq: int, *,
+                           mode: str = "train", enc_len: int = 4096) -> dict:
+    """Stand-ins for every model input on the "meta" device (shapes and
+    dtypes, no storage), as the reference's ShapeDtypeStructs."""
+    def sd(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    if mode not in ("train", "prefill"):
+        raise ValueError(mode)
+    text = seq - (cfg.n_img_tokens if cfg.family == "vlm" else 0)
+    b = {"tokens": sd((batch, text), torch.int32)}
+    if mode == "train":
+        b["labels"] = sd((batch, text), torch.int32)
+    if cfg.family == "encdec":
+        b["enc_embeds"] = sd((batch, min(enc_len, seq), cfg.d_model),
+                             torch.bfloat16)
+    if cfg.family == "vlm":
+        b["img_embeds"] = sd((batch, cfg.n_img_tokens, cfg.d_model),
+                             torch.bfloat16)
+    return b

@@ -34,7 +34,12 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.search, repro_torch.search.moves, "
             "repro_torch.search.optimize, repro_torch.service, "
             "repro_torch.service.clock, repro_torch.service.metrics, "
-            "repro_torch.service.loop; "
+            "repro_torch.service.loop, repro_torch.train, "
+            "repro_torch.train.optimizer, repro_torch.data, "
+            "repro_torch.data.pipeline, repro_torch.ft, "
+            "repro_torch.ft.checkpoint, repro_torch.ft.straggler, "
+            "repro_torch.runtime.compression, repro_torch.launch.train, "
+            "repro_torch.tree; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')); print(bad)")
