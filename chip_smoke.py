@@ -173,8 +173,9 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      granite-moe-1b-a400m uncut (batch 4 x 2048, 4 steps), each run twice
      from --seed 0 with losses, grad norms and a checksum of the final
      parameters bitwise equal, every loss and norm finite (granite's aux
-     finite and positive); phi4's step-6 checkpoint deleted and the run
-     resumed from step 3 through the stale-LATEST fallback, repeating
+     finite and positive); phi4's step-6 checkpoint left unwritten (one
+     17 GB save, step 3's) with LATEST naming it, and the run resumed
+     from step 3 through the stale-LATEST fallback, repeating
      losses 3-5 bitwise; remat on and off bitwise (granite at 4 layers);
      granite's loss falling over 8 steps on one batch; microbatches=2
      against 1 at tests/test_microbatch.py's tolerance; the ten smoke
@@ -186,12 +187,34 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      share, the forward, backward and AdamW parts, peak device memory,
      granite's MoE dispatch against its backward, and each checkpoint's
      write and read.
+ 30. the row-sharded PDHG solve: (a) the burst kernel's split entries
+     (fp32 and bf16; one process holding 1, 2 and 4 shards of the
+     flagship LP) bitwise the plain sharded body in the kernel's order,
+     and at one shard the fused kernel; (b) the sharded driver at world 1
+     over NCCL bitwise the fused burst (energy and time, fp32; bf16's
+     first rung); (c) 2 ranks sharing the card over gloo, processes of
+     this script (--shard-rank): solve_fast(shards=2) on the six paper
+     topologies (spine-leaf twice) and the flagship, x the same on every
+     rank and from run to run, certified, within 1e-4 of phases 4-5, and
+     a fixed burst twice, bitwise the host CPU's single-process model in
+     the kernel's order; (d) ms an iteration of the split form at world 1
+     and at 2 ranks beside the fused burst, the collective's share (and
+     gloo's gather of the CUDA tensors without the pinned staging), the
+     bound.  The ranks start first and set up while this process runs
+     (a), (b), (d) and phase 31 at world 1, then wait for it;
+ 31. the scheduled gradient all-reduce (runtime.collectives): phi4-mini's
+     gradient tree (8 layers) bucketed at 25 MB and planned by
+     core.fabric.plan_collectives, synced at world 1 over NCCL bitwise
+     the input in the plan's slot order; a small tree of distinct
+     gradients synced at 2 ranks over gloo equal to the plain mean.
 
 The last lines are one JSON object describing the kernels, the card's
 name and power limit, and `{"ok": true, "device": {...}}`.  Imports
 torch, numpy, scipy and repro_torch only.  Phase 24 starts helper
 processes of this script (--placement-cpu, on the host CPU only) and
-waits for all of them before it goes on.
+phase 30 two (--shard-rank, on the card); each waits for all of its
+processes, and kills any still running at its time limit, before it goes
+on.
 """
 from __future__ import annotations
 
@@ -458,6 +481,31 @@ TRAIN_GRAD_TOL = 5e-2
 MB_LOSS_TOL = 1e-5
 MB_ATOL = 2e-5
 MB_RTOL = 2e-4
+# phase 30: the row-sharded solve.  The split entries of pdhg_burst.cu
+# replace the sharded form of the burst's body (plain jnp under shard_map
+# there); (a) holds them to the plain body in the kernel's order on the
+# flagship LP at these shard counts and storage types, over these
+# iterations
+SHARD_REPLACES = "src/repro/kernels/pdhg_spmv.py:450"
+SPLIT_CASES = ((1, ("fp32", "bf16")), (2, ("fp32", "bf16")), (4, ("fp32",)))
+SPLIT_ITERS = (50,)
+# (c): ranks sharing the one card over gloo, processes of this script;
+# their x after this many iterations against the host CPU's model
+SHARD_WORLD = 2
+SHARD_FIXED_ITERS = 20
+SHARD_TIMEOUT_S = 400
+# (d): bursts timed at world 1 and at SHARD_WORLD ranks (where gloo's
+# all_gather of the partials, about 1.1 ms between two processes of one
+# host, sets the pace), and the plain body's
+SHARD_TIME_ITERS = 500
+SHARD_RANK_TIME_ITERS = 200
+SHARD_PLAIN_ITERS = 20
+# phase 31: the scheduled gradient all-reduce over phi4-mini's gradient
+# tree cut to phase 28's 8 layers, bucketed at 25 MB; the 2-rank sync
+# against the plain mean (tests/test_torch_collectives.py's tolerance)
+GRAD_LAYERS = 8
+GRAD_BUCKET_BYTES = 25e6
+SYNC_RTOL = 1e-6
 
 
 def card_line() -> str:
@@ -566,21 +614,28 @@ def lp_burst_args(lp, dev):
     random point inside the box (a cold start from zero leaves x at zero
     after one step, which would compare nothing)."""
     import numpy as np
-    import torch
     from repro_torch.core import solver
     xmax = np.where(np.isfinite(lp.xmax), lp.xmax, 1e12)
     cscale = max(float(np.abs(lp.c).max(initial=0.0)), 1e-12)
     op, vecs, ell = solver._pack_ell(lp.c / cscale, lp.row, lp.col, lp.val,
                                      lp.b, lp.h, xmax, lp.m_eq, dev)
-    keep = (torch.zeros(op.n_pad, dtype=torch.bool, device=dev),
-            torch.zeros(op.m_pad, dtype=torch.bool, device=dev))
+    return op, vecs + random_start(lp, xmax, op.n_pad, op.m_pad, dev, ell)
+
+
+def random_start(lp, xmax, n_pad, m_pad, dev, ell) -> tuple:
+    """No coordinate frozen, the tables `ell`, and a seeded start inside
+    the box: the burst operands after the vectors."""
+    import numpy as np
+    import torch
+    keep = (torch.zeros(n_pad, dtype=torch.bool, device=dev),
+            torch.zeros(m_pad, dtype=torch.bool, device=dev))
     rng = np.random.default_rng(0)
-    x0 = np.zeros(op.n_pad, np.float32)
+    x0 = np.zeros(n_pad, np.float32)
     x0[:lp.n] = rng.uniform(0.0, 1.0, lp.n) * np.minimum(xmax, 1.0)
-    y0 = np.zeros(op.m_pad, np.float32)
+    y0 = np.zeros(m_pad, np.float32)
     y0[:lp.m] = rng.normal(0.0, 0.1, lp.m)
     start = (torch.from_numpy(x0).to(dev), torch.from_numpy(y0).to(dev))
-    return op, vecs + keep + ell + start
+    return keep + ell + start
 
 
 def layout(op, dev) -> dict:
@@ -2843,6 +2898,20 @@ def timing_checkpoints():
         yield done
 
 
+@contextlib.contextmanager
+def skipping_save(step: int):
+    """CheckpointManager.save writes nothing for `step` (phase 28's first
+    phi4 run keeps one 17 GB write, its step-3 checkpoint)."""
+    from repro_torch.ft import checkpoint
+    real = checkpoint.CheckpointManager.save
+
+    def save(self, at, *a, **kw):
+        if at != step:
+            return real(self, at, *a, **kw)
+    with mock.patch.object(checkpoint.CheckpointManager, "save", save):
+        yield
+
+
 def report_checkpoints(done) -> None:
     for name, secs, nbytes in done:
         say(f"    checkpoint {name}: {secs:.2f} s for {nbytes / 1e9:.3f} GB "
@@ -3073,7 +3142,9 @@ def train_phase(card: str, dev=None) -> dict:
                 torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
                 with recording_train_steps() as rec, \
-                        timing_checkpoints() as io:
+                        timing_checkpoints() as io, \
+                        (skipping_save(n_steps) if extra
+                         else contextlib.nullcontext()):
                     losses = train.main(argv + extra)
                 wall = time.perf_counter() - t0
                 peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3164,8 +3235,14 @@ def train_phase(card: str, dev=None) -> dict:
             del model, opt_state, batch, step, runs, b
             torch.cuda.empty_cache()
             if with_ckpt:
+                # the step-6 save was skipped (skipping_save): point
+                # LATEST at it, as a crash after the pointer's rename
+                # but before the directory's write would leave it
+                saved = sorted(d.name for d in ckpt.glob("step_*"))
+                require(saved == [f"step_{TRAIN_CKPT_EVERY:08d}"],
+                        f"checkpoints written: {saved}")
+                (ckpt / "LATEST").write_text(f"step_{n_steps:08d}")
                 latest = (ckpt / "LATEST").read_text()
-                shutil.rmtree(ckpt / f"step_{n_steps:08d}")
                 with recording_train_steps() as rec, \
                         timing_checkpoints() as io:
                     resumed = train.main(argv + ["--ckpt-dir", str(ckpt),
@@ -3181,7 +3258,7 @@ def train_phase(card: str, dev=None) -> dict:
                         f"the resumed run's losses {resumed} are not the "
                         f"first run's {a['losses'][TRAIN_CKPT_EVERY:]}")
                 report_checkpoints(io)
-                say(f"[28] resume: step_{n_steps:08d} deleted (LATEST still "
+                say(f"[28] resume: step_{n_steps:08d} not written (LATEST "
                     f"named it): --resume restarted from step "
                     f"{TRAIN_CKPT_EVERY} "
                     f"and repeated losses {TRAIN_CKPT_EVERY}-{n_steps - 1} "
@@ -3281,6 +3358,578 @@ def train_phase(card: str, dev=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 30-31: the row-sharded solve and the scheduled gradient all-reduce
+# ---------------------------------------------------------------------------
+
+def sharded_args(lp, shards, dev):
+    """The solver's sharded packing of `lp` (_pack_pallas_sharded, the
+    global layout) started from lp_burst_args's seeded point inside the
+    box: (op, the 14 operands of pdhg_burst_sharded for every shard)."""
+    import numpy as np
+    from repro_torch.core import solver
+    xmax = np.where(np.isfinite(lp.xmax), lp.xmax, 1e12)
+    cscale = max(float(np.abs(lp.c).max(initial=0.0)), 1e-12)
+    op, vecs, ell = solver._pack_pallas_sharded(
+        lp.c / cscale, lp.row, lp.col, lp.val, lp.b, lp.h, xmax, lp.m_eq,
+        shards, dev)
+    return op, vecs + random_start(lp, xmax, op.n_pad, op.m_pad, dev, ell)
+
+
+def shard_operands(op, args, first, count):
+    """The operands of shards [first, first + count) of sharded_args's:
+    the x side whole, the y side and the tables of those shards."""
+    from repro_torch.kernels import pdhg_spmv
+    c, tau, xmax, q, sig, ub, keep_n, keep_m, ri, rv, ci, cv, x0, y0 = args
+    ys = slice(first * op.m_loc, (first + count) * op.m_loc)
+    rs, cs = (pdhg_spmv.table_len(op.row_meta),
+              pdhg_spmv.table_len(op.col_meta))
+    return (c, tau, xmax, q[ys], sig[ys], ub[ys], keep_n, keep_m[ys],
+            ri[first * rs:(first + count) * rs],
+            rv[first * rs:(first + count) * rs],
+            ci[first * cs:(first + count) * cs],
+            cv[first * cs:(first + count) * cs], x0, y0[ys])
+
+
+def split_kw(op, dev, iters, precision, shards=None):
+    from repro_torch.kernels import pdhg_spmv
+    return dict(row_meta=op.row_meta, col_meta=op.col_meta, iters=iters,
+                precision=precision,
+                **pdhg_spmv.sharded_work(op, dev, shards))
+
+
+def check_split(label, op, args, iters, precision) -> tuple[float, bool]:
+    """Phase 30(a): the split entries (one process holding all S shards,
+    the launches of a sharded burst without the collective) against the
+    plain body summing in the kernel's order, bitwise over (x, y, worst);
+    at one shard also against the fused kernel, bitwise.  Returns the
+    largest |split - plain| (the plain body in torch's order) and
+    whether that plain body differs bitwise (so the check can fail)."""
+    import torch
+    from repro_torch.kernels import ops, pdhg_spmv
+    dev = args[0].device
+    kw = split_kw(op, dev, iters, precision)
+    got = ops.pdhg_burst_sharded(None, *args, **kw)
+    model = pdhg_spmv.pdhg_update_burst_sharded(
+        args[12], args[13], *args[:12], **kw, order="kernel")
+    plain = pdhg_spmv.pdhg_update_burst_sharded(
+        args[12], args[13], *args[:12],
+        **{k: v for k, v in kw.items() if not k.endswith("_work")})
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, model))
+    fused = ""
+    if op.shards == 1:
+        one = ops.pdhg_burst(*args, row_meta=op.row_meta,
+                             col_meta=op.col_meta, iters=iters,
+                             precision=precision,
+                             row_work=kw["row_work"][0],
+                             col_work=kw["col_work"][0])
+        torch.cuda.synchronize()
+        same_fused = all(torch.equal(a, b) for a, b in zip(got, one))
+        fused = f"; to the fused kernel: {same_fused}"
+        require(same_fused, f"{label}: the split entries at one shard "
+                            f"differ from the fused kernel")
+    err = max(float((a - b).abs().max()) for a, b in zip(got, plain))
+    say(f"  {label} S={op.shards} {precision} iters={iters}: bitwise equal "
+        f"to the kernel-order model: {same}{fused}; max|split - plain| "
+        f"{err:.3e}")
+    off = max(float((a - b).abs().max()) for a, b in zip(got, model))
+    require(same, f"{label} S={op.shards} {precision} iters={iters}: the "
+                  f"split entries differ from the kernel-order model by "
+                  f"{off:.3e}")
+    require(all(bool(torch.isfinite(t).all()) for t in got),
+            f"{label}: split output not finite")
+    require(bool((got[0][op.n:] == 0).all()), f"{label}: a padded x moved")
+    return err, not all(torch.equal(a, b) for a, b in zip(got, plain))
+
+
+def split_bound(op_s, op, nnz, it=4) -> tuple[float, str]:
+    """Least time of one iteration of the split form: the fused burst's
+    bytes and operations (burst_bound) plus the S partials of K^T y
+    written once and read once."""
+    ms, by, nbytes, nops = burst_bound(op, nnz, it)
+    nbytes += 2 * 4 * op_s.shards * op_s.n_pad
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = nops / FP32_OPS_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def reset_split_counts():
+    from repro_torch.kernels import ops
+    ops.PDHG_SPLIT_LAUNCHES = 0
+    ops.PDHG_SPLIT_BF16_LAUNCHES = 0
+    ops.PDHG_SHARDED_CALLS = 0
+    ops.PDHG_BURST_LAUNCHES = 0
+
+
+def grad_plan(leaves, bucket_bytes, dev):
+    """Buckets of `leaves` (runtime.collectives.bucketize) and a plan for
+    them from core.fabric.plan_collectives over the v5e fabric, each
+    bucket released a quarter slot after the one before and free to use
+    either axis, as fabric.grad_buckets_for stagers a model's layers."""
+    from repro_torch.core import fabric
+    from repro_torch.runtime import collectives
+    ids = collectives.bucketize(leaves, bucket_bytes)
+    buckets = [fabric.Bucket(f"b{i}", float(sum(
+        leaves[j].numel() * leaves[j].element_size() for j in ids[i])),
+        (0, 1), int(i * 0.25)) for i in range(len(ids))]
+    n_slots = max(8, int((len(ids) - 1) * 0.25) + 2)
+    plan = fabric.plan_collectives(fabric.v5e_fabric(), buckets,
+                                   n_slots=n_slots, device=dev)
+    return ids, plan
+
+
+def check_issue_order(issued, plan) -> bool:
+    """The collectives went out slot group by slot group, each bucket of
+    slot t before any of slot t + 1 (runtime.collectives' `issued`)."""
+    order = plan.slot_order()
+    slots = [s for s, _, _ in issued]
+    first = list(dict.fromkeys(b for _, b, _ in issued))
+    return slots == sorted(slots) and first == [b for g in order for b in g]
+
+
+def small_grads(rank, dev):
+    """A small gradient tree, distinct per rank (numpy seeded by rank)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(100 + rank)
+
+    def t(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev)
+    return {"a": t(64, 128), "b": [t(4096), t(32, 32)], "c": t(1000, 3),
+            "d": t(77)}
+
+
+def shard_rank_main(rank, world, out_dir) -> int:
+    """The --shard-rank mode (phase 30(c) and 31's two ranks): one rank of
+    a `world`-rank gloo world on cuda:0, joined through a FileStore in
+    out_dir.  Runs the fixed-iteration burst twice, waits for the file
+    `go` in out_dir, then runs the paper topologies (spine-leaf twice)
+    and the flagship through solve_fast(shards=world), times an
+    iteration and the collective (with and without the pinned staging),
+    and the scheduled gradient sync on a small tree; writes rank<r>.json
+    and rank<r>_x.npy to out_dir."""
+    import datetime
+    import hashlib
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree
+    from repro_torch.core import solver, verify
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.runtime import collectives
+    out_dir = pathlib.Path(out_dir)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(out_dir / "store"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    group = dist.group.WORLD
+    res: dict = {}
+    try:
+        p_full = problem(*FULL)
+        lp_full, _ = solver.build_routing_lp(p_full, "energy")
+        # (c) the split entries over `world` ranks, a fixed burst
+        op, args = sharded_args(lp_full, world, dev)
+        xs = [ops.pdhg_burst_sharded(
+            group, *shard_operands(op, args, rank, 1),
+            **split_kw(op, dev, SHARD_FIXED_ITERS, "fp32", [rank]))[0]
+            .cpu().numpy() for _ in range(2)]
+        res["fixed_repeat"] = bool(np.array_equal(xs[0], xs[1]))
+        np.save(out_dir / f"rank{rank}_x.npy", xs[0])
+        # wait for the parent's go: it runs its own parts of phase 30 on
+        # the card until then, and the solves below share the card with
+        # no other process's kernels
+        deadline = time.monotonic() + SHARD_TIMEOUT_S
+        while not (out_dir / "go").exists():
+            require(time.monotonic() < deadline, "no go from phase 30")
+            time.sleep(0.05)
+        # the main path: solve_fast(shards=world) on the card
+        reset_split_counts()
+        runs = {}
+        # the paper topologies (spine-leaf twice), then the flagship
+        cells = [(name, problem(name, {}, GOLDEN_PATTERN, 2))
+                 for name in PAPER_TOPOS] + [("flagship", p_full)]
+        cells.insert(1, ("spine-leaf#1", cells[0][1]))
+        for key, p in cells:
+            t0 = time.perf_counter()
+            r = solver.solve_fast(p, "energy", shards=world, device=dev)
+            runs[key] = (p, r, time.perf_counter() - t0)
+        res["launches"] = ops.PDHG_SPLIT_LAUNCHES
+        res["fused_launches"] = ops.PDHG_BURST_LAUNCHES
+        res["runs"] = {
+            k: dict(metrics_of(r), iterations=int(r.iterations), wall=wall,
+                    cert_ok=bool(verify.check_schedule(p, r.schedule).ok),
+                    x=hashlib.sha256(r.lp_x.tobytes()).hexdigest(),
+                    schedule=hashlib.sha256(
+                        np.ascontiguousarray(r.schedule).tobytes())
+                    .hexdigest())
+            for k, (p, r, wall) in runs.items()}
+        # (d) an iteration at `world` ranks, and the collective alone
+        local = shard_operands(op, args, rank, 1)
+        kw = split_kw(op, dev, SHARD_RANK_TIME_ITERS, "fp32", [rank])
+        for _ in range(2):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ops.pdhg_burst_sharded(group, *local, **kw)
+            torch.cuda.synchronize()
+            res["iter_ms"] = (time.perf_counter() - t0) * 1e3 \
+                / SHARD_RANK_TIME_ITERS
+        parts = torch.zeros((1, op.n_pad), device=dev)
+        gather = ops.ShardGather(group, (1, op.n_pad), torch.float32, dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(SHARD_RANK_TIME_ITERS):
+            gather(parts)
+        torch.cuda.synchronize()
+        res["collective_ms"] = (time.perf_counter() - t0) * 1e3 \
+            / SHARD_RANK_TIME_ITERS
+        # the same gather handed to gloo as CUDA tensors (no staging of
+        # our own): what ShardGather's pinned buffers are measured against
+        rows = list(torch.zeros((world, op.n_pad), device=dev).unbind(0))
+        flat = parts.reshape(-1)
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(SHARD_RANK_TIME_ITERS):
+            dist.all_gather(rows, flat, group=group)
+        torch.cuda.synchronize()
+        res["direct_ms"] = (time.perf_counter() - t0) * 1e3 \
+            / SHARD_RANK_TIME_ITERS
+        # phase 31: the scheduled sync over a (world, 1) mesh
+        mesh = lmesh.make_host_mesh((world, 1), ("data", "model"))
+        grads = small_grads(rank, dev)
+        leaves = [leaf for _, leaf in tree.flatten(grads)]
+        ids, plan = grad_plan(leaves, 16 * 1024, dev)
+        issued: list = []
+        synced = collectives.make_scheduled_grad_sync(
+            mesh, plan, ids, ("data",), issued=issued)(grads)
+        mean = [torch.stack([tree.flatten(small_grads(r, dev))[i][1]
+                             for r in range(world)]).double().mean(0)
+                for i in range(len(leaves))]
+        res["sync_err"] = max(float((s.double() - m).abs().max())
+                              for (_, s), m in zip(tree.flatten(synced),
+                                                   mean))
+        res["sync_scale"] = max(float(m.abs().max()) for m in mean)
+        res["sync_buckets"] = len(ids)
+        res["sync_slots"] = len(plan.slot_order())
+        res["sync_order_ok"] = check_issue_order(issued, plan)
+        res["sync_collectives"] = len(issued)
+    finally:
+        dist.destroy_process_group()
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def shard_phase(card, dev, p_full, lp_full, phase4, phase5, library_ms):
+    """Phase 30 and 31.  SHARD_WORLD ranks that share the card over gloo
+    (processes of this script's own) start first, for parts (c) and (d)
+    and phase 31's 2-rank sync.  While they start up, this process runs
+    parts (a), (b) and (d) and phase 31 at world 1; then it lets the
+    ranks go on (they wait for it before their solves and timings, so
+    that no two processes' kernels share the card) and checks their
+    results.  Returns the two `kernels` entries of the split entries."""
+    with shard_ranks(SHARD_WORLD) as collect:
+        return _shard_phase(card, dev, p_full, lp_full, phase4, phase5,
+                            library_ms, collect)
+
+
+def _shard_phase(card, dev, p_full, lp_full, phase4, phase5, library_ms,
+                 collect):
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import solver
+    from repro_torch.kernels import ops, pdhg_spmv
+    nnz = len(lp_full.val)
+    say(f"[30] row-sharded PDHG on the card ({card}); {SHARD_WORLD} ranks "
+        f"started for part (c)")
+    say("  (a) the split entries against the plain body in the kernel's "
+        "order (one process holding every shard)")
+    errs = {"fp32": [], "bf16": []}
+    differs = []
+    for shards, precisions in SPLIT_CASES:
+        op, args = sharded_args(lp_full, shards, dev)
+        for precision in precisions:
+            for iters in SPLIT_ITERS:
+                err, d = check_split("fat-tree-k16", op, args, iters,
+                                     precision)
+                errs[precision].append(err)
+                differs.append(d)
+    say(f"    the plain body in torch's order differs from the split "
+        f"entries bitwise in {sum(differs)} of {len(differs)} cases, so "
+        f"the bitwise check can fail")
+    require(any(differs), "the split entries' bitwise check cannot fail")
+
+
+    store = tempfile.mkdtemp(prefix="chip-smoke-nccl-")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(store, "store"), 1), rank=0, world_size=1)
+    group = dist.group.WORLD
+    try:
+        say("  (b) the sharded driver at world 1 over NCCL against the "
+            "fused burst")
+        reset_split_counts()
+        # the solve_lp ladder (4000 iterations, doubled up to 3 times); the
+        # bf16 case its first rung only (bf16 runs the whole ladder)
+        for obj, precision, rungs in (("energy", "fp32", 3),
+                                      ("time", "fp32", 3),
+                                      ("energy", "bf16", 0)):
+            lp, _ = solver.build_routing_lp(p_full, obj)
+            tol = 1e-4 * max(float(np.abs(lp.b).max(initial=0.0)), 1.0)
+            before = ops.PDHG_SPLIT_LAUNCHES
+            t0 = time.perf_counter()
+            shard = solver._solve_lp_pallas_sharded(
+                lp, 4000, tol, rungs, None, None, 1, dev, precision)
+            wall = time.perf_counter() - t0
+            launched = ops.PDHG_SPLIT_LAUNCHES - before
+            t0 = time.perf_counter()
+            fused = solver._solve_lp_ell(lp, 4000, tol, rungs, None, None,
+                                         dev, precision)
+            fused_wall = time.perf_counter() - t0
+            same = (np.array_equal(shard.x, fused.x)
+                    and np.array_equal(shard.y, fused.y)
+                    and shard.iterations == fused.iterations)
+            obj_s, obj_f = float(lp.c @ shard.x), float(lp.c @ fused.x)
+            say(f"    {obj:6s} {precision}: iters={shard.iterations} "
+                f"primal={shard.primal_residual:.3e} objective "
+                f"{obj_s!r} (fused {obj_f!r}); x, y bitwise the fused "
+                f"burst: {same}; {launched} split launches; wall "
+                f"{wall:.3f} s (fused {fused_wall:.3f} s)")
+            require(same and obj_s == obj_f,
+                    f"world-1 sharded driver {obj} {precision} differs "
+                    f"from the fused burst")
+        w1 = (ops.PDHG_SPLIT_LAUNCHES, ops.PDHG_SPLIT_BF16_LAUNCHES)
+        say(f"    split launches on this part's solves: {w1[0]} "
+            f"(bf16 {w1[1]}); sharded bursts {ops.PDHG_SHARDED_CALLS}")
+        require(w1[0] > 0 and w1[1] > 0 and ops.PDHG_SHARDED_CALLS > 0,
+                "part (b) did not go through the split entries")
+
+        say(f"  (d) times at world 1, flagship LP ({card})")
+        op1, args1 = sharded_args(lp_full, 1, dev)
+        op_f, args_f = lp_burst_args(lp_full, dev)
+        kw_f = layout(op_f, dev)
+        n = SHARD_TIME_ITERS
+        times = {}
+        for precision in ("fp32", "bf16"):
+            kw = split_kw(op1, dev, n, precision)
+            times["split", precision] = sorted(time_events(
+                lambda: ops.pdhg_burst_sharded(group, *args1, **kw), 1) / n
+                for _ in range(3))[1]
+            times["fused", precision] = sorted(time_events(
+                lambda: ops.pdhg_burst(*args_f, iters=n,
+                                       precision=precision, **kw_f), 1) / n
+                for _ in range(3))[1]
+            kw_p = dict(row_meta=op1.row_meta, col_meta=op1.col_meta,
+                        iters=SHARD_PLAIN_ITERS, precision=precision)
+            times["plain", precision] = time_events(
+                lambda: pdhg_spmv.pdhg_update_burst_sharded(
+                    args1[12], args1[13], *args1[:12], **kw_p),
+                1) / SHARD_PLAIN_ITERS
+        parts = torch.zeros((1, op1.n_pad), device=dev)
+        gather = ops.ShardGather(group, (1, op1.n_pad), torch.float32, dev)
+        coll = time_events(lambda: [gather(parts) for _ in range(n)], 1) / n
+        for precision in ("fp32", "bf16"):
+            say(f"    split {precision} {times['split', precision]:.6f} "
+                f"ms/iter (3 launches and the collective an iteration, "
+                f"median of 3 bursts of {n}); fused "
+                f"{times['fused', precision]:.6f} ms/iter; plain "
+                f"{times['plain', precision]:.6f} ms/iter")
+        say(f"    the collective (NCCL all_gather of {op1.n_pad} floats, "
+            f"world 1) {coll:.6f} ms, {coll / times['split', 'fp32']:.1%} "
+            f"of a split fp32 iteration")
+
+        t_phase = time.perf_counter()
+        sync_phase(card, dev)
+        say(f"    phase 31 at world 1 took {time.perf_counter() - t_phase:.1f}"
+            f" s")
+    finally:
+        dist.destroy_process_group()
+
+    # the host CPU's single-process model of the ranks' fixed burst
+    op_c, args_c = sharded_args(lp_full, SHARD_WORLD, torch.device("cpu"))
+    model = pdhg_spmv.pdhg_update_burst_sharded(
+        args_c[12], args_c[13], *args_c[:12], order="kernel",
+        **split_kw(op_c, torch.device("cpu"), SHARD_FIXED_ITERS, "fp32"))
+    say(f"  (c) {SHARD_WORLD} ranks sharing the card over gloo (partials "
+        f"staged through pinned host memory), processes of this script")
+    ranks = collect()
+    r0 = ranks[0]
+    for k, run in r0["runs"].items():
+        on_all = all(res["runs"][k]["x"] == run["x"]
+                     and res["runs"][k]["schedule"] == run["schedule"]
+                     for res in ranks)
+        want = phase5 if k == "flagship" else phase4[k.split("#")[0]]
+        got = {key: run[key] for key in want}
+        ok = close(got, want, METRIC_RTOL)
+        say(f"    {k:12s} E={run['energy_j']:.6f} J "
+            f"M={run['completion_s']:.6f} s iters={run['iterations']} "
+            f"wall={run['wall']:.3f} s cert="
+            f"{'ok' if run['cert_ok'] else 'FAIL'}"
+            f"; x and schedule the same on every rank: {on_all}; within "
+            f"{METRIC_RTOL} of phase {5 if k == 'flagship' else 4}: "
+            f"{ok}")
+        require(on_all and run["cert_ok"] and ok,
+                f"{k} at {SHARD_WORLD} ranks")
+    a, b = r0["runs"]["spine-leaf"], r0["runs"]["spine-leaf#1"]
+    same_twice = a["x"] == b["x"] and a["schedule"] == b["schedule"]
+    fixed_twice = all(res["fixed_repeat"] for res in ranks)
+    say(f"    spine-leaf solved twice: bitwise equal: {same_twice}; the "
+        f"flagship's fixed burst of {SHARD_FIXED_ITERS} twice on every "
+        f"rank: bitwise equal: {fixed_twice}")
+    require(same_twice and fixed_twice, "two sharded runs differ")
+    xs = [np.load(pathlib.Path(ranks[0]["dir"]) / f"rank{r}_x.npy")
+          for r in range(SHARD_WORLD)]
+    same_model = all(np.array_equal(x, model[0].numpy()) for x in xs)
+    say(f"    x after {SHARD_FIXED_ITERS} iterations at {SHARD_WORLD} ranks "
+        f"bitwise the host CPU's single-process model in the kernel's "
+        f"order: {same_model}")
+    require(same_model, "the sharded card run differs from the CPU's model")
+    launches = sum(res["launches"] for res in ranks)
+    say(f"    split launches on the ranks' solve_fast runs: "
+        f"{[res['launches'] for res in ranks]}; fused burst launches "
+        f"{[res['fused_launches'] for res in ranks]}")
+    require(all(res["launches"] > 0 and res["fused_launches"] == 0
+                for res in ranks),
+            "the ranks' solves did not go through the split entries alone")
+    it = max(res["iter_ms"] for res in ranks)
+    co = max(res["collective_ms"] for res in ranks)
+    direct = max(res["direct_ms"] for res in ranks)
+    say(f"  (d) at {SHARD_WORLD} ranks: {it:.6f} ms/iter (host clock over a "
+        f"burst of {SHARD_RANK_TIME_ITERS}, slower rank); the collective "
+        f"alone {co:.6f} ms ({co / it:.1%} of an iteration); gloo given "
+        f"the CUDA tensors directly {direct:.6f} ms")
+    say(f"[31] the scheduled sync at {SHARD_WORLD} ranks over gloo: "
+        f"{r0['sync_buckets']} buckets in {r0['sync_slots']} slot groups, "
+        f"{r0['sync_collectives']} collectives; max |synced - mean| "
+        f"{max(res['sync_err'] for res in ranks):.3e} of scale "
+        f"{r0['sync_scale']:.3e}; slot order kept: "
+        f"{all(res['sync_order_ok'] for res in ranks)}")
+    require(all(res["sync_err"] <= SYNC_RTOL * res["sync_scale"]
+                and res["sync_order_ok"] for res in ranks),
+            "the scheduled sync at 2 ranks is off the plain mean")
+
+    entries = []
+    for precision in ("fp32", "bf16"):
+        bound_ms, bound_by = split_bound(op1, op_f, nnz,
+                                         4 if precision == "fp32" else 2)
+        n_launch = (w1[0] - w1[1] + launches) if precision == "fp32" \
+            else w1[1]
+        entries.append({
+            "name": f"pdhg_split_{'f32' if precision == 'fp32' else 'bf16'}",
+            "route": "cuda", "source": SOURCE, "replaces": SHARD_REPLACES,
+            "launches": n_launch, "max_abs_err": max(errs[precision]),
+            "ms": times["split", precision],
+            "plain_ms": times["plain", precision], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms})
+        say(f"    {entries[-1]['name']}: {times['split', precision]:.6f} "
+            f"ms/iter at world 1, bound {bound_ms:.6f} ms ({bound_by}), "
+            f"library {library_ms:.6f} ms (phase 6's CSR pair)")
+    return entries
+
+
+@contextlib.contextmanager
+def shard_ranks(world):
+    """Start `world` processes of this script in --shard-rank mode and
+    yield collect(): it tells them to go on past their set-up (the file
+    `go` in their directory), waits for all (SHARD_TIMEOUT_S from the
+    start) and returns their results in rank order.  Every process is
+    gone when the block ends, whether collect() ran or the block
+    raised."""
+    out = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-shard-"))
+    logs = [open(out / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--shard-rank",
+         str(r), "--shard-world", str(world), "--shard-dir", str(out)],
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    deadline = time.monotonic() + SHARD_TIMEOUT_S
+
+    def collect() -> list[dict]:
+        (out / "go").touch()
+        try:
+            for p in procs:
+                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+        except subprocess.TimeoutExpired:
+            pass
+        results = []
+        for r, p in enumerate(procs):
+            path = out / f"rank{r}.json"
+            if p.poll() != 0 or not path.exists():
+                tail = (out / f"rank{r}.log").read_text()[-4000:]
+                raise AssertionError(f"shard rank {r} exited with "
+                                     f"{p.poll()}:\n{tail}")
+            res = json.loads(path.read_text())
+            res["dir"] = str(out)
+            results.append(res)
+        return results
+
+    try:
+        yield collect
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+
+
+def sync_phase(card, dev) -> None:
+    """Phase 31 at world 1 (inside phase 30's NCCL world): the gradient
+    tree of phi4-mini cut to GRAD_LAYERS layers, bucketed at
+    GRAD_BUCKET_BYTES and planned by core.fabric.plan_collectives,
+    synced over a (1, 1) mesh: bitwise the input, in the plan's slot
+    order."""
+    import torch
+    from repro_torch import configs, tree
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    from repro_torch.runtime import collectives
+    cfg = train.scale_config(configs.get("phi4-mini-3.8b"),
+                             n_layers=GRAD_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = transformer.Transformer(cfg, generator=gen, device=dev)
+    grads = {n: torch.randn(p.shape, generator=gen, device=dev)
+             for n, p in model.named_parameters()}
+    del model
+    leaves = [leaf for _, leaf in tree.flatten(grads)]
+    nbytes = sum(leaf.numel() * leaf.element_size() for leaf in leaves)
+    t0 = time.perf_counter()
+    ids, plan = grad_plan(leaves, GRAD_BUCKET_BYTES, dev)
+    plan_s = time.perf_counter() - t0
+    mesh = lmesh.make_host_mesh((1, 1), ("data", "model"),
+                                device_type="cuda")
+    issued: list = []
+    sync = collectives.make_scheduled_grad_sync(mesh, plan, ids, ("data",),
+                                                issued=issued)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    synced = sync(grads)
+    torch.cuda.synchronize()
+    sync_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        tree.flatten(synced), tree.flatten(grads)))
+    order_ok = check_issue_order(issued, plan)
+    say(f"[31] the scheduled gradient all-reduce at world 1 over NCCL "
+        f"({card}): phi4-mini-3.8b cut to {GRAD_LAYERS} layers, "
+        f"{len(leaves)} leaves, {nbytes / 2**30:.2f} GiB; "
+        f"{len(ids)} buckets at {GRAD_BUCKET_BYTES / 1e6:.0f} MB in "
+        f"{len(plan.slot_order())} slot groups (plan {plan_s:.3f} s, "
+        f"makespan {plan.completion_s * 1e3:.3f} ms); {len(issued)} "
+        f"collectives in slot order: {order_ok}; synced bitwise the input: "
+        f"{same}; sync {sync_s * 1e3:.1f} ms")
+    require(same and order_ok and len(issued) >= len(leaves),
+            "the scheduled sync at world 1 is not the identity in slot "
+            "order")
+    del grads, synced, leaves
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep-out", default="",
@@ -3288,9 +3937,18 @@ def main(argv=None) -> int:
                          "results.md (default: a new temporary directory)")
     # phase 24's helper processes (see cpu_placement_rows)
     ap.add_argument("--placement-cpu", default="", help=argparse.SUPPRESS)
+    # phase 30's ranks (see run_shard_ranks)
+    ap.add_argument("--shard-rank", type=int, default=-1,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--shard-world", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--shard-dir", default="", help=argparse.SUPPRESS)
     opts = ap.parse_args(argv)
     if opts.placement_cpu:
         return placement_cpu_cell(opts.placement_cpu)
+    if opts.shard_rank >= 0:
+        return shard_rank_main(opts.shard_rank, opts.shard_world,
+                               opts.shard_dir)
     sweep_out = opts.sweep_out
     # phase 28's bitwise repeatable training needs cuBLAS's workspace
     # fixed before the process's first cuBLAS call
@@ -3335,9 +3993,12 @@ def main(argv=None) -> int:
         f"{pathlib.Path(info['library']).name}")
     for line in info["log"].splitlines():
         if "Compiling entry" in line:
-            # the kernel's two templates: fp32 and bf16-storage iterates
+            # the fused kernel and the split entries, each in its two
+            # templates: fp32 and bf16-storage iterates
             kind = "bf16" if "bfloat16" in line else "fp32"
-            say(f"    ptxas [{kind}]: {line.strip()}")
+            name = re.search(r"(pdhg_burst_kernel|split_[a-z]+)", line)
+            say(f"    ptxas [{name.group(1) if name else '?'} {kind}]: "
+                f"{line.strip()}")
         elif "registers" in line or "spill" in line or "stack" in line:
             say(f"    ptxas: {line.strip()}")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -4252,6 +4913,15 @@ def main(argv=None) -> int:
             and ops.RGLRU_SCAN_LAUNCHES == 0,
             "training went through a kernel that has no backward")
 
+    # -- phases 30-31: the row-sharded solve, the scheduled all-reduce -------
+    t_phase = time.perf_counter()
+    split_entries = shard_phase(
+        card, dev, p_full, lp_full,
+        {name: paper_fp32[name, "energy"] for name in PAPER_TOPOS},
+        full_fp32["energy"], library_ms)
+    say(f"    phases 30-31 {time.perf_counter() - t_phase:.1f} s; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+
     kernels = {"kernels": [{
         "name": "pdhg_burst", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": path_launches,
@@ -4272,7 +4942,7 @@ def main(argv=None) -> int:
         "replaces": SCAN_REPLACES, "launches": scan_launches,
         "max_abs_err": scan_max_err, "ms": scan_ms,
         "plain_ms": scan_plain_ms, "bound_ms": scan_bound_ms,
-        "bound_by": scan_bound_by, "library_ms": None}]}
+        "bound_by": scan_bound_by, "library_ms": None}] + split_entries}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

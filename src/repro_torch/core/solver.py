@@ -14,6 +14,12 @@ The port of the reference `repro.core.solver` single-instance path:
   4. exact re-evaluation with core.timeslot.evaluate — so reported E and M
      are always true paper-model numbers, never LP estimates.
 
+With `shards` > 1 the LP's rows are partitioned across that many
+torch.distributed ranks (runtime.sharding.solver_group), each rank
+solving the same LP SPMD: every rung is one row-sharded burst
+(kernels.ops.pdhg_burst_sharded; on the card the burst kernel's split
+entries with one collective an iteration).
+
 The batched form (`solve_lp_batch`, `solve_fast_batch`,
 `solve_fast_ensemble`) stacks instances block-diagonally and runs each
 level of its restart ladder as one adaptive dispatch of the same kernel
@@ -44,6 +50,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import device as _device
 from ..kernels import ops as kops
@@ -105,17 +112,18 @@ def _solve_lp_trivial(lp: StructuredLP) -> PDHGResult:
     return PDHGResult(x, 0.0, 0.0, 0, y=np.zeros(lp.m))
 
 
-def _ell_operator_cached(row, col, val, m, n):
+def _ell_operator_cached(row, col, val, m, n, shards: int | None = None):
     """Blocked-ELL pack with the layout plan cached per sparsity pattern.
 
     The plan (stable argsort, per-block widths, gather indices) depends
-    only on (row, col, m, n); re-solves over an unchanged structure
-    refresh the coefficient values in O(nnz) instead of re-packing
-    (`ell_fill`).  Keyed by a content digest, so equal patterns hit
-    regardless of which problem object produced them; counters land in
-    BUILD_STATS.  Lookup, insertion, eviction and the counters hold
+    only on (row, col, m, n) and, for the row-sharded operator, the
+    shard count; re-solves over an unchanged structure refresh the
+    coefficient values in O(nnz) instead of re-packing (`ell_fill`,
+    `ell_fill_sharded`).  Keyed by a content digest, so equal patterns
+    hit regardless of which problem object produced them; counters land
+    in BUILD_STATS.  Lookup, insertion, eviction and the counters hold
     _CACHE_LOCK (see there); the plan itself is built outside it."""
-    key = (m, n, len(val),
+    key = (m, n, len(val), shards,
            hashlib.blake2b(np.ascontiguousarray(row).tobytes()
                            + np.ascontiguousarray(col).tobytes(),
                            digest_size=16).digest())
@@ -125,25 +133,25 @@ def _ell_operator_cached(row, col, val, m, n):
             BUILD_STATS.ell_hits += 1
     if plan is None:
         t0 = time.perf_counter()
-        plan = pdhg_spmv.ell_plan(row, col, m, n)
+        plan = (pdhg_spmv.ell_plan(row, col, m, n) if shards is None
+                else pdhg_spmv.ell_plan_sharded(row, col, m, n, shards))
         with _CACHE_LOCK:
             BUILD_STATS.ell_misses += 1
             BUILD_STATS.ell_s += time.perf_counter() - t0
             _cache_put(_ELL_PLAN_CACHE, _ELL_PLAN_CACHE_MAX, key, plan)
-    return pdhg_spmv.ell_fill(plan, val)
+    if shards is None:
+        return pdhg_spmv.ell_fill(plan, val)
+    return pdhg_spmv.ell_fill_sharded(plan, val)
 
 
-def _pack_ell(c, row, col, val, b, h, xmax, m_eq, device: torch.device):
-    """Pack one (already max-normalized, xmax-clamped) LP for the burst:
-    blocked-ELL tables for both SpMV directions plus the storage-padded
-    vector arguments, as tensors on `device`.  Padded x-slots carry
-    tau=c=xmax=0 and padded y-slots sig=q=0 with ub=True, so they stay
-    pinned at zero through any number of iterations.
-
-    tau, sig and q are computed in float64 numpy and only then cast to
-    float32, exactly as the reference does."""
+def _lp_vectors(c, row, col, val, b, h, xmax, m_eq, n_pad, m_pad) -> tuple:
+    """The burst's storage-padded vector arguments (c, tau, xmax, q, sig,
+    ub) of one (already max-normalized, xmax-clamped) LP, as numpy
+    arrays.  Padded x-slots carry tau=c=xmax=0 and padded y-slots
+    sig=q=0 with ub=True, so they stay pinned at zero through any number
+    of iterations.  tau, sig and q are computed in float64 numpy and
+    only then cast to float32, exactly as the reference does."""
     n, m = len(c), len(b) + len(h)
-    op = _ell_operator_cached(row, col, val, m, n)
     q = np.concatenate([b, h])
     abs_val = np.abs(val)
     col_sum = np.zeros(n)
@@ -154,20 +162,125 @@ def _pack_ell(c, row, col, val, b, h, xmax, m_eq, device: torch.device):
     sig = 1.0 / np.maximum(row_sum, 1e-12)
     ub = np.arange(m) >= m_eq
 
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
     def padn(a):
-        return put(np.pad(np.asarray(a, np.float32), (0, op.n_pad - n)))
+        return np.pad(np.asarray(a, np.float32), (0, n_pad - n))
 
     def padm(a):
-        return put(np.pad(np.asarray(a, np.float32), (0, op.m_pad - m)))
+        return np.pad(np.asarray(a, np.float32), (0, m_pad - m))
 
-    vecs = (padn(c), padn(tau), padn(xmax), padm(q), padm(sig),
-            put(np.pad(ub, (0, op.m_pad - m), constant_values=True)))
-    ell = tuple(put(a) for a in (op.rows.idx, op.rows.val,
-                                 op.cols.idx, op.cols.val))
-    return op, vecs, ell
+    return (padn(c), padn(tau), padn(xmax), padm(q), padm(sig),
+            np.pad(ub, (0, m_pad - m), constant_values=True))
+
+
+def _put(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _pack_ell(c, row, col, val, b, h, xmax, m_eq, device: torch.device):
+    """Pack one (already max-normalized, xmax-clamped) LP for the burst:
+    blocked-ELL tables for both SpMV directions plus the storage-padded
+    vector arguments (_lp_vectors), as tensors on `device`."""
+    op = _ell_operator_cached(row, col, val, len(b) + len(h), len(c))
+    vecs = _lp_vectors(c, row, col, val, b, h, xmax, m_eq, op.n_pad,
+                       op.m_pad)
+    return (op, tuple(_put(a, device) for a in vecs),
+            tuple(_put(a, device) for a in (op.rows.idx, op.rows.val,
+                                            op.cols.idx, op.cols.val)))
+
+
+def _pack_sharded_host(c, row, col, val, b, h, xmax, m_eq, shards: int):
+    """The row-block-sharded operator (pdhg_spmv.ell_pack_sharded, its
+    plan cached per sparsity pattern) and _lp_vectors with the y side
+    padded to shards * m_loc (the concatenation of the per-shard row
+    blocks), on the host, in the global layout.  Padded rows carry
+    sig=q=0 / ub=True exactly as in the single-device pack, so they
+    never move and add nothing to the partials of K^T y."""
+    op = _ell_operator_cached(row, col, val, len(b) + len(h), len(c),
+                              shards)
+    return op, _lp_vectors(c, row, col, val, b, h, xmax, m_eq, op.n_pad,
+                           op.m_pad)
+
+
+def _pack_pallas_sharded(c, row, col, val, b, h, xmax, m_eq, shards: int,
+                         device: torch.device):
+    """_pack_ell for the row-block-sharded operator, bitwise the
+    reference's: every shard's tables and vectors in the global layout,
+    on `device` (the lockstep model's input; a rank of a sharded solve
+    puts only its own block there, see _sharded_burst)."""
+    op, vecs = _pack_sharded_host(c, row, col, val, b, h, xmax, m_eq,
+                                  shards)
+    return (op, tuple(_put(a, device) for a in vecs),
+            tuple(_put(a, device) for a in (op.row_idx, op.row_val,
+                                            op.col_idx, op.col_val)))
+
+
+def _sharded_burst(c, row, col, val, b, h, xmax, m_eq, shards: int,
+                   device: torch.device):
+    """Pack an LP for a row-sharded burst across the `shards` ranks of
+    runtime.sharding.solver_group (which raises unless torch.distributed
+    runs that many) and return (op, burst): burst(x, y, iters,
+    precision) runs kernels.ops.pdhg_burst_sharded on this rank's row
+    block and returns (x, y, worst), every vector in the global padded
+    layout (x n_pad, y and worst shards * m_loc) and the same on every
+    rank.  The pack is made on the host and only this rank's block
+    (its rows' vectors, its tables and work lists) and the replicated
+    x side go to `device`."""
+    from ..runtime.sharding import solver_group
+
+    group = solver_group(shards)
+    rank = dist.get_rank(group)
+    op, (c_, tau, xmax_, q, sig, ub) = _pack_sharded_host(
+        c, row, col, val, b, h, xmax, m_eq, shards)
+    rows = slice(rank * op.m_loc, (rank + 1) * op.m_loc)
+    rsize = pdhg_spmv.table_len(op.row_meta)
+    csize = pdhg_spmv.table_len(op.col_meta)
+    rt = slice(rank * rsize, (rank + 1) * rsize)
+    ct = slice(rank * csize, (rank + 1) * csize)
+    x_side = tuple(_put(a, device) for a in (c_, tau, xmax_))
+    y_side = tuple(_put(a[rows], device) for a in (q, sig, ub))
+    tables = (_put(op.row_idx[rt], device), _put(op.row_val[rt], device),
+              _put(op.col_idx[ct], device), _put(op.col_val[ct], device))
+    keep_n = torch.zeros(op.n_pad, dtype=torch.bool, device=device)
+    keep_m = torch.zeros(op.m_loc, dtype=torch.bool, device=device)
+    work = pdhg_spmv.sharded_work(op, device, [rank])
+
+    def burst(x, y, iters: int, precision: str):
+        return kops.pdhg_burst_sharded(
+            group, *x_side, *y_side, keep_n, keep_m, *tables, x, y[rows],
+            row_meta=op.row_meta, col_meta=op.col_meta, iters=iters,
+            precision=precision, **work)
+
+    return op, burst
+
+
+def _start(v0, n_true: int, n_pad: int, device: torch.device):
+    """A PDHG start vector: numpy v0 (or zeros) padded to n_pad."""
+    if v0 is None:
+        return torch.zeros(n_pad, dtype=torch.float32, device=device)
+    return _put(np.pad(np.asarray(v0, np.float32), (0, n_pad - n_true)),
+                device)
+
+
+def _restart_ladder(lp: StructuredLP, cscale: float, burst, x, y,
+                    iters: int, tol: float, max_restarts: int,
+                    precision: str) -> PDHGResult:
+    """solve_lp's warm-restart ladder: burst(x, y, iters, precision) ->
+    (x, y, worst) until the worst row's residual meets `tol`, doubling
+    `iters` each rung, at most `max_restarts` times."""
+    total_iters = 0
+    for attempt in range(max_restarts + 1):
+        x, y, worst = burst(x, y, iters, precision)
+        total_iters += iters
+        primal = float(worst.max())           # padded rows contribute 0
+        if primal <= tol:
+            break
+        iters *= 2
+    x_np = x.cpu().numpy()[:lp.n].astype(np.float64)
+    y_np = y.cpu().numpy()[:lp.m].astype(np.float64)
+    obj = float(lp.c @ x_np) / cscale
+    gap = abs(obj + float(np.concatenate([lp.b, lp.h]) @ y_np)) \
+        / (1.0 + abs(obj))
+    return PDHGResult(x_np, primal, gap, total_iters, y=y_np)
 
 
 def _solve_lp_ell(lp: StructuredLP, iters: int, tol: float,
@@ -182,50 +295,53 @@ def _solve_lp_ell(lp: StructuredLP, iters: int, tol: float,
     keep_m = torch.zeros(op.m_pad, dtype=torch.bool, device=device)
     work = pdhg_spmv.burst_work(op, device)
 
-    def start(v0, n_true, n_pad):
-        if v0 is None:
-            return torch.zeros(n_pad, dtype=torch.float32, device=device)
-        return torch.from_numpy(np.pad(np.asarray(v0, np.float32),
-                                       (0, n_pad - n_true))).to(device)
-
-    x = start(x0, lp.n, op.n_pad)
-    y = start(y0, lp.m, op.m_pad)
-    total_iters = 0
-    for attempt in range(max_restarts + 1):
-        x, y, worst = kops.pdhg_burst(
+    def burst(x, y, iters, precision):
+        return kops.pdhg_burst(
             *vecs, keep_n, keep_m, *ell, x, y,
             row_meta=op.rows.meta, col_meta=op.cols.meta, iters=iters,
             precision=precision, **work)
-        total_iters += iters
-        primal = float(worst.max())           # padded rows contribute 0
-        if primal <= tol:
-            break
-        iters *= 2
-    x_np = x.cpu().numpy()[:lp.n].astype(np.float64)
-    y_np = y.cpu().numpy()[:lp.m].astype(np.float64)
-    obj = float(lp.c @ x_np) / cscale
-    gap = abs(obj + float(np.concatenate([lp.b, lp.h]) @ y_np)) \
-        / (1.0 + abs(obj))
-    return PDHGResult(x_np, primal, gap, total_iters, y=y_np)
+
+    return _restart_ladder(lp, cscale, burst,
+                           _start(x0, lp.n, op.n_pad, device),
+                           _start(y0, lp.m, op.m_pad, device), iters, tol,
+                           max_restarts, precision)
+
+
+def _solve_lp_pallas_sharded(lp: StructuredLP, iters: int, tol: float,
+                             max_restarts: int, x0, y0, shards: int,
+                             device: str | torch.device = "cuda",
+                             precision: str = "fp32") -> PDHGResult:
+    """_solve_lp_ell with the [eq; ub] rows partitioned across the
+    `shards` ranks of runtime.sharding.solver_group and each rung one
+    row-sharded burst (kernels.ops.pdhg_burst_sharded: one collective an
+    iteration for K^T y).  Every rank calls it with the same LP and gets
+    the same result.  solve_lp engages it for shards > 1 only, so the
+    single-device trajectory stays bit-for-bit untouched; at one shard
+    it equals that trajectory bitwise."""
+    dev = _device.resolve(device)
+    xmax = np.where(np.isfinite(lp.xmax), lp.xmax, 1e12)
+    cscale = max(float(np.abs(lp.c).max(initial=0.0)), 1e-12)
+    op, burst = _sharded_burst(lp.c / cscale, lp.row, lp.col, lp.val, lp.b,
+                               lp.h, xmax, lp.m_eq, shards, dev)
+    return _restart_ladder(lp, cscale, burst,
+                           _start(x0, lp.n, op.n_pad, dev),
+                           _start(y0, lp.m, op.m_pad, dev), iters, tol,
+                           max_restarts, precision)
 
 
 PRECISIONS = ("fp32", "bf16")
 
 
 def _check_scale_opts(shards: int, precision: str) -> None:
-    """Validate the reference's scale knobs.  Both precisions are ported
-    (bf16 stores the iterates in bfloat16 between iterations, fp32
-    arithmetic); the row-sharded operator (shards > 1) is not yet
-    (ROADMAP.md, queue 1 item 10)."""
+    """Validate the reference's scale knobs: the precision (bf16 stores
+    the iterates in bfloat16 between iterations, fp32 arithmetic) and
+    the shard count (> 1: the row-sharded operator across that many
+    torch.distributed ranks)."""
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; "
                          f"have {PRECISIONS}")
     if shards < 1:
         raise ValueError(f"shards must be >= 1, got {shards}")
-    if shards > 1:
-        raise NotImplementedError(
-            "shards > 1 (row-sharded PDHG) is not ported yet: ROADMAP.md "
-            "queue 1 item 10, scale knobs")
 
 
 def solve_lp(lp: StructuredLP, iters: int = 4000, *,
@@ -243,18 +359,29 @@ def solve_lp(lp: StructuredLP, iters: int = 4000, *,
 
     `precision="bf16"` stores the PDHG iterates in bfloat16 between
     iterations, with fp32 arithmetic and residuals (the kernel's
-    pdhg_burst_bf16 entry); `shards` > 1 is not ported yet and raises
-    NotImplementedError.
+    pdhg_burst_bf16 entry).
+
+    `shards` > 1 partitions the constraint rows across that many
+    torch.distributed ranks (runtime.sharding.solver_group: every rank
+    calls solve_lp with the same LP, as `torchrun --nproc-per-node
+    shards` runs them; ValueError when the world is not initialized with
+    `shards` ranks), each rung one row-sharded burst with one
+    collective an iteration; every rank returns the same result.
+    shards=1 leaves the single-device trajectory bit-for-bit untouched.
 
     `device="cuda"` (the default) runs each rung as one burst of the CUDA
-    kernel and raises RuntimeError when no card is available;
-    `device="cpu"` runs the kernel's plain PyTorch version."""
+    kernel (sharded: the kernel's split entries) and raises RuntimeError
+    when no card is available; `device="cpu"` runs the kernel's plain
+    PyTorch version."""
     dev = _device.resolve(device)
     _check_scale_opts(shards, precision)
     if tol is None:
         tol = 1e-4 * max(float(np.abs(lp.b).max(initial=0.0)), 1.0)
     if lp.n == 0 or lp.m == 0:
         return _solve_lp_trivial(lp)
+    if shards > 1:
+        return _solve_lp_pallas_sharded(lp, iters, tol, max_restarts, x0,
+                                        y0, shards, dev, precision)
     return _solve_lp_ell(lp, iters, tol, max_restarts, x0, y0, dev,
                          precision)
 
@@ -1034,7 +1161,8 @@ def solve_fast(p: ScheduleProblem, objective: str = "energy", *,
       tol: primal-residual target in Gbits; default 1e-4 * max demand.
       shards, precision: the reference's scale knobs.  precision "fp32"
         or "bf16" (bf16 iterate storage, fp32 arithmetic); shards > 1
-        is not ported yet and raises NotImplementedError.
+        row-shards the LP across that many torch.distributed ranks
+        (see solve_lp).
       x0, y0: numpy PDHG warm start (see solve_lp).
       device: "cuda" (default; raises when no card is available) or
         "cpu" (the kernel's plain PyTorch version).
@@ -1147,10 +1275,13 @@ def solve_lp_batch(lps: list[StructuredLP], iters: int = 4000, *,
     `bucket` is accepted and has no effect, as in the reference's pallas
     branch: the blocked-ELL packer's padded grid is the dispatch shape.
     `precision="bf16"` stores the iterates in bfloat16 between
-    iterations; `shards` > 1 is not ported yet and raises
-    NotImplementedError.  `device` as in solve_lp: "cuda" (default,
-    the CUDA kernel; raises without a card) or "cpu" (its plain
-    version).
+    iterations.  `shards` > 1 row-partitions each stacked dispatch
+    across that many torch.distributed ranks (see solve_lp) and runs
+    fixed sharded bursts, with no in-dispatch adaptive loop: the outer
+    re-stacking ladder and its host-side per-instance residual check
+    supply the convergence control, as in the reference.  `device` as
+    in solve_lp: "cuda" (default, the CUDA kernel; raises without a
+    card) or "cpu" (its plain version).
 
     Determinism: no RNG and fixed-order sums in the kernel, so results
     repeat bitwise on one device for fixed inputs."""
@@ -1166,17 +1297,25 @@ def solve_lp_batch(lps: list[StructuredLP], iters: int = 4000, *,
                  sub: list[int], budget: int):
         """One stacked dispatch through the burst kernel: pack the
         stacked LP into blocked ELL, then run the adaptive driver (or
-        one fixed burst)."""
+        one fixed burst; one fixed sharded burst for shards > 1)."""
+        if shards > 1:
+            op, burst = _sharded_burst(g.c, g.row, g.col, g.val, g.b, g.h,
+                                       g.xmax, g.m_eq, shards, dev)
+            _note_dispatch(("pallas-sharded", shards, precision, budget,
+                            op.n_pad, op.m_pad, len(sub)))
+            x, y, _ = burst(_start(x0, g.n, op.n_pad, dev),
+                            _start(y0, g.m, op.m_pad, dev), budget,
+                            precision)
+            return (x.cpu().numpy()[:g.n], y.cpu().numpy()[:g.m],
+                    np.full(len(sub), budget))
         op, vecs, ell = _pack_ell(g.c, g.row, g.col, g.val, g.b, g.h,
                                   g.xmax, g.m_eq, dev)
         # the blocked-ELL packer's padded grid is the dispatch shape
         _note_dispatch(("pallas", adaptive, chunk if adaptive else 0,
                         budget, op.n_pad, op.m_pad, len(sub)))
         work = pdhg_spmv.burst_work(op, dev)
-        x0p = torch.from_numpy(np.pad(np.asarray(x0, np.float32),
-                                      (0, op.n_pad - g.n))).to(dev)
-        y0p = torch.from_numpy(np.pad(np.asarray(y0, np.float32),
-                                      (0, op.m_pad - g.m))).to(dev)
+        x0p = _start(x0, g.n, op.n_pad, dev)
+        y0p = _start(y0, g.m, op.m_pad, dev)
         if adaptive:
             # storage coordinate -> instance id; padded slots go to the
             # dump segment len(sub) (always treated as frozen/converged)

@@ -4,6 +4,11 @@
 // (pl.pallas_call of _burst_kernel, body pdhg_update_burst, SpMV spmv_blocks),
 // in both of its iterate storage types: fp32 (pdhg_burst_f32) and bf16
 // storage with fp32 arithmetic (pdhg_burst_bf16, the body's bf16 branch).
+// The split entries at the end (pdhg_split_*) replace the sharded form of
+// the same body, src/repro/kernels/pdhg_spmv.py::pdhg_update_burst_sharded
+// (plain jnp under shard_map there, no pallas_call): the same step, cut
+// into plain launches around the one collective of a row-sharded
+// iteration (see the note above them).
 //
 // What bounds it on this card.  One iteration reads both ELL tables once
 // (8 bytes a slot: int32 index + fp32 value) and a handful of fp32 vectors:
@@ -168,11 +173,53 @@ __device__ __forceinline__ void row_sums(const Direction& d,
   }
 }
 
+// The constant vectors of the update: x side (n_pad) c, tau, xmax,
+// keep_n; y side (the rows a launch owns) q, sig, ub, keep_m.
+struct Vecs {
+  const float *c, *tau, *xmax, *q, *sig;
+  const uint8_t *ub, *keep_n, *keep_m;
+};
+
+// The update's three formulas, shared by the fused burst and the split
+// entries so that the two cannot drift apart.
+//
+// Primal, coordinate i, given kty = (K^T y)_i: x' = clip(x - tau (c +
+// kty), 0, xmax), held where keep_n; stores x' in the storage type and
+// xbar = 2x' - x from the unrounded x'.
+template <typename T>
+__device__ __forceinline__ void primal_step(const Vecs& v, int i, float xi,
+                                            float kty, T* xn,
+                                            float* x_bar) {
+  float x1 = fminf(fmaxf(xi - __ldg(v.tau + i) * (__ldg(v.c + i) + kty),
+                         0.0f),
+                   __ldg(v.xmax + i));
+  if (__ldg(v.keep_n + i)) x1 = xi;
+  xn[i] = narrow<T>(x1);
+  x_bar[i] = 2.0f * x1 - xi;
+}
+
+// Dual, row r, given kx = (K xbar)_r: y' = y + sig (kx - q), max(., 0) on
+// inequality rows, held where keep_m.
+__device__ __forceinline__ float dual_value(const Vecs& v, int r, float yr,
+                                            float kx) {
+  float y1 = yr + __ldg(v.sig + r) * (kx - __ldg(v.q + r));
+  if (__ldg(v.ub + r)) y1 = fmaxf(y1, 0.0f);
+  if (__ldg(v.keep_m + r)) y1 = yr;
+  return y1;
+}
+
+// Residual, row r, given kx = (K x)_r: |kx - q| on equality rows,
+// max(kx - q, 0) on inequalities.
+__device__ __forceinline__ float residual_value(const Vecs& v, int r,
+                                                float kx) {
+  const float d = kx - __ldg(v.q + r);
+  return __ldg(v.ub + r) ? fmaxf(d, 0.0f) : fabsf(d);
+}
+
 template <typename T>
 struct Burst {
   int n_pad, m_pad, iters;
-  const float *c, *tau, *xmax, *q, *sig;
-  const uint8_t *ub, *keep_n, *keep_m;
+  Vecs v;
   Direction rows, cols;     // K x (one stored row a constraint), K^T y
   const float *x0, *y0;
   float *x_out, *y_out, *worst, *x_bar;
@@ -216,22 +263,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     T* const yn = (k & 1) ? p.ys[1] : p.ys[0];
     // primal: x' = clip(x - tau (c + K^T y), 0, xmax), xbar = 2x' - x
     row_sums(p.cols, y, warp, n_warps, lane, [&](int i, float kty) {
-      const float xi = load(x + i);
-      float v = fminf(fmaxf(xi - __ldg(p.tau + i) * (__ldg(p.c + i) + kty),
-                            0.0f),
-                      __ldg(p.xmax + i));
-      if (__ldg(p.keep_n + i)) v = xi;
-      xn[i] = narrow<T>(v);
-      p.x_bar[i] = 2.0f * v - xi;
+      primal_step(p.v, i, load(x + i), kty, xn, p.x_bar);
     });
     grid.sync();
     // dual: y' = y + sig (K xbar - q), max(., 0) on inequality rows
     row_sums(p.rows, p.x_bar, warp, n_warps, lane, [&](int r, float kx) {
-      const float yr = load(y + r);
-      float v = yr + __ldg(p.sig + r) * (kx - __ldg(p.q + r));
-      if (__ldg(p.ub + r)) v = fmaxf(v, 0.0f);
-      if (__ldg(p.keep_m + r)) v = yr;
-      yn[r] = narrow<T>(v);
+      yn[r] = narrow<T>(dual_value(p.v, r, load(y + r), kx));
     });
     grid.sync();
     x = xn;
@@ -250,10 +287,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
   // residual: |K x - q| on equality rows, max(K x - q, 0) on inequalities
   row_sums(p.rows, static_cast<const float*>(p.x_out), warp, n_warps, lane,
-           [&](int r, float kx) {
-             const float d = kx - __ldg(p.q + r);
-             p.worst[r] = __ldg(p.ub + r) ? fmaxf(d, 0.0f) : fabsf(d);
-           });
+           [&](int r, float kx) { p.worst[r] = residual_value(p.v, r, kx); });
 }
 
 // Blocks of the kernel that fit on `device` at once (0 on an error).
@@ -298,6 +332,145 @@ Direction direction(int bm, int n_items, const int64_t* off,
                    reinterpret_cast<const int2*>(items)};
 }
 
+// ---------------------------------------------------------------------------
+// The split entries: the same step, cut where a collective must come in.
+//
+// A row-sharded burst (kernels.ops.pdhg_burst_sharded) gives each shard
+// a block of the constraint rows; its K^T y is the sum over shards of
+// each shard's partial K^T_loc y_loc, which needs all of them before any
+// x can move.  One cooperative launch cannot wait on a collective, so
+// an iteration is three plain launches with the collective between the
+// first two:
+//
+//   split_kty      partial[i] = (K^T_loc y_loc)_i, every column, in the
+//                  lane-split order (row_sums, as the fused kernel);
+//   (the caller gathers every shard's partial, in shard order)
+//   split_primal   g_i = ((p_0 + p_1) + p_2) + ..., then primal_step;
+//   split_dual     the shard's rows: dual_value on K_loc xbar;
+//
+// and split_residual ends the burst.  Each is a grid-stride loop, so any
+// grid gives the same bits; with one shard, g = p_0 is the fused
+// kernel's kty, and the split burst equals the fused one bitwise.  The
+// launches are plain (not cooperative), so ranks that share a card may
+// interleave theirs.  Bound: the fused burst's bytes, plus the partials
+// written once and read once a step.
+// ---------------------------------------------------------------------------
+
+// x0/y0 in the storage type (fp32 copied, bf16 rounded to nearest even)
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    split_init(int n, int m, const float* x0, const float* y0, T* x, T* y) {
+  const int stride = gridDim.x * kThreads;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += stride)
+    x[i] = narrow<T>(__ldg(x0 + i));
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < m; i += stride)
+    y[i] = narrow<T>(__ldg(y0 + i));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    split_kty(const Direction cols, const T* y, float* part) {
+  const int warp = (threadIdx.x >> 5) * gridDim.x + blockIdx.x;
+  row_sums(cols, y, warp, (gridDim.x * kThreads) >> 5, threadIdx.x & 31,
+           [&](int i, float s) { part[i] = s; });
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    split_primal(int n_pad, int shards, const float* parts, const Vecs v,
+                 const T* x, T* xn, float* x_bar) {
+  const int stride = gridDim.x * kThreads;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n_pad;
+       i += stride) {
+    float g = parts[i];
+    for (int s = 1; s < shards; ++s) g += parts[(int64_t)s * n_pad + i];
+    primal_step(v, i, load(x + i), g, xn, x_bar);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    split_dual(const Direction rows, const Vecs v, const float* x_bar,
+               const T* y, T* yn) {
+  const int warp = (threadIdx.x >> 5) * gridDim.x + blockIdx.x;
+  row_sums(rows, x_bar, warp, (gridDim.x * kThreads) >> 5, threadIdx.x & 31,
+           [&](int r, float kx) {
+             yn[r] = narrow<T>(dual_value(v, r, load(y + r), kx));
+           });
+}
+
+// the burst's fp32 outputs: x widened (when x_out is not null), the
+// shard's y widened, and its rows' residual on the stored x (widening is
+// exact, so gathering the stored x equals gathering x_out)
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    split_residual(const Direction rows, int n_pad, int m_loc, const Vecs v,
+                   const T* x, const T* y, float* x_out, float* y_out,
+                   float* worst) {
+  const int stride = gridDim.x * kThreads;
+  const int tid = blockIdx.x * kThreads + threadIdx.x;
+  if (x_out != nullptr)
+    for (int i = tid; i < n_pad; i += stride) x_out[i] = load(x + i);
+  for (int i = tid; i < m_loc; i += stride) y_out[i] = load(y + i);
+  const int warp = (threadIdx.x >> 5) * gridDim.x + blockIdx.x;
+  row_sums(rows, x, warp, (gridDim.x * kThreads) >> 5, threadIdx.x & 31,
+           [&](int r, float kx) { worst[r] = residual_value(v, r, kx); });
+}
+
+// blocks for a grid-stride loop over n elements, or over n warp tasks
+int elem_blocks(int n) { return n > 0 ? (n + kThreads - 1) / kThreads : 1; }
+int task_blocks(int n) {
+  constexpr int warps = kThreads / 32;
+  return n > 0 ? (n + warps - 1) / warps : 1;
+}
+
+int last_error() { return static_cast<int>(cudaGetLastError()); }
+
+template <typename T>
+int split_init_launch(int n, int m, const float* x0, const float* y0, T* x,
+                      T* y, void* stream) {
+  split_init<T><<<elem_blocks(n > m ? n : m), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(n, m, x0, y0, x, y);
+  return last_error();
+}
+
+template <typename T>
+int split_kty_launch(Direction cols, const T* y, float* part, void* stream) {
+  split_kty<T><<<task_blocks(cols.n_items), kThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(cols, y, part);
+  return last_error();
+}
+
+template <typename T>
+int split_primal_launch(int n_pad, int shards, const float* parts, Vecs v,
+                        const T* x, T* xn, float* x_bar, void* stream) {
+  split_primal<T><<<elem_blocks(n_pad), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      n_pad, shards, parts, v, x, xn, x_bar);
+  return last_error();
+}
+
+template <typename T>
+int split_dual_launch(Direction rows, Vecs v, const float* x_bar, const T* y,
+                      T* yn, void* stream) {
+  split_dual<T><<<task_blocks(rows.n_items), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(rows, v, x_bar, y,
+                                                       yn);
+  return last_error();
+}
+
+template <typename T>
+int split_residual_launch(Direction rows, int n_pad, int m_loc, Vecs v,
+                          const T* x, const T* y, float* x_out, float* y_out,
+                          float* worst, void* stream) {
+  const int tasks = task_blocks(rows.n_items);
+  const int elems = elem_blocks(n_pad > m_loc ? n_pad : m_loc);
+  split_residual<T><<<tasks > elems ? tasks : elems, kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      rows, n_pad, m_loc, v, x, y, x_out, y_out, worst);
+  return last_error();
+}
+
 }  // namespace
 
 // The arguments of both entries, in this order:
@@ -329,8 +502,7 @@ extern "C" int pdhg_burst_f32(
   p.n_pad = n_pad;
   p.m_pad = m_pad;
   p.iters = iters;
-  p.c = c; p.tau = tau; p.xmax = xmax; p.q = q; p.sig = sig;
-  p.ub = ub; p.keep_n = keep_n; p.keep_m = keep_m;
+  p.v = Vecs{c, tau, xmax, q, sig, ub, keep_n, keep_m};
   p.rows = direction(row_bm, row_items_n, row_off, row_w, row_idx, row_val,
                      row_len, row_order, row_items);
   p.cols = direction(col_bm, col_items_n, col_off, col_w, col_idx, col_val,
@@ -364,8 +536,7 @@ extern "C" int pdhg_burst_bf16(
   p.n_pad = n_pad;
   p.m_pad = m_pad;
   p.iters = iters;
-  p.c = c; p.tau = tau; p.xmax = xmax; p.q = q; p.sig = sig;
-  p.ub = ub; p.keep_n = keep_n; p.keep_m = keep_m;
+  p.v = Vecs{c, tau, xmax, q, sig, ub, keep_n, keep_m};
   p.rows = direction(row_bm, row_items_n, row_off, row_w, row_idx, row_val,
                      row_len, row_order, row_items);
   p.cols = direction(col_bm, col_items_n, col_off, col_w, col_idx, col_val,
@@ -384,3 +555,62 @@ extern "C" int pdhg_burst_bf16(
 extern "C" int pdhg_burst_max_blocks(int bf16, int device) {
   return bf16 ? max_blocks<__nv_bfloat16>(device) : max_blocks<float>(device);
 }
+
+
+// The split entries (see above), in fp32 (_f32) and bf16 (_bf16) storage
+// of the iterates x and y: T* below is float* or __nv_bfloat16*.  A
+// direction is passed as bm, n_items, block offsets (int64), block
+// widths, slot indices, slot values, row lengths, row order and warp
+// tasks (int32 pairs), as in the fused entries, for one shard.  Each
+// entry is one plain launch on `stream`; it returns 0, or the CUDA error
+// of a launch the runtime refused.
+#define PDHG_DIR_ARGS                                                   \
+  int bm, int n_items, const int64_t *off, const int *w, const int *idx, \
+      const float *val, const int *len, const int *order, const int *items
+#define PDHG_DIR direction(bm, n_items, off, w, idx, val, len, order, items)
+
+#define PDHG_SPLIT_ENTRIES(SUFFIX, T)                                        \
+  /* x (n) and y (m) in storage from fp32 x0 and y0 */                       \
+  extern "C" int pdhg_split_init_##SUFFIX(int n, int m, const float* x0,     \
+                                          const float* y0, T* x, T* y,       \
+                                          void* stream) {                    \
+    return split_init_launch<T>(n, m, x0, y0, x, y, stream);                 \
+  }                                                                          \
+  /* part (n_pad fp32) = K^T_loc y_loc over the shard's column pack */       \
+  extern "C" int pdhg_split_kty_##SUFFIX(PDHG_DIR_ARGS, const T* y,          \
+                                         float* part, void* stream) {        \
+    return split_kty_launch<T>(PDHG_DIR, y, part, stream);                   \
+  }                                                                          \
+  /* x' and xbar from the shards' partials (shards x n_pad, shard order) */ \
+  extern "C" int pdhg_split_primal_##SUFFIX(                                 \
+      int n_pad, int shards, const float* parts, const float* c,             \
+      const float* tau, const float* xmax, const uint8_t* keep_n,            \
+      const T* x, T* xn, float* x_bar, void* stream) {                       \
+    return split_primal_launch<T>(                                           \
+        n_pad, shards, parts,                                                \
+        Vecs{c, tau, xmax, nullptr, nullptr, nullptr, keep_n, nullptr}, x,   \
+        xn, x_bar, stream);                                                  \
+  }                                                                          \
+  /* y' of the shard's rows from K_loc xbar */                               \
+  extern "C" int pdhg_split_dual_##SUFFIX(                                   \
+      PDHG_DIR_ARGS, const float* q, const float* sig, const uint8_t* ub,    \
+      const uint8_t* keep_m, const float* x_bar, const T* y, T* yn,          \
+      void* stream) {                                                        \
+    return split_dual_launch<T>(                                             \
+        PDHG_DIR,                                                            \
+        Vecs{nullptr, nullptr, nullptr, q, sig, ub, nullptr, keep_m}, x_bar, \
+        y, yn, stream);                                                      \
+  }                                                                          \
+  /* fp32 x_out (n_pad; skipped when null), y_out and worst (m_loc) */       \
+  extern "C" int pdhg_split_residual_##SUFFIX(                               \
+      PDHG_DIR_ARGS, int n_pad, int m_loc, const float* q,                   \
+      const uint8_t* ub, const T* x, const T* y, float* x_out,               \
+      float* y_out, float* worst, void* stream) {                            \
+    return split_residual_launch<T>(                                         \
+        PDHG_DIR, n_pad, m_loc,                                              \
+        Vecs{nullptr, nullptr, nullptr, q, nullptr, ub, nullptr, nullptr}, x, \
+        y, x_out, y_out, worst, stream);                                     \
+  }
+
+PDHG_SPLIT_ENTRIES(f32, float)
+PDHG_SPLIT_ENTRIES(bf16, __nv_bfloat16)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.distributed as dist
 
 from . import build
 from . import flash_attention as fa
@@ -26,6 +27,15 @@ PDHG_BURST_LAUNCHES = 0
 PDHG_BURST_BF16_LAUNCHES = 0
 # calls of the adaptive driver on the card (each runs one burst a chunk)
 PDHG_ADAPTIVE_CALLS = 0
+# launches of the burst kernel's split entries on the card, either storage
+# type (a row-sharded burst: per iteration a partial K^T y launch a local
+# shard, one primal and one dual launch a shard; one start and one
+# residual launch a burst)
+PDHG_SPLIT_LAUNCHES = 0
+# of which with bf16-stored iterates
+PDHG_SPLIT_BF16_LAUNCHES = 0
+# calls of the row-sharded burst on the card
+PDHG_SHARDED_CALLS = 0
 # launches of the flash-attention kernel on the card (one a call)
 FLASH_ATTENTION_LAUNCHES = 0
 # launches of the RG-LRU scan kernel on the card (one a call)
@@ -228,6 +238,230 @@ def pdhg_burst(c, tau, xmax, q, sig, ub, keep_n, keep_m,
     if precision == "bf16":
         PDHG_BURST_BF16_LAUNCHES += 1
     return x_out, y_out, worst
+
+
+# the split entries of pdhg_burst.cu: name -> argument kinds after the
+# direction's (i: int, p: pointer); every entry ends with the stream
+_DIRECTION = "ii" + "p" * 7
+_SPLIT_ARGS = {"init": "iipppp", "kty": _DIRECTION + "pp",
+               "primal": "ii" + "p" * 8, "dual": _DIRECTION + "p" * 7,
+               "residual": _DIRECTION + "ii" + "p" * 7}
+_CTYPES = {"i": ctypes.c_int, "p": ctypes.c_void_p}
+
+
+def _split_lib() -> ctypes.CDLL:
+    lib = _burst_lib()
+    if lib.pdhg_split_init_f32.argtypes is None:
+        for name, kinds in _SPLIT_ARGS.items():
+            for sfx in ("f32", "bf16"):
+                fn = getattr(lib, f"pdhg_split_{name}_{sfx}")
+                fn.argtypes = [_CTYPES[k] for k in kinds] + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+    return lib
+
+
+class ShardGather:
+    """The row-sharded burst's collective: every rank's (k, L) block of a
+    tensor, stacked in rank order into (world * k, L) on its device, on
+    every rank, into buffers kept across calls.  An all_gather, so each
+    rank then sums the same partials in the same order
+    (pdhg_spmv.ordered_sum); an all_reduce would leave the order to the
+    backend.  gloo takes CUDA tensors as they are, but a gather through
+    pinned host memory of our own is faster (PERF.md, phase 30): a copy
+    to the host (which waits for the stream), the gather there, and a
+    copy back on the current stream.  The next call's copy to the host
+    waits for that one, so the buffers are reused safely; over NCCL the
+    collective is ordered with the current stream."""
+
+    def __init__(self, group, shape, dtype, device):
+        self.group = group
+        world = dist.get_world_size(group)
+        n = shape[0] * (shape[1] if len(shape) > 1 else 1)
+        self.shape = (world * shape[0], *shape[1:])
+        self.out = torch.empty((world, n), dtype=dtype, device=device)
+        self.stage = (device.type == "cuda"
+                      and dist.get_backend(group) != "nccl")
+        if self.stage:
+            self.host_in = torch.empty(n, dtype=dtype, pin_memory=True)
+            self.host_out = torch.empty((world, n), dtype=dtype,
+                                        pin_memory=True)
+            self.rows = list(self.host_out.unbind(0))
+        else:
+            self.rows = list(self.out.unbind(0))
+
+    def __call__(self, t):
+        if self.stage:
+            self.host_in.copy_(t.reshape(-1))
+            dist.all_gather(self.rows, self.host_in, group=self.group)
+            self.out.copy_(self.host_out, non_blocking=True)
+        else:
+            dist.all_gather(self.rows, t.reshape(-1), group=self.group)
+        return self.out.view(self.shape)
+
+
+def gather_shards(t, group):
+    """ShardGather once: `t`'s (k, L) blocks of every rank in rank order,
+    (world * k, L); `group` None is a world of this process alone."""
+    if group is None:
+        return t
+    return ShardGather(group, tuple(t.shape), t.dtype, t.device)(t)
+
+
+def pdhg_burst_sharded(group, c, tau, xmax, q, sig, ub, keep_n, keep_m,
+                       row_idx, row_val, col_idx, col_val, x0, y0, *,
+                       row_meta: tuple, col_meta: tuple, iters: int,
+                       precision: str = "fp32", row_work=None,
+                       col_work=None):
+    """One `iters`-iteration PDHG burst over a row-block-sharded operator,
+    run by every rank of `group` (a torch.distributed process group, see
+    runtime.sharding.solver_group; None: this process holds every shard).
+
+    The layout is kernels.pdhg_spmv.ell_pack_sharded's.  Each rank
+    passes the replicated x side (c, tau, xmax, keep_n, x0; n_pad) and
+    its own k consecutive shards: the y side (q, sig, ub, keep_m, y0;
+    k * m_loc) and their tables (k shards' tables, shard-major), with
+    each shard's work lists (`row_work` / `col_work`, k triples each, as
+    pdhg_spmv.sharded_work gives them; required on the card).  The one
+    collective an iteration gathers the S = world * k partials of K^T y
+    (gather_shards) and sums them in shard order, so x is bitwise the
+    same on every rank and equal to one process stepping all S shards.
+    Returns (x, y, worst), y and worst gathered to the global layout
+    (S * m_loc) on every rank.
+
+    On CUDA tensors each iteration is the split entries of
+    kernels/csrc/pdhg_burst.cu on the current stream (a partial launch
+    a local shard, the collective, a primal launch, a dual launch a
+    local shard), after one start launch and before one residual launch
+    a local shard; a launch the card refuses raises.  On CPU tensors it
+    is the plain body, kernels.pdhg_spmv.pdhg_update_burst_sharded."""
+    global PDHG_SPLIT_LAUNCHES, PDHG_SPLIT_BF16_LAUNCHES, PDHG_SHARDED_CALLS
+    if precision not in _BURST_ENTRY:
+        raise ValueError(f"unknown precision {precision!r}; "
+                         f"have {tuple(_BURST_ENTRY)}")
+    m_loc = row_meta[3]
+    k = max(y0.shape[0] // m_loc, 1)
+    # the shard checks of pdhg_burst on a k-shard layout
+    shard_meta = tuple(row_meta[:3]) + (k * m_loc,)
+    rsize, csize = ps.table_len(row_meta), ps.table_len(col_meta)
+    named = dict(c=c, tau=tau, xmax=xmax, q=q, sig=sig, ub=ub,
+                 keep_n=keep_n, keep_m=keep_m, x0=x0, y0=y0)
+    device = _check_burst_args(
+        dict(named, row_idx=row_idx[:rsize], row_val=row_val[:rsize],
+             col_idx=col_idx[:csize], col_val=col_val[:csize]),
+        shard_meta, col_meta, iters)
+    for name, t, size in (("row_idx", row_idx, rsize),
+                          ("row_val", row_val, rsize),
+                          ("col_idx", col_idx, csize),
+                          ("col_val", col_val, csize)):
+        if t.shape[0] != k * size or t.device != device:
+            raise ValueError(f"pdhg_burst_sharded: {name} must hold {k} "
+                             f"shards' tables ({k * size} slots on "
+                             f"{device}), got {tuple(t.shape)} on "
+                             f"{t.device}")
+    for name, work, meta in (("row_work", row_work, row_meta),
+                             ("col_work", col_work, col_meta)):
+        if work is not None or device.type == "cuda":
+            if not isinstance(work, (list, tuple)) or len(work) != k:
+                raise ValueError(f"pdhg_burst_sharded: {name} must list "
+                                 f"the work lists of the {k} local shards")
+            for w in work:
+                _check_work(name, w, meta, device)
+    world = 1 if group is None else dist.get_world_size(group)
+
+    def gather_rows(t):
+        return gather_shards(t.view(k, -1), group).reshape(-1)
+
+    if device.type == "cpu":
+        reduce = None if group is None else (
+            lambda parts: ps.ordered_sum(
+                list(gather_shards(torch.stack(parts), group).unbind(0))))
+        x, y, worst = ps.pdhg_update_burst_sharded(
+            x0, y0, c, tau, xmax, q, sig, ub, keep_n, keep_m, row_idx,
+            row_val, col_idx, col_val, row_meta=row_meta, col_meta=col_meta,
+            iters=iters, reduce=reduce, precision=precision,
+            row_work=row_work, col_work=col_work)
+        return x, gather_rows(y), gather_rows(worst)
+    if device.type != "cuda":
+        raise ValueError(f"pdhg_burst_sharded runs on cuda or cpu tensors, "
+                         f"got {device}")
+    lib = _split_lib()
+    sfx = "bf16" if precision == "bf16" else "f32"
+    store = torch.bfloat16 if precision == "bf16" else _F32
+    n_pad = col_meta[3]
+    row_off, row_w = _meta_tensors(row_meta, device)
+    col_off, col_w = _meta_tensors(col_meta, device)
+
+    def direction(meta, off, w, idx, val, size, work, s):
+        lengths, order, items = work[s]
+        return (int(meta[2]), items.shape[0], off.data_ptr(), w.data_ptr(),
+                idx[s * size:].data_ptr(), val[s * size:].data_ptr(),
+                lengths.data_ptr(), order.data_ptr(), items.data_ptr())
+
+    def local(t, s):
+        return t[s * m_loc:].data_ptr()
+
+    xs = [torch.empty(n_pad, dtype=store, device=device) for _ in range(2)]
+    ys = [torch.empty(k * m_loc, dtype=store, device=device)
+          for _ in range(2)]
+    parts = torch.empty((k, n_pad), dtype=_F32, device=device)
+    x_bar, x_out = (torch.empty(n_pad, dtype=_F32, device=device)
+                    for _ in range(2))
+    y_out, worst = (torch.empty(k * m_loc, dtype=_F32, device=device)
+                    for _ in range(2))
+    gather = (None if group is None
+              else ShardGather(group, (k, n_pad), _F32, device))
+    # every pointer of every launch, for either parity of the ping-pong
+    # buffers, computed once: an iteration is then three C calls and
+    # the collective
+    rows = [direction(row_meta, row_off, row_w, row_idx, row_val, rsize,
+                      row_work, s) for s in range(k)]
+    cols = [direction(col_meta, col_off, col_w, col_idx, col_val, csize,
+                      col_work, s) for s in range(k)]
+    kty = [[(*cols[s], local(ys[a], s), parts[s].data_ptr())
+            for s in range(k)] for a in range(2)]
+    dual = [[(*rows[s], local(q, s), local(sig, s), local(ub, s),
+              local(keep_m, s), x_bar.data_ptr(), local(ys[a], s),
+              local(ys[1 - a], s)) for s in range(k)] for a in range(2)]
+    primal = [(c.data_ptr(), tau.data_ptr(), xmax.data_ptr(),
+               keep_n.data_ptr(), xs[a].data_ptr(), xs[1 - a].data_ptr(),
+               x_bar.data_ptr()) for a in range(2)]
+    fns = {name: getattr(lib, f"pdhg_split_{name}_{sfx}")
+           for name in _SPLIT_ARGS}
+    launched = 0
+
+    def launch(name, *args):
+        nonlocal launched
+        err = fns[name](*args, stream)
+        if err != 0:
+            raise RuntimeError(f"pdhg_burst_sharded ({precision}): the "
+                               f"{name} launch failed: CUDA error {err}")
+        launched += 1
+
+    try:
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            launch("init", n_pad, k * m_loc, x0.data_ptr(), y0.data_ptr(),
+                   xs[0].data_ptr(), ys[0].data_ptr())
+            for it in range(iters):
+                a = it & 1
+                for args in kty[a]:
+                    launch("kty", *args)
+                g = parts if gather is None else gather(parts)
+                launch("primal", n_pad, world * k, g.data_ptr(), *primal[a])
+                for args in dual[a]:
+                    launch("dual", *args)
+            a = iters & 1
+            for s in range(k):
+                launch("residual", *rows[s], n_pad, m_loc, local(q, s),
+                       local(ub, s), xs[a].data_ptr(), local(ys[a], s),
+                       x_out.data_ptr() if s == 0 else None,
+                       local(y_out, s), local(worst, s))
+    finally:
+        PDHG_SPLIT_LAUNCHES += launched
+        if precision == "bf16":
+            PDHG_SPLIT_BF16_LAUNCHES += launched
+    PDHG_SHARDED_CALLS += 1
+    return x_out, gather_rows(y_out), gather_rows(worst)
 
 
 def _segment_max(values, segments, num_segments: int):

@@ -24,7 +24,13 @@ This module holds the parts that are not the CUDA kernel:
     it on a device), and the same sums in plain torch
     (`spmv_in_kernel_order`, `pdhg_update_burst(order="kernel")`), which
     the kernel equals bitwise.  Nothing on the main path calls the
-    latter; chip_smoke.py holds the kernel to it.
+    latter; chip_smoke.py holds the kernel to it;
+  * the row-sharded form (`ell_pack_sharded`, `pdhg_update_burst_sharded`):
+    the reference's S-way row-block partition, bitwise its layout, and
+    the plain body of a sharded burst, whose one collective an
+    iteration (the sum of the shards' partials of K^T.y) the caller
+    passes in; kernels.ops.pdhg_burst_sharded runs it across ranks, on
+    the card through the burst kernel's split entries.
 
 Blocked-ELL layout
 ------------------
@@ -426,7 +432,197 @@ def pdhg_update_burst(x0, y0, c, tau, xmax, q, sig, ub, keep_n, keep_m,
     `order="kernel"` sums it as the CUDA kernel does
     (`spmv_in_kernel_order`), which gives the kernel's output bitwise;
     it reads each row's length from `row_work` / `col_work` (as
-    `burst_work` gives them), which "torch" ignores."""
+    `burst_work` gives them), which "torch" ignores.
+
+    This is the one-shard case of `pdhg_update_burst_sharded`: one
+    shard's partial of K^T y is the whole product."""
+    return pdhg_update_burst_sharded(
+        x0, y0, c, tau, xmax, q, sig, ub, keep_n, keep_m, row_idx, row_val,
+        col_idx, col_val, row_meta=row_meta, col_meta=col_meta, iters=iters,
+        precision=precision, order=order,
+        row_work=None if row_work is None else [row_work],
+        col_work=None if col_work is None else [col_work])
+
+
+# ---------------------------------------------------------------------------
+# Sharded operator: row-block partition of [eq; ub] across ranks
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShardedEllOperator:
+    """K (m x n) packed for an S-way row-block partition: the reference's
+    ShardedEllOperator, bitwise, plus each shard's work lists.
+
+    Shard s owns the contiguous global rows [s*m_loc, (s+1)*m_loc) (the
+    tail shard is padding-only past `m`).  Per shard there are two
+    blocked-ELL directions, as in EllOperator but local:
+
+      * `row_*`: one stored row per LOCAL constraint row, gathering the
+        replicated x; shard s computes its own slice of K.x;
+      * `col_*`: one stored row per variable, gathering the LOCAL y;
+        shard s computes its partial of K^T.y, and the full product is
+        the sum of the partials over shards (each nonzero lives in
+        exactly one shard).
+
+    Every shard's pack has THE SAME meta (per-block widths are the
+    elementwise max across shards), so one table length and one block
+    layout serve every shard; the tables are concatenated shard-major."""
+
+    row_idx: np.ndarray        # (S * row_size,) int32, global x indices
+    row_val: np.ndarray        # (S * row_size,) float32
+    col_idx: np.ndarray        # (S * col_size,) int32, LOCAL y indices
+    col_val: np.ndarray        # (S * col_size,) float32
+    row_meta: tuple            # unified per-shard (offsets, widths, bm, m_loc)
+    col_meta: tuple            # unified per-shard (offsets, widths, bm, n_pad)
+    shards: int
+    m: int
+    n: int
+    m_loc: int                 # padded rows owned by each shard
+    row_work: tuple[WorkList, ...] = ()   # each shard's, the kernel's lists
+    col_work: tuple[WorkList, ...] = ()
+
+    @property
+    def m_pad(self) -> int:
+        """Total padded row slots across all shards."""
+        return self.shards * self.m_loc
+
+    @property
+    def n_pad(self) -> int:
+        """Padded variable count (the col-direction row padding)."""
+        return self.col_meta[3]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedEllPlan:
+    """ell_pack_sharded's value-independent half: each shard's entry mask
+    and both directions' plans at the unified widths (core.solver caches
+    it per sparsity pattern, as it caches EllPlan)."""
+
+    sel: tuple[np.ndarray, ...]        # per shard, its COO entries
+    rows: tuple[EllPlanSide, ...]
+    cols: tuple[EllPlanSide, ...]
+    shards: int
+    m: int
+    n: int
+    m_loc: int
+
+
+def ell_plan_sharded(row: np.ndarray, col: np.ndarray, m: int, n: int,
+                     shards: int, *, bm: int = 8,
+                     align: int = 8) -> ShardedEllPlan:
+    """Lay out a COO pattern for an S-way row-block partition.
+
+    Two passes: the first lays each shard out independently to learn its
+    natural per-block widths; the second re-plans every shard with the
+    elementwise-max widths so all shards share one meta.  Row order
+    inside each shard is the global order restricted to its rows, so
+    gather row-sums match the unsharded pack bit-for-bit per row."""
+    assert shards >= 1
+    row = np.asarray(row, np.int64)
+    col = np.asarray(col, np.int64)
+    m_loc = max(-(-m // (shards * bm)), 1) * bm
+    sel, parts = [], []
+    for s in range(shards):
+        mask = (row >= s * m_loc) & (row < (s + 1) * m_loc)
+        sel.append(mask)
+        parts.append((row[mask] - s * m_loc, col[mask]))
+    rw = np.maximum.reduce([np.asarray(
+        ell_blocks_plan(r, c, m_loc, bm=bm, align=align).widths)
+        for r, c in parts])
+    cw = np.maximum.reduce([np.asarray(
+        ell_blocks_plan(c, r, n, bm=bm, align=align).widths)
+        for r, c in parts])
+    return ShardedEllPlan(
+        sel=tuple(sel),
+        rows=tuple(ell_blocks_plan(r, c, m_loc, bm=bm, align=align,
+                                   min_widths=rw) for r, c in parts),
+        cols=tuple(ell_blocks_plan(c, r, n, bm=bm, align=align,
+                                   min_widths=cw) for r, c in parts),
+        shards=shards, m=m, n=n, m_loc=m_loc)
+
+
+def ell_fill_sharded(plan: ShardedEllPlan,
+                     val: np.ndarray) -> ShardedEllOperator:
+    """Fill a sharded plan with coefficient values, tables shard-major."""
+    val = np.asarray(val)
+    row_packs = [ell_refill(p, val[s]) for p, s in zip(plan.rows, plan.sel)]
+    col_packs = [ell_refill(p, val[s]) for p, s in zip(plan.cols, plan.sel)]
+    return ShardedEllOperator(
+        row_idx=np.concatenate([p.idx for p in row_packs]),
+        row_val=np.concatenate([p.val for p in row_packs]),
+        col_idx=np.concatenate([p.idx for p in col_packs]),
+        col_val=np.concatenate([p.val for p in col_packs]),
+        row_meta=row_packs[0].meta, col_meta=col_packs[0].meta,
+        shards=plan.shards, m=plan.m, n=plan.n, m_loc=plan.m_loc,
+        row_work=tuple(p.work for p in row_packs),
+        col_work=tuple(p.work for p in col_packs))
+
+
+def ell_pack_sharded(row: np.ndarray, col: np.ndarray, val: np.ndarray,
+                     m: int, n: int, shards: int, *, bm: int = 8,
+                     align: int = 8) -> ShardedEllOperator:
+    """Pack a COO operator for an S-way row-block partition, bitwise as
+    the reference's ell_pack_sharded (plan, then fill; see
+    ell_plan_sharded for the layout rules)."""
+    return ell_fill_sharded(ell_plan_sharded(row, col, m, n, shards, bm=bm,
+                                             align=align), val)
+
+
+def table_len(meta: tuple) -> int:
+    """Stored slots of one direction's (one shard's) blocked-ELL table."""
+    offsets, widths, bm, _ = meta
+    return offsets[-1] + bm * widths[-1]
+
+
+def sharded_work(op: ShardedEllOperator, device, shards=None) -> dict:
+    """`row_work` / `col_work` for the shards `shards` (default: all) of
+    `op`: per shard its (lengths, order, items) int32 tensors on
+    `device`, as burst_work gives them for one operator."""
+    def put(w: WorkList):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                     for a in (w.lengths, w.order, w.items))
+    shards = range(op.shards) if shards is None else shards
+    return dict(row_work=[put(op.row_work[s]) for s in shards],
+                col_work=[put(op.col_work[s]) for s in shards])
+
+
+def ordered_sum(parts):
+    """((p_0 + p_1) + p_2) + ...: the partials of K^T y summed in shard
+    order, the one summation order of a sharded burst on every rank."""
+    g = parts[0]
+    for p in parts[1:]:
+        g = g + p
+    return g
+
+
+def pdhg_update_burst_sharded(x0, y0, c, tau, xmax, q, sig, ub, keep_n,
+                              keep_m, row_idx, row_val, col_idx, col_val, *,
+                              row_meta: tuple, col_meta: tuple, iters: int,
+                              reduce=None, precision: str = "fp32",
+                              order: str = "torch", row_work=None,
+                              col_work=None):
+    """The plain body of the row-sharded burst: the reference's
+    pdhg_update_burst_sharded, with the same update, cast points and
+    orders as pdhg_update_burst.
+
+    x-side arrays (x0, c, tau, xmax, keep_n) are replicated (n_pad).
+    y-side arrays (y0, q, sig, ub, keep_m, each k * m_loc) and the four
+    tables (each k shards' tables, shard-major, as ell_pack_sharded lays
+    them out) hold the k consecutive shards this caller owns:
+
+      * K.x: each shard computes its rows from the replicated x;
+      * K^T.y: each shard computes its partial, and `reduce(parts)` (the
+        caller's list of k partials) returns the sum over all S shards.
+        `reduce=None` means the caller holds every shard (k = S) and
+        sums them with `ordered_sum`: a single process steps the S
+        shards in lockstep, bitwise as S ranks whose `reduce` gathers
+        the partials and takes the same ordered sum.
+
+    Returns (x, y_local, worst_local): x identical on every rank, y and
+    the residual vector for the caller's rows.  `order="kernel"` sums
+    each row as the CUDA kernel does and reads each shard's row lengths
+    from `row_work` / `col_work` (k triples each, as sharded_work gives
+    them)."""
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; "
                          f"have {PRECISIONS}")
@@ -434,28 +630,45 @@ def pdhg_update_burst(x0, y0, c, tau, xmax, q, sig, ub, keep_n, keep_m,
         raise ValueError(f"unknown order {order!r}; have {ORDERS}")
     dev = x0.device
     zero = torch.zeros((), dtype=torch.float32, device=dev)
+    m_loc = row_meta[3]
+    k = y0.shape[0] // m_loc
+    rsize, csize = table_len(row_meta), table_len(col_meta)
+    tables = [(row_idx[s * rsize:(s + 1) * rsize],
+               row_val[s * rsize:(s + 1) * rsize],
+               col_idx[s * csize:(s + 1) * csize],
+               col_val[s * csize:(s + 1) * csize]) for s in range(k)]
     if order == "kernel":
         if row_work is None or col_work is None:
             raise ValueError('order="kernel" needs row_work and col_work')
-        r_plan = lane_plan(row_meta, row_work[0].cpu().numpy(), dev)
-        c_plan = lane_plan(col_meta, col_work[0].cpu().numpy(), dev)
+        plans = [(lane_plan(row_meta, row_work[s][0].cpu().numpy(), dev),
+                  lane_plan(col_meta, col_work[s][0].cpu().numpy(), dev))
+                 for s in range(k)]
 
-        def Kx(x):
-            return spmv_in_kernel_order(x, row_idx, row_val, r_plan)
+        def Kx_s(s, x):
+            return spmv_in_kernel_order(x, tables[s][0], tables[s][1],
+                                        plans[s][0])
 
-        def KTy(y):
-            return spmv_in_kernel_order(y, col_idx, col_val, c_plan)
+        def KTy_s(s, y):
+            return spmv_in_kernel_order(y, tables[s][2], tables[s][3],
+                                        plans[s][1])
     else:
         rows_g = width_groups(row_meta, dev)
         cols_g = width_groups(col_meta, dev)
-        r_idx, r_val = row_idx[rows_g.perm], row_val[rows_g.perm]
-        c_idx, c_val = col_idx[cols_g.perm], col_val[cols_g.perm]
+        grouped = [(ri[rows_g.perm], rv[rows_g.perm], ci[cols_g.perm],
+                    cv[cols_g.perm]) for ri, rv, ci, cv in tables]
 
-        def Kx(x):
-            return spmv_blocks(x, r_idx, r_val, rows_g)
+        def Kx_s(s, x):
+            return spmv_blocks(x, grouped[s][0], grouped[s][1], rows_g)
 
-        def KTy(y):
-            return spmv_blocks(y, c_idx, c_val, cols_g)
+        def KTy_s(s, y):
+            return spmv_blocks(y, grouped[s][2], grouped[s][3], cols_g)
+
+    def Kx(x):
+        return torch.cat([Kx_s(s, x) for s in range(k)])
+
+    def KTy(y):
+        parts = [KTy_s(s, y[s * m_loc:(s + 1) * m_loc]) for s in range(k)]
+        return ordered_sum(parts) if reduce is None else reduce(parts)
 
     def update(x, y):
         x_new = torch.minimum(torch.maximum(x - tau * (c + KTy(y)), zero),

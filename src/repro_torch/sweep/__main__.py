@@ -16,13 +16,22 @@ runs the multi-tenant scheduler service instead and writes its event
 log to <out>/service_events.log.
 Takes the reference's flags (python -m repro.sweep) plus --device
 ("cuda", the default, raises without a card; "cpu" runs the burst
-kernel's plain version).  --mesh > 1, --backend xla and --jax-cache are
-not ported and exit 1 naming their ROADMAP item.  Exit code 1 when any
+kernel's plain version).  --mesh N row-shards every LP fast-path solve
+across N processes, one a shard, as torchrun starts them:
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.sweep \
+        --mesh 2 --device cpu --topos pon3 --seeds 2 --out /tmp/sweep2
+
+over gloo on the CPU, NCCL with one card a rank on cuda; rank 0 alone
+prints and writes the results.  --backend xla and --jax-cache are not
+ported and exit 1 naming their ROADMAP item.  Exit code 1 when any
 instance is infeasible.
 """
 from __future__ import annotations
 
 import argparse
+import datetime
+import os
 import pathlib
 import time
 
@@ -110,6 +119,37 @@ def _run_service_smoke(args) -> int:
     # deferred-by-failure demand is a fabric outcome, not a leak; only
     # routable demand left behind fails the smoke
     return 1 if res.backlog_gbits > 1e-6 else 0
+
+
+def _join_mesh(args) -> int:
+    """Join the torch.distributed world of a --mesh N run, one process a
+    shard as `torchrun --nproc-per-node N` starts them (it sets
+    WORLD_SIZE, RANK, LOCAL_RANK and the rendezvous address): NCCL with
+    one card a rank (cuda:LOCAL_RANK) on cuda, gloo on cpu.  Exits with
+    an error naming the launch outside such a world, and naming the
+    count when there are fewer cards than ranks.  Returns the rank."""
+    import torch
+    import torch.distributed as dist
+
+    n = args.mesh
+    world = os.environ.get("WORLD_SIZE")
+    if world is None or int(world) != n:
+        seen = "" if world is None else f" (WORLD_SIZE is {world})"
+        raise SystemExit(f"error: --mesh {n} runs one process a shard: "
+                         f"launch with torchrun --nproc-per-node {n} -m "
+                         f"repro_torch.sweep --mesh {n} ...{seen}")
+    backend = "gloo"
+    if torch.device(args.device).type == "cuda":
+        have = torch.cuda.device_count()
+        if have < n:
+            raise SystemExit(f"error: --mesh {n} needs {n} cards, one a "
+                             f"rank, but torch sees {have}")
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        torch.cuda.set_device(local)
+        args.device = f"cuda:{local}"
+        backend = "nccl"
+    dist.init_process_group(backend, timeout=datetime.timedelta(minutes=30))
+    return dist.get_rank()
 
 
 def main(argv=None) -> int:
@@ -201,7 +241,8 @@ def main(argv=None) -> int:
                          "burst, the CUDA kernel on the card) is ported")
     ap.add_argument("--mesh", type=int, default=1,
                     help="row-partition every PDHG dispatch across this "
-                         "many devices (not ported yet beyond 1)")
+                         "many processes, one a shard (run under torchrun "
+                         "--nproc-per-node N)")
     ap.add_argument("--precision", default="fp32", choices=("fp32", "bf16"),
                     help="PDHG iterate storage: fp32 (default) or bf16 "
                          "(arithmetic and residuals stay fp32)")
@@ -229,6 +270,20 @@ def main(argv=None) -> int:
                          "lowering question)")
     if args.service:
         return _run_service_smoke(args)
+    if args.mesh <= 1:
+        return _sweep(args, 0)
+    import torch.distributed as dist
+
+    rank = _join_mesh(args)
+    try:
+        return _sweep(args, rank)
+    finally:
+        dist.destroy_process_group()
+
+
+def _sweep(args, rank: int) -> int:
+    """The sweep of `args`; rank 0 alone prints and writes."""
+    say = print if rank == 0 else (lambda *a: None)
 
     fail_universe = {k: v for k, v in failures.SCENARIOS.items()
                      if k != "none"}
@@ -267,7 +322,10 @@ def main(argv=None) -> int:
         raise SystemExit(f"error: {e}")
 
     t0 = time.perf_counter()
-    records, _ = run_sweep(spec, log=print)
+    records, _ = run_sweep(spec, log=say)
+    n_inf = sum(not r.feasible for r in records)
+    if rank != 0:
+        return 1 if n_inf else 0
     out = pathlib.Path(args.out)
     t_report = time.perf_counter()
     csv_path = write_csv(records, out / "results.csv")
@@ -292,7 +350,6 @@ def main(argv=None) -> int:
     if args.profile:
         print(f"    profile report: "
               f"{(time.perf_counter() - t_report) * 1e3:.1f} ms")
-    n_inf = sum(not r.feasible for r in records)
     print(f"\n{len(records)} instances in {time.perf_counter()-t0:.1f} s "
           f"({n_inf} infeasible) -> {csv_path}, {md_path}")
     return 1 if n_inf else 0

@@ -44,8 +44,10 @@ reference's chaos cells.
 Records keep every column of the reference's SweepRecord.  `backend`
 reads "pallas": the port reproduces the reference's blocked-ELL
 lowering, so its rows line up with the reference's `--backend pallas`
-rows.  Row-sharded PDHG (mesh > 1) is not ported yet; SweepSpec.validate
-rejects it naming its ROADMAP item.
+rows.  With mesh > 1 every LP fast-path solve is row-sharded across
+that many torch.distributed ranks (core.solver shards=mesh), each rank
+running the whole sweep; `python -m repro_torch.sweep --mesh N` under
+`torchrun --nproc-per-node N` sets the ranks up.
 """
 from __future__ import annotations
 
@@ -110,10 +112,11 @@ class SweepSpec:
     # paper model regardless, and packing is robust to ~1e-3 residuals
     tol: float = 2e-3
     # scale knobs: precision="bf16" stores the PDHG iterates in bfloat16
-    # between iterations (fp32 arithmetic); mesh > 1 (row-sharded PDHG)
-    # is not ported yet.  Applied to the LP fast path (healthy + failure
-    # cells); baseline policies, placement search and rolling-horizon
-    # runs stay fp32, as in the reference
+    # between iterations (fp32 arithmetic); mesh > 1 row-shards each PDHG
+    # dispatch across that many torch.distributed ranks.  Applied to the
+    # LP fast path (healthy + failure cells); baseline policies,
+    # placement search and rolling-horizon runs stay fp32 on one
+    # device, as in the reference
     mesh: int = 1
     precision: str = "fp32"
     path_slack: int | None = 2        # near-shortest route pruning; None = off
@@ -128,9 +131,6 @@ class SweepSpec:
     device: str = "cuda"
 
     def validate(self) -> None:
-        if self.mesh > 1:
-            raise ValueError("mesh > 1 (row-sharded PDHG) is not ported yet "
-                             "(ROADMAP queue 1 item 10)")
         for t in self.topos:
             if t not in topology.BUILDERS:
                 raise ValueError(f"unknown topology {t!r}; "

@@ -284,5 +284,7 @@ def test_batch_entry_points_default_to_the_card():
         solver.solve_fast_batch(probs)
     with pytest.raises(RuntimeError, match="is_available"):
         solver.solve_fast_ensemble(probs)
-    with pytest.raises(NotImplementedError, match="shards"):
+    # shards > 1 is ported: outside a torch.distributed world of 2 ranks
+    # it names how to launch one
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         solver.solve_lp_batch([lp], shards=2, device="cpu")

@@ -137,7 +137,9 @@ def test_cli_on_the_cpu_writes_results(tmp_path):
                  "unknown chaos preset 'hurricane'", id="args8-item 9"),
     (["--jax-cache", "cache"], "item 5"),
     (["--backend", "xla"], "COO"),
-    (["--mesh", "2"], "item 10"),
+    # ported since: outside torchrun it names the launch
+    pytest.param(["--mesh", "2"], "torchrun --nproc-per-node 2",
+                 id="args11-item 10"),
     (["--n-map", "40", "--topos", "pon3"], "task servers"),
 ])
 def test_cli_rejects_bad_names_and_unported_flags(args, match):
@@ -186,11 +188,12 @@ def test_cli_runs_each_ported_axis_on_the_cpu(args, table, log, tmp_path,
 
 
 def test_cli_unported_flag_exits_1_cleanly():
+    # --mesh 2 is ported; outside torchrun it exits 1 naming the launch
     proc = _cli("--device", "cpu", "--mesh", "2")
     assert proc.returncode == 1
     assert proc.stderr.strip() == (
-        "error: mesh > 1 (row-sharded PDHG) is not ported yet (ROADMAP "
-        "queue 1 item 10)")
+        "error: --mesh 2 runs one process a shard: launch with torchrun "
+        "--nproc-per-node 2 -m repro_torch.sweep --mesh 2 ...")
 
 
 def test_spec_rejects_unported_axes_naming_the_roadmap_item():
@@ -205,8 +208,8 @@ def test_spec_rejects_unported_axes_naming_the_roadmap_item():
                         "population >= 1")):
         with pytest.raises(ValueError, match=match):
             runner.SweepSpec(**bad, device="cpu").validate()
-    with pytest.raises(ValueError, match="item 10"):
-        runner.SweepSpec(mesh=2).validate()
+    # mesh > 1 is ported: the spec validates (the CLI sets up the ranks)
+    runner.SweepSpec(mesh=2, device="cpu").validate()
 
 
 def test_oracle_matches_reference_on_a_tiny_instance():
