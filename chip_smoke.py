@@ -207,6 +207,26 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      core.fabric.plan_collectives, synced at world 1 over NCCL bitwise
      the input in the plan's slot order; a small tree of distinct
      gradients synced at 2 ranks over gloo equal to the plain mean.
+ 32. the sharded steps (runtime.sharding strategies on DTensor): (a) at
+     world 1 over NCCL on a 1 x 1 (data, model) mesh, one train step of
+     phi4-mini (phase 28's width, depth and start state) under fsdp and
+     under 2d, metrics and every updated parameter bitwise the unsharded
+     step's (the loss within 5e-3 in any case); (b) phi4-mini's serving
+     prefill under 2d (phase 9's batch, prompt and 32 layers, the
+     attention kernel launched through its DTensor wrapper) and 8 decode
+     steps on cache_spec'd caches, logits, caches and tokens bitwise the
+     unsharded run's; (c) on phase 30's two ranks, over gloo (its
+     all_gather of CUDA tensors staged through pinned host memory): an
+     8-layer prefill under 2d on a 1 x 2 model mesh, each rank's kernel
+     at its local heads, logits equal on both ranks and within one bf16
+     place of world 1's at 1 layer; at 8 layers the witness of the
+     drift, in fp32 on the einsum path: each layer fed world 1's input
+     within one bf16 place of world 1's output; and a 2-layer train step
+     under fsdp on a 2 x 1 data mesh, loss within 5e-3 of world 1's and
+     every parameter equal on both ranks; (d) the dry run's phi4-mini x
+     train_4k cell at 16 x 16 (ok, flops a rank and its largest ops,
+     all-gathers and reduce-scatters); the attention kernel at a rank's
+     shape against its plain version, timed beside SDPA, and its bound.
 
 The last lines are one JSON object describing the kernels, the card's
 name and power limit, and `{"ok": true, "device": {...}}`.  Imports
@@ -506,6 +526,77 @@ SHARD_PLAIN_ITERS = 20
 GRAD_LAYERS = 8
 GRAD_BUCKET_BYTES = 25e6
 SYNC_RTOL = 1e-6
+# phase 32: the sharded steps (runtime.sharding on DTensor).  (a) phi4-mini
+# at phase 28's width and depth from its start state (launch.train's seed
+# 0 model, the data stream's first batch); (b) phase 9's serving prefill
+# (batch 4, prompt 2048, all 32 layers) and decode steps; (c) at the
+# SHARD_WORLD ranks: a 1 x 2 "model" mesh prefill (layers, batch, prompt)
+# and a 2 x 1 "data" mesh train step (layers, batch, seq); (d) one dry-run
+# cell at 16 x 16
+SHARDED_TRAIN = (8, 2, 2048, 6)      # layers, batch, seq, launcher steps
+SHARDED_SERVE = (4, 2048)            # batch, prompt
+SHARDED_DECODE = 8
+SHARDED_TP = (8, 4, 2048)
+SHARDED_FSDP = (2, 2, 2048)
+SHARDED_LOSS_TOL = 5e-3              # tests/test_distributed.py's
+SHARDED_DRYRUN = ("phi4_mini_3_8b", "train_4k")
+DRYRUN_TOP_OPS = 16                  # (d) prints the cell's largest ops
+# the collectives gloo is handed on pinned host copies of the CUDA tensors
+# (host_staged): on the H100 host (torch 2.11) its all_gather_into_tensor
+# of CUDA tensors ends the process (a segmentation fault) and its
+# all-to-all of them returns wrong data (a 2-rank attention input off by
+# 14 of 112); its reduce-scatter and all-reduce take them
+SHARDED_STAGED = ("_c10d_functional.all_gather_into_tensor.default",
+                  "_c10d_functional.all_to_all_single.default",
+                  "_dtensor.shard_dim_alltoall.default")
+
+
+def host_staged():
+    """A dispatch mode for a gloo world whose ranks share the card:
+    inside it, each collective of SHARDED_STAGED that gets CUDA tensors
+    runs on pinned host copies of them instead, and its result is copied
+    back to the card (as ops.ShardGather stages the sharded solve's
+    all_gather).  DTensor ops are passed on, so the collectives DTensor
+    issues inside them come back to the mode.  An all-gather over a group
+    of one rank is a copy on the card.  `calls` counts the staged
+    collectives and `seconds` their host time, the copies included."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    staged = {getattr(getattr(getattr(torch.ops, ns), op), overload)
+              for ns, op, overload in (n.split(".") for n in SHARDED_STAGED)}
+    gather = torch.ops._c10d_functional.all_gather_into_tensor.default
+
+    class HostStaged(TorchDispatchMode):
+        ops = staged
+
+        def __init__(self):
+            super().__init__()
+            self.calls = 0
+            self.seconds = 0.0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if any(issubclass(t, DTensor) for t in types):
+                # DTensor runs the op as local ops and collectives, which
+                # come back here while this mode stays active
+                return NotImplemented
+            if func not in self.ops or not args[0].is_cuda:
+                return func(*args, **kwargs)
+            if func is gather and args[1] == 1:
+                return args[0].clone()
+            t0 = time.perf_counter()
+            device = args[0].device
+            host = [torch.empty(a.shape, dtype=a.dtype,
+                                pin_memory=True).copy_(a)
+                    if isinstance(a, torch.Tensor) and a.is_cuda else a
+                    for a in args]
+            out = torch.ops._c10d_functional.wait_tensor.default(
+                func(*host, **kwargs)).to(device)
+            self.calls += 1
+            self.seconds += time.perf_counter() - t0
+            return out
+    return HostStaged()
 
 
 def card_line() -> str:
@@ -3508,8 +3599,9 @@ def shard_rank_main(rank, world, out_dir) -> int:
     `go` in out_dir, then runs the paper topologies (spine-leaf twice)
     and the flagship through solve_fast(shards=world), times an
     iteration and the collective (with and without the pinned staging),
-    and the scheduled gradient sync on a small tree; writes rank<r>.json
-    and rank<r>_x.npy to out_dir."""
+    and the scheduled gradient sync on a small tree, then phase 32(c)
+    (sharded_rank_part); writes rank<r>.json and rank<r>_x.npy to
+    out_dir."""
     import datetime
     import hashlib
     import numpy as np
@@ -3524,6 +3616,8 @@ def shard_rank_main(rank, world, out_dir) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
+    # phase 32(c)'s bf16 products summed in fp32, as in the parent
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dist.init_process_group(
         "gloo", store=dist.FileStore(str(out_dir / "store"), world),
         rank=rank, world_size=world,
@@ -3619,10 +3713,238 @@ def shard_rank_main(rank, world, out_dir) -> int:
         res["sync_slots"] = len(plan.slot_order())
         res["sync_order_ok"] = check_issue_order(issued, plan)
         res["sync_collectives"] = len(issued)
+        # phase 32(c): the sharded steps at `world` ranks
+        t0 = time.perf_counter()
+        res["sharded"] = sharded_rank_part(rank, world, dev, out_dir)
+        res["sharded"]["seconds"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
     (out_dir / f"rank{rank}.json").write_text(json.dumps(res))
     return 0
+
+
+def sync(dev):
+    """Wait for the card's queued work (nothing on the CPU)."""
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def sharded_train_start(n_layers, B, S, dev):
+    """launch.train's start state for phi4-mini cut to `n_layers`: the
+    seed-0 model, its AdamW config for SHARDED_TRAIN's steps, and the
+    data stream's first batch (B, S) on `dev`."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    from repro_torch.train import optimizer as opt
+    cfg = train.scale_config(configs.get("phi4-mini-3.8b"),
+                             n_layers=n_layers)
+    model = transformer.Transformer(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    steps_ = SHARDED_TRAIN[3]
+    ocfg = opt.AdamWConfig(lr=3e-4, total_steps=steps_,
+                           warmup_steps=max(steps_ // 20, 5))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in pipeline._batch_at(
+        pipeline.DataConfig(vocab_size=cfg.vocab_size, batch=B, seq=S,
+                            seed=0), 0).items()}
+    return cfg, model, ocfg, batch
+
+
+def recording_attention_shapes():
+    """(patch, shapes): while the patch is active, each launch of the
+    attention kernel appends its q, k and v shapes to `shapes`."""
+    from repro_torch.kernels import ops
+    shapes = []
+    real = ops._attend
+
+    def rec(q, k, v, *a):
+        if q.is_cuda:
+            shapes.append((tuple(q.shape), tuple(k.shape), tuple(v.shape)))
+        return real(q, k, v, *a)
+    return mock.patch.object(ops, "_attend", rec), shapes
+
+
+def fp32_activations():
+    """A patch: while it is active, the models read the embedding in fp32
+    instead of bf16, so the activations and every product after it run
+    in fp32 (the weights are fp32 masters)."""
+    import torch
+    from repro_torch.models import transformer
+    real = transformer.Transformer.weight
+
+    def weight(self, name, dtype):
+        return real(self, name, torch.float32 if name == "embed" else dtype)
+    return mock.patch.object(transformer.Transformer, "weight", weight)
+
+
+def sharded_prompt(cfg, B, S, dev) -> dict:
+    """Phase 32(c)'s prompt: (B, S) tokens from seed 1."""
+    import torch
+    return {"tokens": torch.randint(
+        0, cfg.vocab_size, (B, S), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(1))}
+
+
+def sharded_fp32_witness(rank, mesh, dev, out_dir) -> dict:
+    """The witness of (c)'s drift at SHARDED_TP's depth: the prefill with
+    fp32 activations on the einsum path (fp32_activations), world 1's
+    run on every rank recording each layer's input and output, then the
+    sharded run on `mesh` twice: free-running (its logits saved as
+    rank<r>_logits_fp32.npy beside rank 0's plain_logits_fp32.npy) and
+    teacher-forced, each layer fed world 1's input for it.  Returns the
+    teacher-forced run's max |sharded - world 1| and max |world 1| of
+    each layer's output and of the logits, and the logits' dtype."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.runtime import sharding, steps
+    layers, B, S = SHARDED_TP
+    cfg, model, _, _ = sharded_train_start(layers, B, S, dev)
+    inputs = sharded_prompt(cfg, B, S, dev)
+    seen: list = []
+    res: dict = {"layers": []}
+
+    def record(mod, args, out):
+        seen.append((args[0].detach().clone(), out[0].detach().clone()))
+
+    def feed(i):
+        def hook(mod, args):
+            x = args[0]
+            return (distribute_tensor(seen[i][0], x.device_mesh,
+                                      x.placements, src_data_rank=None),
+                    ) + args[1:]
+        return hook
+
+    def check(i):
+        def hook(mod, args, out):
+            got, want = out[0].full_tensor(), seen[i][1]
+            res["layers"].append((float((got - want).abs().max()),
+                                  float(want.abs().max())))
+        return hook
+
+    with fp32_activations():
+        hooks = [b.register_forward_hook(record) for b in model.blocks]
+        plain, _ = steps.make_prefill_step(cfg, impl="einsum")(model, inputs)
+        for h in hooks:
+            h.remove()
+        if rank == 0:
+            np.save(out_dir / "plain_logits_fp32.npy",
+                    plain.float().cpu().numpy())
+        st = sharding.Strategy(mesh, "2d", False)
+        st.distribute(model)
+        prefill = steps.make_prefill_step(cfg, impl="einsum", strategy=st)
+        with host_staged():
+            logits = prefill(model, inputs)[0].full_tensor()
+            np.save(out_dir / f"rank{rank}_logits_fp32.npy",
+                    logits.float().cpu().numpy())
+            hooks = [h for i, b in enumerate(model.blocks)
+                     for h in (b.register_forward_pre_hook(feed(i)),
+                               b.register_forward_hook(check(i)))]
+            forced = prefill(model, inputs)[0].full_tensor()
+            for h in hooks:
+                h.remove()
+    res["logits"] = (float((forced - plain).abs().max()),
+                     float(plain.abs().max()))
+    res["dtype"] = str(forced.dtype)
+    del model, seen, plain, logits, forced, st
+    torch.cuda.empty_cache()
+    return res
+
+
+def sharded_rank_part(rank, world, dev, out_dir) -> dict:
+    """Phase 32(c) on one rank of the gloo world: phi4-mini's serving
+    prefill at full width (SHARDED_TP: layers, batch, prompt) under "2d" on
+    a 1 x world "model" mesh, and one train step (SHARDED_FSDP) under
+    "fsdp" on a world x 1 "data" mesh, the batch's rows split over the
+    ranks; rank 0 also runs both without a strategy.  gloo gets the
+    collectives of SHARDED_STAGED on pinned host copies (host_staged).
+    The logits go to out_dir as rank<r>_logits.npy; returns the counts, shapes, losses and
+    each parameter's checksum after the step."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import train
+    from repro_torch.runtime import sharding, steps
+    from repro_torch.train import optimizer as opt
+    out: dict = {}
+    layers, B, S = SHARDED_TP
+    mesh = lmesh.make_host_mesh((1, world), ("data", "model"),
+                                device_type=dev.type)
+    # the prefill at 1 layer (bounded against world 1) and at `layers`
+    # (timed, its launches and local shapes recorded, its drift reported)
+    for depth in (1, layers):
+        cfg, model, _, _ = sharded_train_start(depth, B, S, dev)
+        inputs = sharded_prompt(cfg, B, S, dev)
+        if rank == 0:
+            logits, _ = steps.make_prefill_step(cfg, impl="kernel")(model,
+                                                                 inputs)
+            np.save(out_dir / f"plain_logits_{depth}.npy",
+                    logits.float().cpu().numpy())
+            del logits, _
+        st = sharding.Strategy(mesh, "2d", False)
+        st.distribute(model)
+        staged = host_staged()
+        patch, shapes = recording_attention_shapes()
+        prefill = steps.make_prefill_step(cfg, impl="kernel", strategy=st)
+        with staged, patch:
+            ops.FLASH_ATTENTION_LAUNCHES = 0
+            sync(dev)
+            t0 = time.perf_counter()
+            logits, caches = prefill(model, inputs)
+            full = logits.full_tensor()
+            sync(dev)
+            out["prefill_s"] = time.perf_counter() - t0
+            out["launches"] = ops.FLASH_ATTENTION_LAUNCHES
+        np.save(out_dir / f"rank{rank}_logits_{depth}.npy",
+                full.float().cpu().numpy())
+        out["shapes"] = sorted(set(shapes))
+        out["staged_calls"], out["staged_s"] = staged.calls, staged.seconds
+        del model, logits, caches, full, st
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["witness"] = sharded_fp32_witness(rank, mesh, dev, out_dir)
+    out["witness_s"] = time.perf_counter() - t0
+
+    layers, B, S = SHARDED_FSDP
+    with train.reproducible(dev):
+        if rank == 0:
+            cfg, model, ocfg, batch = sharded_train_start(layers, B, S, dev)
+            state = opt.adamw_init(dict(model.named_parameters()))
+            _, _, m = steps.make_train_step(cfg, ocfg)(model, state, batch)
+            out["plain_loss"] = float(m["loss"])
+            del model, state
+        cfg, model, ocfg, batch = sharded_train_start(layers, B, S, dev)
+        mesh = lmesh.make_host_mesh((world, 1), ("data", "model"),
+                                    device_type=dev.type)
+        st = sharding.Strategy(mesh, "fsdp", False)
+        st.distribute(model)
+        state = opt.adamw_init(dict(model.named_parameters()))
+        step = steps.make_train_step(cfg, ocfg, strategy=st)
+        staged = host_staged()
+        with staged:
+            sync(dev)
+            t0 = time.perf_counter()
+            _, _, m = step(model, state, batch)
+            sync(dev)
+            out["train_s"] = time.perf_counter() - t0
+            out["train_staged_calls"] = staged.calls
+            out["train_staged_s"] = staged.seconds
+            out["rows"] = int(st.shard_batch(batch)["tokens"].to_local()
+                              .shape[0])
+            out["loss"] = float(m["loss"])
+            out["grad_norm"] = float(m["grad_norm"])
+            out["checksum"] = [
+                int(p.full_tensor().detach().view(torch.int32)
+                    .sum(dtype=torch.int64))
+                for p in model.parameters()]
+    del model, state
+    torch.cuda.empty_cache()
+    return out
 
 
 def shard_phase(card, dev, p_full, lp_full, phase4, phase5, library_ms):
@@ -3632,10 +3954,286 @@ def shard_phase(card, dev, p_full, lp_full, phase4, phase5, library_ms):
     parts (a), (b) and (d) and phase 31 at world 1; then it lets the
     ranks go on (they wait for it before their solves and timings, so
     that no two processes' kernels share the card) and checks their
-    results.  Returns the two `kernels` entries of the split entries."""
+    results.  Returns the two `kernels` entries of the split entries, and
+    the ranks' results (phase 32(c)'s among them)."""
     with shard_ranks(SHARD_WORLD) as collect:
         return _shard_phase(card, dev, p_full, lp_full, phase4, phase5,
                             library_ms, collect)
+
+
+def sharded_phase(card, dev, ranks) -> dict:
+    """Phase 32: the sharded steps.  (a) and (b) at world 1 over NCCL on a
+    1 x 1 ("data", "model") mesh; (c) the results of phase 30's ranks
+    (sharded_rank_part); (d) one dry-run cell; and the attention kernel
+    timed at the TP-local shape of (c)'s ranks beside SDPA.  Returns the
+    attention launches of (b) and (c) and the timed numbers."""
+    with one_rank_world("nccl" if dev.type == "cuda" else "gloo"):
+        out = sharded_world1(card, dev)
+    out.update(sharded_ranks_report(ranks))
+    out.update(sharded_dryrun())
+    out.update(sharded_attention_times(card, dev))
+    return out
+
+
+@contextlib.contextmanager
+def one_rank_world(backend):
+    """A one-rank world joined through a FileStore (no port)."""
+    import torch.distributed as dist
+    store = tempfile.mkdtemp(prefix="chip-smoke-world1-")
+    dist.init_process_group(backend, store=dist.FileStore(
+        os.path.join(store, "store"), 1), rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_world1(card, dev) -> dict:
+    """Phase 32 (a) and (b) at world 1 (module docstring)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import serve, train
+    from repro_torch.runtime import sharding, steps
+    from repro_torch.train import optimizer as opt
+    mesh = lmesh.make_host_mesh((1, 1), ("data", "model"),
+                                device_type=dev.type)
+    layers, B, S, _ = SHARDED_TRAIN
+    say(f"[32] the sharded steps on the card ({card}): torch "
+        f"{torch.__version__}, DTensor on a 1 x 1 (data, model) mesh over "
+        f"{'NCCL' if dev.type == 'cuda' else 'gloo'}")
+    say(f"  (a) one train step of phi4-mini-3.8b at full width, {layers} "
+        f"layers, batch {B} x {S}, from phase 28's start state: unsharded, "
+        f"then under fsdp and 2d")
+    with train.reproducible(dev):
+        cfg, model, ocfg, batch = sharded_train_start(layers, B, S, dev)
+        state = opt.adamw_init(dict(model.named_parameters()))
+        sync(dev)
+        t0 = time.perf_counter()
+        _, _, want = steps.make_train_step(cfg, ocfg)(model, state, batch)
+        sync(dev)
+        plain_s = time.perf_counter() - t0
+        ref = {n: p.detach() for n, p in model.named_parameters()}
+        del model, state
+        say(f"    unsharded: loss {float(want['loss'])!r} grad norm "
+            f"{float(want['grad_norm'])!r}; {plain_s * 1e3:.1f} ms")
+        for kind in ("fsdp", "2d"):
+            cfg, model, ocfg, batch = sharded_train_start(layers, B, S, dev)
+            st = sharding.Strategy(mesh, kind, False)
+            st.distribute(model)
+            state = opt.adamw_init(dict(model.named_parameters()))
+            step = steps.make_train_step(cfg, ocfg, strategy=st)
+            sync(dev)
+            t0 = time.perf_counter()
+            _, _, got = step(model, state, batch)
+            sync(dev)
+            wall = time.perf_counter() - t0
+            same = all(torch.equal(got[k], want[k]) for k in want)
+            differ = [n for n, p in model.named_parameters()
+                      if not torch.equal(p.to_local(), ref[n])]
+            say(f"    {kind}: loss {float(got['loss'])!r} grad norm "
+                f"{float(got['grad_norm'])!r}; {wall * 1e3:.1f} ms; "
+                f"metrics bitwise the unsharded step's: {same}; updated "
+                f"parameters differing: {len(differ)} of {len(ref)}"
+                + (f" ({', '.join(differ[:4])})" if differ else ""))
+            require(abs(float(got["loss"]) - float(want["loss"]))
+                    < SHARDED_LOSS_TOL, f"(a) {kind}: loss off the "
+                    f"unsharded step's by {SHARDED_LOSS_TOL} or more")
+            require(same and not differ, f"(a) {kind}: not bitwise the "
+                    f"unsharded step")
+            del model, state, step
+            torch.cuda.empty_cache()
+        del ref
+        torch.cuda.empty_cache()
+
+    n = SHARDED_DECODE
+    B, P = SHARDED_SERVE
+    cfg = configs.get("phi4-mini-3.8b")
+    say(f"  (b) {cfg.name}'s serving prefill under 2d at full width "
+        f"({cfg.n_layers} layers, batch {B}, prompt {P}, impl=kernel) and "
+        f"{n} decode steps, against the unsharded ones")
+    model, inputs = serve.build(cfg, B, P, 0, dev)
+    runs = {}
+    for name, st in (("plain", None),
+                     ("2d", sharding.Strategy(mesh, "2d", False))):
+        if st is not None:
+            st.distribute(model)
+        ops.FLASH_ATTENTION_LAUNCHES = 0
+        prefill = steps.make_prefill_step(cfg, impl="kernel",
+                                          max_len=P + n, strategy=st)
+        decode = steps.make_decode_step(cfg, impl="kernel", strategy=st)
+        whole = (lambda t: t.full_tensor()) if st else (lambda t: t)
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, caches = prefill(model, inputs)
+        sync(dev)
+        prefill_s = time.perf_counter() - t0
+        launches = ops.FLASH_ATTENTION_LAUNCHES
+        run = {"prefill": whole(logits),
+               "caches": [{k: whole(c[k]).clone() for k in ("k", "v")}
+                          for c in caches], "steps": [], "tokens": []}
+        tok = run["prefill"][:, -1:].argmax(-1)
+        t0 = time.perf_counter()
+        for i in range(n):
+            logits, caches = decode(model, caches, tok, P + i)
+            run["steps"].append(whole(logits))
+            tok = run["steps"][-1].argmax(-1)
+            run["tokens"].append(tok)
+        sync(dev)
+        run["decode_s"] = time.perf_counter() - t0
+        run["prefill_s"], run["launches"] = prefill_s, launches
+        runs[name] = run
+        del logits, caches
+    a, b = runs["plain"], runs["2d"]
+    same_prefill = torch.equal(a["prefill"], b["prefill"])
+    same_caches = all(torch.equal(x[k], y[k]) for x, y in
+                      zip(a["caches"], b["caches"]) for k in ("k", "v"))
+    same_steps = all(torch.equal(x, y) for x, y in zip(a["steps"],
+                                                       b["steps"]))
+    same_tokens = all(torch.equal(x, y) for x, y in zip(a["tokens"],
+                                                        b["tokens"]))
+    say(f"    prefill {b['prefill_s'] * 1e3:.1f} ms under 2d "
+        f"({a['prefill_s'] * 1e3:.1f} ms unsharded); {n} decode steps "
+        f"{b['decode_s'] * 1e3:.1f} ms ({a['decode_s'] * 1e3:.1f} ms); "
+        f"flash_attention launches {b['launches']} through the DTensor "
+        f"wrapper ({a['launches']} unsharded)")
+    say(f"    bitwise the unsharded run: last-token logits {same_prefill}, "
+        f"caches {same_caches}, decode logits {same_steps}; tokens "
+        f"identical {same_tokens}")
+    require(b["launches"] == cfg.n_layers, f"(b) launched the attention "
+            f"kernel {b['launches']} times, expected {cfg.n_layers}")
+    require(same_prefill and same_caches and same_steps and same_tokens,
+            "(b) the sharded serving run differs from the unsharded one")
+    launches = b["launches"]
+    del model, inputs, runs, a, b
+    torch.cuda.empty_cache()
+    return {"serve_launches": launches}
+
+
+def sharded_ranks_report(ranks) -> dict:
+    """Phase 32(c): the ranks' sharded prefill and train step."""
+    import numpy as np
+    out_dir = pathlib.Path(ranks[0]["dir"])
+    layers, B, S = SHARDED_TP
+    res = [r["sharded"] for r in ranks]
+    say(f"  (c) {len(ranks)} ranks sharing the card over gloo (its "
+        f"all-gathers and all-to-alls staged through pinned host "
+        f"memory): phi4-mini-3.8b at full "
+        f"width, {layers} layers, prefill batch {B} x {S} under 2d on a "
+        f"1 x {len(ranks)} model mesh; a train step of "
+        f"{SHARDED_FSDP[0]} layers, batch {SHARDED_FSDP[1]} x "
+        f"{SHARDED_FSDP[2]} under fsdp on a {len(ranks)} x 1 data mesh")
+    # one bf16 place at the largest magnitude `top`
+    def place(top):
+        return 2.0 ** (np.floor(np.log2(top)) - 7)
+    err, scale = {}, {}
+    for tag in ("1", str(layers), "fp32"):
+        logits = [np.load(out_dir / f"rank{r}_logits_{tag}.npy")
+                  for r in range(len(ranks))]
+        plain = np.load(out_dir / f"plain_logits_{tag}.npy")
+        require(all(np.array_equal(x, logits[0]) for x in logits),
+                f"(c) the ranks' logits differ ({tag})")
+        err[tag] = float(np.abs(logits[0] - plain).max())
+        scale[tag] = place(np.abs(plain).max())
+    deep = str(layers)
+    say(f"    prefill: local attention shapes {res[0]['shapes']}; "
+        f"launches {[r['launches'] for r in res]}; "
+        f"{max(r['prefill_s'] for r in res):.3f} s (slower rank; "
+        f"{res[0]['staged_calls']} staged collectives, "
+        f"{res[0]['staged_s']:.3f} s); logits equal on both ranks; max "
+        f"|sharded - unsharded| at 1 layer {err['1']:.6f} against one bf16 "
+        f"place {scale['1']:.6f}; at {layers} layers {err[deep]:.6f} "
+        f"(place {scale[deep]:.6f}; reported, the witness below bounds "
+        f"{layers} layers)")
+    w = res[0]["witness"]
+    worst = max(e / place(top) for e, top in w["layers"] + [w["logits"]])
+    say(f"    the witness ({w['dtype']} activations on the einsum path, "
+        f"{max(r['witness_s'] for r in res):.3f} s, slower rank): "
+        f"free-running, {layers} layers drift {err['fp32']:.6f} off world "
+        f"1 (place {scale['fp32']:.6f}): a rounding apart, amplified "
+        f"layer by layer by this random-weight model's attention; "
+        f"teacher-forced (each layer fed world 1's input), max |sharded - "
+        f"world 1| / max |world 1| a layer "
+        + ", ".join(f"{e:.3e}/{top:.4g}" for e, top in w["layers"])
+        + f", logits {w['logits'][0]:.3e}/{w['logits'][1]:.4g}: at most "
+        f"{worst:.3e} of one bf16 place (a wrong head map or collective "
+        f"would be off by its whole magnitude)")
+    require(err["1"] <= scale["1"], "(c) the sharded logits at 1 layer are "
+            "more than one bf16 place off the unsharded ones")
+    require(w["dtype"] == "torch.float32" and len(w["layers"]) == layers,
+            "(c) the witness did not run every layer in fp32")
+    require(worst <= 1.0, f"(c) a teacher-forced fp32 layer of the "
+            f"sharded prefill is more than one bf16 place off world 1's")
+    require(all(r["launches"] == layers for r in res),
+            "(c) a rank did not launch the attention kernel once a layer")
+    loss_err = abs(res[0]["loss"] - res[0]["plain_loss"])
+    same_params = all(r["checksum"] == res[0]["checksum"] for r in res)
+    say(f"    train step: loss {res[0]['loss']!r} (world 1 "
+        f"{res[0]['plain_loss']!r}, |diff| {loss_err:.3e}); grad norm "
+        f"{res[0]['grad_norm']!r}; rows a rank {res[0]['rows']}; "
+        f"{max(r['train_s'] for r in res):.3f} s (slower rank; "
+        f"{res[0]['train_staged_calls']} staged collectives, "
+        f"{res[0]['train_staged_s']:.3f} s); every parameter's full "
+        f"tensor equal on both ranks: {same_params}; the ranks' part "
+        f"{max(r['seconds'] for r in res):.1f} s")
+    require(loss_err < SHARDED_LOSS_TOL, "(c) the sharded train step's "
+            "loss is off the world-1 step's")
+    require(same_params, "(c) the ranks' parameters differ after the step")
+    return {"rank_launches": sum(r["launches"] for r in res)}
+
+
+def sharded_dryrun() -> dict:
+    """Phase 32(d): one dry-run cell at 16 x 16."""
+    from repro_torch.launch import dryrun
+    arch, shape = SHARDED_DRYRUN
+    t0 = time.perf_counter()
+    by_op: dict = {}
+    res = dryrun.run_cell(arch, shape, multi_pod=False, by_op=by_op)
+    wall = time.perf_counter() - t0
+    coll = res.collectives or {}
+    say(f"  (d) the dry run, {arch} x {shape} at {res.mesh}: ok {res.ok} "
+        f"in {wall:.1f} s; flops a rank {res.flops_per_device:.6g}, "
+        f"bytes a rank {res.bytes_per_device:.6g}, collectives "
+        f"{coll.get('_counts')}, memory {res.memory}; params "
+        f"{res.params_total:.6g} ({res.params_active:.6g} active)")
+    require(res.ok, f"(d) the dry-run cell failed: {res.error[:2000]}")
+    for op, flops in list(by_op.items())[:DRYRUN_TOP_OPS]:
+        say(f"      {flops:.6g} flops a rank: {op}")
+    require(res.flops_per_device > 0
+            and coll["_counts"].get("all-gather", 0) > 0
+            and coll["_counts"].get("reduce-scatter", 0) > 0,
+            "(d) the dry-run cell counted no flops, or no all-gather or "
+            "reduce-scatter")
+    return {"dryrun_s": wall}
+
+
+def sharded_attention_times(card, dev) -> dict:
+    """Row 2e: the attention kernel at (c)'s TP-local shape beside SDPA,
+    and its bound."""
+    import torch
+    from repro_torch.kernels import ops
+    layers, B, S = SHARDED_TP
+    H, Hkv, hd = 24 // SHARD_WORLD, 8 // SHARD_WORLD, 128
+    q, k, v = fa_inputs(32, B, S, H, Hkv, hd, torch.bfloat16, dev)
+    err = compare_attention("TP-local (row 2e)", q, k, v, 0, 0.0, True)
+    ms = sorted(time_events(lambda: ops.flash_attention(q, k, v), 10)
+                for _ in range(3))[1]
+    plain_ms = time_events(lambda: fa_plain(q, k, v, 0, 0.0), 3)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_events(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                      enable_gqa=True), 10)
+    bound_ms, bound_by, _, _ = attention_bound(B, S, H, Hkv, hd, 0, 2)
+    say(f"    the attention kernel at a rank's shape q ({B}, {S}, {H}, "
+        f"{hd}), k/v ({B}, {S}, {Hkv}, {hd}) bf16 ({card}): "
+        f"max|kernel-plain| {err:.3e}; {ms:.6f} ms "
+        f"(median of 3 runs of 10); plain {plain_ms:.6f} ms; SDPA "
+        f"{lib_ms:.6f} ms; bound {bound_ms:.6f} ms ({bound_by}); "
+        f"{ms / bound_ms:.3f}x its bound, {ms / lib_ms:.3f}x SDPA")
+    del q, k, v, qt, kt, vt
+    return {"tp_ms": ms, "tp_plain_ms": plain_ms, "tp_lib_ms": lib_ms,
+            "tp_bound_ms": bound_ms, "tp_err": err}
 
 
 def _shard_phase(card, dev, p_full, lp_full, phase4, phase5, library_ms,
@@ -3829,7 +4427,7 @@ def _shard_phase(card, dev, p_full, lp_full, phase4, phase5, library_ms,
         say(f"    {entries[-1]['name']}: {times['split', precision]:.6f} "
             f"ms/iter at world 1, bound {bound_ms:.6f} ms ({bound_by}), "
             f"library {library_ms:.6f} ms (phase 6's CSR pair)")
-    return entries
+    return entries, ranks
 
 
 @contextlib.contextmanager
@@ -4915,12 +5513,24 @@ def main(argv=None) -> int:
 
     # -- phases 30-31: the row-sharded solve, the scheduled all-reduce -------
     t_phase = time.perf_counter()
-    split_entries = shard_phase(
+    split_entries, shard_results = shard_phase(
         card, dev, p_full, lp_full,
         {name: paper_fp32[name, "energy"] for name in PAPER_TOPOS},
         full_fp32["energy"], library_ms)
-    say(f"    phases 30-31 {time.perf_counter() - t_phase:.1f} s; total "
-        f"{time.perf_counter() - t_start:.1f} s")
+    say(f"    phases 30-31 {time.perf_counter() - t_phase:.1f} s (the "
+        f"ranks' phase 32(c) "
+        f"{max(r['sharded']['seconds'] for r in shard_results):.1f} s "
+        f"among them); total {time.perf_counter() - t_start:.1f} s")
+
+    # -- phase 32: the sharded steps --------------------------------------
+    t_phase = time.perf_counter()
+    sharded = sharded_phase(card, dev, shard_results)
+    fa_launches += sharded["serve_launches"] + sharded["rank_launches"]
+    fa_max_err = max(fa_max_err, sharded["tp_err"])
+    say(f"    flash_attention launches through the DTensor wrapper: "
+        f"{sharded['serve_launches']} in (b), {sharded['rank_launches']} "
+        f"on (c)'s ranks; phase 32 {time.perf_counter() - t_phase:.1f} s "
+        f"here ({card}); total {time.perf_counter() - t_start:.1f} s")
 
     kernels = {"kernels": [{
         "name": "pdhg_burst", "route": "cuda", "source": SOURCE,

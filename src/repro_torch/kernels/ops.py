@@ -6,6 +6,13 @@ plain PyTorch version when they lie on the CPU.  There is no fallback:
 a CUDA tensor goes to the kernel or the call raises.  Each wrapper keeps
 a plain integer count of its kernel launches, so a run can show that
 its path went through the kernel.
+
+`flash_attention` and `rglru` also take DTensors (a sharding strategy's
+activations) split only over dims the kernel treats independently
+(batch, and heads or features): the kernel runs on each rank's shard
+and the result carries the operands' placements, as the reference's
+`shard_map` would run it.  Any other placement raises and names it; a
+wrapper never gathers, and never drops to the plain version.
 """
 from __future__ import annotations
 
@@ -13,6 +20,7 @@ import ctypes
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from . import build
 from . import flash_attention as fa
@@ -59,6 +67,59 @@ def _no_backward(name: str, **tensors) -> None:
                 f"{name}: {', '.join(need)} require grad, but the kernel "
                 f"has no backward; train with impl='einsum' or call it "
                 f"under torch.no_grad()")
+
+
+def _shard_layout(name: str, operands: dict, dims: dict):
+    """The mesh and placements of DTensor operands (None when every
+    operand is a plain tensor).  operands: name -> tensor or None;
+    dims: name -> {role: tensor dim}, the dims each operand may be split
+    over by role ("batch", "heads"), which must be split alike in all of
+    them.  Raises ValueError for a mix of DTensors and plain tensors,
+    for operands on other meshes or laid out unlike each other, and for
+    any placement but Replicate or a Shard of an allowed dim.  On a
+    mesh dim of one rank a Shard is the whole tensor, read as Replicate."""
+    given = {n: t for n, t in operands.items() if t is not None}
+    kinds = {isinstance(t, DTensor) for t in given.values()}
+    if kinds == {False}:
+        return None
+    if kinds != {True}:
+        raise ValueError(f"{name}: {', '.join(given)} must all be DTensors "
+                         f"or all plain tensors")
+    first = next(iter(given))
+    mesh = given[first].device_mesh
+    roles = None
+    for n, t in given.items():
+        if t.device_mesh != mesh:
+            raise ValueError(f"{name}: {n} lies on another mesh than "
+                             f"{first}")
+        by_dim = {d: r for r, d in dims[n].items()}
+        layout = []
+        for i, p in enumerate(t.placements):
+            if p.is_replicate() or mesh.size(i) == 1:
+                layout.append(None)
+            elif isinstance(p, Shard) and p.dim in by_dim:
+                layout.append(by_dim[p.dim])
+            else:
+                raise ValueError(
+                    f"{name}: {n} has placements {tuple(t.placements)}; "
+                    f"the kernel runs on shards split only over "
+                    f"{' and '.join(f'{r} (dim {d})' for r, d in dims[n].items())}"
+                    f", replicated elsewhere (lay the operands out so "
+                    f"first: the wrapper does not gather)")
+        if roles is None:
+            roles = layout
+        elif layout != roles:
+            raise ValueError(f"{name}: {n} has placements "
+                             f"{tuple(t.placements)}, split unlike {first}'s "
+                             f"{tuple(given[first].placements)}")
+    return mesh, roles
+
+
+def _as_placed(t: torch.Tensor, mesh, roles, dims: dict) -> DTensor:
+    """A rank's result shard as a DTensor split by `roles` (mesh dim ->
+    role or None) over the result's dims `dims` (role -> dim)."""
+    pl = tuple(Replicate() if r is None else Shard(dims[r]) for r in roles)
+    return DTensor.from_local(t, mesh, pl, run_check=False)
 
 
 # the burst's iterate storage types and their entry points in pdhg_burst.cu
@@ -564,8 +625,20 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     bfloat16 runs the tensor-core kernel (its operands on 16-byte
     boundaries), float32 the SIMT kernel.  On CPU tensors it is the
     plain version, kernels.flash_attention.flash_attention_plain.
-    Raises RuntimeError under autograd: there is no backward."""
+    Raises RuntimeError under autograd: there is no backward.
+
+    DTensor q, k, v split alike over batch (dim 0) and heads (dim 2)
+    only run the kernel on each rank's shard (GQA maps a rank's query
+    heads to its own kv heads when both head counts split evenly); the
+    result is laid out as q."""
     _no_backward("flash_attention", q=q, k=k, v=v)
+    heads = {"batch": 0, "heads": 2}
+    placed = _shard_layout("flash_attention", dict(q=q, k=k, v=v),
+                           dict(q=heads, k=heads, v=heads))
+    if placed is not None:
+        out = flash_attention(q.to_local(), k.to_local(), v.to_local(),
+                              causal=causal, window=window, softcap=softcap)
+        return _as_placed(out, *placed, heads)
     named = dict(q=q, k=k, v=v)
     for name, t in named.items():
         if t.dim() != 4:
@@ -732,8 +805,20 @@ def rglru(a, b, h0=None):
     On CUDA tensors this is the kernel of kernels/csrc/rglru_scan.cu; on
     CPU tensors its plain version, kernels.rglru_scan.rglru_scan_plain.
     The two agree bitwise.  Raises RuntimeError under autograd: there is
-    no backward."""
+    no backward.
+
+    DTensor a, b (and h0) split alike over batch and features (dims 0
+    and 2 of a and b, 0 and 1 of h0) only run the kernel on each rank's
+    shard; h and h_last are laid out as a and h0."""
     _no_backward("rglru", a=a, b=b, h0=h0)
+    seq, state = {"batch": 0, "features": 2}, {"batch": 0, "features": 1}
+    placed = _shard_layout("rglru", dict(a=a, b=b, h0=h0),
+                           dict(a=seq, b=seq, h0=state))
+    if placed is not None:
+        h, h_last = rglru(a.to_local(), b.to_local(),
+                          None if h0 is None else h0.to_local())
+        return _as_placed(h, *placed, seq), _as_placed(h_last, *placed,
+                                                       state)
     named = dict(a=a, b=b) if h0 is None else dict(a=a, b=b, h0=h0)
     for name, t in named.items():
         if t.dtype != _F32:

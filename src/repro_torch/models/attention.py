@@ -20,19 +20,22 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..kernels import ops as kops
 from .common import (CastWeights, ModelConfig, einsum, init_normal, matmul,
-                     rope, softcap)
+                     rope, shard, softcap, whole_for_split)
 
 NEG_INF = -2.3819763e38
 IMPLS = ("einsum", "kernel")
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, kind: str, *,
-               device: torch.device, dtype=torch.bfloat16) -> dict:
-    """KV cache for one attention layer.  kind: "full" | "window"."""
-    _, hkv = cfg.padded_heads(1)
+               device: torch.device, dtype=torch.bfloat16,
+               tp: int = 1) -> dict:
+    """KV cache for one attention layer.  kind: "full" | "window"; its kv
+    heads padded for a tp-way model axis."""
+    _, hkv = cfg.padded_heads(tp)
     slots = min(max_len, cfg.window) if kind == "window" else max_len
     shape = (batch, slots, hkv, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -42,6 +45,8 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, kind: str, *,
 def _sdpa(q, k, v, mask, cfg: ModelConfig):
     """Grouped attention, the reference's einsum math.  q: (B,S,Hq,hd);
     k,v: (B,T,Hkv,hd); mask: (B|1, 1, S|1, T), True = attend."""
+    if isinstance(q, DTensor):
+        return _sdpa_per_rank(q, k, v, mask, cfg)
     B, S, Hq, hd = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
@@ -56,6 +61,30 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
     probs = (e / e.sum(dim=-1, keepdim=True)).to(q.dtype)
     out = einsum("bkgst,btkd->bskgd", probs, v)
     return out.reshape(B, S, Hq, hd)
+
+
+def _sdpa_per_rank(q, k, v, mask, cfg: ModelConfig):
+    """_sdpa of DTensors on each rank's batch rows and heads, as the
+    reference's shard_map of a head-parallel attention: q, k and v are
+    laid out alike, split over batch (dim 0) and heads (dim 2) where both
+    head counts divide, whole elsewhere, and the result is laid out as
+    q.  (DTensor's own einsum flattens the batch and head dims, and
+    cannot unflatten them when a split dim sits behind a whole one.)
+    Every mask of this module is the same for all batch rows."""
+    mesh = q.device_mesh
+    pl = []
+    for i, p in enumerate(q.placements):
+        n = mesh.size(i)
+        keep = (isinstance(p, Shard) and n > 1
+                and (p.dim == 0 and q.shape[0] % n == 0
+                     or p.dim == 2 and q.shape[2] % n == 0
+                     and k.shape[2] % n == 0))
+        pl.append(p if keep else Replicate())
+    q, k, v = (t.redistribute(mesh, tuple(pl)) for t in (q, k, v))
+    if isinstance(mask, DTensor):
+        mask = mask.full_tensor()
+    out = _sdpa(q.to_local(), k.to_local(), v.to_local(), mask[:1], cfg)
+    return DTensor.from_local(out, mesh, tuple(pl), run_check=False)
 
 
 def _flash(q, k, v, cfg: ModelConfig, *, causal: bool, window: int | None):
@@ -134,17 +163,19 @@ def _append_cache(cache: dict, k, v, local: bool):
 
 class Attention(CastWeights):
     """One attention layer: wq (d, hq, hd), wk and wv (d, hkv, hd), wo
-    (hq, hd, d), fp32, read in the activation's dtype.  kind: "attn" |
-    "attn_local"."""
+    (hq, hd, d), fp32, read in the activation's dtype, the head counts
+    padded for a tp-way model axis (ModelConfig.padded_heads).  kind:
+    "attn" | "attn_local"."""
 
     def __init__(self, cfg: ModelConfig, kind: str, *,
-                 generator: torch.Generator, device: torch.device):
+                 generator: torch.Generator, device: torch.device,
+                 tp: int = 1):
         super().__init__()
         if kind not in ("attn", "attn_local"):
             raise ValueError(f"attention kind {kind!r}")
         self.cfg, self.kind = cfg, kind
         d, hd = cfg.d_model, cfg.hd
-        hq, hkv = cfg.padded_heads(1)
+        hq, hkv = cfg.padded_heads(tp)
         kw = dict(generator=generator, device=device)
         self.wq = init_normal((d, hq, hd), **kw)
         self.wk = init_normal((d, hkv, hd), **kw)
@@ -155,13 +186,17 @@ class Attention(CastWeights):
         """x (B, S, d) through w (d, heads, hd) -> (B, S, heads, hd)."""
         B, S, d = x.shape
         w = self.weight(name, x.dtype)
-        return matmul(x, w.reshape(d, -1)).view(B, S, w.shape[1], w.shape[2])
+        out = whole_for_split(matmul(x, w.reshape(d, -1)), 2, w.shape[1])
+        return out.view(B, S, w.shape[1], w.shape[2])
 
     def _qkv(self, x, positions):
         theta = self.cfg.rope_theta
         q = rope(self._proj("wq", x), positions, theta)
         k = rope(self._proj("wk", x), positions, theta)
-        return q, k, self._proj("wv", x)
+        q = shard(q, "batch", None, "heads", None)
+        k = shard(k, "batch", None, "kv_heads", None)
+        v = shard(self._proj("wv", x), "batch", None, "kv_heads", None)
+        return q, k, v
 
     def _out(self, out):
         """Attention output (B, S, hq, hd) through wo -> (B, S, d)."""
@@ -176,7 +211,8 @@ class Attention(CastWeights):
         q, k, v = self._qkv(x, positions)
         S = x.shape[1]
         mask = torch.ones((1, 1, S, S), dtype=torch.bool, device=x.device)
-        return self._out(_sdpa(q, k, v, mask, self.cfg))
+        return shard(self._out(_sdpa(q, k, v, mask, self.cfg)),
+                     "batch", "seq", "embed")
 
     def cross(self, x, memory):
         """Cross-attention of x (B, S, d) onto memory (B, T, d) (the
@@ -188,7 +224,8 @@ class Attention(CastWeights):
         k, v = self._proj("wk", memory), self._proj("wv", memory)
         mask = torch.ones((1, 1, x.shape[1], memory.shape[1]),
                           dtype=torch.bool, device=x.device)
-        return self._out(_sdpa(q, k, v, mask, self.cfg))
+        return shard(self._out(_sdpa(q, k, v, mask, self.cfg)),
+                     "batch", "seq", "embed")
 
     def forward(self, x, positions, *, mode: str, cache: dict | None = None,
                 impl: str = "einsum", max_len: int = 0):
@@ -221,4 +258,4 @@ class Attention(CastWeights):
         else:
             raise ValueError(mode)
 
-        return self._out(out), new_cache
+        return shard(self._out(out), "batch", "seq", "embed"), new_cache

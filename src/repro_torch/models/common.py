@@ -5,16 +5,19 @@ The port's counterpart of `repro.models.common`: `MoEConfig` and
 `rms_norm`, `softcap` and `rope` on torch tensors, `init_normal` for the
 parameter draws, `CastWeights` (fp32 masters read in the activation's
 dtype), `matmul`/`einsum` with one rounding, and the training loss
-`cross_entropy`.  The reference's activation-sharding annotations
-(`shard`) have no counterpart: the port runs on one card and has no mesh
-yet.
+`cross_entropy`, and the activation-sharding hook: `shard(x, *axes)`
+names x's logical axes, and does nothing until `runtime.sharding`
+installs a sharder with `set_sharder`, as in the reference (the port's
+sharder redistributes a DTensor activation to the strategy's layout).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +123,9 @@ class CastWeights(torch.nn.Module):
     def __init__(self):
         super().__init__()
         self._casts: dict[str, tuple[tuple, torch.Tensor]] = {}
+        # name -> the model's own parameter, while a copy gathered from it
+        # stands in its place (runtime.steps._gathered)
+        self._sources: dict[str, torch.Tensor] = {}
 
     def weight(self, name: str, dtype: torch.dtype) -> torch.Tensor:
         w = getattr(self, name)
@@ -127,12 +133,137 @@ class CastWeights(torch.nn.Module):
             return w
         if w.requires_grad and torch.is_grad_enabled():
             return w.to(dtype)
-        key = (dtype, w.data_ptr(), w._version)
+        # the cast keys on the model's own parameter, not on a gathered
+        # copy, whose storage the next step's gather may get again.  A
+        # DTensor keys on its local shard's storage and on its own
+        # version: an in-place op on a DTensor counts there, not on the
+        # local shard's
+        src = self._sources.get(name, w)
+        local = src.to_local() if isinstance(src, DTensor) else src
+        key = (dtype, local.data_ptr(), local._version, src._version)
         hit = self._casts.get(name)
         if hit is None or hit[0] != key:
             hit = (key, w.detach().to(dtype))
             self._casts[name] = hit
         return hit[1]
+
+
+# activation-sharding hook: runtime.sharding installs the real layout
+# function; models stay import-independent of the mesh machinery.
+_SHARDER: Callable[[torch.Tensor, tuple], torch.Tensor] | None = None
+
+
+def set_sharder(fn: Callable[[torch.Tensor, tuple], torch.Tensor] | None
+                ) -> None:
+    global _SHARDER
+    _SHARDER = fn
+
+
+def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
+    """Annotate activation x with logical axes (x itself without a
+    sharder)."""
+    if _SHARDER is None:
+        return x
+    return _SHARDER(x, axes)
+
+
+def whole_partials(x: torch.Tensor) -> torch.Tensor:
+    """x with a DTensor's partial sums reduced (Replicate on those mesh
+    dims); anything else as it is."""
+    if isinstance(x, DTensor) and any(p.is_partial() for p in x.placements):
+        return x.redistribute(x.device_mesh, tuple(
+            Replicate() if p.is_partial() else p for p in x.placements))
+    return x
+
+
+def take_rows(w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """w[idx]: rows of a (V, D) table.  A DTensor table is read on each
+    rank from its own shard (DTensor's row-lookup rules fail in some
+    torch releases): the indices are made whole on the mesh dims that
+    split the table; where V is split, each rank takes the rows in its
+    range and zeros elsewhere, and the result is the ranks' partial sum
+    (one non-zero term a row, so exact); where D is split, the rows stay
+    split on it."""
+    if not isinstance(w, DTensor):
+        return w[idx]
+    mesh = w.device_mesh
+    if not isinstance(idx, DTensor):
+        idx = DTensor.from_local(idx, mesh, (Replicate(),) * mesh.ndim,
+                                 run_check=False)
+    idx_pl, out_pl, grad_pl = [], [], []
+    rows, first = w.shape[0], 0
+    for i, p in enumerate(w.placements):
+        q = idx.placements[i]
+        if isinstance(p, Shard) and mesh.size(i) > 1:
+            idx_pl.append(Replicate())
+            grad_pl.append(p)
+            if p.dim == 0:
+                rows //= mesh.size(i)
+                first += mesh.get_local_rank(i) * rows
+                out_pl.append(Partial())
+            else:
+                out_pl.append(Shard(idx.dim()))
+        else:
+            split = isinstance(q, Shard)
+            idx_pl.append(q if split else Replicate())
+            out_pl.append(q if split else Replicate())
+            # a whole table read by rank-split indices: each rank's
+            # gradient is its rows' part of the sum
+            grad_pl.append(Partial() if split else p)
+    local = idx.redistribute(mesh, tuple(idx_pl)).to_local()
+    table = w.to_local(grad_placements=tuple(grad_pl))
+    if rows == w.shape[0]:
+        out = table[local]
+    else:
+        mine = (local >= first) & (local < first + rows)
+        out = torch.where(mine[..., None],
+                          table[(local - first).clamp(0, rows - 1)], 0)
+    return DTensor.from_local(out, mesh, tuple(out_pl), run_check=False)
+
+
+def whole_for_split(x: torch.Tensor, dim: int, lead: int) -> torch.Tensor:
+    """x about to have dim `dim` split into (lead, rest): a DTensor whose
+    `dim` is split over ranks that `lead` does not divide gets that dim
+    whole first (DTensor splits a sharded dim only when the leading
+    factor keeps the shards); anything else as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    dim %= x.dim()
+    split = [i for i, p in enumerate(x.placements)
+             if isinstance(p, Shard) and p.dim == dim]
+    if lead % math.prod(x.device_mesh.size(i) for i in split) == 0:
+        return x
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if i in split else p
+        for i, p in enumerate(x.placements)))
+
+
+def local_elementwise(fn: Callable[[torch.Tensor], torch.Tensor],
+                      x: torch.Tensor) -> torch.Tensor:
+    """fn(x) for an elementwise fn; on a DTensor, fn of each rank's shard
+    (a partial sum made whole first), laid out as x.  For elementwise ops
+    that DTensor has no sharding rule for, forward or backward: autograd
+    runs fn's backward on the shards too."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    x = whole_partials(x)
+    return DTensor.from_local(fn(x.to_local()), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def _splits_sum(operands: tuple, summed: tuple) -> bool:
+    """Whether a DTensor operand splits one of its summed dims (`summed`:
+    a set of dims an operand) over a mesh dim of more than one rank: its
+    product would be partial sums a rank."""
+    for t, dims in zip(operands, summed):
+        if not isinstance(t, DTensor):
+            continue
+        for i, p in enumerate(t.placements):
+            if (t.device_mesh.size(i) > 1 and isinstance(p, Shard)
+                    and p.dim % t.dim() in dims):
+                return True
+    return False
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -144,16 +275,27 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     bf16, a place or more off).  PyTorch's bf16 matmul on the
     CPU can round partial sums, which moves the last bf16 place, so on
     the CPU the product is taken in fp32 and rounded once: that is also
-    what the reference's bf16 dots compute on the CPU."""
-    if a.device.type == "cpu" and a.dtype != torch.float32:
-        return (a.float() @ b.float()).to(a.dtype)
+    what the reference's bf16 dots compute on the CPU.  So is a product
+    of DTensors that split the summed dim over ranks, on either device:
+    the ranks' fp32 partial sums are added before the one rounding (a
+    bf16 product would round each rank's part and then their sum)."""
+    if a.dtype != torch.float32 and (
+            a.device.type == "cpu"
+            or _splits_sum((a, b), ({a.dim() - 1}, {b.dim() - 2}))):
+        return whole_partials(a.float() @ b.float()).to(a.dtype)
     return a @ b
 
 
 def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """torch.einsum of two operands with `matmul`'s rounding."""
-    if a.device.type == "cpu" and a.dtype != torch.float32:
-        return torch.einsum(eq, a.float(), b.float()).to(a.dtype)
+    if a.dtype != torch.float32:
+        ins, out = eq.replace(" ", "").split("->")
+        sa, sb = ins.split(",")
+        if a.device.type == "cpu" or _splits_sum(
+                (a, b), ({i for i, c in enumerate(sa) if c not in out},
+                         {i for i, c in enumerate(sb) if c not in out})):
+            return whole_partials(
+                torch.einsum(eq, a.float(), b.float())).to(a.dtype)
     return torch.einsum(eq, a, b)
 
 
@@ -199,6 +341,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
     lse = torch.logsumexp(logits, dim=-1)
     valid = labels >= 0
     safe = labels.clamp_min(0).long()
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    # gathered from (tokens, vocab) rows, and a DTensor's masked partial
+    # sum reduced before any reshape: DTensor's gather from vocab-split
+    # logits masks its result in the gather's own 2-D shape
+    gold = whole_partials(torch.gather(
+        logits.reshape(-1, logits.shape[-1]), 1,
+        safe.reshape(-1, 1))).reshape(safe.shape)
     nll = torch.where(valid, lse - gold, 0.0)
     return nll.sum() / valid.sum().clamp_min(1)

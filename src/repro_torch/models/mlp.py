@@ -15,7 +15,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .common import CastWeights, ModelConfig, init_normal, matmul
+from .common import CastWeights, ModelConfig, init_normal, matmul, shard
 
 KINDS = ("swiglu", "geglu", "relu2", "gelu")
 
@@ -55,7 +55,7 @@ class MLP(CastWeights):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
-        up = matmul(x, self.weight("w_up", dt))
+        up = shard(matmul(x, self.weight("w_up", dt)), "batch", None, "mlp")
         if self.kind == "swiglu":
             h = silu(matmul(x, self.weight("w_gate", dt))) * up
         elif self.kind == "geglu":
@@ -64,4 +64,5 @@ class MLP(CastWeights):
             h = torch.square(F.relu(up))
         else:
             h = gelu_tanh(up)
-        return matmul(h, self.weight("w_down", dt))
+        return shard(matmul(h, self.weight("w_down", dt)),
+                     "batch", "seq", "embed")

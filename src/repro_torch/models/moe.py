@@ -32,9 +32,10 @@ import dataclasses
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from .common import (CastWeights, ModelConfig, MoEConfig, einsum, init_normal,
-                     matmul)
+                     matmul, shard)
 from .mlp import sigmoid, silu
 
 
@@ -102,18 +103,45 @@ def route_logits(moe: MoEConfig, logits: torch.Tensor) -> Routing:
     return Routing(probs, topv, topi, slot, slot < cap, counts, cap, aux)
 
 
+def route_sharded(moe: MoEConfig, logits: DTensor) -> Routing:
+    """route_logits of DTensor router logits whose groups (dim 0) are
+    split over the batch axes and whose experts are whole: each rank
+    routes its own groups (the sort, one-hots and running counts have no
+    DTensor sharding rule, and no group's routing reads another's), and
+    the load-balance loss is taken over all groups.  The Routing's probs
+    and counts are DTensors (counts partial sums over the ranks that
+    split the groups), its aux a DTensor scalar; its topv, topi, slot
+    and keep are this rank's local tensors."""
+    if any(not (p.is_replicate() or p.is_shard(0))
+           for p in logits.placements):
+        raise ValueError(f"route_sharded: router logits must split only "
+                         f"their groups (dim 0), got {logits.placements}")
+    r = route_logits(moe, logits.to_local())
+    mesh = logits.device_mesh
+    probs = DTensor.from_local(r.probs, mesh, logits.placements,
+                               run_check=False)
+    counts = DTensor.from_local(
+        r.counts, mesh, tuple(Partial() if p.is_shard() else Replicate()
+                              for p in logits.placements), run_check=False)
+    n, g, _ = logits.shape
+    me = probs.mean(dim=(0, 1))
+    ce = counts.float() / (n * g * moe.top_k)
+    aux = moe.n_experts * torch.sum(me * ce)
+    return dataclasses.replace(r, probs=probs, counts=counts, aux=aux)
+
+
 class MoE(CastWeights):
     """router (d, E), w_gate and w_up (E, d, f), w_down (E, f, d); with a
     shared expert also shared_gate, shared_up (d, fs), shared_down (fs, d)
     and shared_mix (d, 1).  fp32, read in the activation's dtype."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
-                 device: torch.device):
+                 device: torch.device, tp: int = 1):
         super().__init__()
         moe = cfg.moe
         self.cfg = cfg
         d, f = cfg.d_model, moe.d_expert
-        ep = padded_experts(moe, 1)      # one card: no expert padding
+        ep = padded_experts(moe, tp)
         kw = dict(generator=generator, device=device)
         self.router = init_normal((d, ep), **kw)
         self.w_gate = init_normal((ep, d, f), **kw)
@@ -139,16 +167,23 @@ class MoE(CastWeights):
         return matmul(xt, self.weight("router", xt.dtype)).float()
 
     def route(self, xt: torch.Tensor) -> Routing:
-        """The routing of groups xt (n, g, D)."""
-        return route_logits(self.cfg.moe, self.router_logits(xt))
+        """The routing of groups xt (n, g, D).  DTensor logits are laid
+        out with their groups on the batch axes and routed rank by rank
+        (`route_sharded`)."""
+        logits = self.router_logits(xt)
+        if isinstance(logits, DTensor):
+            return route_sharded(self.cfg.moe,
+                                 shard(logits, "batch", None, None))
+        return route_logits(self.cfg.moe, logits)
 
     def experts(self, xin: torch.Tensor) -> torch.Tensor:
         """The expert FFNs on their queues xin (n, E, C, D)."""
         dt = xin.dtype
         gate = einsum("necd,edf->necf", xin, self.weight("w_gate", dt))
         up = einsum("necd,edf->necf", xin, self.weight("w_up", dt))
-        return einsum("necf,efd->necd", silu(gate) * up,
-                      self.weight("w_down", dt))
+        h = shard(silu(gate) * up, "batch", "experts", None, None)
+        return shard(einsum("necf,efd->necd", h, self.weight("w_down", dt)),
+                     "batch", "experts", None, None)
 
     def dispatch(self, r: Routing, dtype: torch.dtype):
         """The dispatch and combine tensors (n, g, E, C) of routing r,
@@ -190,7 +225,15 @@ class MoE(CastWeights):
         xt = self.groups(x)
         r = self.route(xt)
         disp, comb = self.dispatch(r, dt)
-        xin = einsum("ngec,ngd->necd", disp, xt)
+        if isinstance(r.probs, DTensor):      # this rank's groups' tensors
+            disp, comb = (DTensor.from_local(t, r.probs.device_mesh,
+                                             r.probs.placements,
+                                             run_check=False)
+                          for t in (disp, comb))
+        disp = shard(disp, "batch", None, "experts", None)
+        comb = shard(comb, "batch", None, "experts", None)
+        xin = shard(einsum("ngec,ngd->necd", disp, xt),
+                    "batch", "experts", None, None)
         out = einsum("ngec,necd->ngd", comb, self.experts(xin))
         if self.cfg.moe.n_shared:
             sg = matmul(xt, self.weight("shared_gate", dt))
@@ -198,4 +241,4 @@ class MoE(CastWeights):
             sh = matmul(silu(sg) * su, self.weight("shared_down", dt))
             mix = sigmoid(matmul(xt, self.weight("shared_mix", dt)))
             out = out + mix * sh
-        return out.reshape(B, S, D), r.aux
+        return shard(out.reshape(B, S, D), "batch", "seq", "embed"), r.aux

@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import ops as kops
-from .common import CastWeights, ModelConfig, init_normal, matmul
+from .common import CastWeights, ModelConfig, init_normal, matmul, shard
 from .mlp import gelu_tanh, sigmoid
 
 C_RGLRU = 8.0
@@ -131,6 +131,7 @@ class RGLRU(CastWeights):
         dt = x.dtype
         xi = matmul(x, self.weight("w_x", dt))
         gate = gelu_tanh(matmul(x, self.weight("w_y", dt)))
+        xi = shard(xi, "batch", None, "mlp")
         if mode in ("train", "prefill"):
             xi, conv_hist = _conv4(xi, self.conv_w, self.conv_b, None)
             a, b = self._gates(xi)
@@ -160,4 +161,4 @@ class RGLRU(CastWeights):
         else:
             raise ValueError(mode)
         out = matmul(h * gate, self.weight("w_out", dt))
-        return out, new_cache
+        return shard(out, "batch", "seq", "embed"), new_cache

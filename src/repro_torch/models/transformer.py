@@ -35,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from . import attention, mlp, moe, rglru, xlstm
 from .common import (CastWeights, ModelConfig, init_normal, matmul, rms_norm,
-                     softcap)
+                     shard, softcap, take_rows)
 
 KINDS = ("attn", "attn_local", "rglru", "mlstm", "slstm")
 FAMILIES = ("lm", "encdec", "vlm")
@@ -63,7 +63,7 @@ class Block(torch.nn.Module):
 
     def __init__(self, cfg: ModelConfig, kind: str, *,
                  generator: torch.Generator, device: torch.device,
-                 cross: bool = False):
+                 cross: bool = False, tp: int = 1):
         super().__init__()
         kw = dict(generator=generator, device=device)
         self.kind = kind
@@ -77,14 +77,14 @@ class Block(torch.nn.Module):
         elif kind == "slstm":
             self.cell = xlstm.SLSTM(cfg, **kw)
         else:
-            self.attn = attention.Attention(cfg, kind, **kw)
+            self.attn = attention.Attention(cfg, kind, tp=tp, **kw)
             if cross:
                 self.ln_x = init_normal((cfg.d_model,), zero=True, **kw)
-                self.xattn = attention.Attention(cfg, "attn", **kw)
+                self.xattn = attention.Attention(cfg, "attn", tp=tp, **kw)
         attn = kind in ("attn", "attn_local")
         if kind == "rglru" or (attn and (cfg.moe or cfg.mlp_kind != "none")):
             self.ln2 = init_normal((cfg.d_model,), zero=True, **kw)
-            self.ffn = (moe.MoE(cfg, **kw) if attn and cfg.moe
+            self.ffn = (moe.MoE(cfg, tp=tp, **kw) if attn and cfg.moe
                         else mlp.MLP(cfg, **kw))
 
     def mixer(self, h, positions, *, mode: str, cache=None,
@@ -126,44 +126,50 @@ class Transformer(CastWeights):
     """embed (vp, d) at scale 1/sqrt(d), final_ln, unembed (d, vp) when
     the embeddings are not tied, and `n_layers` Blocks; an
     encoder-decoder model also `n_enc_layers` encoder Blocks and enc_ln,
-    a VLM img_proj (d, d)."""
+    a VLM img_proj (d, d).  The vocabulary, the attention heads and the
+    MoE experts are padded for a tp-way model axis, as the reference's
+    `init_params(tp=)` pads them (tp = 1 pads the vocabulary to 128)."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
-                 device: torch.device):
+                 device: torch.device, tp: int = 1):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
+        self.tp = tp
         kw = dict(generator=generator, device=device)
-        vp, d = cfg.padded_vocab(1), cfg.d_model
+        vp, d = cfg.padded_vocab(tp), cfg.d_model
         self.embed = init_normal((vp, d), scale=1.0 / d ** 0.5, **kw)
         self.final_ln = init_normal((d,), zero=True, **kw)
         if not cfg.tie_embeddings:
             self.unembed = init_normal((d, vp), **kw)
         cross = cfg.family == "encdec"
         self.blocks = torch.nn.ModuleList(
-            Block(cfg, kind, cross=cross, **kw)
+            Block(cfg, kind, cross=cross, tp=tp, **kw)
             for kind in cfg.pattern_for(cfg.n_layers))
         if cross:
             self.enc_blocks = torch.nn.ModuleList(
-                Block(cfg, "attn", **kw) for _ in range(cfg.n_enc_layers))
+                Block(cfg, "attn", tp=tp, **kw)
+                for _ in range(cfg.n_enc_layers))
             self.enc_ln = init_normal((d,), zero=True, **kw)
         if cfg.family == "vlm":
             self.img_proj = init_normal((d, d), **kw)
 
 
 def _embed(model: Transformer, tokens):
-    x = model.weight("embed", torch.bfloat16)[tokens]
+    x = take_rows(model.weight("embed", torch.bfloat16), tokens)
     if model.cfg.tie_embeddings:
         # sqrt(d) in fp32, rounded to bf16 before the product
         x = x * torch.tensor(math.sqrt(model.cfg.d_model),
                              dtype=torch.float32).to(x.dtype)
-    return x
+    return shard(x, "batch", "seq", "embed")
 
 
 def _unembed(model: Transformer, x):
     if model.cfg.tie_embeddings:
-        return matmul(x, model.weight("embed", x.dtype).T)
-    return matmul(x, model.weight("unembed", x.dtype))
+        logits = matmul(x, model.weight("embed", x.dtype).T)
+    else:
+        logits = matmul(x, model.weight("unembed", x.dtype))
+    return shard(logits, "batch", None, "vocab")
 
 
 def _inputs(model: Transformer, batch: dict):
@@ -177,7 +183,7 @@ def _inputs(model: Transformer, batch: dict):
     if model.cfg.family == "vlm":
         img = matmul(batch["img_embeds"].to(x.dtype),
                      model.weight("img_proj", x.dtype))
-        x = torch.cat([img, x], dim=1)
+        x = torch.cat([shard(img, "batch", "seq", "embed"), x], dim=1)
     return x, memory
 
 
@@ -210,7 +216,7 @@ def encode(model: Transformer, enc_embeds):
     """The encoder over frame embeddings (B, S_enc, d): bidirectional
     attention layers on the einsum path, then enc_ln.  Returns the memory
     (B, S_enc, d) in bf16."""
-    x = enc_embeds.to(torch.bfloat16)
+    x = shard(enc_embeds.to(torch.bfloat16), "batch", "seq", "embed")
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for block in model.enc_blocks:
         x, _, _ = block(x, positions, mode="train", causal=False)
@@ -238,8 +244,9 @@ def train_logits(model: Transformer, batch: dict, *, impl: str = "einsum",
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device: torch.device) -> list[dict]:
-    """Empty caches for decode, one per decoder layer."""
+               device: torch.device, tp: int = 1) -> list[dict]:
+    """Empty caches for decode, one per decoder layer, the kv heads
+    padded for a tp-way model axis."""
     def one(kind):
         if kind == "rglru":
             return rglru.make_cache(cfg, batch, device=device)
@@ -249,7 +256,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             return xlstm.make_slstm_cache(cfg, batch, device=device)
         return attention.make_cache(
             cfg, batch, max_len, "window" if kind == "attn_local" else "full",
-            device=device)
+            device=device, tp=tp)
     return [one(kind) for kind in cfg.pattern_for(cfg.n_layers)]
 
 

@@ -28,7 +28,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .common import CastWeights, ModelConfig, init_normal, matmul
+from .common import (CastWeights, ModelConfig, init_normal,
+                     local_elementwise, matmul, shard, whole_for_split)
 from .mlp import gelu_tanh, silu
 from .rglru import CONV_WIDTH, _conv4
 
@@ -153,7 +154,8 @@ class MLSTM(CastWeights):
 
         def heads(name):        # (B, H, S, hd)
             w = self.weight(name, dt)
-            return matmul(ci, w.reshape(w.shape[0], -1)).view(
+            qkv = matmul(ci, w.reshape(w.shape[0], -1))
+            return whole_for_split(qkv, 2, self.heads).view(
                 B, S, self.heads, -1).transpose(1, 2).float()
 
         def gate_pre(name):     # (B, H, S): product and bias in bf16
@@ -162,7 +164,8 @@ class MLSTM(CastWeights):
                     ).float().transpose(1, 2)
 
         return (heads("w_q"), heads("w_k"), heads("w_v"),
-                F.logsigmoid(gate_pre("f")), gate_pre("i"), gate, conv_hist)
+                local_elementwise(F.logsigmoid, gate_pre("f")),
+                gate_pre("i"), gate, conv_hist)
 
     @staticmethod
     def chunks(q, k, v, logf, logi):
@@ -223,7 +226,8 @@ class MLSTM(CastWeights):
             new_cache = {"S": state[0], "n": state[1], "m": state[2],
                          "conv": conv_hist.float()}
         h = group_norm(h.transpose(1, 2), self.gn).to(dt)   # (B, S, 2D)
-        return matmul(h * silu(gate), self.weight("w_down", dt)), new_cache
+        out = matmul(h * silu(gate), self.weight("w_down", dt))
+        return shard(out, "batch", "seq", "embed"), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -283,13 +287,15 @@ class SLSTM(CastWeights):
         B, D = h.shape
         H = self.heads
         # the block-diagonal recurrent product of all four gates at once
-        rh = torch.bmm(h.view(B, H, -1).transpose(0, 1), r)  # (H, B, 4hd)
-        rh = rh.view(H, B, len(GATES), -1).permute(1, 2, 0, 3).reshape(
-            B, len(GATES), D)
+        rh = torch.bmm(whole_for_split(h, 1, H).view(B, H, -1)
+                       .transpose(0, 1), r)                  # (H, B, 4hd)
+        rh = whole_for_split(rh, 2, len(GATES)).view(
+            H, B, len(GATES), -1).permute(1, 2, 0, 3).reshape(
+                B, len(GATES), D)
         pre = wx + rh + b
         z = torch.tanh(pre[:, 0])
         itil = pre[:, 1]
-        ftil = F.logsigmoid(pre[:, 2])
+        ftil = local_elementwise(F.logsigmoid, pre[:, 2])
         o = torch.sigmoid(pre[:, 3])
         m_new = torch.maximum(ftil + m, itil)
         ip = torch.exp(itil - m_new)
@@ -340,8 +346,9 @@ class SLSTM(CastWeights):
             new_cache = {"c": state[0], "n": state[1], "h": state[2],
                          "m": state[3], "conv": conv_hist.float()}
 
-        h = group_norm(h.view(B, S, self.heads, -1), self.gn).to(dt)
+        h = group_norm(whole_for_split(h, 2, self.heads).view(
+            B, S, self.heads, -1), self.gn).to(dt)
         up = matmul(h, self.weight("w_ff1", dt))
         gate = matmul(h, self.weight("w_ff1g", dt))
-        return (matmul(gelu_tanh(gate) * up, self.weight("w_ff2", dt)),
-                new_cache)
+        out = matmul(gelu_tanh(gate) * up, self.weight("w_ff2", dt))
+        return shard(out, "batch", "seq", "embed"), new_cache

@@ -57,12 +57,13 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def adamw_init(params: dict[str, torch.Tensor]) -> dict:
-    """Zero moments (fp32, one per parameter) and step 0."""
+    """Zero moments (fp32, one per parameter, laid out as it: a DTensor
+    parameter's moments are DTensors of its placements) and step 0."""
     device = next(iter(params.values())).device
-    zeros = {k: torch.zeros(p.shape, dtype=_F32, device=p.device)
+    zeros = {k: torch.zeros_like(p, dtype=_F32, requires_grad=False)
              for k, p in params.items()}
     return {"m": zeros,
-            "v": {k: torch.zeros(p.shape, dtype=_F32, device=p.device)
+            "v": {k: torch.zeros_like(p, dtype=_F32, requires_grad=False)
                   for k, p in params.items()},
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 

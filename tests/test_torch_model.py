@@ -37,7 +37,7 @@ from repro.models import transformer as jtransformer
 from repro_torch import configs, convert
 from repro_torch.launch import serve
 from repro_torch.models import transformer
-from repro_torch.runtime import steps
+from repro_torch.runtime import sharding, steps
 
 ARCHS = ("phi4_mini_3_8b", "nemotron_4_15b", "gemma2_27b",
          "h2o_danube_3_4b", "recurrentgemma_2b", "granite_moe_1b_a400m",
@@ -363,12 +363,23 @@ def test_serve_without_a_card_raises():
         serve.main(["--smoke", "--gen", "2", "--prompt-len", "4"])
 
 
+class _AnyStrategy(sharding.Strategy):
+    """A Strategy that needs no mesh: the step factories check a
+    strategy's type when they build a step (tests/test_torch_sharded_steps.py
+    runs real ones)."""
+
+    def __init__(self):
+        pass
+
+
 def test_steps_reject_unported_knobs():
     cfg = configs.get("phi4_mini_3_8b", smoke=True)
-    with pytest.raises(NotImplementedError, match="strategy"):
+    with pytest.raises(TypeError, match="Strategy"):
         steps.make_prefill_step(cfg, strategy=object())
-    with pytest.raises(NotImplementedError, match="strategy"):
+    with pytest.raises(TypeError, match="Strategy"):
         steps.make_decode_step(cfg, strategy=object())
+    assert callable(steps.make_prefill_step(cfg, strategy=_AnyStrategy()))
+    assert callable(steps.make_decode_step(cfg, strategy=_AnyStrategy()))
     with pytest.raises(ValueError, match="impl"):
         steps.make_decode_step(cfg, impl="pallas")
 

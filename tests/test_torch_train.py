@@ -35,7 +35,7 @@ from repro.runtime import steps as jsteps
 from repro.train import optimizer as jopt
 from repro_torch import configs, convert
 from repro_torch.models import common, transformer
-from repro_torch.runtime import steps
+from repro_torch.runtime import sharding, steps
 from repro_torch.train import optimizer as opt
 
 ARCHS = ("phi4_mini_3_8b", "nemotron_4_15b", "gemma2_27b",
@@ -320,10 +320,21 @@ def test_kernel_training_raises():
     assert logits.shape == (B, S, cfg.padded_vocab(1))
 
 
+class _AnyStrategy(sharding.Strategy):
+    """A Strategy that needs no mesh: make_train_step checks a strategy's
+    type when it builds the step (tests/test_torch_sharded_steps.py runs
+    real ones)."""
+
+    def __init__(self):
+        pass
+
+
 def test_train_step_rejects_strategy():
     cfg = configs.get("phi4_mini_3_8b", smoke=True)
-    with pytest.raises(NotImplementedError, match="strategy.*item 12"):
+    with pytest.raises(TypeError, match="Strategy"):
         steps.make_train_step(cfg, opt.AdamWConfig(), strategy=object())
+    assert callable(steps.make_train_step(cfg, opt.AdamWConfig(),
+                                          strategy=_AnyStrategy()))
 
 
 @pytest.mark.parametrize("arch", ["phi4_mini_3_8b", "seamless_m4t_large_v2",

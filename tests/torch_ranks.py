@@ -225,3 +225,285 @@ def collective_cases(rank: int, world: int, payload: dict) -> dict:
                 [leaf.numpy() for _, leaf in tree.flatten(got)], issued,
                 [leaf.numpy() for _, leaf in tree.flatten(grads)])
     return out
+
+
+def smoke_model(arch: str, state: dict | None, tp: int = 1):
+    """The port's smoke model of `arch` with its widths padded for a
+    tp-way model axis: `state` (a params_from_numpy state dict of numpy
+    arrays) loaded, or drawn from seed 0 when None."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    cfg = configs.get(arch, smoke=True)
+    model = transformer.Transformer(
+        cfg, generator=torch.Generator().manual_seed(0),
+        device=torch.device("cpu"), tp=tp)
+    if state is not None:
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in state.items()})
+    return cfg, model
+
+
+def _full(t) -> np.ndarray:
+    """A DTensor's (or tensor's) whole value as fp32 numpy."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    return t.detach().float().numpy()
+
+
+def _serve(cfg, model, batch, gen, strategy, pos0, memory=None):
+    """Prefill then `gen` greedy decode steps (`memory`, the encoder's
+    output, passed to an encoder-decoder model's steps): the prefill's
+    logits and caches, and each step's logits and token, all as numpy."""
+    from repro_torch.runtime import steps
+    prefill = steps.make_prefill_step(cfg, impl="kernel", max_len=pos0 + gen,
+                                      strategy=strategy)
+    decode = steps.make_decode_step(cfg, impl="kernel", strategy=strategy)
+    logits, caches = prefill(model, batch)
+    out = {"prefill": _full(logits),
+           "cache": [{k: _full(v) for k, v in c.items()
+                      if isinstance(v, torch.Tensor)} for c in caches]}
+    tok = torch.from_numpy(out["prefill"]).argmax(-1)
+    out["steps"], out["tokens"] = [], []
+    for i in range(gen):
+        logits, caches = decode(model, caches, tok, pos0 + i, memory)
+        out["steps"].append(_full(logits))
+        tok = torch.from_numpy(out["steps"][-1]).argmax(-1)
+        out["tokens"].append(tok.numpy())
+    return out
+
+
+def sharded_step_cases(rank: int, world: int, payload: dict) -> dict:
+    """runtime.steps under a sharding strategy on this rank, for each
+    case of payload (name -> case).  A case: "arch", "kind" ("2d" |
+    "fsdp"), "shape" (the ("data", "model") mesh), "state" (the smoke
+    model's state dict, numpy, or None for seed 0), "batch" (numpy,
+    whole), "mode": "train" (one AdamW step: its metrics, every
+    parameter's whole value after it, and how many parameter specs
+    split some dim) or "serve" (a prefill and case["gen"] decode steps,
+    `_serve`'s record).  A case with "plain": True also runs the same
+    without a strategy on rank 0 alone, for comparison."""
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import transformer
+    from repro_torch.runtime import sharding, steps
+    from repro_torch.train import optimizer as opt
+    out: dict = {}
+    for name, case in payload.items():
+        mesh = lmesh.make_host_mesh(case["shape"], ("data", "model"))
+        st = sharding.Strategy(mesh, case["kind"], False)
+        batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+        runs = {"sharded": st}
+        if case.get("plain") and rank == 0:
+            runs["plain"] = None
+        got = {}
+        for run, strategy in runs.items():
+            cfg, model = smoke_model(case["arch"], case["state"],
+                                     st.tp if strategy else 1)
+            memory = None
+            if cfg.family == "encdec" and case["mode"] == "serve":
+                # the encoder's output, from the model before it is split
+                with torch.no_grad():
+                    memory = transformer.encode(model, batch["enc_embeds"])
+            if strategy is not None:
+                strategy.distribute(model)
+            if case["mode"] == "train":
+                state = opt.adamw_init(dict(model.named_parameters()))
+                step = steps.make_train_step(
+                    cfg, opt.AdamWConfig(total_steps=10), strategy=strategy)
+                _, state, m = step(model, state, batch)
+                got[run] = {
+                    "metrics": {k: v.numpy() for k, v in m.items()},
+                    "params": {k: _full(p)
+                               for k, p in model.named_parameters()},
+                    "m": {k: _full(v) for k, v in state["m"].items()}}
+                if strategy is not None:
+                    specs = strategy.specs_for(model)
+                    got[run]["n_split"] = sum(
+                        any(e is not None for e in s) for s in specs.values())
+                    got[run]["n_params"] = len(specs)
+            else:
+                pos0 = batch["tokens"].shape[1] + (
+                    cfg.n_img_tokens if cfg.family == "vlm" else 0)
+                got[run] = _serve(cfg, model, batch, case["gen"], strategy,
+                                  pos0, memory)
+        out[name] = got
+    return out
+
+
+def eval_after_train_case(rank: int, world: int, payload: dict) -> dict:
+    """phi4-mini smoke under "2d" on a world x 1 "data" mesh, whose
+    parameters each step gathers anew from their shards: a prefill
+    (which caches bf16 casts of the gathered weights), one train step,
+    and the prefill again; then the prefill of a fresh model that loads
+    the trained parameters.  Returns the three prefills' logits."""
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.runtime import sharding, steps
+    from repro_torch.train import optimizer as opt
+    mesh = lmesh.make_host_mesh((world, 1), ("data", "model"))
+    st = sharding.Strategy(mesh, "2d", False)
+    batch = {k: torch.from_numpy(v) for k, v in payload.items()}
+    prompt = {"tokens": batch["tokens"]}
+    cfg, model = smoke_model("phi4_mini_3_8b", None)
+    st.distribute(model)
+    prefill = steps.make_prefill_step(cfg, impl="kernel", strategy=st)
+    out = {"before": _full(prefill(model, prompt)[0])}
+    state = opt.adamw_init(dict(model.named_parameters()))
+    steps.make_train_step(cfg, opt.AdamWConfig(total_steps=10),
+                          strategy=st)(model, state, batch)
+    out["after"] = _full(prefill(model, prompt)[0])
+    _, fresh = smoke_model("phi4_mini_3_8b", {
+        k: _full(p) for k, p in model.named_parameters()})
+    st.distribute(fresh)
+    out["fresh"] = _full(prefill(fresh, prompt)[0])
+    return out
+
+
+# the meshes of tests/test_torch_sharding.py: name -> (axis sizes, multi_pod)
+SPEC_MESHES = {"4x2": ((4, 2), ("data", "model"), False),
+               "16x16": ((16, 16), ("data", "model"), False),
+               "2x16x16": ((2, 16, 16), ("pod", "data", "model"), True)}
+
+
+def _jsonable(spec):
+    """A spec (tuple of None | name | tuple of names) as nested lists."""
+    return [list(e) if isinstance(e, tuple) else e for e in spec]
+
+
+def strategy_specs(payload: dict) -> dict:
+    """The port's Strategy specs on each SPEC_MESHES mesh, each in a
+    world of as many ranks on torch's "fake" backend (this process is
+    rank 0; nothing is sent).  payload: "archs", "kinds", "sp" (the
+    settings of sp), "batches" (batch sizes of the synthetic batches),
+    "cache" ((batch, max_len) of the caches) and "queries" (mesh name ->
+    kind -> arch -> list of (logical axes, shape)).  Returns, keyed
+    "mesh/kind/sp/arch": every parameter's (shape, param_spec,
+    compute_spec) of the model at the strategy's tp on the meta device,
+    the caches' specs and shapes, the batch specs, the queries' specs and
+    dryrun.count_params, all JSON-able."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import transformer
+    from repro_torch.runtime import sharding, steps
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    meta = torch.device("meta")
+    out = {}
+    for mesh_name, (dims, axes, multi_pod) in SPEC_MESHES.items():
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=int(np.prod(dims)))
+        try:
+            mesh = lmesh.make_host_mesh(dims, axes)
+            for kind in payload["kinds"]:
+                for sp in payload["sp"]:
+                    st = sharding.Strategy(mesh, kind, multi_pod, sp=sp)
+                    for arch in payload["archs"]:
+                        cfg = configs.get(arch)
+                        model = transformer.Transformer(
+                            cfg, generator=torch.Generator(), device=meta,
+                            tp=st.tp)
+                        caches = transformer.init_cache(
+                            cfg, *payload["cache"], device=meta, tp=st.tp)
+                        batches = {}
+                        for b in payload["batches"]:
+                            for mode in ("train", "prefill"):
+                                batch = steps.synthetic_batch_shapes(
+                                    cfg, b, 4096, mode=mode, enc_len=16)
+                                batches[f"{mode}/{b}"] = {
+                                    k: _jsonable(v) for k, v in
+                                    st.batch_spec(batch).items()}
+                        out[f"{mesh_name}/{kind}/{sp}/{arch}"] = {
+                            "params": {
+                                n: (list(p.shape),
+                                    _jsonable(st.param_spec(n, p.shape)),
+                                    _jsonable(st.compute_spec(n, p.shape)))
+                                for n, p in model.named_parameters()},
+                            "caches": [
+                                {k: (list(layer[k].shape), _jsonable(s))
+                                 for k, s in spec.items()}
+                                for layer, spec in zip(
+                                    caches, st.cache_spec(caches))],
+                            "batch": batches,
+                            "logical": [
+                                _jsonable(st.logical_to_spec(tuple(a),
+                                                             tuple(s)))
+                                for a, s in payload["queries"][mesh_name][
+                                    kind][arch]],
+                            "count": dryrun.count_params(model, cfg),
+                            "tp": st.tp}
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def dryrun_cases(out_dir: str) -> dict:
+    """The dry run's cells through its CLI (repro_torch.launch.dryrun
+    main, writing to out_dir): phi4-mini's train_4k and decode_32k and
+    long_500k, and xlstm's long_500k, at 16 x 16; and RankCounter's
+    flops of one product split over both axes of a 16 x 16 fake world
+    (meta tensors), beside its global flops.  Returns the cells' JSON
+    and the product's counts."""
+    import json
+    import pathlib
+    from repro_torch.launch import dryrun
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch import mesh as lmesh
+    cells = {}
+    for arch, shape in (("phi4_mini_3_8b", "train_4k"),
+                        ("phi4_mini_3_8b", "decode_32k"),
+                        ("phi4_mini_3_8b", "long_500k"),
+                        ("xlstm_1_3b", "long_500k")):
+        dryrun.main(["--arch", arch, "--shape", shape, "--out", out_dir])
+        cells[f"{arch}/{shape}"] = json.loads(
+            (pathlib.Path(out_dir) / f"{arch}_{shape}_16x16.json")
+            .read_text())
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=256)
+    try:
+        mesh = lmesh.make_host_mesh((16, 16), ("data", "model"))
+        M, K, N = 4096, 1024, 2048
+        meta = torch.device("meta")
+        x = distribute_tensor(torch.empty((M, K), device=meta), mesh,
+                              (Shard(0), Replicate()), src_data_rank=None)
+        w = distribute_tensor(torch.empty((K, N), device=meta), mesh,
+                              (Replicate(), Shard(1)), src_data_rank=None)
+        with dryrun.counting() as counter:
+            y = x @ w
+        product = {"flops": counter.flops, "global": 2 * M * K * N,
+                   "local_shape": list(y.to_local().shape),
+                   "collectives": counter.collective_counts,
+                   "by_op": counter.flops_by_op}
+    finally:
+        dist.destroy_process_group()
+    return {"cells": cells, "product": product}
+
+
+def staged_case(rank: int, world: int, payload) -> list:
+    """The collectives that chip_smoke.py's host_staged mode stages (it
+    stages those of CUDA tensors; on the CPU it passes them on), as it is
+    handed them inside a DTensor product split over a 1 x world mesh."""
+    import importlib.util
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.launch import mesh as lmesh
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    mesh = lmesh.make_host_mesh((1, world), ("data", "model"))
+    seen = []
+
+    class Seeing(type(chip_smoke.host_staged())):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in self.ops:
+                seen.append(str(func))
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    g = torch.Generator().manual_seed(0)
+    a, b = torch.randn(4, 6, generator=g), torch.randn(6, 4, generator=g)
+    pl = (Replicate(), Shard(1))
+    da = distribute_tensor(a, mesh, pl, src_data_rank=None)
+    db = distribute_tensor(b, mesh, pl, src_data_rank=None)
+    with Seeing():
+        c = (da @ db).full_tensor()
+    return {"seen": seen, "equal": bool(torch.allclose(c, a @ b))}
