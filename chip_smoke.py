@@ -8,8 +8,9 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases, in order; any failure ends the script with a non-zero exit code:
 
   1. card check: a CUDA device, its name and power limit, TF32 off;
-  2. build: the three CUDA kernels from src/repro_torch/kernels/csrc (the
-     burst, attention and scan kernels; one nvcc each, started together);
+  2. build: the four CUDA kernels from src/repro_torch/kernels/csrc (the
+     ELL and COO bursts, attention and scan kernels; one nvcc each,
+     started together);
   3. kernel vs plain version on the card: random blocked-ELL operators
      (frozen coordinates, a mix of inequality rows) and the full-size LP,
      at 1 and 500 iterations: bitwise equal to the kernel-order model
@@ -64,7 +65,7 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      bitwise equal, a frozen member's iterates, a bitwise repeat;
  14. the sweep CLI on the card: the reference's default grid over the
      six paper topologies (288 rows), certified, against the committed
-     results/sweep/results.csv and against the port's CPU run of 8 rows,
+     results/sweep/results.csv and against the port's CPU run of 4 rows,
      which in the kernel's summation order must give the card's rows
      bitwise;
  15. times at the batched and bf16 shapes: the fp32 burst at the
@@ -95,13 +96,14 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      TFLOP/s reached; prefill wall,
      decode ms a token, and the device's busy share of one prefill and one
      decode step by kernel;
- 19. failures at full size: phase 13's 8-stack degraded under link3 and
-     switch (one scenario a seed, a sparsity pattern a member), re-solved
+ 19. failures at full size: phase 13's 8-stack degraded under link3 (all
+     eight members) and switch (the first four; one scenario a seed, a
+     sparsity pattern a member), re-solved
      by solve_fast_ensemble warm from the healthy results and cold:
      every schedule certified, warm served equal to cold to 1e-6, energy
      within 5%, fewer warm iterations, the warm dispatch repeated and
      each member solved alone from its projected start bitwise equal,
-     the bf16 warm ensemble certified; the burst bitwise equal to its
+     switch's bf16 warm ensemble certified; the burst bitwise equal to its
      summation-order model from the projected start (fp32 and bf16, 1
      and 250 iterations) and timed at the warm degraded stack beside its
      plain version, two CSR mat-vecs and its bound; the ensemble's stage
@@ -175,8 +177,9 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      parameters bitwise equal, every loss and norm finite (granite's aux
      finite and positive); phi4's step-6 checkpoint left unwritten (one
      17 GB save, step 3's) with LATEST naming it, and the run resumed
-     from step 3 through the stale-LATEST fallback, repeating
-     losses 3-5 bitwise; remat on and off bitwise (granite at 4 layers);
+     from step 3 through the stale-LATEST fallback (its own step-6 save
+     skipped too), repeating losses 3-5 bitwise; remat on and off bitwise
+     (granite at 4 layers);
      granite's loss falling over 8 steps on one batch; microbatches=2
      against 1 at tests/test_microbatch.py's tolerance; the ten smoke
      configs' gradients on the card against the host CPU (loss 2e-2,
@@ -193,8 +196,8 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      and at one shard the fused kernel; (b) the sharded driver at world 1
      over NCCL bitwise the fused burst (energy and time, fp32; bf16's
      first rung); (c) 2 ranks sharing the card over gloo, processes of
-     this script (--shard-rank): solve_fast(shards=2) on the six paper
-     topologies (spine-leaf twice) and the flagship, x the same on every
+     this script (--shard-rank): solve_fast(shards=2) on spine-leaf
+     (twice) and the flagship, x the same on every
      rank and from run to run, certified, within 1e-4 of phases 4-5, and
      a fixed burst twice, bitwise the host CPU's single-process model in
      the kernel's order; (d) ms an iteration of the split form at world 1
@@ -227,9 +230,29 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      train_4k cell at 16 x 16 (ok, flops a rank and its largest ops,
      all-gathers and reduce-scatters); the attention kernel at a rank's
      shape against its plain version, timed beside SDPA, and its bound.
+ 33. the reference's default COO lowering (backend="xla"): (a) the COO
+     burst kernel (pdhg_coo.cu) against its plain version on CPU tensors
+     from the same inputs (torch's CUDA index_add_ adds in no fixed
+     order) at the flagship's energy LP, 1 and 500 iterations, cold and
+     from a random start with a fifth of the coordinates held: bitwise,
+     also on one block an SM; a launch on one block more than fit
+     raises; a plain version rounding the two updates twice must fail;
+     (b) solve_fast(backend="xla") on the six paper topologies x
+     {energy, time}: certified, two card runs and the host CPU's plain
+     path bitwise equal, within 1e-4 of the golden pins (spine-leaf,
+     pon3) or of phase 4; (c) the 8-stack through
+     solve_fast_batch(backend="xla"), each member's LP bitwise its solo
+     solve, and the sweep CLI with --backend xla over phase 14's
+     spine-leaf energy/skew rows, every row within 1e-4 of
+     results/sweep/results.csv, the summation-order-sensitive seed 5
+     included; (d) the kernel's ms an iteration at the flagship and the
+     8-stack, its plain version's on the host, its bound and phase 6's
+     and 15's CSR mat-vecs.
 
-The last lines are one JSON object describing the kernels, the card's
-name and power limit, and `{"ok": true, "device": {...}}`.  Imports
+Each phase's wall is printed when the next begins ("wall: phase N"), and
+all of them, with phases 1-18's sum, before the kernels line.  The last
+lines are one JSON object describing the kernels, the card's name and
+power limit, and `{"ok": true, "device": {...}}`.  Imports
 torch, numpy, scipy and repro_torch only.  Phase 24 starts helper
 processes of this script (--placement-cpu, on the host CPU only) and
 phase 30 two (--shard-rank, on the card); each waits for all of its
@@ -346,8 +369,10 @@ SWEEP_RTOL = 1e-4
 # bitwise, and summing in its own order lands within SWEEP_RTOL of the
 # committed number.  key -> the expected relative difference.
 SWEEP_ORDER_SENSITIVE = {("spine-leaf", "energy", "skew", 5): 4.6468e-4}
+# the rows run again on the host CPU in both summation orders (seed 0
+# alone, for the script's time limit: 4 rows)
 SWEEP_CPU_CELLS = dict(topos=("spine-leaf", "pon3"), patterns=("uniform",),
-                       seeds=(0, 1))
+                       seeds=(0,))
 # the RG-LRU scan: the TPU kernel it replaces and its source
 SCAN_REPLACES = "src/repro/kernels/rglru_scan.py:33"
 SCAN_SOURCE = "src/repro_torch/kernels/csrc/rglru_scan.cu"
@@ -372,6 +397,11 @@ RGEMMA_ARGS = ["--arch", "recurrentgemma-2b", "--batch", "4", "--prompt-len",
 # held to the reference's bands (tests/test_failures.py): warm served
 # equal to cold to 1e-6, energy within 5%
 FAIL_PRESETS = ("link3", "switch")
+# members degraded under each preset: link3 keeps all eight (and the
+# burst's order model and row 1d's times); switch runs the first four and
+# the bf16 warm ensemble, for the script's time limit
+FAIL_MEMBERS = {"link3": 8, "switch": 4}
+FAIL_BF16_PRESETS = ("switch",)
 WARM_SERVED_RTOL = 1e-6
 WARM_ENERGY_BAND = 0.05
 # the warm burst against its summation-order model: one step and one
@@ -512,6 +542,10 @@ SPLIT_ITERS = (50,)
 # (c): ranks sharing the one card over gloo, processes of this script;
 # their x after this many iterations against the host CPU's model
 SHARD_WORLD = 2
+# (c)'s paper topologies at SHARD_WORLD ranks (the first twice), then the
+# flagship; the rest of PAPER_TOPOS is left out for the script's time
+# limit (gloo paces an iteration at about 2.5 ms there)
+SHARD_RANK_TOPOS = ("spine-leaf",)
 SHARD_FIXED_ITERS = 20
 SHARD_TIMEOUT_S = 400
 # (d): bursts timed at world 1 and at SHARD_WORLD ranks (where gloo's
@@ -549,6 +583,19 @@ DRYRUN_TOP_OPS = 16                  # (d) prints the cell's largest ops
 SHARDED_STAGED = ("_c10d_functional.all_gather_into_tensor.default",
                   "_c10d_functional.all_to_all_single.default",
                   "_dtensor.shard_dim_alltoall.default")
+# phase 33: the reference's default COO lowering (backend="xla") on the
+# card.  The kernel (pdhg_coo.cu) replaces no pallas_call: it runs the
+# reference's XLA scatter-adds (src/repro/core/solver.py:105-173, the
+# update's body) in their COO order
+COO_SOURCE = "src/repro_torch/kernels/csrc/pdhg_coo.cu"
+COO_REPLACES = "src/repro/core/solver.py:105"
+COO_ITERS = (1, 500)
+COO_FROZEN = 0.2                     # share of coordinates held in (a)
+# (c): phase 14's order-sensitive sweep rows, on the card under --backend
+# xla (the sweep's defaults: 8 seeds, 30 Gbit, 10 x 6 tasks)
+COO_SWEEP_ARGS = ["--topos", "spine-leaf", "--objectives", "energy",
+                  "--patterns", "skew", "--oracle-check", "0",
+                  "--backend", "xla"]
 
 
 def host_staged():
@@ -607,7 +654,31 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# the phase whose lines say() prints, since when, and each phase's wall
+# so far: a line opening with "[N]" starts phase N's clock (a phase that
+# comes back, as 26-27 and 28-29 alternate, adds to its wall)
+_PHASE = {"label": None, "t": 0.0}
+PHASE_WALLS: dict[str, float] = {}
+
+
+def phase_clock(label: str | None) -> None:
+    """Stop the running phase's clock (printing its wall line) and start
+    `label`'s; None stops it alone."""
+    now = time.perf_counter()
+    prev = _PHASE["label"]
+    if prev == label:
+        return
+    if prev is not None:
+        spent = now - _PHASE["t"]
+        PHASE_WALLS[prev] = PHASE_WALLS.get(prev, 0.0) + spent
+        print(f"    wall: phase {prev} {spent:.1f} s", flush=True)
+    _PHASE.update(label=label, t=now)
+
+
 def say(*a):
+    m = re.match(r"\[(\d+)\]", str(a[0])) if a else None
+    if m:
+        phase_clock(m.group(1))
     print(*a, flush=True)
 
 
@@ -1590,9 +1661,10 @@ def csr_pair_ms(lp, dev) -> float:
 
 
 def failure_phase(probs8, healthy, dev, sms, bf16_presets) -> dict:
-    """Phase 19: the healthy 8-stack degraded under each of FAIL_PRESETS,
-    re-solved warm (solve_fast_ensemble(warm=healthy)) and cold on the
-    card; bf16 storage for `bf16_presets`; the warm burst held to its
+    """Phase 19: the healthy 8-stack's first FAIL_MEMBERS[preset] members
+    degraded under each of FAIL_PRESETS, re-solved warm
+    (solve_fast_ensemble(warm=healthy)) and cold on the card; bf16
+    storage for `bf16_presets`; the warm burst held to its
     summation-order model from the projected start; the burst timed at
     the warm degraded stack.  Returns the launch counts of the warm,
     cold and bf16 ensembles and the times of row 1d."""
@@ -1603,10 +1675,12 @@ def failure_phase(probs8, healthy, dev, sms, bf16_presets) -> dict:
     stages = (("projection (project_warm_start)", solver,
                "project_warm_start"),) + batch_stages()
     for preset in FAIL_PRESETS:
+        members = FAIL_MEMBERS[preset]
+        healthy_k = healthy[:members]
         t0 = time.perf_counter()
         dprobs = [failures.degrade_problem(
             p, failures.sample(p.topo, preset, seed))
-            for seed, p in zip(BATCH_SEEDS, probs8)]
+            for seed, p in zip(BATCH_SEEDS, probs8[:members])]
         t_degrade = time.perf_counter() - t0
         keys = {solver._structure_key(q, "energy") for q in dprobs}
         lost = [failures.degradation_ratio(p.topo, q.topo)
@@ -1624,8 +1698,8 @@ def failure_phase(probs8, healthy, dev, sms, bf16_presets) -> dict:
         with recording(solver, "solve_lp_batch") as calls, \
                 stage_clock(stages) as spent:
             t0 = time.perf_counter()
-            warm = solver.solve_fast_ensemble(dprobs, "energy", warm=healthy,
-                                              device=dev)
+            warm = solver.solve_fast_ensemble(dprobs, "energy",
+                                              warm=healthy_k, device=dev)
             warm_wall = time.perf_counter() - t0
         warm_launches = ops.PDHG_BURST_LAUNCHES
         warm_calls = ops.PDHG_ADAPTIVE_CALLS
@@ -1696,7 +1770,7 @@ def failure_phase(probs8, healthy, dev, sms, bf16_presets) -> dict:
         if preset in bf16_presets:
             ops.PDHG_BURST_BF16_LAUNCHES = 0
             t0 = time.perf_counter()
-            bf = solver.solve_fast_ensemble(dprobs, "energy", warm=healthy,
+            bf = solver.solve_fast_ensemble(dprobs, "energy", warm=healthy_k,
                                             precision="bf16", device=dev)
             bf_wall = time.perf_counter() - t0
             out["bf16_launches"] += ops.PDHG_BURST_BF16_LAUNCHES
@@ -3334,8 +3408,10 @@ def train_phase(card: str, dev=None) -> dict:
                         f"checkpoints written: {saved}")
                 (ckpt / "LATEST").write_text(f"step_{n_steps:08d}")
                 latest = (ckpt / "LATEST").read_text()
+                # its end-of-run save (step 6 again) is skipped too:
+                # nothing reads it
                 with recording_train_steps() as rec, \
-                        timing_checkpoints() as io:
+                        timing_checkpoints() as io, skipping_save(n_steps):
                     resumed = train.main(argv + ["--ckpt-dir", str(ckpt),
                                                  "--resume"])
                 first = int(rec["metrics"][0]["step"])
@@ -3596,8 +3672,8 @@ def shard_rank_main(rank, world, out_dir) -> int:
     """The --shard-rank mode (phase 30(c) and 31's two ranks): one rank of
     a `world`-rank gloo world on cuda:0, joined through a FileStore in
     out_dir.  Runs the fixed-iteration burst twice, waits for the file
-    `go` in out_dir, then runs the paper topologies (spine-leaf twice)
-    and the flagship through solve_fast(shards=world), times an
+    `go` in out_dir, then runs SHARD_RANK_TOPOS (the first twice) and
+    the flagship through solve_fast(shards=world), times an
     iteration and the collective (with and without the pinned staging),
     and the scheduled gradient sync on a small tree, then phase 32(c)
     (sharded_rank_part); writes rank<r>.json and rank<r>_x.npy to
@@ -3647,7 +3723,7 @@ def shard_rank_main(rank, world, out_dir) -> int:
         runs = {}
         # the paper topologies (spine-leaf twice), then the flagship
         cells = [(name, problem(name, {}, GOLDEN_PATTERN, 2))
-                 for name in PAPER_TOPOS] + [("flagship", p_full)]
+                 for name in SHARD_RANK_TOPOS] + [("flagship", p_full)]
         cells.insert(1, ("spine-leaf#1", cells[0][1]))
         for key, p in cells:
             t0 = time.perf_counter()
@@ -4528,6 +4604,324 @@ def sync_phase(card, dev) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 33: the COO lowering (backend="xla") on the card
+# ---------------------------------------------------------------------------
+
+def coo_operands(lp, dev):
+    """solve_lp's COO burst operands of `lp` on `dev`, at the reference's
+    cast points: (c, tau, xmax, q, sig, ub), cols, rows."""
+    import numpy as np
+    from repro_torch.core import solver
+    xmax = np.where(np.isfinite(lp.xmax), lp.xmax, 1e12)
+    cscale = max(float(np.abs(lp.c).max(initial=0.0)), 1e-12)
+    q, tau, sig, cols, rows, ub = solver._pdhg_ops(
+        lp.c / cscale, lp.row, lp.col, lp.val, lp.b, lp.h, lp.m, lp.n,
+        lp.m_eq, dev)
+    return ((solver._f32(lp.c / cscale, dev), tau, solver._f32(xmax, dev), q,
+             sig, ub), cols, rows)
+
+
+def coo_start(lp, seed: int, frozen: bool) -> tuple:
+    """(x0, y0, keep_n, keep_m) as numpy: zeros with nothing held, or
+    (`frozen`) a random start inside the box with COO_FROZEN of the
+    coordinates held."""
+    import numpy as np
+    if not frozen:
+        return (np.zeros(lp.n, np.float32), np.zeros(lp.m, np.float32),
+                np.zeros(lp.n, bool), np.zeros(lp.m, bool))
+    rng = np.random.default_rng(seed)
+    xmax = np.where(np.isfinite(lp.xmax), lp.xmax, 1e12)
+    x0 = (rng.random(lp.n) * np.minimum(xmax, 1.0)).astype(np.float32)
+    y0 = rng.standard_normal(lp.m).astype(np.float32)
+    y0[lp.m_eq:] = np.abs(y0[lp.m_eq:])
+    return x0, y0, rng.random(lp.n) < COO_FROZEN, rng.random(lp.m) < COO_FROZEN
+
+
+def coo_run(operands, start, iters: int, dev, blocks: int = 0):
+    """One pdhg_coo_burst from `start` on `dev` (the kernel on the card,
+    the plain version on the CPU)."""
+    import torch
+    from repro_torch.kernels import ops
+    vecs, cols, rows = operands
+    x0, y0, keep_n, keep_m = (torch.from_numpy(a).to(dev) for a in start)
+    kw = {"_blocks": blocks} if blocks else {}
+    return ops.pdhg_coo_burst(*vecs, keep_n, keep_m, cols, rows, x0, y0,
+                              iters=iters, **kw)
+
+
+def coo_differs(got, want) -> tuple[int, float]:
+    """Entries of (x, y, worst) that differ between two runs, as
+    np.array_equal compares them (the sign of a zero aside), and the
+    largest |difference|."""
+    import numpy as np
+    n, err = 0, 0.0
+    for g, w in zip(got, want):
+        g, w = g.cpu().numpy(), w.cpu().numpy()
+        n += int(np.count_nonzero(g != w))
+        err = max(err, float(np.abs(g.astype(np.float64) - w).max(
+            initial=0.0)))
+    return n, err
+
+
+def coo_bound(n: int, m: int, nnz: int) -> tuple[float, str, int, int]:
+    """Least time of one COO PDHG iteration on this card, burst_bound's
+    way: each operand read once and each output written once (both
+    directions' gather index and value an entry, their offsets and
+    output lists, the x-side and y-side vectors and masks, x' and y'
+    written) against the operations (a multiply and an add an entry each
+    way, plus the elementwise updates).  Returns (ms, bound_by, bytes,
+    ops)."""
+    f4, b1 = 4, 1
+    nbytes = (2 * nnz * 2 * f4 + f4 * (n + m + 2) + f4 * (n + m)
+              + n * (3 * f4 + f4 + b1 + f4) + m * (2 * f4 + f4 + 2 * b1 + f4))
+    nops = 4 * nnz + 7 * n + 4 * m
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = nops / FP32_OPS_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, nops)
+
+
+def coo_kernel_check(lp, dev, sms: int) -> float:
+    """Phase 33(a): pdhg_coo_burst on the card against its plain version
+    on CPU tensors from the same inputs (torch's CUDA index_add_ adds in
+    no fixed order, so the plain version runs on the host), at 1 and 500
+    iterations, cold and from a random start with coordinates held:
+    bitwise, and bitwise on a grid of one block an SM; a launch on one
+    block more than fit raises; a plain version that rounds x - tau g
+    twice (no fused multiply-add) must fail the check.  Returns the
+    largest |difference| (0.0)."""
+    import torch
+    from repro_torch.kernels import build, ops, pdhg_coo
+    info = build.BUILD_INFO["pdhg_coo.cu"]
+    say(f"  (a) built pdhg_coo.cu in {info['seconds']:.3f} s (phase 2) -> "
+        f"{pathlib.Path(info['library']).name}")
+    for line in info["log"].splitlines():
+        if ("Compiling entry" in line or "registers" in line
+                or "spill" in line):
+            say(f"    ptxas: {line.strip()}")
+    blocks = ops.coo_max_blocks(dev)
+    say(f"    burst grid: {blocks} blocks of 256 fit at once on {sms} SMs")
+    require(blocks >= sms, f"COO burst grid {blocks}")
+    cpu = torch.device("cpu")
+    on_card, on_cpu = coo_operands(lp, dev), coo_operands(lp, cpu)
+    say(f"    the flagship LP: n={lp.n} m={lp.m} nnz={len(lp.val)}; outputs "
+        f"summed by a warp: {on_card[1].long.shape[0]} columns, "
+        f"{on_card[2].long.shape[0]} rows (longest "
+        f"{int(on_cpu[2].off.diff().max())} entries)")
+    err = 0.0
+    for frozen in (False, True):
+        start = coo_start(lp, 33, frozen)
+        for iters in COO_ITERS:
+            got = coo_run(on_card, start, iters, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = coo_run(on_cpu, start, iters, cpu)
+            plain_s = time.perf_counter() - t0
+            n, e = coo_differs(got, want)
+            n1, _ = coo_differs(coo_run(on_card, start, iters, dev, sms),
+                                got)
+            what = "random start, 20% held" if frozen else "cold"
+            say(f"    {what:23s} iters={iters:3d}: {n} of "
+                f"{lp.n + 2 * lp.m} entries (x, y, worst) differ from the "
+                f"plain version (max |diff| {e:.3e}; plain "
+                f"{plain_s:.2f} s on the host); on {sms} blocks {n1} differ")
+            require(n == 0 and n1 == 0,
+                    f"pdhg_coo_burst ({what}, {iters} iterations) is not "
+                    f"bitwise its plain version")
+            err = max(err, e)
+    before = ops.PDHG_COO_LAUNCHES
+    try:
+        coo_run(on_card, coo_start(lp, 33, False), 1, dev, blocks + 1)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    say(f"    a launch on {blocks + 1} blocks (one more than fit) raises: "
+        f"{refused}")
+    require(refused is not None and ops.PDHG_COO_LAUNCHES == before,
+            "a COO launch on more blocks than fit did not raise")
+    start = coo_start(lp, 33, False)
+    got = coo_run(on_card, start, COO_ITERS[-1], dev)
+    with mock.patch.object(pdhg_coo, "fma32", lambda a, b, c: a * b + c):
+        twice = coo_run(on_cpu, start, COO_ITERS[-1], cpu)
+    n, _ = coo_differs(got, twice)
+    say(f"    negative control: the plain version rounding x - tau g and "
+        f"y + sig r twice differs in {n} entries after "
+        f"{COO_ITERS[-1]} iterations")
+    require(n > 0, "the COO check passes a burst without the fused "
+                   "multiply-adds")
+    return err
+
+
+def coo_times(card: str, lp, stack_lp, dev, library_ms: float,
+              library8_ms: float) -> dict:
+    """Phase 33(d): the COO kernel's ms an iteration at the flagship and at
+    the 8-stack (CUDA events, median of 3 bursts), its plain version's
+    on the host CPU (it runs on CPU tensors only), the bound, and the
+    two torch CSR mat-vecs of phases 6 and 15 on the same operators."""
+    import torch
+    cpu = torch.device("cpu")
+    out = {}
+    for label, g, n_k, lib in (("flagship", lp, 2000, library_ms),
+                               ("8-stack", stack_lp, 1000, library8_ms)):
+        operands = coo_operands(g, dev)
+        start = coo_start(g, 0, False)
+        ms = sorted(time_events(lambda: coo_run(operands, start, n_k, dev),
+                                1) / n_k for _ in range(3))[1]
+        bound_ms, bound_by, nbytes, nops = coo_bound(g.n, g.m, len(g.val))
+        say(f"    {label}: kernel {ms:.6f} ms/iter (burst of {n_k}, median "
+            f"of 3; {ms / bound_ms:.2f}x its bound); bound {bound_ms:.6f} "
+            f"ms ({bound_by}: {nbytes} B at 3.35 TB/s, {nops} fp32 ops at "
+            f"67 TFLOP/s); library {lib:.6f} ms per K.x + K^T.y pair (torch "
+            f"CSR matmul, phases 6/15) ({card})")
+        out[label] = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=lib)
+    operands = coo_operands(lp, cpu)
+    start = coo_start(lp, 0, False)
+    n_p = 20
+    t0 = time.perf_counter()
+    coo_run(operands, start, n_p, cpu)
+    out["plain_ms"] = (time.perf_counter() - t0) * 1e3 / n_p
+    say(f"    flagship: plain version {out['plain_ms']:.6f} ms/iter on the "
+        f"host CPU (burst of {n_p}; it runs on CPU tensors only)")
+    return out
+
+
+def coo_paper_cells(dev, paper_fp32: dict) -> None:
+    """Phase 33(b): solve_fast(backend="xla") on the six paper topologies x
+    {energy, time}: certified, two card runs bitwise equal, bitwise the
+    host CPU's plain path (lp_x, lp_y, schedule, metrics), and within
+    METRIC_RTOL of the golden pins where there is one, else of phase
+    4's pallas solve."""
+    import numpy as np
+    from repro_torch.core import solver, verify
+    golden = json.loads(GOLDEN.read_text())
+    for name in PAPER_TOPOS:
+        p = problem(name, {}, GOLDEN_PATTERN, 2)
+        for obj in OBJECTIVES:
+            t0 = time.perf_counter()
+            r = solver.solve_fast(p, obj, backend="xla", device=dev)
+            wall = time.perf_counter() - t0
+            again = solver.solve_fast(p, obj, backend="xla", device=dev)
+            verify.check_schedule(p, r.schedule).assert_ok(
+                f"{name}/{obj} xla on the card")
+            t0 = time.perf_counter()
+            c = solver.solve_fast(p, obj, backend="xla", device="cpu")
+            cpu_s = time.perf_counter() - t0
+
+            def same(a, b):
+                return (np.array_equal(a.lp_x, b.lp_x)
+                        and np.array_equal(a.lp_y, b.lp_y)
+                        and np.array_equal(a.schedule, b.schedule)
+                        and a.iterations == b.iterations
+                        and metrics_of(a) == metrics_of(b))
+
+            got = metrics_of(r)
+            if name in GOLDEN_TOPOS:
+                want = golden[f"{name}/min-{obj}/seed0"]
+                want, pin = {k: want[k] for k in got}, "golden"
+            else:
+                want, pin = paper_fp32[name, obj], "phase 4 (pallas)"
+            near = close(got, want, METRIC_RTOL)
+            say(f"    {name:10s} {obj:6s} E={got['energy_j']:.6f} J "
+                f"M={got['completion_s']:.6f} s iters={r.iterations} "
+                f"wall={wall:.3f} s (cpu {cpu_s:.3f} s) cert=ok; twice "
+                f"bitwise {same(r, again)}; bitwise the cpu {same(r, c)}; "
+                f"within {METRIC_RTOL:g} of {pin} {near}")
+            require(same(r, again), f"{name}/{obj} xla: two card runs differ")
+            require(same(r, c), f"{name}/{obj} xla: card and cpu differ")
+            require(near, f"{name}/{obj} xla: {got} vs {pin} {want}")
+
+
+def coo_batch_and_sweep(dev, probs8, lps8) -> None:
+    """Phase 33(c): the 8-stack through solve_fast_batch(backend="xla"),
+    each member certified and its LP solve bitwise its solo solve (a
+    batch of one, the same chunk schedule); then the sweep CLI with
+    --backend xla over phase 14's spine-leaf energy/skew rows, every row
+    within SWEEP_RTOL of the committed results (the reference's xla
+    run), the summation-order-sensitive seed 5 included."""
+    import numpy as np
+    from repro_torch.core import solver, verify
+    from repro_torch.sweep import __main__ as sweep_main
+    t0 = time.perf_counter()
+    batch = solver.solve_fast_batch(probs8, "energy", backend="xla",
+                                    device=dev)
+    wall = time.perf_counter() - t0
+    same = []
+    for seed, p, lp, b in zip(BATCH_SEEDS, probs8, lps8, batch):
+        verify.check_schedule(p, b.schedule).assert_ok(f"xla batch {seed}")
+        s = solver.solve_lp_batch([lp], chunk=500, backend="xla",
+                                  device=dev)[0]
+        same.append(np.array_equal(s.x, b.lp_x) and np.array_equal(s.y, b.lp_y)
+                    and s.iterations == b.iterations)
+    say(f"    8-stack (fat-tree k=16, seeds {BATCH_SEEDS[0]}-"
+        f"{BATCH_SEEDS[-1]}): wall {wall:.3f} s, iterations "
+        f"{[b.iterations for b in batch]}, every schedule certified; each "
+        f"member bitwise its solo solve: {sum(same)} of {len(same)}")
+    require(all(same), "an xla batch member differs from its solo solve")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rc = sweep_main.main(COO_SWEEP_ARGS + ["--device", str(dev),
+                                               "--out", tmp])
+        sweep_wall = time.perf_counter() - t0
+        with open(pathlib.Path(tmp) / "results.csv", newline="") as fh:
+            backends = {r["backend"] for r in csv.DictReader(fh)}
+        rows = sweep_rows(pathlib.Path(tmp) / "results.csv")
+    ref = sweep_rows(SWEEP_RESULTS)
+    worst = max(max(rel_diff(float(row[c]), float(ref[key][c]))
+                    for c in ("energy_j", "completion_s"))
+                for key, row in rows.items())
+    say(f"    sweep {' '.join(COO_SWEEP_ARGS)}: exit {rc}, {len(rows)} rows "
+        f"in {sweep_wall:.1f} s, backend column {sorted(backends)}; worst "
+        f"relative difference from results/sweep/results.csv {worst:.3e}")
+    for key in SWEEP_ORDER_SENSITIVE:
+        say(f"    {key}: E={float(rows[key]['energy_j']):.6f} J against the "
+            f"committed {float(ref[key]['energy_j']):.6f} J")
+    require(rc == 0 and len(rows) == len(BATCH_SEEDS)
+            and backends == {"xla"}, f"xla sweep: exit {rc}, {len(rows)} "
+                                     f"rows, backend {backends}")
+    require(all(r["feasible"] == "True" for r in rows.values()),
+            "xla sweep: an infeasible row")
+    require(worst <= SWEEP_RTOL, f"xla sweep rows {worst:.3e} off the "
+                                 f"committed results")
+
+
+def coo_phase(card: str, dev, sms: int, lp_full, probs8, lps8,
+              paper_fp32: dict, library_ms: float,
+              library8_ms: float) -> dict:
+    """Phase 33: the COO lowering on the card.  (a) the kernel against its
+    plain version; (b)-(c) the main path with backend="xla", its launch
+    counts reset just before and read just after; (d) times.  Returns
+    the kernels line's numbers."""
+    from repro_torch.core import solver
+    from repro_torch.kernels import ops
+    say(f"[33] the reference's default COO lowering (backend='xla') on the "
+        f"card ({card})")
+    err = coo_kernel_check(lp_full, dev, sms)
+    say("  (b) solve_fast(backend='xla'): six paper topologies x {energy, "
+        "time}")
+    ops.PDHG_COO_LAUNCHES = 0
+    ops.PDHG_COO_RESIDUAL_LAUNCHES = 0
+    coo_paper_cells(dev, paper_fp32)
+    say("  (c) the batch and the sweep under backend='xla'")
+    coo_batch_and_sweep(dev, probs8, lps8)
+    launches = ops.PDHG_COO_LAUNCHES
+    residuals = ops.PDHG_COO_RESIDUAL_LAUNCHES
+    say(f"    pdhg_coo_burst launches on (b)-(c): {launches} bursts (one "
+        f"cooperative launch each), residual entry {residuals}")
+    require(launches > 0 and residuals == launches,
+            "phase 33 did not go through the COO kernel")
+    say("  (d) times")
+    times = coo_times(card, lp_full, solver.block_stack(lps8).lp, dev,
+                      library_ms, library8_ms)
+    flag = times["flagship"]
+    return {"name": "pdhg_coo_burst", "route": "cuda", "source": COO_SOURCE,
+            "replaces": COO_REPLACES, "launches": launches,
+            "max_abs_err": err, "ms": flag["ms"],
+            "plain_ms": times["plain_ms"], "bound_ms": flag["bound_ms"],
+            "bound_by": flag["bound_by"], "library_ms": flag["library_ms"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep-out", default="",
@@ -4582,10 +4976,9 @@ def main(argv=None) -> int:
         f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
     dev = torch.device("cuda", 0)
 
-    # -- phase 2: build (the three kernels, one nvcc each, started together)
-    sources = ("pdhg_burst.cu", "flash_attention.cu", "rglru_scan.cu")
-    with ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(build.load, sources))
+    # -- phase 2: build (the four kernels, one nvcc each, started together)
+    with ThreadPoolExecutor(len(build.SOURCES)) as pool:
+        list(pool.map(build.load, build.SOURCES))
     info = build.BUILD_INFO["pdhg_burst.cu"]
     say(f"[2] built pdhg_burst.cu in {info['seconds']:.3f} s -> "
         f"{pathlib.Path(info['library']).name}")
@@ -5132,7 +5525,7 @@ def main(argv=None) -> int:
                                             rec.energy_j),
                         rel_diff(float(row["completion_s"]), rec.completion_s))
     say(f"    the same spec on this machine's CPU ({len(cpu_recs)} rows of "
-        f"spine-leaf and pon3, uniform, seeds 0-1, {time.perf_counter() - t0:.1f}"
+        f"spine-leaf and pon3, uniform, seed 0, {time.perf_counter() - t0:.1f}"
         f" s): worst relative difference {cpu_worst:.3e}")
     require(cpu_worst <= SWEEP_RTOL, "sweep: card and CPU rows differ")
     t0 = time.perf_counter()
@@ -5418,7 +5811,7 @@ def main(argv=None) -> int:
         f"{', '.join(FAIL_PRESETS)}, re-solved warm from its healthy "
         f"results and cold ({card})")
     t_phase = time.perf_counter()
-    fail = failure_phase(probs8, batch, dev, sms, FAIL_PRESETS[:1])
+    fail = failure_phase(probs8, batch, dev, sms, FAIL_BF16_PRESETS)
     say(f"    pdhg_burst launches on this phase's ensembles: "
         f"{fail['launches']}; pdhg_burst_bf16: {fail['bf16_launches']}; "
         f"phase {time.perf_counter() - t_phase:.1f} s")
@@ -5532,6 +5925,10 @@ def main(argv=None) -> int:
         f"on (c)'s ranks; phase 32 {time.perf_counter() - t_phase:.1f} s "
         f"here ({card}); total {time.perf_counter() - t_start:.1f} s")
 
+    # -- phase 33: the COO lowering ----------------------------------------
+    coo_entry = coo_phase(card, dev, sms, lp_full, probs8, lps8, paper_fp32,
+                          library_ms, library8_ms)
+
     kernels = {"kernels": [{
         "name": "pdhg_burst", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": path_launches,
@@ -5552,7 +5949,15 @@ def main(argv=None) -> int:
         "replaces": SCAN_REPLACES, "launches": scan_launches,
         "max_abs_err": scan_max_err, "ms": scan_ms,
         "plain_ms": scan_plain_ms, "bound_ms": scan_bound_ms,
-        "bound_by": scan_bound_by, "library_ms": None}] + split_entries}
+        "bound_by": scan_bound_by, "library_ms": None}, coo_entry]
+        + split_entries}
+    phase_clock(None)
+    early = sum(v for k, v in PHASE_WALLS.items() if int(k) <= 18)
+    say("walls by phase (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(PHASE_WALLS.items(),
+                                          key=lambda kv: int(kv[0])))
+        + f"; phases 1-18 {early:.1f} s; total "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,8 +19,12 @@ accepts the reference's object as well as the port's; the matching
   * `placement_to_arrays` / `placement_from_arrays`: a task Placement;
   * `tenant_to_arrays` / `tenant_from_arrays`: a service TenantSpec (its
     topology, traffic pattern, arrival spec and explicit trace);
-  * `service_config_to_arrays` / `service_config_from_arrays`: a
-    ServiceConfig, whose `backend` becomes the port's `device`;
+  * `service_config_to_arrays` / `service_config_from_arrays`,
+    `search_config_to_arrays` / `search_config_from_arrays` and
+    `sweep_spec_to_arrays` / `sweep_spec_from_arrays`: a ServiceConfig,
+    a search SearchConfig and a SweepSpec, each with its PDHG `backend`;
+    the port's `device`, which the reference's objects lack, is given
+    to the `*_from_arrays` call;
   * `search_result_to_arrays`: a SearchResult's placements, scores and
     counts, for comparison (there is no port object to rebuild).
 
@@ -45,10 +49,12 @@ from .core.solver import FastPathResult, FlowPath, RoutingIndex
 from .core.timeslot import Metrics, ScheduleProblem
 from .core.topology import Device, Topology
 from .core.traffic import CoflowSet, Placement, TrafficPattern
+from .search.optimize import SearchConfig
 from .service.clock import SolveCostModel
 from .service.loop import ServiceConfig, TenantSpec
 from .models.common import ModelConfig
 from .models.transformer import check_supported
+from .sweep.runner import SweepSpec
 
 
 def topology_to_arrays(t) -> dict:
@@ -313,9 +319,8 @@ def tenant_from_arrays(d: dict) -> TenantSpec:
 
 
 def service_config_to_arrays(cfg) -> dict:
-    """Plain fields of a ServiceConfig (either package's), the solver
-    backend or device left out: the port's ServiceConfig takes `device`
-    in its place."""
+    """Plain fields of a ServiceConfig (either package's), its solver
+    `backend` included and the port's `device` left out."""
     out = {f.name: getattr(cfg, f.name)
            for f in dataclasses.fields(ServiceConfig)
            if f.name not in ("device", "cost")}
@@ -331,6 +336,39 @@ def service_config_from_arrays(d: dict, *,
     on `device`."""
     return ServiceConfig(**{**d, "cost": SolveCostModel(**d["cost"])},
                          device=device)
+
+
+def _config_fields(cfg, cls) -> dict:
+    """The fields of the port's dataclass `cls` but `device`, read from
+    `cfg` (either package's object of that name)."""
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cls)
+            if f.name != "device"}
+
+
+def search_config_to_arrays(cfg) -> dict:
+    """Plain fields of a SearchConfig (either package's), `backend`
+    included and the port's `device` left out."""
+    return _config_fields(cfg, SearchConfig)
+
+
+def search_config_from_arrays(d: dict, *,
+                              device: str | torch.device = "cuda"
+                              ) -> SearchConfig:
+    """The port's SearchConfig from `search_config_to_arrays`' fields, on
+    `device`."""
+    return SearchConfig(**d, device=device)
+
+
+def sweep_spec_to_arrays(spec) -> dict:
+    """Plain fields of a SweepSpec (either package's), `backend` included
+    and the port's `device` left out."""
+    return _config_fields(spec, SweepSpec)
+
+
+def sweep_spec_from_arrays(d: dict, *, device: str = "cuda") -> SweepSpec:
+    """The port's SweepSpec from `sweep_spec_to_arrays`' fields, on
+    `device`."""
+    return SweepSpec(**d, device=device)
 
 
 def search_result_to_arrays(res) -> dict:

@@ -3,7 +3,8 @@
 A copy of the reference `repro.core.arrivals`: traces are bitwise equal
 to the reference's, and `run_online` re-solves each epoch through the
 port's `solver.solve_fast_warm` on the card (or, with device="cpu", the
-burst kernel's plain version) (tests/test_torch_arrivals.py).
+kernel's plain version), in either PDHG lowering (`backend=`)
+(tests/test_torch_arrivals.py, tests/test_torch_coo.py).
 
 The paper's MILP schedules a fixed co-flow set known at t = 0; a real
 MapReduce cluster sees shuffle co-flows arrive continuously.  This
@@ -326,6 +327,7 @@ def run_online(topo: Topology, trace: list[Arrival],
                rho: float = 8.0, q_weight: float = 100.0,
                path_slack: int | None = 2, iters: int = 3000,
                tol: float | None = 2e-3, chunk: int = 250,
+               backend: str = "pallas",
                device: str | torch.device = "cuda", warm: bool = True,
                max_epochs: int = 128,
                chaos: list[chaosmod.ChaosEvent] | None = None,
@@ -354,9 +356,10 @@ def run_online(topo: Topology, trace: list[Arrival],
     behavior.  It is a scheduling tier, taken on those conditions only:
     an error of the solve itself propagates.
 
-    `device` is where every epoch's PDHG bursts run: "cuda" (default;
-    the CUDA kernel, raising without a card) or "cpu" (its plain
-    version).
+    `backend` is the PDHG lowering of every epoch's solve ("pallas", the
+    port's default, or "xla", the reference's; see solver.solve_lp), and
+    `device` where its bursts run: "cuda" (default; the CUDA kernel,
+    raising without a card) or "cpu" (its plain version).
 
     Returns an OnlineResult; per-epoch energies are exact paper-model
     numbers for the executed prefixes, and co-flow completion times use
@@ -364,6 +367,7 @@ def run_online(topo: Topology, trace: list[Arrival],
     if objective not in ("energy", "time"):
         raise ValueError(f"objective {objective!r} not in ('energy', 'time')")
     dev = _device.resolve(device)
+    solver._check_backend(backend)
     D = topo.slot_duration
     if epoch_s is None:
         epoch_s = 4.0 * D
@@ -481,7 +485,7 @@ def run_online(topo: Topology, trace: list[Arrival],
                                    warm=prev if use_warm else None,
                                    flow_map=flow_map if use_warm else None,
                                    iters=iters, tol=tol, chunk=chunk,
-                                   device=dev)
+                                   backend=backend, device=dev)
         # what actually ran, not what was attempted: solve_fast_warm
         # silently falls back to cold when the projection is unusable
         warm_ran = r.warm_started
@@ -498,7 +502,8 @@ def run_online(topo: Topology, trace: list[Arrival],
             p = rehorizon(p, 2 * p.n_slots,
                           path_slack=path_slack if tries == 0 else None)
             r = solver.solve_fast_warm(p, objective, iters=iters, tol=tol,
-                                       chunk=chunk, device=dev)
+                                       chunk=chunk, backend=backend,
+                                       device=dev)
             spent += r.iterations
             tries += 1
         if (fallback is not None and len(src) > 0
@@ -507,7 +512,8 @@ def run_online(topo: Topology, trace: list[Arrival],
             # epoch to a certified baseline policy on a stretched
             # horizon; accepted only if it drains the demand feasibly
             p_fb = rehorizon(p, 2 * p.n_slots)
-            fb = fallback.solve(p_fb, objective, device=dev)
+            fb = fallback.solve(p_fb, objective, backend=backend,
+                                device=dev)
             if fb.metrics.feasible and fb.remaining_gbits <= 1e-6:
                 p, r = p_fb, fb
                 tries += 1

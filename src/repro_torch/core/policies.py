@@ -3,7 +3,8 @@
 A copy of the reference `repro.core.policies`: the heuristic policies
 are numpy and bitwise the reference's (tests/test_torch_policies.py);
 `fair-lp` solves through the port's `solve_fast` on the card (or, with
-device="cpu", the burst kernel's plain version).
+device="cpu", the kernel's plain version), in either PDHG lowering
+(`backend=`).
 
 The paper reports only MILP-optimal schedules; production operators ask
 a different question — how much does the optimal LP routing actually
@@ -353,8 +354,9 @@ def _strict_priority_pack(p: ScheduleProblem, idx: RoutingIndex,
 @dataclasses.dataclass(frozen=True)
 class Policy:
     """One baseline scheduler.  `solve` mirrors solve_fast's signature;
-    heuristic policies ignore iters/tol/device (accepted for drop-in
-    interface parity) and are pure numpy, hence device-independent."""
+    heuristic policies ignore iters/tol/backend/device (accepted for
+    drop-in interface parity) and are pure numpy, hence backend- and
+    device-independent."""
 
     name: str
     summary: str
@@ -369,6 +371,7 @@ class Policy:
 
     def solve(self, p: ScheduleProblem, objective: str = "energy", *,
               iters: int = 0, tol: float | None = None,
+              backend: str = "pallas",
               device: str | torch.device = "cuda") -> FastPathResult:
         idx, paths = self.route(p, objective)
         x = self.pack(p, idx, paths)
@@ -456,13 +459,13 @@ class FairSharePolicy(Policy):
 class FairLpPolicy(Policy):
     """The LP fast path under the "fair" objective (weighted max-min
     fairness surrogate).  The one policy that runs PDHG — iters/tol/
-    device are honoured (device as in solve_fast: "cuda" raises without
+    backend/device are honoured (as in solve_fast: "cuda" raises without
     a card); with uniform weights it coincides with the min-energy LP."""
 
     def solve(self, p, objective="energy", *, iters=3000,
-              tol=None, device="cuda"):
+              tol=None, backend="pallas", device="cuda"):
         r = solve_fast(p, "fair", iters=iters or 3000, tol=tol,
-                       device=device)
+                       backend=backend, device=device)
         return dataclasses.replace(
             r, certificate=verify.check_schedule(p, r.schedule))
 

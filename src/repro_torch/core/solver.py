@@ -31,11 +31,22 @@ start PDHG from a finished solve's state projected onto a degraded
 fabric (core.failures) or the next epoch of an arrival trace
 (core.arrivals), through the same kernel.
 
-The port has one PDHG lowering, the reference's blocked-ELL
-`backend="pallas"` one, with its iters/tol/restart semantics.  The
-reference's COO `backend="xla"` lowering is not ported: it is built on
-scatter-adds, which CUDA runs with atomics in no fixed order, and the
-solve promises bitwise-repeatable results.
+The port has both of the reference's PDHG lowerings, with their
+iters/tol/restart semantics, chosen by `backend=`:
+
+  * "pallas" (the port's default): K in blocked ELL, every burst one
+    call of pdhg_burst.cu, sums in the kernel's own fixed order, so the
+    solves track the reference's pallas lowering to fp32 tolerance;
+  * "xla" (the reference's default): K in COO, every burst one call of
+    pdhg_coo.cu (kernels.ops.pdhg_coo_burst), which sums each row and
+    column one entry at a time in COO entry order and rounds the two
+    updates the reference's XLA contracts once, as kernels.pdhg_coo
+    writes the order down; where the host's XLA orders the reference's
+    scatters so (tests/test_torch_coo.py probes it), the card's and the
+    CPU's trajectories are bitwise the reference's own.  Bucketing,
+    pad_and_stack and the reference's xla solve helpers (_pdhg_ops ...
+    _pdhg_run_batch) come with it.  The port's default stays "pallas":
+    its other paths and checks are built on that lowering.
 
 Units follow the paper throughout: flow sizes and shipped volumes in
 Gbits, link/egress/ingress rates in Gbps, slot duration and completion
@@ -54,7 +65,7 @@ import torch.distributed as dist
 
 from .. import device as _device
 from ..kernels import ops as kops
-from ..kernels import pdhg_spmv
+from ..kernels import pdhg_coo, pdhg_spmv
 from .timeslot import Metrics, ScheduleProblem, evaluate
 
 
@@ -329,26 +340,196 @@ def _solve_lp_pallas_sharded(lp: StructuredLP, iters: int, tol: float,
                            max_restarts, precision)
 
 
+BACKENDS = ("xla", "pallas")
 PRECISIONS = ("fp32", "bf16")
 
 
-def _check_scale_opts(shards: int, precision: str) -> None:
+def _check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown solver backend {backend!r}; "
+                         f"have {BACKENDS}")
+
+
+def _check_scale_opts(backend: str, shards: int, precision: str) -> None:
     """Validate the reference's scale knobs: the precision (bf16 stores
     the iterates in bfloat16 between iterations, fp32 arithmetic) and
     the shard count (> 1: the row-sharded operator across that many
-    torch.distributed ranks)."""
+    torch.distributed ranks).  Both exist only in the blocked-ELL
+    lowering, so anything but the defaults requires backend="pallas",
+    as in the reference."""
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; "
                          f"have {PRECISIONS}")
     if shards < 1:
         raise ValueError(f"shards must be >= 1, got {shards}")
+    if backend != "pallas" and (shards > 1 or precision != "fp32"):
+        raise ValueError(
+            f"shards={shards}, precision={precision!r} require "
+            f"backend='pallas' (the xla COO path is single-device fp32)")
+
+
+# ---------------------------------------------------------------------------
+# The COO lowering (backend="xla"), the reference's default
+# ---------------------------------------------------------------------------
+
+_COO_PLAN_CACHE: dict = {}
+
+
+def _coo_operator_cached(row, col, val, m: int, n: int
+                         ) -> pdhg_coo.CooOperator:
+    """The COO operator with its plan (the two stable permutations)
+    cached per sparsity pattern, as _ell_operator_cached caches the
+    blocked-ELL plan; values, tau and sig are refreshed each call."""
+    row, col = np.asarray(row), np.asarray(col)
+    key = (m, n, len(val),
+           hashlib.blake2b(np.ascontiguousarray(row).tobytes()
+                           + np.ascontiguousarray(col).tobytes(),
+                           digest_size=16).digest())
+    with _CACHE_LOCK:
+        plan = _COO_PLAN_CACHE.get(key)
+    if plan is None:
+        plan = pdhg_coo.coo_plan(row, col, m, n)
+        with _CACHE_LOCK:
+            _cache_put(_COO_PLAN_CACHE, _ELL_PLAN_CACHE_MAX, key, plan)
+    return pdhg_coo.coo_fill(plan, val)
+
+
+def _f32(a, device: torch.device) -> torch.Tensor:
+    """float32 on `device`, as jnp.asarray casts with x64 off."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.float32).contiguous()
+    return _put(np.asarray(a, np.float32), device)
+
+
+def _pdhg_ops(c, row, col, val, b, h, m, n, m_eq,
+              device: str | torch.device = "cuda"):
+    """The reference's shared PDHG machinery of the COO lowering, as
+    tensors on `device`: (q, tau, sig, cols, rows, ub) with q = [b; h],
+    the diagonal preconditioners summed in float32 in COO entry order,
+    the operator's two directions (kernels.pdhg_coo: cols for K^T y,
+    rows for K x, in place of the reference's Kx/KTy closures) and the
+    inequality-row mask.  `c` is not used, as in the reference."""
+    dev = _device.resolve(device)
+    op = _coo_operator_cached(row, col, val, m, n)
+    cols, rows = pdhg_coo.coo_directions(op, dev)
+    q = _f32(np.concatenate([np.asarray(b, np.float32),
+                             np.asarray(h, np.float32)]), dev)
+    ub = torch.arange(m, device=dev) >= m_eq
+    return q, _f32(op.tau, dev), _f32(op.sig, dev), cols, rows, ub
+
+
+def _coo_gap(c, q, x, y) -> torch.Tensor:
+    """The reference's gap proxy |c.x + q.y| / (1 + |c.x|), in float32."""
+    obj = torch.dot(c, x)
+    return (obj + torch.dot(q, y)).abs() / (1.0 + obj.abs())
+
+
+def _pdhg_kernel_state(c, row, col, val, b, h, xmax, x0, y0, m, n, m_eq,
+                       iters, device: str | torch.device = "cuda"):
+    """Diagonally-preconditioned PDHG over COO, resumable: `iters` steps
+    from (x0, y0) as one burst (kernels.ops.pdhg_coo_burst: the CUDA
+    kernel on the card, its plain version on the CPU), returning (x, y,
+    primal, gap) as float32 tensors on `device`.  Arrays come in as the
+    reference's do (numpy, cast to float32 here)."""
+    dev = _device.resolve(device)
+    q, tau, sig, cols, rows, ub = _pdhg_ops(c, row, col, val, b, h, m, n,
+                                            m_eq, dev)
+    c = _f32(c, dev)
+    x, y, worst = kops.pdhg_coo_burst(
+        c, tau, _f32(xmax, dev), q, sig, ub,
+        torch.zeros(n, dtype=torch.bool, device=dev),
+        torch.zeros(m, dtype=torch.bool, device=dev), cols, rows,
+        _f32(x0, dev), _f32(y0, dev), iters=iters)
+    primal = worst.max().clamp_min(0.0) if m else torch.zeros((), device=dev)
+    return x, y, primal, _coo_gap(c, q, x, y)
+
+
+# the reference jits _pdhg_kernel_state under this name; here it is the
+# same function
+_pdhg_resume = _pdhg_kernel_state
+
+
+def _pdhg_run(c, row, col, val, b, h, xmax, m, n, m_eq, iters,
+              check_every, device: str | torch.device = "cuda"):
+    """Cold-start single-instance PDHG with the reference's historical
+    (x, primal, gap) interface (`check_every` is accepted and unused, as
+    in the reference)."""
+    x, _, primal, gap = _pdhg_kernel_state(
+        c, row, col, val, b, h, xmax, np.zeros(n, np.float32),
+        np.zeros(m, np.float32), m, n, m_eq, iters, device)
+    return x, primal, gap
+
+
+def _pdhg_run_adaptive(c, row, col, val, b, h, xmax, x0, y0, tols, inst_n,
+                       inst_m, num_inst, m, n, m_eq, chunk, max_chunks,
+                       device: str | torch.device = "cuda"):
+    """Adaptive PDHG over a block-stacked COO instance batch: `chunk`-
+    iteration bursts, each instance frozen once its residual meets its
+    tolerance, padded slots (the dump segment `num_inst` of
+    `inst_n`/`inst_m`) always frozen (kernels.ops.pdhg_coo_adaptive).
+    Returns (x, y, per-instance residuals, per-instance chunks used) as
+    tensors on `device`."""
+    dev = _device.resolve(device)
+    q, tau, sig, cols, rows, ub = _pdhg_ops(c, row, col, val, b, h, m, n,
+                                            m_eq, dev)
+    return kops.pdhg_coo_adaptive(
+        _f32(c, dev), tau, _f32(xmax, dev), q, sig, ub, cols, rows,
+        _f32(x0, dev), _f32(y0, dev), _f32(tols, dev),
+        torch.as_tensor(np.asarray(inst_n), device=dev),
+        torch.as_tensor(np.asarray(inst_m), device=dev),
+        num_inst=num_inst, chunk=chunk, max_chunks=max_chunks)
+
+
+def _pdhg_run_batch(c, row, col, val, b, h, xmax, x0, y0, m, n, m_eq, iters,
+                    device: str | torch.device = "cuda"):
+    """Resumable PDHG over an instance axis (the leading axis of every
+    array, padded to common shapes by pad_and_stack): the reference
+    vmaps _pdhg_kernel_state over it; here each instance runs its own
+    burst, the same update.  Returns stacked (x, y, primal, gap)."""
+    outs = [_pdhg_kernel_state(c[i], row[i], col[i], val[i], b[i], h[i],
+                               xmax[i], x0[i], y0[i], m, n, m_eq, iters,
+                               device)
+            for i in range(len(c))]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def _solve_lp_coo(lp: StructuredLP, iters: int, tol: float,
+                  max_restarts: int, x0, y0,
+                  device: torch.device) -> PDHGResult:
+    """solve_lp's restart ladder over the COO lowering, the reference's
+    xla branch: the same float64 -> float32 cast points, each rung one
+    burst continuing the last, x and y returned as float32 arrays."""
+    xmax = np.where(np.isfinite(lp.xmax), lp.xmax, 1e12)
+    cscale = max(float(np.abs(lp.c).max(initial=0.0)), 1e-12)
+    q, tau, sig, cols, rows, ub = _pdhg_ops(
+        lp.c / cscale, lp.row, lp.col, lp.val, lp.b, lp.h, lp.m, lp.n,
+        lp.m_eq, device)
+    c, xm = _f32(lp.c / cscale, device), _f32(xmax, device)
+    keep_n = torch.zeros(lp.n, dtype=torch.bool, device=device)
+    keep_m = torch.zeros(lp.m, dtype=torch.bool, device=device)
+    x = _f32(np.zeros(lp.n) if x0 is None else x0, device)
+    y = _f32(np.zeros(lp.m) if y0 is None else y0, device)
+    total_iters = 0
+    for attempt in range(max_restarts + 1):
+        x, y, worst = kops.pdhg_coo_burst(c, tau, xm, q, sig, ub, keep_n,
+                                          keep_m, cols, rows, x, y,
+                                          iters=iters)
+        total_iters += iters
+        primal = max(float(worst.max()), 0.0)
+        if primal <= tol:
+            break
+        iters *= 2
+    return PDHGResult(x.cpu().numpy(), primal,
+                      float(_coo_gap(c, q, x, y)), total_iters,
+                      y=y.cpu().numpy())
 
 
 def solve_lp(lp: StructuredLP, iters: int = 4000, *,
              tol: float | None = None, max_restarts: int = 3,
              x0: np.ndarray | None = None,
              y0: np.ndarray | None = None,
-             shards: int = 1, precision: str = "fp32",
+             backend: str = "pallas", shards: int = 1,
+             precision: str = "fp32",
              device: str | torch.device = "cuda") -> PDHGResult:
     """Solve with PDHG; objective is max-normalized (the schedule is re-scored
     exactly afterwards, so only the argmin matters).  If the primal residual
@@ -357,9 +538,15 @@ def solve_lp(lp: StructuredLP, iters: int = 4000, *,
     times.  `x0`/`y0` seed the primal/dual iterates (numpy, e.g. the
     state of an earlier solve); default is a cold start from zero.
 
+    `backend` selects the PDHG lowering: "pallas" (the port's default,
+    blocked ELL through pdhg_burst.cu) or "xla" (the reference's
+    default, COO through pdhg_coo.cu in the reference's COO summation
+    order; x and y come back as float32 arrays, as the reference's do).
+
     `precision="bf16"` stores the PDHG iterates in bfloat16 between
     iterations, with fp32 arithmetic and residuals (the kernel's
-    pdhg_burst_bf16 entry).
+    pdhg_burst_bf16 entry).  bf16 and shards > 1 require
+    backend="pallas" (ValueError otherwise, as in the reference).
 
     `shards` > 1 partitions the constraint rows across that many
     torch.distributed ranks (runtime.sharding.solver_group: every rank
@@ -374,11 +561,14 @@ def solve_lp(lp: StructuredLP, iters: int = 4000, *,
     when no card is available; `device="cpu"` runs the kernel's plain
     PyTorch version."""
     dev = _device.resolve(device)
-    _check_scale_opts(shards, precision)
+    _check_backend(backend)
+    _check_scale_opts(backend, shards, precision)
     if tol is None:
         tol = 1e-4 * max(float(np.abs(lp.b).max(initial=0.0)), 1.0)
     if lp.n == 0 or lp.m == 0:
         return _solve_lp_trivial(lp)
+    if backend == "xla":
+        return _solve_lp_coo(lp, iters, tol, max_restarts, x0, y0, dev)
     if shards > 1:
         return _solve_lp_pallas_sharded(lp, iters, tol, max_restarts, x0,
                                         y0, shards, dev, precision)
@@ -561,10 +751,12 @@ def build_cache_stats() -> BuildCacheStats:
 
 
 def reset_build_caches() -> None:
-    """Drop the structure and ELL-plan caches and zero the counters."""
+    """Drop the structure, ELL-plan and COO-plan caches and zero the
+    counters."""
     with _CACHE_LOCK:
         _STRUCTURE_CACHE.clear()
         _ELL_PLAN_CACHE.clear()
+        _COO_PLAN_CACHE.clear()
         for f in dataclasses.fields(BuildCacheStats):
             setattr(BUILD_STATS, f.name, f.default)
 
@@ -573,9 +765,11 @@ def reset_build_caches() -> None:
 class DispatchStats:
     """Counters for stacked PDHG dispatches (solve_lp_batch).
 
-    A dispatch is keyed by its static shape: the blocked-ELL packer's
-    padded grid, the instance count, the chunk schedule and the budget
-    (the reference's pallas dispatch tuple).  `shape_hits` counts
+    A dispatch is keyed by its static shape, as the reference keys it:
+    under backend="pallas" the blocked-ELL packer's padded grid, the
+    instance count, the chunk schedule and the budget; under "xla" the
+    bucketed (n, m, m_eq, nnz), the bucketed instance count, the chunk
+    schedule and the budget.  `shape_hits` counts
     dispatches whose shape this process has dispatched before,
     `shape_misses` first-seen shapes.  Read via `dispatch_stats()`,
     clear via `reset_dispatch_stats()`."""
@@ -1145,7 +1339,8 @@ def _assemble_fast_result(p: ScheduleProblem, lp: StructuredLP,
 
 def solve_fast(p: ScheduleProblem, objective: str = "energy", *,
                iters: int = 4000, tol: float | None = None,
-               shards: int = 1, precision: str = "fp32",
+               backend: str = "pallas", shards: int = 1,
+               precision: str = "fp32",
                x0: np.ndarray | None = None, y0: np.ndarray | None = None,
                device: str | torch.device = "cuda") -> FastPathResult:
     """Single-instance fast path: routing LP -> PDHG -> slot packing ->
@@ -1159,10 +1354,13 @@ def solve_fast(p: ScheduleProblem, objective: str = "energy", *,
       iters: PDHG iterations per restart rung (doubled on each restart,
         up to solve_lp's max_restarts).
       tol: primal-residual target in Gbits; default 1e-4 * max demand.
-      shards, precision: the reference's scale knobs.  precision "fp32"
-        or "bf16" (bf16 iterate storage, fp32 arithmetic); shards > 1
-        row-shards the LP across that many torch.distributed ranks
-        (see solve_lp).
+      backend: PDHG lowering, "pallas" (the port's default; blocked ELL)
+        or "xla" (the reference's default; COO in its summation order,
+        see solve_lp).
+      shards, precision: the reference's scale knobs (pallas only).
+        precision "fp32" or "bf16" (bf16 iterate storage, fp32
+        arithmetic); shards > 1 row-shards the LP across that many
+        torch.distributed ranks (see solve_lp).
       x0, y0: numpy PDHG warm start (see solve_lp).
       device: "cuda" (default; raises when no card is available) or
         "cpu" (the kernel's plain PyTorch version).
@@ -1170,21 +1368,80 @@ def solve_fast(p: ScheduleProblem, objective: str = "energy", *,
     Returns a FastPathResult whose `metrics` are always the exact paper
     equations evaluated on the packed schedule — never LP estimates.
 
-    Determinism: there is no RNG anywhere in the fast path, and the CUDA
-    kernel sums every row in a fixed order with no atomics, so repeated
-    calls with equal inputs on one device return identical schedules.
-    The card and the CPU agree to fp tolerance (~1e-4 relative on
-    metrics), not bitwise."""
+    Determinism: there is no RNG anywhere in the fast path, and both
+    CUDA kernels sum every row in a fixed order with no atomics, so
+    repeated calls with equal inputs on one device return identical
+    schedules.  Under "pallas" the card and the CPU agree to fp
+    tolerance (~1e-4 relative on metrics), not bitwise; under "xla" they
+    agree bitwise (both sum in COO entry order)."""
     dev = _device.resolve(device)
     lp, idx = build_routing_lp(p, objective)
-    res = solve_lp(lp, iters=iters, tol=tol, x0=x0, y0=y0, shards=shards,
-                   precision=precision, device=dev)
+    res = solve_lp(lp, iters=iters, tol=tol, x0=x0, y0=y0, backend=backend,
+                   shards=shards, precision=precision, device=dev)
     return _assemble_fast_result(p, lp, idx, res)
 
 
 # ---------------------------------------------------------------------------
 # Batched solve (instance axis): block-diagonal stacking, adaptive freezing
 # ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class BatchedLP:
+    """`B` StructuredLPs padded to common (n, m_eq, m, nnz) and stacked.
+
+    Padding is value-neutral: extra COO entries carry val=0 (contribute
+    nothing to K x, K^T y, or the diagonal preconditioners), padded
+    equality rows have b=0 and no entries (their duals stay 0), and
+    padded variables have c=0 and xmax=0 (clipped to 0 every step).  The
+    per-instance PDHG trajectory is therefore the unpadded solve's up to
+    the sign of a zero (_pdhg_run_batch runs it)."""
+
+    c: np.ndarray          # (B, n) — already max-normalized per instance
+    row: np.ndarray        # (B, nnz)
+    col: np.ndarray        # (B, nnz)
+    val: np.ndarray        # (B, nnz)
+    b: np.ndarray          # (B, m_eq)
+    h: np.ndarray          # (B, m - m_eq)
+    xmax: np.ndarray       # (B, n) — infs already clamped to 1e12
+    n_true: list[int]      # original variable counts, for unpadding
+    m: int
+    n: int
+    m_eq: int
+
+
+def pad_and_stack(lps: list[StructuredLP]) -> BatchedLP:
+    """Stack LPs with (possibly) different shapes into one instance-axis
+    batch.  Equality rows keep their indices; inequality rows are shifted
+    so every instance's ub block starts at the common m_eq."""
+    B = len(lps)
+    n = max(lp.n for lp in lps)
+    m_eq = max(lp.m_eq for lp in lps)
+    m_ub = max(lp.m - lp.m_eq for lp in lps)
+    nnz = max(len(lp.val) for lp in lps)
+    m = m_eq + m_ub
+
+    c = np.zeros((B, n))
+    row = np.zeros((B, nnz), np.int64)
+    col = np.zeros((B, nnz), np.int64)
+    val = np.zeros((B, nnz))
+    b = np.zeros((B, m_eq))
+    h = np.zeros((B, m_ub))
+    xmax = np.zeros((B, n))
+    for i, lp in enumerate(lps):
+        cscale = max(float(np.abs(lp.c).max(initial=0.0)), 1e-12)
+        c[i, :lp.n] = lp.c / cscale
+        k = len(lp.val)
+        # shift each instance's inequality block to start at the padded m_eq
+        row[i, :k] = np.where(lp.row < lp.m_eq, lp.row,
+                              lp.row + (m_eq - lp.m_eq))
+        col[i, :k] = lp.col
+        val[i, :k] = lp.val
+        b[i, :lp.m_eq] = lp.b
+        h[i, :lp.m - lp.m_eq] = lp.h
+        xmax[i, :lp.n] = np.where(np.isfinite(lp.xmax), lp.xmax, 1e12)
+    return BatchedLP(c=c, row=row, col=col, val=val, b=b, h=h, xmax=xmax,
+                     n_true=[lp.n for lp in lps], m=m, n=n, m_eq=m_eq)
+
 
 @dataclasses.dataclass
 class BlockStackedLP:
@@ -1243,16 +1500,57 @@ def _per_instance_residuals(bs: BlockStackedLP, x: np.ndarray) -> np.ndarray:
     return out
 
 
+def _bucket(x: int, *, minimum: int = 32) -> int:
+    """Round a dimension up to the next shape bucket: the smallest value
+    >= x of the form mant * 2^e with 8 <= mant < 16 (a 4-bit-mantissa
+    grid), as the reference's; padding waste stays under ~14% per
+    dimension."""
+    if x <= minimum:
+        return minimum
+    e = max(int(x - 1).bit_length() - 4, 0)
+    step = 1 << e
+    return -(-x // step) * step
+
+
+def _pad_for_buckets(g: StructuredLP) -> tuple[StructuredLP,
+                                               tuple[int, int, int]]:
+    """Pad a (stacked) LP to bucketed (n, m_eq, m_ub, nnz), the
+    reference's way: extra COO entries carry val=0 at (row 0, col 0),
+    padded variables have c=0/xmax=0 (clipped to 0 every step), padded
+    equality rows b=0 with no entries, padded inequality rows h=0, and
+    real inequality rows shift up by the equality padding.  Returns the
+    padded LP plus the true (n, m_eq, m_ub) for unpadding."""
+    n_t, meq_t = g.n, g.m_eq
+    mub_t, nnz_t = g.m - g.m_eq, len(g.val)
+    n_b, meq_b, mub_b, nnz_b = (_bucket(d)
+                                for d in (n_t, meq_t, mub_t, nnz_t))
+    if (n_b, meq_b, mub_b, nnz_b) == (n_t, meq_t, mub_t, nnz_t):
+        return g, (n_t, meq_t, mub_t)
+    row = np.where(g.row < meq_t, g.row, g.row + (meq_b - meq_t))
+    pad = nnz_b - nnz_t
+    return StructuredLP(
+        c=np.concatenate([g.c, np.zeros(n_b - n_t)]),
+        row=np.concatenate([row, np.zeros(pad, np.int64)]),
+        col=np.concatenate([g.col, np.zeros(pad, np.int64)]),
+        val=np.concatenate([g.val, np.zeros(pad)]),
+        b=np.concatenate([g.b, np.zeros(meq_b - meq_t)]),
+        h=np.concatenate([g.h, np.zeros(mub_b - mub_t)]),
+        xmax=np.concatenate([g.xmax, np.zeros(n_b - n_t)]),
+    ), (n_t, meq_t, mub_t)
+
+
 def solve_lp_batch(lps: list[StructuredLP], iters: int = 4000, *,
                    tol: float | None = None, max_restarts: int = 3,
                    adaptive: bool = True, chunk: int = 500,
                    warm_starts: list[tuple[np.ndarray, np.ndarray]] | None
-                   = None, bucket: bool = True, shards: int = 1,
-                   precision: str = "fp32",
+                   = None, backend: str = "pallas", bucket: bool = True,
+                   shards: int = 1, precision: str = "fp32",
                    device: str | torch.device = "cuda") -> list[PDHGResult]:
-    """Solve a batch of LPs in stacked PDHG dispatches: the reference's
-    solve_lp_batch with backend="pallas", every dispatch one block-
-    diagonal stack (BlockStackedLP) packed in blocked ELL.
+    """Solve a batch of LPs in stacked PDHG dispatches, the reference's
+    solve_lp_batch: every dispatch one block-diagonal stack
+    (BlockStackedLP), packed in blocked ELL under backend="pallas" (the
+    port's default) or kept in COO under "xla" (the reference's
+    default; kernels.ops.pdhg_coo_adaptive / pdhg_coo_burst).
 
     Both modes run an escalation ladder that re-stacks only the
     still-unconverged instances each level, so every instance follows
@@ -1272,8 +1570,15 @@ def solve_lp_batch(lps: list[StructuredLP], iters: int = 4000, *,
     Degenerate members (no rows or no variables) solve in closed form
     and never enter a dispatch.
 
-    `bucket` is accepted and has no effect, as in the reference's pallas
-    branch: the blocked-ELL packer's padded grid is the dispatch shape.
+    `bucket=True` (xla) pads every stacked dispatch's (n, m_eq, m_ub,
+    nnz) and its instance count up to the reference's shape buckets
+    (_bucket, _pad_for_buckets), which dispatch_stats() counts; the
+    padding is value-neutral, so results match bucket=False.  The
+    bucket's zero-valued pad entries (at row 0, column 0) are left out
+    of the COO operator: each would add a zero to row 0 and column 0,
+    which can change only the sign of a zero sum.  Under "pallas"
+    `bucket` has no effect, as in the reference's pallas branch: the
+    blocked-ELL packer's padded grid is the dispatch shape.
     `precision="bf16"` stores the iterates in bfloat16 between
     iterations.  `shards` > 1 row-partitions each stacked dispatch
     across that many torch.distributed ranks (see solve_lp) and runs
@@ -1286,7 +1591,8 @@ def solve_lp_batch(lps: list[StructuredLP], iters: int = 4000, *,
     Determinism: no RNG and fixed-order sums in the kernel, so results
     repeat bitwise on one device for fixed inputs."""
     dev = _device.resolve(device)
-    _check_scale_opts(shards, precision)
+    _check_backend(backend)
+    _check_scale_opts(backend, shards, precision)
     B = len(lps)
     all_tols = np.array([tol if tol is not None
                          else 1e-4 * max(float(np.abs(lp.b).max(initial=0.0)),
@@ -1344,6 +1650,58 @@ def solve_lp_batch(lps: list[StructuredLP], iters: int = 4000, *,
             used = np.full(len(sub), budget)
         return x.cpu().numpy()[:g.n], y.cpu().numpy()[:g.m], used
 
+    def _run_coo(g: StructuredLP, bs: BlockStackedLP, x0, y0,
+                 sub: list[int], budget: int):
+        """One stacked dispatch through the COO burst kernel, the
+        reference's xla branch: shape bucketing, then the adaptive
+        driver (or one fixed burst)."""
+        B_sub = len(sub)
+        gp, (n_t, meq_t, mub_t) = (
+            _pad_for_buckets(g) if bucket
+            else (g, (g.n, g.m_eq, g.m - g.m_eq)))
+        shift = gp.m_eq - meq_t
+        x0 = np.concatenate([np.asarray(x0, np.float32),
+                             np.zeros(gp.n - n_t, np.float32)])
+        y0 = np.asarray(y0, np.float32)
+        y0 = np.concatenate([y0[:meq_t], np.zeros(shift, np.float32),
+                             y0[meq_t:],
+                             np.zeros(gp.m - g.m - shift, np.float32)])
+        # the bucket's pad entries (appended after the real ones) stay
+        # out of the operator; see the docstring
+        real = len(g.val)
+        args = (gp.c, gp.row[:real], gp.col[:real], gp.val[:real], gp.b,
+                gp.h, gp.xmax)
+        if adaptive:
+            # padded coords go to the dump segment num_b; fake
+            # instances (instance-count bucketing) have no rows and
+            # tol=inf, so they freeze at the first residual check
+            num_b = ((1 << max(B_sub - 1, 0).bit_length()) if bucket
+                     else B_sub)
+            inst_n = np.full(gp.n, num_b, np.int64)
+            inst_n[:n_t] = np.repeat(np.arange(B_sub), np.diff(bs.n_off))
+            inst_m = np.full(gp.m, num_b, np.int64)
+            inst_m[:meq_t] = np.repeat(np.arange(B_sub), np.diff(bs.eq_off))
+            inst_m[gp.m_eq:gp.m_eq + mub_t] = np.repeat(
+                np.arange(B_sub), np.diff(bs.ub_off))
+            tols_sub = np.concatenate(
+                [all_tols[sub], np.full(num_b - B_sub, np.inf)])
+            _note_dispatch(("xla", True, chunk, budget, gp.n, gp.m,
+                            gp.m_eq, len(gp.val), num_b))
+            x, y, _, used_chunks = _pdhg_run_adaptive(
+                *args, x0, y0, tols_sub, inst_n, inst_m, num_b, gp.m,
+                gp.n, gp.m_eq, chunk, budget // chunk, dev)
+            used = used_chunks.cpu().numpy()[:B_sub].astype(np.int64) * chunk
+        else:
+            _note_dispatch(("xla", False, 0, budget, gp.n, gp.m, gp.m_eq,
+                            len(gp.val)))
+            x, y, _, _ = _pdhg_resume(*args, x0, y0, gp.m, gp.n, gp.m_eq,
+                                      budget, dev)
+            used = np.full(B_sub, budget)
+        y_arr = y.cpu().numpy()
+        return (x.cpu().numpy()[:n_t],
+                np.concatenate([y_arr[:meq_t],
+                                y_arr[gp.m_eq:gp.m_eq + mub_t]]), used)
+
     def _run(sub: list[int], states, budget: int):
         """One stacked dispatch over the instances in `sub`; returns
         (x, y, residuals, iterations) split per instance."""
@@ -1356,7 +1714,8 @@ def solve_lp_batch(lps: list[StructuredLP], iters: int = 4000, *,
             y0 = np.concatenate(
                 [states[i][1][:lps[i].m_eq] for i in sub]
                 + [states[i][1][lps[i].m_eq:] for i in sub])
-        x_np, y_np, used = _run_ell(g, bs, x0, y0, sub, budget)
+        run = _run_coo if backend == "xla" else _run_ell
+        x_np, y_np, used = run(g, bs, x0, y0, sub, budget)
         res = _per_instance_residuals(bs, x_np)
         outs = {}
         for j, i in enumerate(sub):
@@ -1433,8 +1792,9 @@ def solve_lp_batch(lps: list[StructuredLP], iters: int = 4000, *,
 def solve_fast_batch(problems: list[ScheduleProblem],
                      objective: str = "energy", *,
                      iters: int = 4000, tol: float | None = None,
-                     adaptive: bool = True, bucket: bool = True,
-                     shards: int = 1, precision: str = "fp32",
+                     adaptive: bool = True, backend: str = "pallas",
+                     bucket: bool = True, shards: int = 1,
+                     precision: str = "fp32",
                      device: str | torch.device = "cuda"
                      ) -> list[FastPathResult]:
     """Batched fast path over ScheduleProblems sharing one topology.
@@ -1460,7 +1820,8 @@ def solve_fast_batch(problems: list[ScheduleProblem],
             raise ValueError("solve_fast_batch requires a shared topology "
                              f"structure; got {t0.name} and {t.name}")
     return solve_fast_ensemble(problems, objective, iters=iters, tol=tol,
-                               adaptive=adaptive, chunk=500, bucket=bucket,
+                               adaptive=adaptive, chunk=500,
+                               backend=backend, bucket=bucket,
                                shards=shards, precision=precision,
                                device=device)
 
@@ -1470,8 +1831,8 @@ def solve_fast_ensemble(problems: list[ScheduleProblem],
                         warm: list[FastPathResult] | None = None,
                         iters: int = 4000, tol: float | None = None,
                         adaptive: bool = True, chunk: int | None = None,
-                        bucket: bool = True, shards: int = 1,
-                        precision: str = "fp32",
+                        backend: str = "pallas", bucket: bool = True,
+                        shards: int = 1, precision: str = "fp32",
                         device: str | torch.device = "cuda"
                         ) -> list[FastPathResult]:
     """Batched fast path over a (possibly heterogeneous) instance list.
@@ -1501,7 +1862,7 @@ def solve_fast_ensemble(problems: list[ScheduleProblem],
         chunk = 250 if warm_starts is not None else 500
     results = solve_lp_batch(lps, iters=iters, tol=tol, adaptive=adaptive,
                              chunk=chunk, warm_starts=warm_starts,
-                             bucket=bucket, shards=shards,
+                             backend=backend, bucket=bucket, shards=shards,
                              precision=precision, device=dev)
     return [_assemble_fast_result(p, lp, idx, res)
             for p, (lp, idx), res in zip(problems, built, results)]
@@ -1692,8 +2053,8 @@ def stranded_volume(warm: FastPathResult, p_dst: ScheduleProblem, *,
 
 def resolve_incremental(p: ScheduleProblem, objective: str,
                         warm: FastPathResult, *, iters: int = 4000,
-                        tol: float | None = None, shards: int = 1,
-                        precision: str = "fp32",
+                        tol: float | None = None, backend: str = "pallas",
+                        shards: int = 1, precision: str = "fp32",
                         device: str | torch.device = "cuda"
                         ) -> FastPathResult:
     """Re-solve a degraded instance starting from a healthy solution.
@@ -1709,8 +2070,8 @@ def resolve_incremental(p: ScheduleProblem, objective: str,
     dev = _device.resolve(device)
     lp, idx = build_routing_lp(p, objective)
     x0, y0 = project_warm_start(warm, p, lp, idx)
-    res = solve_lp(lp, iters=iters, tol=tol, x0=x0, y0=y0, shards=shards,
-                   precision=precision, device=dev)
+    res = solve_lp(lp, iters=iters, tol=tol, x0=x0, y0=y0, backend=backend,
+                   shards=shards, precision=precision, device=dev)
     return _assemble_fast_result(p, lp, idx, res)
 
 
@@ -1726,7 +2087,8 @@ def solve_fast_warm(p: ScheduleProblem, objective: str = "energy", *,
                     warm: FastPathResult | None = None,
                     flow_map: np.ndarray | None = None,
                     iters: int = 4000, tol: float | None = None,
-                    chunk: int = 250, bucket: bool = True, shards: int = 1,
+                    chunk: int = 250, backend: str = "pallas",
+                    bucket: bool = True, shards: int = 1,
                     precision: str = "fp32",
                     device: str | torch.device = "cuda") -> FastPathResult:
     """Single-instance fast path with an optional projected warm start and
@@ -1747,9 +2109,10 @@ def solve_fast_warm(p: ScheduleProblem, objective: str = "energy", *,
     edge/wavelength indexing — the projection would be meaningless), or
     the projection itself raises, the solve starts from zero, and
     `warm_started` on the result records which ran.  Only the projection
-    is guarded; a failure of the solve itself propagates.  `device` as in
-    solve_fast."""
+    is guarded; a failure of the solve itself propagates.  `backend` and
+    `device` as in solve_fast."""
     dev = _device.resolve(device)
+    _check_backend(backend)
     lp, idx = build_routing_lp(p, objective)
     warm_starts = None
     if _warm_usable(warm, p):
@@ -1759,8 +2122,9 @@ def solve_fast_warm(p: ScheduleProblem, objective: str = "energy", *,
         except (ValueError, KeyError, IndexError):
             warm_starts = None         # structure changed -> cold start
     res = solve_lp_batch([lp], iters=iters, tol=tol, chunk=chunk,
-                         warm_starts=warm_starts, bucket=bucket,
-                         shards=shards, precision=precision, device=dev)[0]
+                         warm_starts=warm_starts, backend=backend,
+                         bucket=bucket, shards=shards, precision=precision,
+                         device=dev)[0]
     out = _assemble_fast_result(p, lp, idx, res)
     out.warm_started = warm_starts is not None
     return out
@@ -1772,8 +2136,8 @@ def solve_fast_group(problems: list[ScheduleProblem],
                      flow_maps: list[np.ndarray | None] | None = None,
                      iters: int = 4000, tol: float | None = None,
                      adaptive: bool = True, chunk: int = 250,
-                     bucket: bool = True, shards: int = 1,
-                     precision: str = "fp32",
+                     backend: str = "pallas", bucket: bool = True,
+                     shards: int = 1, precision: str = "fp32",
                      device: str | torch.device = "cuda"
                      ) -> list[FastPathResult]:
     """One stacked dispatch over a heterogeneous tenant group.
@@ -1797,8 +2161,9 @@ def solve_fast_group(problems: list[ScheduleProblem],
     matches its own solve_fast_warm solve with the same `chunk`, up to
     the order of each row's sum.  Degenerate members (zero flows) solve
     in closed form inside solve_lp_batch and never widen the dispatch.
-    `device` as in solve_fast."""
+    `backend` and `device` as in solve_fast."""
     dev = _device.resolve(device)
+    _check_backend(backend)
     if not problems:
         return []
     B = len(problems)
@@ -1827,7 +2192,7 @@ def solve_fast_group(problems: list[ScheduleProblem],
     results = solve_lp_batch(lps, iters=iters, tol=tol, adaptive=adaptive,
                              chunk=chunk,
                              warm_starts=starts if any(flags) else None,
-                             bucket=bucket, shards=shards,
+                             backend=backend, bucket=bucket, shards=shards,
                              precision=precision, device=dev)
     out = []
     for p, (lp, idx), res, f in zip(problems, built, results, flags):

@@ -24,9 +24,14 @@ ARCH = "sm_90a"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+# every kernel source under csrc/
+SOURCES = ("pdhg_burst.cu", "pdhg_coo.cu", "flash_attention.cu",
+           "rglru_scan.cu")
 # per-source flags; a source not listed builds with NVCC_FLAGS.  The PDHG
-# burst keeps -fmad=false (each product rounded, as in its plain version);
-# attention wants fused multiply-adds, which only make it more exact.
+# bursts (ELL and COO) keep -fmad=false (each product rounded, as in their
+# plain versions; the COO kernel writes its two contracted updates as
+# explicit fused multiply-adds); attention wants fused multiply-adds,
+# which only make it more exact.
 SOURCE_FLAGS = {
     "flash_attention.cu": tuple(f for f in NVCC_FLAGS if f != "-fmad=false"),
 }

@@ -24,6 +24,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from . import build
 from . import flash_attention as fa
+from . import pdhg_coo as pc
 from . import pdhg_spmv as ps
 from . import rglru_scan as rs
 
@@ -44,6 +45,10 @@ PDHG_SPLIT_LAUNCHES = 0
 PDHG_SPLIT_BF16_LAUNCHES = 0
 # calls of the row-sharded burst on the card
 PDHG_SHARDED_CALLS = 0
+# launches of the COO burst on the card (kernels/csrc/pdhg_coo.cu: one
+# cooperative launch a burst) and of its residual entry (one a burst)
+PDHG_COO_LAUNCHES = 0
+PDHG_COO_RESIDUAL_LAUNCHES = 0
 # launches of the flash-attention kernel on the card (one a call)
 FLASH_ATTENTION_LAUNCHES = 0
 # launches of the RG-LRU scan kernel on the card (one a call)
@@ -590,6 +595,183 @@ def pdhg_adaptive(c, tau, xmax, q, sig, ub, row_idx, row_val, col_idx,
         k += 1
     if dev.type == "cuda":
         PDHG_ADAPTIVE_CALLS += 1
+    return x, y, residuals(worst), used
+
+
+# ---------------------------------------------------------------------------
+# the COO burst (the reference's backend="xla" lowering, core.solver)
+# ---------------------------------------------------------------------------
+
+def _coo_lib() -> ctypes.CDLL:
+    lib = build.load("pdhg_coo.cu")
+    if lib.pdhg_coo_max_blocks.argtypes is None:
+        lib.pdhg_coo_burst_f32.argtypes = ([ctypes.c_int] * 9
+                                           + [ctypes.c_void_p] * 26)
+        lib.pdhg_coo_burst_f32.restype = ctypes.c_int
+        lib.pdhg_coo_residual_f32.argtypes = ([ctypes.c_int] * 2
+                                              + [ctypes.c_void_p] * 10)
+        lib.pdhg_coo_residual_f32.restype = ctypes.c_int
+        lib.pdhg_coo_max_blocks.argtypes = [ctypes.c_int]
+        lib.pdhg_coo_max_blocks.restype = ctypes.c_int
+    return lib
+
+
+def coo_max_blocks(device=None) -> int:
+    """Blocks of the COO burst kernel that fit on the card at once: the
+    grid of one burst launch by default."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return int(_coo_lib().pdhg_coo_max_blocks(index))
+
+
+def _check_coo_args(named: dict, cols, rows) -> torch.device:
+    """Validate a COO burst's operands (`named`: its vectors by name);
+    returns their common device."""
+    n, m = cols.n_out, rows.n_out
+    lengths = {"c": n, "tau": n, "xmax": n, "keep_n": n, "x0": n, "q": m,
+               "sig": m, "ub": m, "keep_m": m, "y0": m}
+    want = {k: (torch.bool if k in ("ub", "keep_n", "keep_m") else _F32,
+                lengths[k]) for k in named}
+    nnz = cols.idx.shape[0]
+    for side, d in (("cols", cols), ("rows", rows)):
+        for field, dtype, length in (
+                ("off", torch.int32, d.n_out + 1), ("idx", torch.int32, nnz),
+                ("val", _F32, nnz), ("out", torch.int64, nnz),
+                ("long", torch.int32, None), ("short", torch.int32, None)):
+            named[f"{side}.{field}"] = getattr(d, field)
+            want[f"{side}.{field}"] = (dtype, length)
+        if d.long.shape[0] + d.short.shape[0] != d.n_out:
+            raise ValueError(f"pdhg_coo_burst: the {side}' long and short "
+                             f"outputs must cover its {d.n_out} outputs")
+    devices = {t.device for t in named.values()}
+    if len(devices) != 1:
+        raise ValueError(f"pdhg_coo_burst operands span devices {devices}")
+    for key, (dtype, length) in want.items():
+        t = named[key]
+        if (t.dtype != dtype or t.dim() != 1
+                or (length is not None and t.shape[0] != length)):
+            size = "" if length is None else f" of length {length}"
+            raise ValueError(f"pdhg_coo_burst: {key} must be a 1-D {dtype} "
+                             f"tensor{size}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"pdhg_coo_burst: {key} must be contiguous")
+    return devices.pop()
+
+
+def _coo_direction_args(d) -> tuple:
+    return tuple(t.data_ptr() for t in (d.off, d.idx, d.val, d.long,
+                                        d.short))
+
+
+def pdhg_coo_burst(c, tau, xmax, q, sig, ub, keep_n, keep_m, cols, rows,
+                   x0, y0, *, iters: int, _blocks: int = 0):
+    """`iters` PDHG steps over a COO operator in the reference's COO order
+    (kernels.pdhg_coo: g = c + K^T y and K xbar summed one entry at a
+    time in COO entry order, x - tau g and y + sig r each rounded once),
+    then the terminal residual.  `cols`/`rows` are the operator's two
+    directions (pdhg_coo.coo_directions), `keep_n`/`keep_m` freeze
+    coordinates (True = hold).  Returns (x, y, worst), float32.
+
+    On CUDA tensors this is kernels/csrc/pdhg_coo.cu: one cooperative
+    launch of pdhg_coo_burst_f32 on as many blocks as fit (`_blocks` > 0
+    asks for that many; a launch the card refuses raises), then one
+    launch of its residual entry; bitwise the plain version.  On CPU
+    tensors it is the plain version, kernels.pdhg_coo.coo_update_burst.
+    Raises under autograd: the kernel has no backward."""
+    global PDHG_COO_LAUNCHES, PDHG_COO_RESIDUAL_LAUNCHES
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
+    _no_backward("pdhg_coo_burst", c=c, x0=x0, y0=y0)
+    named = dict(c=c, tau=tau, xmax=xmax, q=q, sig=sig, ub=ub,
+                 keep_n=keep_n, keep_m=keep_m, x0=x0, y0=y0)
+    device = _check_coo_args(named, cols, rows)
+    if device.type == "cpu":
+        return pc.coo_update_burst(x0, y0, c, tau, xmax, q, sig, ub, keep_n,
+                                   keep_m, cols, rows, iters=iters)
+    if device.type != "cuda":
+        raise ValueError(f"pdhg_coo_burst runs on cuda or cpu tensors, got "
+                         f"{device}")
+    lib = _coo_lib()
+    n, m = cols.n_out, rows.n_out
+    x_out, x_tmp, x_bar = (torch.empty(n, dtype=_F32, device=device)
+                           for _ in range(3))
+    y_out, y_tmp, worst = (torch.empty(m, dtype=_F32, device=device)
+                           for _ in range(3))
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.pdhg_coo_burst_f32(
+            n, m, int(iters), int(_blocks), index, cols.long.shape[0],
+            cols.short.shape[0], rows.long.shape[0], rows.short.shape[0],
+            *(t.data_ptr() for t in (c, tau, xmax, q, sig, ub, keep_n,
+                                     keep_m)),
+            *_coo_direction_args(cols), *_coo_direction_args(rows),
+            *(t.data_ptr() for t in (x0, y0, x_out, y_out, x_tmp, y_tmp,
+                                     x_bar)),
+            stream)
+        if err != 0:
+            raise RuntimeError(f"pdhg_coo_burst cooperative launch failed: "
+                               f"CUDA error {err}")
+        PDHG_COO_LAUNCHES += 1
+        err = lib.pdhg_coo_residual_f32(
+            rows.long.shape[0], rows.short.shape[0],
+            *_coo_direction_args(rows), x_out.data_ptr(), q.data_ptr(),
+            ub.data_ptr(), worst.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"pdhg_coo_burst: the residual launch "
+                               f"failed: CUDA error {err}")
+        PDHG_COO_RESIDUAL_LAUNCHES += 1
+    return x_out, y_out, worst
+
+
+def pdhg_coo_adaptive(c, tau, xmax, q, sig, ub, cols, rows, x0, y0, tols,
+                      inst_n, inst_m, *, num_inst: int, chunk: int,
+                      max_chunks: int):
+    """Adaptive PDHG over a block-stacked COO batch: the reference's
+    core.solver._pdhg_run_adaptive, a host loop of `chunk`-iteration
+    bursts (pdhg_coo_burst: the kernel on CUDA tensors, the plain
+    version on CPU tensors).  Before each burst the coordinates of every
+    converged instance are frozen, and those of the dump segment
+    `num_inst` (padded slots; `inst_n`/`inst_m` give each coordinate's
+    instance id) always are; after it each instance's residual is the
+    segment max of the burst's `worst` over `inst_m`, compared with
+    `tols` in float32.  The loop ends after `max_chunks` bursts or when
+    every instance is frozen (one host sync a chunk).  Returns (x, y,
+    per-instance residuals, per-instance chunks used), the last two on
+    the device; the segment maxima and masks are plain torch."""
+    dev = x0.device
+    inst_n = torch.as_tensor(inst_n, device=dev).long()
+    inst_m = torch.as_tensor(inst_m, device=dev).long()
+    tols = torch.as_tensor(tols, device=dev).to(_F32)
+    if tols.shape != (num_inst,):
+        raise ValueError(f"pdhg_coo_adaptive: tols must have shape "
+                         f"({num_inst},), got {tuple(tols.shape)}")
+    always = torch.ones(1, dtype=torch.bool, device=dev)
+
+    def residuals(worst):
+        return _segment_max(worst, inst_m, num_inst + 1)[:num_inst]
+
+    x, y, worst = x0, y0, None
+    frozen = torch.zeros(num_inst, dtype=torch.bool, device=dev)
+    used = torch.zeros(num_inst, dtype=torch.int32, device=dev)
+    k = 0
+    while k < max_chunks and not bool(frozen.all()):
+        frozen_ext = torch.cat([frozen, always])
+        x, y, worst = pdhg_coo_burst(c, tau, xmax, q, sig, ub,
+                                     frozen_ext[inst_n], frozen_ext[inst_m],
+                                     cols, rows, x, y, iters=chunk)
+        used = torch.where(frozen, used, k + 1)
+        frozen = frozen | (residuals(worst) <= tols)
+        k += 1
+    if worst is None:          # no chunk ran: the residual of the start
+        hold = torch.ones(x0.shape[0] + y0.shape[0], dtype=torch.bool,
+                          device=dev)
+        x, y, worst = pdhg_coo_burst(c, tau, xmax, q, sig, ub,
+                                     hold[:x0.shape[0]], hold[x0.shape[0]:],
+                                     cols, rows, x0, y0, iters=0)
     return x, y, residuals(worst), used
 
 

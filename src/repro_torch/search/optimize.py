@@ -58,6 +58,7 @@ class SearchConfig:
     seed: int = 0
     iters: int = 1500          # PDHG iterations per evaluator dispatch
     tol: float = 2e-3
+    backend: str = "pallas"    # PDHG lowering (solver.BACKENDS)
     device: str | torch.device = "cuda"   # where the bursts run
     rho: float = 8.0
     path_slack: int | None = 2
@@ -74,6 +75,9 @@ class SearchConfig:
         if self.generations < 0 or self.population < 1:
             raise ValueError(f"need generations >= 0 and population >= 1, "
                              f"got {self.generations}, {self.population}")
+        if self.backend not in solver.BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}; "
+                             f"have {solver.BACKENDS}")
         # ValueError for a device type other than cuda/cpu; RuntimeError
         # when cuda is asked for and no card is available
         _device.resolve(self.device)
@@ -131,7 +135,8 @@ def evaluate_placements(topo: Topology, pat: TrafficPattern,
             topo, cf, n_slots=n_slots, rho=cfg.rho,
             path_slack=cfg.path_slack))
     results = solver.solve_fast_batch(problems, objective, iters=cfg.iters,
-                                      tol=cfg.tol, device=cfg.device)
+                                      tol=cfg.tol, backend=cfg.backend,
+                                      device=cfg.device)
     return [Candidate(pl, p, r, _score(objective, r))
             for pl, p, r in zip(placements, problems, results)]
 
@@ -145,7 +150,7 @@ def _retry(c: Candidate, objective: str, cfg: SearchConfig) -> Candidate:
                                path_slack=p.path_slack if tries == 0
                                else None)
         r = solver.solve_fast(p, objective, iters=cfg.iters, tol=cfg.tol,
-                              device=cfg.device)
+                              backend=cfg.backend, device=cfg.device)
         tries += 1
     return Candidate(c.placement, p, r, _score(objective, r))
 
@@ -197,8 +202,9 @@ def optimize_placement(topo: Topology, pat: TrafficPattern,
       objective: solver-internal "energy", "time", or "fair".
       method: "sa" (parallel-chain simulated annealing) or "ga".
       cfg/overrides: SearchConfig knobs (overrides win over cfg);
-        `device` ("cuda" by default, raising without a card, or "cpu")
-        is where every generation's bursts run.
+        `backend` is the PDHG lowering ("pallas", the port's default, or
+        "xla", the reference's) and `device` ("cuda" by default, raising
+        without a card, or "cpu") where every generation's bursts run.
 
     Deterministic per (seed, method): all randomness flows from
     np.random.default_rng([seed, SEARCH_TAG, method_index]) and its

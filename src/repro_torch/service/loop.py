@@ -111,6 +111,7 @@ class ServiceConfig:
     iters: int = 3000               # per-window PDHG budget (first rung)
     tol: float | None = 2e-3
     chunk: int = 250
+    backend: str = "pallas"         # PDHG lowering (solver.BACKENDS)
     device: str | torch.device = "cuda"   # where the bursts run
     coalesce: bool = True           # False: one dispatch per tenant
     bucket: bool = True
@@ -198,8 +199,8 @@ class ServiceResult:
     def event_log(self) -> str:
         """The canonical event log: one line per event, in order.
 
-        Deterministic byte-for-byte for fixed (specs, config, device)
-        under the "iterations" cost model."""
+        Deterministic byte-for-byte for fixed (specs, config, backend,
+        device) under the "iterations" cost model."""
         return "\n".join(e.line for e in self.events)
 
     @property
@@ -314,6 +315,7 @@ def run_service(tenants: list[TenantSpec],
     if not tenants:
         raise ValueError("need at least one tenant")
     dev = _device.resolve(config.device)
+    solver._check_backend(config.backend)
     fallback = (policy_zoo.get(config.fallback_policy)
                 if config.fallback_policy else None)
     clock = clock or VirtualClock()
@@ -570,7 +572,8 @@ def run_service(tenants: list[TenantSpec],
                 results = solver.solve_fast_group(
                     probs, objs, warm=warms, flow_maps=maps,
                     iters=config.iters, tol=config.tol, chunk=config.chunk,
-                    device=dev, bucket=config.bucket)
+                    backend=config.backend, device=dev,
+                    bucket=config.bucket)
                 wall = time.perf_counter() - t0
                 spent = sum(r.iterations for r in results)
                 counters.dispatches += 1
@@ -591,7 +594,8 @@ def run_service(tenants: list[TenantSpec],
                         r = solver.solve_fast_warm(
                             m["p"], st.spec.objective, iters=config.iters,
                             tol=config.tol, chunk=config.chunk,
-                            device=dev, bucket=config.bucket)
+                            backend=config.backend, device=dev,
+                            bucket=config.bucket)
                         wall += time.perf_counter() - t1
                         spent += r.iterations
                         tries += 1
@@ -612,6 +616,7 @@ def run_service(tenants: list[TenantSpec],
                         p_fb = rehorizon(m["p"], 2 * m["p"].n_slots)
                         t1 = time.perf_counter()
                         fb = fallback.solve(p_fb, st.spec.objective,
+                                            backend=config.backend,
                                             device=dev)
                         wall += time.perf_counter() - t1
                         if (fb.metrics.feasible

@@ -15,17 +15,21 @@ replayed event traces also go to <out>/chaos_events.log).  --service N
 runs the multi-tenant scheduler service instead and writes its event
 log to <out>/service_events.log.
 Takes the reference's flags (python -m repro.sweep) plus --device
-("cuda", the default, raises without a card; "cpu" runs the burst
-kernel's plain version).  --mesh N row-shards every LP fast-path solve
+("cuda", the default, raises without a card; "cpu" runs the kernels'
+plain versions).  --backend picks the PDHG lowering: pallas (the port's
+default; blocked ELL, pdhg_burst.cu on the card) or xla (the reference's
+default; COO in the reference's summation order, pdhg_coo.cu on the
+card); --mesh N > 1 and --precision bf16 need pallas, as in the
+reference.  --mesh N row-shards every LP fast-path solve
 across N processes, one a shard, as torchrun starts them:
 
     torchrun --standalone --nproc-per-node 2 -m repro_torch.sweep \
         --mesh 2 --device cpu --topos pon3 --seeds 2 --out /tmp/sweep2
 
 over gloo on the CPU, NCCL with one card a rank on cuda; rank 0 alone
-prints and writes the results.  --backend xla and --jax-cache are not
-ported and exit 1 naming their ROADMAP item.  Exit code 1 when any
-instance is infeasible.
+prints and writes the results.  --jax-cache is not ported and exits 1
+naming its ROADMAP item.  Exit code 1 when any instance is
+infeasible.
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ import pathlib
 import time
 
 from .. import search
-from ..core import arrivals, failures, topology, traffic
+from ..core import arrivals, failures, solver, topology, traffic
 from ..core import chaos as chaosmod
 from ..core import policies as policy_zoo
 from .report import write_csv, write_markdown
@@ -82,7 +86,8 @@ def _run_service_smoke(args) -> int:
     chaos = (_csv_list(args.chaos, chaosmod.PRESETS, "chaos preset")
              if args.chaos else ())
     cfg = service.ServiceConfig(window_s=args.epoch_s or None,
-                                iters=args.iters, device=args.device,
+                                iters=args.iters, backend=args.backend,
+                                device=args.device,
                                 slo_p99_s=args.slo_s,
                                 chaos=chaos, chaos_seed=args.chaos_seed)
     t0 = time.perf_counter()
@@ -236,9 +241,11 @@ def main(argv=None) -> int:
                     help="fixed slot count (default: auto per instance)")
     ap.add_argument("--iters", type=int, default=3000,
                     help="PDHG iterations before residual-driven restarts")
-    ap.add_argument("--backend", default="pallas", choices=("xla", "pallas"),
-                    help="PDHG lowering: only pallas (the blocked-ELL "
-                         "burst, the CUDA kernel on the card) is ported")
+    ap.add_argument("--backend", default="pallas",
+                    help="PDHG lowering: pallas (default; blocked-ELL "
+                         "bursts of pdhg_burst.cu on the card) or xla (the "
+                         "reference's default: COO in its summation "
+                         "order, pdhg_coo.cu on the card)")
     ap.add_argument("--mesh", type=int, default=1,
                     help="row-partition every PDHG dispatch across this "
                          "many processes, one a shard (run under torchrun "
@@ -264,10 +271,12 @@ def main(argv=None) -> int:
     if args.jax_cache:
         raise SystemExit("error: --jax-cache is not ported: the port "
                          "compiles nothing with JAX (ROADMAP queue 1 item 5)")
-    if args.backend != "pallas":
-        raise SystemExit("error: --backend xla (the COO scatter lowering) "
-                         "is not ported yet (ROADMAP queue 1, the COO "
-                         "lowering question)")
+    try:
+        # before any rank joins a mesh: --mesh/--precision need pallas
+        solver._check_backend(args.backend)
+        solver._check_scale_opts(args.backend, args.mesh, args.precision)
+    except ValueError as e:
+        raise SystemExit(f"error: {e}")
     if args.service:
         return _run_service_smoke(args)
     if args.mesh <= 1:
@@ -311,7 +320,8 @@ def _sweep(args, rank: int) -> int:
         epoch_s=args.epoch_s or None,
         total_gbits=args.total_gbits, n_map=args.n_map,
         n_reduce=args.n_reduce, n_slots=args.slots or None,
-        iters=args.iters, mesh=args.mesh, precision=args.precision,
+        iters=args.iters, backend=args.backend, mesh=args.mesh,
+        precision=args.precision,
         oracle_check=args.oracle_check,
         oracle_time_limit=args.oracle_time_limit,
         profile=args.profile, device=args.device)

@@ -42,12 +42,14 @@ retry ladder ending in the certified "scf" fallback tier, as in the
 reference's chaos cells.
 
 Records keep every column of the reference's SweepRecord.  `backend`
-reads "pallas": the port reproduces the reference's blocked-ELL
-lowering, so its rows line up with the reference's `--backend pallas`
-rows.  With mesh > 1 every LP fast-path solve is row-sharded across
-that many torch.distributed ranks (core.solver shards=mesh), each rank
-running the whole sweep; `python -m repro_torch.sweep --mesh N` under
-`torchrun --nproc-per-node N` sets the ranks up.
+reads the PDHG lowering that ran (`SweepSpec.backend`): "pallas", the
+port's default, whose rows line up with the reference's `--backend
+pallas` rows, or "xla", the reference's default, whose rows are its
+`--backend xla` rows.  With mesh > 1 every LP fast-path solve is
+row-sharded across that many torch.distributed ranks (core.solver
+shards=mesh), each rank running the whole sweep; `python -m
+repro_torch.sweep --mesh N` under `torchrun --nproc-per-node N` sets the
+ranks up.
 """
 from __future__ import annotations
 
@@ -67,10 +69,6 @@ from ..core import policies as policy_zoo
 OBJECTIVES = {"energy": "energy", "completion": "time"}
 
 ALL_TOPOS = tuple(topology.BUILDERS)
-
-# the one PDHG lowering the port has (the reference's blocked-ELL one)
-BACKEND = "pallas"
-
 
 @dataclasses.dataclass
 class SweepSpec:
@@ -111,12 +109,16 @@ class SweepSpec:
     # loose LP tolerance: the packed schedule is re-scored with the exact
     # paper model regardless, and packing is robust to ~1e-3 residuals
     tol: float = 2e-3
-    # scale knobs: precision="bf16" stores the PDHG iterates in bfloat16
-    # between iterations (fp32 arithmetic); mesh > 1 row-shards each PDHG
-    # dispatch across that many torch.distributed ranks.  Applied to the
-    # LP fast path (healthy + failure cells); baseline policies,
-    # placement search and rolling-horizon runs stay fp32 on one
-    # device, as in the reference
+    # PDHG lowering: "pallas" (blocked ELL, the port's default) or "xla"
+    # (COO in the reference's summation order, the reference's default);
+    # see core.solver.solve_lp
+    backend: str = "pallas"
+    # scale knobs (pallas only): precision="bf16" stores the PDHG
+    # iterates in bfloat16 between iterations (fp32 arithmetic); mesh > 1
+    # row-shards each PDHG dispatch across that many torch.distributed
+    # ranks.  Applied to the LP fast path (healthy + failure cells);
+    # baseline policies, placement search and rolling-horizon runs stay
+    # fp32 on one device, as in the reference
     mesh: int = 1
     precision: str = "fp32"
     path_slack: int | None = 2        # near-shortest route pruning; None = off
@@ -148,7 +150,11 @@ class SweepSpec:
             if pt not in traffic.PATTERNS:
                 raise ValueError(f"unknown pattern {pt!r}; "
                                  f"have {sorted(traffic.PATTERNS)}")
-        solver._check_scale_opts(self.mesh, self.precision)
+        if self.backend not in solver.BACKENDS:
+            raise ValueError(f"unknown solver backend {self.backend!r}; "
+                             f"have {solver.BACKENDS}")
+        # mesh/precision constraints (pallas-only) mirror the solver's
+        solver._check_scale_opts(self.backend, self.mesh, self.precision)
         for fl in self.failures:
             if fl not in failures.SCENARIOS or fl == "none":
                 # "none" is rejected too: its records would carry
@@ -177,7 +183,7 @@ class SweepSpec:
             search.SearchConfig(
                 generations=self.placement_generations,
                 population=self.placement_population,
-                device=self.device).validate()
+                backend=self.backend, device=self.device).validate()
 
 
 @dataclasses.dataclass
@@ -200,7 +206,7 @@ class SweepRecord:
     failure: str = "none"             # failure preset ("none" = healthy)
     degradation_ratio: float = 0.0    # fraction of aggregate Gbps lost
     survivability: float = 1.0        # served / offered Gbits
-    backend: str = BACKEND            # PDHG lowering that produced this row
+    backend: str = "pallas"           # PDHG lowering that produced this row
     # online-arrival rows (core.arrivals rolling-horizon driver);
     # arrivals == "none" marks an offline (one-shot) row
     arrivals: str = "none"            # arrival-process family
@@ -283,7 +289,8 @@ def _retry_unfinished(probs, results, internal_obj: str, spec: SweepSpec):
                 p, 2 * p.n_slots,
                 path_slack=p.path_slack if tries == 0 else None)
             r = solver.solve_fast(p, internal_obj, iters=spec.iters,
-                                  tol=spec.tol, shards=spec.mesh,
+                                  tol=spec.tol, backend=spec.backend,
+                                  shards=spec.mesh,
                                   precision=spec.precision,
                                   device=spec.device)
             tries += 1
@@ -294,7 +301,8 @@ def _solve_group(probs, internal_obj: str, spec: SweepSpec):
     """Batched healthy solve + retry ladder; returns amortized wall time."""
     t0 = time.perf_counter()
     results = solver.solve_fast_batch(probs, internal_obj, iters=spec.iters,
-                                      tol=spec.tol, shards=spec.mesh,
+                                      tol=spec.tol, backend=spec.backend,
+                                      shards=spec.mesh,
                                       precision=spec.precision,
                                       device=spec.device)
     _retry_unfinished(probs, results, internal_obj, spec)
@@ -312,6 +320,7 @@ def _solve_failure_group(healthy_probs, healthy_results, fail_name: str,
     results = solver.solve_fast_ensemble(probs, internal_obj,
                                          warm=healthy_results,
                                          iters=spec.iters, tol=spec.tol,
+                                         backend=spec.backend,
                                          shards=spec.mesh,
                                          precision=spec.precision,
                                          device=spec.device)
@@ -331,7 +340,7 @@ def _solve_policy_group(probs, pol_name: str, internal_obj: str,
     out_p, out_r = [], []
     for p in probs:
         r = pol.solve(p, internal_obj, iters=spec.iters, tol=spec.tol,
-                      device=spec.device)
+                      backend=spec.backend, device=spec.device)
         tries = 0
         while ((r.remaining_gbits > 1e-6 or not r.metrics.feasible)
                and tries < 2):
@@ -339,7 +348,7 @@ def _solve_policy_group(probs, pol_name: str, internal_obj: str,
                 p, 2 * p.n_slots,
                 path_slack=p.path_slack if tries == 0 else None)
             r = pol.solve(p, internal_obj, iters=spec.iters, tol=spec.tol,
-                          device=spec.device)
+                          backend=spec.backend, device=spec.device)
             tries += 1
         out_p.append(p)
         out_r.append(r)
@@ -378,7 +387,8 @@ def _policy_records(records, problems, spec: SweepSpec, say,
             if gap < 1.0 and i not in tight:
                 tight[i] = solver.solve_fast(
                     lp_p, OBJECTIVES[obj], tol=spec.tol,
-                    iters=max(8 * spec.iters, 24000), device=spec.device)
+                    iters=max(8 * spec.iters, 24000), backend=spec.backend,
+                    device=spec.device)
                 gap = policy_zoo.gap_vs_lp(OBJECTIVES[obj], pp,
                                            pr.schedule, lp_p, tight[i])
             gaps.append(gap)
@@ -386,7 +396,7 @@ def _policy_records(records, problems, spec: SweepSpec, say,
                 topo_name, obj, pat_name, seed, pp, pr, pol_s,
                 offered=off, failure=failure,
                 degradation_ratio=ratios[i] if ratios else 0.0,
-                policy=pol_name, gap_vs_lp=gap))
+                policy=pol_name, gap_vs_lp=gap, backend=spec.backend))
             problems.append(pp)
         tag = f"+{failure}" if failure != "none" else ""
         say(f"{topo_name:10s} {pat_name:8s} min-{obj:10s} "
@@ -412,8 +422,8 @@ def _placement_records(records, problems, spec: SweepSpec, say,
     cfg = search.SearchConfig(
         generations=spec.placement_generations,
         population=spec.placement_population,
-        iters=spec.iters, tol=spec.tol, device=spec.device,
-        rho=spec.rho, path_slack=spec.path_slack,
+        iters=spec.iters, tol=spec.tol, backend=spec.backend,
+        device=spec.device, rho=spec.rho, path_slack=spec.path_slack,
         n_slots=spec.n_slots)
     if not spec.seeds:
         return
@@ -432,7 +442,8 @@ def _placement_records(records, problems, spec: SweepSpec, say,
                    for kind, c in res.baselines.items()]):
             rec = _record(topo_name, obj, pat_label, seed, cand.problem,
                           cand.result, wall,
-                          offered=cand.problem.coflow.total_gbits)
+                          offered=cand.problem.coflow.total_gbits,
+                          backend=spec.backend)
             rec.placement_search = method
             rec.placement_gain = float(gain)
             records.append(rec)
@@ -457,12 +468,14 @@ def _solve_arrival_cell(topo, pat, fam: str, internal_obj: str,
     res = arrivals.run_online(topo, trace, internal_obj,
                               epoch_s=spec.epoch_s, rho=spec.rho,
                               path_slack=spec.path_slack, iters=spec.iters,
-                              tol=spec.tol, device=spec.device)
+                              tol=spec.tol, backend=spec.backend,
+                              device=spec.device)
     return trace, res, time.perf_counter() - t0
 
 
 def _arrival_record(topo_name, obj, pat_name, seed, fam: str,
-                    trace: list, res, wall_s: float) -> SweepRecord:
+                    trace: list, res, wall_s: float,
+                    backend: str) -> SweepRecord:
     """One SweepRecord summarizing a whole rolling-horizon trace.  The
     E/M columns hold the trace totals (executed-prefix energy summed
     over epochs, last co-flow completion); per-epoch LP provenance
@@ -482,7 +495,7 @@ def _arrival_record(topo_name, obj, pat_name, seed, fam: str,
         lp_primal_residual=max((e.lp_primal_residual for e in res.epochs),
                                default=0.0),
         remaining_gbits=res.backlog_gbits,
-        solve_s=wall_s / max(res.n_epochs, 1),
+        solve_s=wall_s / max(res.n_epochs, 1), backend=backend,
         survivability=(offered - res.backlog_gbits) / max(offered, 1e-12),
         arrivals=fam, epochs=res.n_epochs,
         # NaN (no co-flow finished) passes through: a 0.0 here would
@@ -508,17 +521,19 @@ def _solve_chaos_cell(topo, pat, preset: str, internal_obj: str,
     res = arrivals.run_online(topo, trace, internal_obj,
                               epoch_s=spec.epoch_s, rho=spec.rho,
                               path_slack=spec.path_slack, iters=spec.iters,
-                              tol=spec.tol, device=spec.device,
-                              chaos=events, fallback_policy="scf")
+                              tol=spec.tol, backend=spec.backend,
+                              device=spec.device, chaos=events,
+                              fallback_policy="scf")
     return trace, res, time.perf_counter() - t0
 
 
 def _chaos_record(topo_name, obj, pat_name, seed, preset: str,
-                  trace: list, res, wall_s: float) -> SweepRecord:
+                  trace: list, res, wall_s: float,
+                  backend: str) -> SweepRecord:
     """One SweepRecord summarizing a chaos replay (an arrival row plus
     the robustness columns)."""
     rec = _arrival_record(topo_name, obj, pat_name, seed, "poisson",
-                          trace, res, wall_s)
+                          trace, res, wall_s, backend)
     rec.chaos = preset
     rec.availability = res.availability
     rec.stranded_gbits = res.stranded_gbits
@@ -537,7 +552,7 @@ def _chaos_record(topo_name, obj, pat_name, seed, preset: str,
 def _record(topo_name, obj, pat_name, seed, p, r, per_inst_s, *,
             offered: float, failure: str = "none",
             degradation_ratio: float = 0.0, policy: str = "lp",
-            gap_vs_lp: float = 1.0) -> SweepRecord:
+            gap_vs_lp: float = 1.0, backend: str) -> SweepRecord:
     """One SweepRecord from a solved instance.  `offered` is the healthy
     demand in Gbits (a degraded instance's own coflow excludes flows the
     failure disconnected, but survivability is measured against what the
@@ -554,7 +569,7 @@ def _record(topo_name, obj, pat_name, seed, p, r, per_inst_s, *,
         remaining_gbits=r.remaining_gbits, solve_s=per_inst_s,
         failure=failure, degradation_ratio=degradation_ratio,
         survivability=float(m.served.sum()) / max(offered, 1e-12),
-        policy=policy, gap_vs_lp=gap_vs_lp)
+        backend=backend, policy=policy, gap_vs_lp=gap_vs_lp)
 
 
 def run_sweep(spec: SweepSpec, *, log: Callable[[str], None] | None = None
@@ -594,7 +609,8 @@ def run_sweep(spec: SweepSpec, *, log: Callable[[str], None] | None = None
                 for seed, p, r, off in zip(spec.seeds, probs, results,
                                            offered):
                     records.append(_record(topo_name, obj, pat_name, seed,
-                                           p, r, per_inst_s, offered=off))
+                                           p, r, per_inst_s, offered=off,
+                                           backend=spec.backend))
                     problems.append(p)
                 say(f"{topo_name:10s} {pat_name:8s} min-{obj:10s} "
                     f"{len(probs)} seeds  "
@@ -618,7 +634,8 @@ def run_sweep(spec: SweepSpec, *, log: Callable[[str], None] | None = None
                         ratio = failures.degradation_ratio(hp.topo, fp.topo)
                         rec = _record(topo_name, obj, pat_name, seed, fp, fr,
                                       f_s, offered=off, failure=fail_name,
-                                      degradation_ratio=ratio)
+                                      degradation_ratio=ratio,
+                                      backend=spec.backend)
                         ratios.append(ratio)
                         survs.append(rec.survivability)
                         records.append(rec)
@@ -644,7 +661,8 @@ def run_sweep(spec: SweepSpec, *, log: Callable[[str], None] | None = None
                         trace, res, wall = _solve_arrival_cell(
                             topo, pat, fam, OBJECTIVES[obj], spec, seed)
                         rec = _arrival_record(topo_name, obj, pat_name,
-                                              seed, fam, trace, res, wall)
+                                              seed, fam, trace, res, wall,
+                                              spec.backend)
                         fam_recs.append(rec)
                         records.append(rec)
                         # _spot_check skips arrival rows, so nothing
@@ -667,7 +685,8 @@ def run_sweep(spec: SweepSpec, *, log: Callable[[str], None] | None = None
                         trace, res, wall = _solve_chaos_cell(
                             topo, pat, preset, OBJECTIVES[obj], spec, seed)
                         rec = _chaos_record(topo_name, obj, pat_name,
-                                            seed, preset, trace, res, wall)
+                                            seed, preset, trace, res, wall,
+                                            spec.backend)
                         cz_recs.append(rec)
                         records.append(rec)
                         problems.append(placeholder)

@@ -23,7 +23,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 
 def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.core.solver, "
-            "repro_torch.kernels.ops, repro_torch.convert, "
+            "repro_torch.kernels.ops, repro_torch.kernels.pdhg_coo, "
+            "repro_torch.convert, "
             "repro_torch.models.transformer, repro_torch.runtime.steps, "
             "repro_torch.launch.serve, repro_torch.configs, "
             "repro_torch.core.oracle, repro_torch.sweep, "

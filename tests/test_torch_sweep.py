@@ -136,7 +136,10 @@ def test_cli_on_the_cpu_writes_results(tmp_path):
     pytest.param(["--service", "2", "--chaos", "hurricane"],
                  "unknown chaos preset 'hurricane'", id="args8-item 9"),
     (["--jax-cache", "cache"], "item 5"),
-    (["--backend", "xla"], "COO"),
+    # ported since (tests/test_torch_coo.py runs --backend xla): the
+    # case now holds that an unknown lowering is refused
+    pytest.param(["--backend", "bogus"], "unknown solver backend 'bogus'",
+                 id="args10-COO"),
     # ported since: outside torchrun it names the launch
     pytest.param(["--mesh", "2"], "torchrun --nproc-per-node 2",
                  id="args11-item 10"),
