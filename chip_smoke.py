@@ -203,7 +203,11 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      the kernel's order; (d) ms an iteration of the split form at world 1
      and at 2 ranks beside the fused burst, the collective's share (and
      gloo's gather of the CUDA tensors without the pinned staging), the
-     bound.  The ranks start first and set up while this process runs
+     bound, and the split kernels' own device time an iteration at world
+     1, with no collective and over NCCL (torch's profiler: the kernels'
+     durations; and each entry relaunched back to back between CUDA
+     events on a stream kept ahead of the host: the stream's time a
+     launch).  The ranks start first and set up while this process runs
      (a), (b), (d) and phase 31 at world 1, then wait for it;
  31. the scheduled gradient all-reduce (runtime.collectives): phi4-mini's
      gradient tree (8 layers) bucketed at 25 MB and planned by
@@ -227,13 +231,15 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      within one bf16 place of world 1's output; and a 2-layer train step
      under fsdp on a 2 x 1 data mesh, loss within 5e-3 of world 1's and
      every parameter equal on both ranks; (d) the dry run's phi4-mini x
-     train_4k cell at 16 x 16 (ok, flops a rank and its largest ops,
+     train_4k cell at 16 x 16 (ok, flops a rank within 10% of the
+     model's count, tests/test_torch_dryrun.py's bound, its largest ops,
      all-gathers and reduce-scatters); the attention kernel at a rank's
      shape against its plain version, timed beside SDPA, and its bound.
  33. the reference's default COO lowering (backend="xla"): (a) the COO
      burst kernel (pdhg_coo.cu) against its plain version on CPU tensors
      from the same inputs (torch's CUDA index_add_ adds in no fixed
-     order) at the flagship's energy LP, 1 and 500 iterations, cold and
+     order) at the flagship's energy and min-time LPs (the latter with
+     its theta column of 1,778 entries), 1 and 500 iterations, cold and
      from a random start with a fifth of the coordinates held: bitwise,
      also on one block an SM; a launch on one block more than fit
      raises; a plain version rounding the two updates twice must fail;
@@ -245,19 +251,24 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      solve, and the sweep CLI with --backend xla over phase 14's
      spine-leaf energy/skew rows, every row within 1e-4 of
      results/sweep/results.csv, the summation-order-sensitive seed 5
-     included; (d) the kernel's ms an iteration at the flagship and the
-     8-stack, its plain version's on the host, its bound and phase 6's
-     and 15's CSR mat-vecs.
+     included; (d) the kernel's ms an iteration at the flagship (energy
+     and min-time) and the 8-stack, its plain version's on the host, its
+     bytes bound, its order bound (the longest chain of dependent adds a
+     step at one add's latency, measured by the kernel's add-chain
+     entry) and phase 6's and 15's CSR mat-vecs; (e) run_online
+     (backend="xla") warm on phase 20's heavy trace, bitwise the host
+     CPU's plain path in every epoch.
 
 Each phase's wall is printed when the next begins ("wall: phase N"), and
 all of them, with phases 1-18's sum, before the kernels line.  The last
 lines are one JSON object describing the kernels, the card's name and
 power limit, and `{"ok": true, "device": {...}}`.  Imports
 torch, numpy, scipy and repro_torch only.  Phase 24 starts helper
-processes of this script (--placement-cpu, on the host CPU only) and
-phase 30 two (--shard-rank, on the card); each waits for all of its
-processes, and kills any still running at its time limit, before it goes
-on.
+processes of this script (--placement-cpu, on the host CPU only), phase
+30 two (--shard-rank, on the card) and phase 33 a pool of four (the
+paper cells' CPU solves); each waits for all of its processes before it
+goes on, and phases 24 and 30 kill any still running at their time
+limit.
 """
 from __future__ import annotations
 
@@ -552,6 +563,13 @@ SHARD_TIMEOUT_S = 400
 # all_gather of the partials, about 1.1 ms between two processes of one
 # host, sets the pace), and the plain body's
 SHARD_TIME_ITERS = 500
+# (d): the split kernels' own time: each entry relaunched SPLIT_OWN_REPS
+# times between two CUDA events behind a sleep of this many cycles (about
+# 25 ms, longer than the host takes to enqueue them), and in the profiler
+# over a burst of SPLIT_OWN_ITERS
+SPLIT_SLEEP_CYCLES = 50_000_000
+SPLIT_OWN_ITERS = 50
+SPLIT_OWN_REPS = 200
 SHARD_RANK_TIME_ITERS = 200
 SHARD_PLAIN_ITERS = 20
 # phase 31: the scheduled gradient all-reduce over phi4-mini's gradient
@@ -575,6 +593,9 @@ SHARDED_FSDP = (2, 2, 2048)
 SHARDED_LOSS_TOL = 5e-3              # tests/test_distributed.py's
 SHARDED_DRYRUN = ("phi4_mini_3_8b", "train_4k")
 DRYRUN_TOP_OPS = 16                  # (d) prints the cell's largest ops
+# (d): flops a rank against the model's count (tests/test_torch_dryrun.py's
+# FLOP_RTOL and formula)
+DRYRUN_FLOP_RTOL = 0.10
 # the collectives gloo is handed on pinned host copies of the CUDA tensors
 # (host_staged): on the H100 host (torch 2.11) its all_gather_into_tensor
 # of CUDA tensors ends the process (a segmentation fault) and its
@@ -590,7 +611,13 @@ SHARDED_STAGED = ("_c10d_functional.all_gather_into_tensor.default",
 COO_SOURCE = "src/repro_torch/kernels/csrc/pdhg_coo.cu"
 COO_REPLACES = "src/repro/core/solver.py:105"
 COO_ITERS = (1, 500)
+COO_THREADS = 512                    # threads a block: pdhg_coo.cu's kThreads
+# (a)-(b): helper processes that run the plain version's bursts and solve
+# the paper cells on the host CPU
+COO_CPU_WORKERS = 6
 COO_FROZEN = 0.2                     # share of coordinates held in (a)
+# (d): the add chains timed for one add's latency (adds, multiples of 8)
+COO_ADD_CHAIN = (1 << 20, 1 << 21)
 # (c): phase 14's order-sensitive sweep rows, on the card under --backend
 # xla (the sweep's defaults: 8 seeds, 30 Gbit, 10 x 6 tasks)
 COO_SWEEP_ARGS = ["--topos", "spine-leaf", "--objectives", "energy",
@@ -3610,6 +3637,64 @@ def check_split(label, op, args, iters, precision) -> tuple[float, bool]:
     return err, not all(torch.equal(a, b) for a, b in zip(got, plain))
 
 
+def split_device_ms(group, args, kw) -> dict:
+    """The split entries' own device time, two ways.  torch's profiler
+    (CUPTI): the kernels' durations over one burst of kw["iters"], each
+    kernel's execution alone.  CUDA events: one burst's launches of kty,
+    primal and dual captured (each entry's first call), then each
+    relaunched SPLIT_OWN_REPS times back to back between two events,
+    behind a sleeping kernel that keeps the stream ahead of the host, so
+    the events time what the stream spends a launch, the kernel and the
+    device's turnaround between two launches, and not the host's gaps
+    (a relaunch with the same arguments computes the same step again).  Returns
+    {"events": ..., "cupti": ...}, each ms an iteration by entry (kty,
+    primal, dual: one launch each an iteration at world 1)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    lib = ops._split_lib()
+    entries = ("kty", "primal", "dual")
+    first: dict = {}
+
+    class Capture:
+        def __getattr__(self, name):
+            fn = getattr(lib, name)
+            entry = name[len("pdhg_split_"):].rsplit("_", 1)[0]
+            if entry not in entries:
+                return fn
+
+            def call(*a):
+                first.setdefault(entry, (fn, a))
+                return fn(*a)
+            return call
+
+    with mock.patch.object(ops, "_split_lib", Capture):
+        ops.pdhg_burst_sharded(group, *args, **kw)
+    torch.cuda.synchronize()
+    events = {}
+    for entry in entries:
+        fn, a = first[entry]
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPLIT_SLEEP_CYCLES)
+        e0.record()
+        for _ in range(SPLIT_OWN_REPS):
+            fn(*a)
+        e1.record()
+        torch.cuda.synchronize()
+        events[entry] = e0.elapsed_time(e1) / SPLIT_OWN_REPS
+    iters = kw["iters"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.pdhg_burst_sharded(group, *args, **kw)
+        torch.cuda.synchronize()
+    cupti = dict.fromkeys(entries, 0.0)
+    for e in prof.key_averages():
+        for k in entries:
+            if f"split_{k}<" in e.key:
+                cupti[k] += getattr(e, "device_time_total", 0.0) / 1e3 / iters
+    return {"events": events, "cupti": cupti}
+
+
 def split_bound(op_s, op, nnz, it=4) -> tuple[float, str]:
     """Least time of one iteration of the split form: the fused burst's
     bytes and operations (burst_bound) plus the S partials of K^T y
@@ -4259,8 +4344,25 @@ def sharded_ranks_report(ranks) -> dict:
     return {"rank_launches": sum(r["launches"] for r in res)}
 
 
+def train_model_flops(arch: str, seq: int, tokens: int, ranks: int) -> float:
+    """A train step's flops a rank as tests/test_torch_dryrun.py counts
+    them: 8 a weight a token through the layers (2 forward, 2 remat, 4
+    backward), attention's four S x S products 4 times a sequence, and 6
+    a weight a token for the unembedding, over `ranks`."""
+    from repro_torch import configs
+    cfg = configs.get(arch)
+    d, hq, hkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                         cfg.d_ff)
+    layer = 2 * d * hq * hd + 2 * d * hkv * hd + 3 * d * f
+    attention = 4 * (4 * seq * seq * hq * hd) * (tokens // seq)
+    return (cfg.n_layers * (8 * layer * tokens + attention)
+            + 6 * d * cfg.padded_vocab(1) * tokens) / ranks
+
+
 def sharded_dryrun() -> dict:
-    """Phase 32(d): one dry-run cell at 16 x 16."""
+    """Phase 32(d): one dry-run cell at 16 x 16, its flops a rank within
+    DRYRUN_FLOP_RTOL of the model's count."""
+    import torch
     from repro_torch.launch import dryrun
     arch, shape = SHARDED_DRYRUN
     t0 = time.perf_counter()
@@ -4268,12 +4370,18 @@ def sharded_dryrun() -> dict:
     res = dryrun.run_cell(arch, shape, multi_pod=False, by_op=by_op)
     wall = time.perf_counter() - t0
     coll = res.collectives or {}
-    say(f"  (d) the dry run, {arch} x {shape} at {res.mesh}: ok {res.ok} "
-        f"in {wall:.1f} s; flops a rank {res.flops_per_device:.6g}, "
-        f"bytes a rank {res.bytes_per_device:.6g}, collectives "
-        f"{coll.get('_counts')}, memory {res.memory}; params "
-        f"{res.params_total:.6g} ({res.params_active:.6g} active)")
+    say(f"  (d) the dry run, {arch} x {shape} at {res.mesh} (torch "
+        f"{torch.__version__}): ok {res.ok} in {wall:.1f} s; flops a rank "
+        f"{res.flops_per_device:.6g}, bytes a rank "
+        f"{res.bytes_per_device:.6g}, collectives {coll.get('_counts')}, "
+        f"memory {res.memory}; params {res.params_total:.6g} "
+        f"({res.params_active:.6g} active)")
     require(res.ok, f"(d) the dry-run cell failed: {res.error[:2000]}")
+    spec = dryrun.SHAPES[shape]
+    want = train_model_flops(arch, spec["seq"], res.tokens, 256)
+    ratio = res.flops_per_device / want
+    say(f"    the model's count {want:.6g} flops a rank; the cell's "
+        f"{ratio:.4f} of it (within {DRYRUN_FLOP_RTOL:.0%} required)")
     for op, flops in list(by_op.items())[:DRYRUN_TOP_OPS]:
         say(f"      {flops:.6g} flops a rank: {op}")
     require(res.flops_per_device > 0
@@ -4281,7 +4389,10 @@ def sharded_dryrun() -> dict:
             and coll["_counts"].get("reduce-scatter", 0) > 0,
             "(d) the dry-run cell counted no flops, or no all-gather or "
             "reduce-scatter")
-    return {"dryrun_s": wall}
+    require(abs(ratio - 1.0) <= DRYRUN_FLOP_RTOL,
+            f"(d) the dry-run cell's flops a rank {res.flops_per_device:.6g} "
+            f"are {ratio:.4f} of the model's {want:.6g}")
+    return {"dryrun_s": wall, "dryrun_ratio": ratio}
 
 
 def sharded_attention_times(card, dev) -> dict:
@@ -4416,6 +4527,31 @@ def _shard_phase(card, dev, p_full, lp_full, phase4, phase5, library_ms,
         say(f"    the collective (NCCL all_gather of {op1.n_pad} floats, "
             f"world 1) {coll:.6f} ms, {coll / times['split', 'fp32']:.1%} "
             f"of a split fp32 iteration")
+        for precision in ("fp32", "bf16"):
+            for label, grp in (("no collective (group=None)", None),
+                               ("over NCCL", group)):
+                own = split_device_ms(grp, args1, split_kw(
+                    op1, dev, SPLIT_OWN_ITERS, precision))
+                ev, cu = own["events"], own["cupti"]
+                k, k_ev = sum(cu.values()), sum(ev.values())
+                times["kernels", precision, grp is None] = k
+                times["stream", precision, grp is None] = k_ev
+                say(f"    split {precision} kernels' own device time, "
+                    f"{label}, ms an iteration (CUPTI's kernel durations "
+                    f"over a burst; CUDA events over {SPLIT_OWN_REPS} "
+                    f"launches queued behind a sleep, so the stream's "
+                    f"time a launch with the host ahead): kty "
+                    f"{cu['kty']:.6f}; {ev['kty']:.6f}, primal "
+                    f"{cu['primal']:.6f}; {ev['primal']:.6f}, dual "
+                    f"{cu['dual']:.6f}; {ev['dual']:.6f}; together "
+                    f"{k:.6f}; {k_ev:.6f} (the stream's "
+                    f"{(k_ev - k) / 3 * 1e3:.3f} us a launch outside the "
+                    f"kernels), {k / times['split', precision]:.1%} ; "
+                    f"{k_ev / times['split', precision]:.1%} of the "
+                    f"iteration's {times['split', precision]:.6f} ms over "
+                    f"NCCL, whose collective is "
+                    f"{coll / times['split', precision]:.1%}; the CSR "
+                    f"pair {library_ms:.6f} ms")
 
         t_phase = time.perf_counter()
         sync_phase(card, dev)
@@ -4499,7 +4635,9 @@ def _shard_phase(card, dev, p_full, lp_full, phase4, phase5, library_ms,
             "launches": n_launch, "max_abs_err": max(errs[precision]),
             "ms": times["split", precision],
             "plain_ms": times["plain", precision], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms})
+            "bound_by": bound_by, "library_ms": library_ms,
+            "kernels_ms": times["kernels", precision, True],
+            "kernels_stream_ms": times["stream", precision, True]})
         say(f"    {entries[-1]['name']}: {times['split', precision]:.6f} "
             f"ms/iter at world 1, bound {bound_ms:.6f} ms ({bound_by}), "
             f"library {library_ms:.6f} ms (phase 6's CSR pair)")
@@ -4682,17 +4820,66 @@ def coo_bound(n: int, m: int, nnz: int) -> tuple[float, str, int, int]:
             "operations", nbytes, nops)
 
 
-def coo_kernel_check(lp, dev, sms: int) -> float:
-    """Phase 33(a): pdhg_coo_burst on the card against its plain version
-    on CPU tensors from the same inputs (torch's CUDA index_add_ adds in
-    no fixed order, so the plain version runs on the host), at 1 and 500
-    iterations, cold and from a random start with coordinates held:
-    bitwise, and bitwise on a grid of one block an SM; a launch on one
-    block more than fit raises; a plain version that rounds x - tau g
-    twice (no fused multiply-add) must fail the check.  Returns the
-    largest |difference| (0.0)."""
+def coo_tiers(operands) -> str:
+    """The work order of an LP's two directions, for the log."""
+    from repro_torch.kernels import pdhg_coo
+    _, cols, rows = operands
+    out = []
+    for name, d in (("columns", cols), ("rows", rows)):
+        lengths = d.off.diff().tolist()
+        out.append(f"{name}: {d.n_long} long, a warp each or past "
+                   f"{pdhg_coo.CHUNK_ENTRIES} entries a block each "
+                   f"({d.n_block}; longest {max(lengths, default=0)}), "
+                   f"{d.n_out - d.n_long} more in {d.n_chunks} chunks "
+                   f"(at most {max(lengths[d.n_long:], default=0)} "
+                   f"entries)")
+    return "; ".join(out)
+
+
+def coo_plain_task(task: tuple) -> dict:
+    """Phase 33(a)'s host CPU side, in a helper process: the plain
+    version's burst of `iters` on `lp` from coo_start(lp, 33, frozen), on
+    CPU tensors (torch's CUDA index_add_ adds in no fixed order); with
+    `twice`, the negative control that rounds x - tau g and y + sig r
+    twice (no fused multiply-add).  Returns (x, y, worst) as numpy and
+    the seconds it took."""
     import torch
-    from repro_torch.kernels import build, ops, pdhg_coo
+    from repro_torch.kernels import pdhg_coo
+    torch.set_num_threads(1)
+    lp, frozen, iters, twice = task
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    with (mock.patch.object(pdhg_coo, "fma32", lambda a, b, c: a * b + c)
+          if twice else contextlib.nullcontext()):
+        out = coo_run(coo_operands(lp, cpu), coo_start(lp, 33, frozen),
+                      iters, cpu)
+    return {"out": [t.numpy() for t in out],
+            "seconds": time.perf_counter() - t0}
+
+
+def coo_plain_runs(pool, lps: dict) -> dict:
+    """coo_plain_task for every check of coo_kernel_check, submitted to
+    `pool` (phase 33's helper processes): {(objective, frozen, iters) or
+    "control": future}."""
+    runs = {(obj, frozen, iters): pool.submit(coo_plain_task,
+                                              (lp, frozen, iters, False))
+            for obj, lp in lps.items() for frozen in (False, True)
+            for iters in COO_ITERS}
+    runs["control"] = pool.submit(coo_plain_task, (lps["energy"], False,
+                                                   COO_ITERS[-1], True))
+    return runs
+
+
+def coo_kernel_check(lps: dict, dev, sms: int, plain: dict) -> float:
+    """Phase 33(a): pdhg_coo_burst on the card against its plain version
+    from the same inputs (`plain`: coo_plain_runs' futures), for each LP
+    of `lps` (objective -> LP), at 1 and 500 iterations, cold and from a
+    random start with coordinates held: bitwise, and bitwise on a grid
+    of one block an SM; a launch on one block more than fit raises; a
+    plain version that rounds x - tau g twice (no fused multiply-add)
+    must fail the check.  Returns the largest |difference| (0.0)."""
+    import torch
+    from repro_torch.kernels import build, ops
     info = build.BUILD_INFO["pdhg_coo.cu"]
     say(f"  (a) built pdhg_coo.cu in {info['seconds']:.3f} s (phase 2) -> "
         f"{pathlib.Path(info['library']).name}")
@@ -4701,35 +4888,40 @@ def coo_kernel_check(lp, dev, sms: int) -> float:
                 or "spill" in line):
             say(f"    ptxas: {line.strip()}")
     blocks = ops.coo_max_blocks(dev)
-    say(f"    burst grid: {blocks} blocks of 256 fit at once on {sms} SMs")
+    say(f"    burst grid: {blocks} blocks of {COO_THREADS} fit at once on "
+        f"{sms} SMs")
     require(blocks >= sms, f"COO burst grid {blocks}")
     cpu = torch.device("cpu")
-    on_card, on_cpu = coo_operands(lp, dev), coo_operands(lp, cpu)
-    say(f"    the flagship LP: n={lp.n} m={lp.m} nnz={len(lp.val)}; outputs "
-        f"summed by a warp: {on_card[1].long.shape[0]} columns, "
-        f"{on_card[2].long.shape[0]} rows (longest "
-        f"{int(on_cpu[2].off.diff().max())} entries)")
+
+    def want(key):
+        res = plain[key].result()
+        return [torch.from_numpy(a) for a in res["out"]], res["seconds"]
+
     err = 0.0
-    for frozen in (False, True):
-        start = coo_start(lp, 33, frozen)
-        for iters in COO_ITERS:
-            got = coo_run(on_card, start, iters, dev)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            want = coo_run(on_cpu, start, iters, cpu)
-            plain_s = time.perf_counter() - t0
-            n, e = coo_differs(got, want)
-            n1, _ = coo_differs(coo_run(on_card, start, iters, dev, sms),
-                                got)
-            what = "random start, 20% held" if frozen else "cold"
-            say(f"    {what:23s} iters={iters:3d}: {n} of "
-                f"{lp.n + 2 * lp.m} entries (x, y, worst) differ from the "
-                f"plain version (max |diff| {e:.3e}; plain "
-                f"{plain_s:.2f} s on the host); on {sms} blocks {n1} differ")
-            require(n == 0 and n1 == 0,
-                    f"pdhg_coo_burst ({what}, {iters} iterations) is not "
-                    f"bitwise its plain version")
-            err = max(err, e)
+    for obj, lp in lps.items():
+        on_card = coo_operands(lp, dev)
+        say(f"    the flagship's {obj} LP: n={lp.n} m={lp.m} "
+            f"nnz={len(lp.val)}; {coo_tiers(coo_operands(lp, cpu))}")
+        for frozen in (False, True):
+            start = coo_start(lp, 33, frozen)
+            for iters in COO_ITERS:
+                got = coo_run(on_card, start, iters, dev)
+                n1, _ = coo_differs(coo_run(on_card, start, iters, dev, sms),
+                                    got)
+                ref, plain_s = want((obj, frozen, iters))
+                n, e = coo_differs(got, ref)
+                what = "random start, 20% held" if frozen else "cold"
+                say(f"    {obj:6s} {what:23s} iters={iters:3d}: {n} of "
+                    f"{lp.n + 2 * lp.m} entries (x, y, worst) differ from "
+                    f"the plain version (max |diff| {e:.3e}; plain "
+                    f"{plain_s:.2f} s in a helper process); on {sms} "
+                    f"blocks {n1} differ")
+                require(n == 0 and n1 == 0,
+                        f"pdhg_coo_burst ({obj}, {what}, {iters} "
+                        f"iterations) is not bitwise its plain version")
+                err = max(err, e)
+    lp = lps["energy"]
+    on_card = coo_operands(lp, dev)
     before = ops.PDHG_COO_LAUNCHES
     try:
         coo_run(on_card, coo_start(lp, 33, False), 1, dev, blocks + 1)
@@ -4740,44 +4932,94 @@ def coo_kernel_check(lp, dev, sms: int) -> float:
         f"{refused}")
     require(refused is not None and ops.PDHG_COO_LAUNCHES == before,
             "a COO launch on more blocks than fit did not raise")
-    start = coo_start(lp, 33, False)
-    got = coo_run(on_card, start, COO_ITERS[-1], dev)
-    with mock.patch.object(pdhg_coo, "fma32", lambda a, b, c: a * b + c):
-        twice = coo_run(on_cpu, start, COO_ITERS[-1], cpu)
-    n, _ = coo_differs(got, twice)
+    got = coo_run(on_card, coo_start(lp, 33, False), COO_ITERS[-1], dev)
+    n, _ = coo_differs(got, want("control")[0])
     say(f"    negative control: the plain version rounding x - tau g and "
         f"y + sig r twice differs in {n} entries after "
-        f"{COO_ITERS[-1]} iterations")
+        f"{COO_ITERS[-1]} iterations (energy LP)")
     require(n > 0, "the COO check passes a burst without the fused "
                    "multiply-adds")
     return err
 
 
-def coo_times(card: str, lp, stack_lp, dev, library_ms: float,
+def coo_chain(lp) -> tuple[int, int]:
+    """The order's chain in entries: the longest sum over any column and
+    a row it meets (each iteration waits on a column's chain, then on
+    the row chains it feeds, and around again, so no steady state is
+    faster than the longest such pair a step), and the longest column
+    plus the longest row."""
+    import numpy as np
+    col_len = np.bincount(lp.col, minlength=lp.n)
+    row_len = np.bincount(lp.row, minlength=lp.m)
+    pair = int((col_len[lp.col] + row_len[lp.row]).max(initial=0))
+    return pair, int(col_len.max(initial=0) + row_len.max(initial=0))
+
+
+def add_latency_ns(dev) -> dict:
+    """The latency of one dependent fp32 add on the card, from the COO
+    kernel's add-chain entry: one thread adding COO_ADD_CHAIN[1] - [0]
+    more terms, the difference of the two chains' times (median of 3
+    each, CUDA events), so the launch drops out; and the SM clock that
+    nvidia-smi reads, for the cycles."""
+    import torch
+    from repro_torch.kernels import ops
+    ab = torch.tensor([1.0, -1.0], dtype=torch.float32, device=dev)
+    t = [sorted(time_events(lambda: ops.coo_add_chain(n, ab), 1)
+                for _ in range(3))[1] for n in COO_ADD_CHAIN]
+    ns = (t[1] - t[0]) * 1e6 / (COO_ADD_CHAIN[1] - COO_ADD_CHAIN[0])
+    try:
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+             "nounits", "-i", "0"], capture_output=True, text=True,
+            timeout=30).stdout.split()[0])
+    except (OSError, ValueError, IndexError, subprocess.SubprocessError):
+        mhz = float("nan")
+    return {"ns": ns, "mhz": mhz, "cycles": ns * mhz / 1e3,
+            "chains_ms": t}
+
+
+def coo_times(card: str, lps: dict, stack_lp, dev, library_ms: float,
               library8_ms: float) -> dict:
-    """Phase 33(d): the COO kernel's ms an iteration at the flagship and at
-    the 8-stack (CUDA events, median of 3 bursts), its plain version's
-    on the host CPU (it runs on CPU tensors only), the bound, and the
-    two torch CSR mat-vecs of phases 6 and 15 on the same operators."""
+    """Phase 33(d): the COO kernel's ms an iteration at the flagship's
+    energy and min-time LPs and at the 8-stack (CUDA events, median of
+    3 bursts), its plain version's on the host CPU (it runs on CPU
+    tensors only), both bounds (bytes, and the order's chain at the
+    measured add latency), and the two torch CSR mat-vecs of phases 6
+    and 15 on the same operators (the min-time LP has none)."""
     import torch
     cpu = torch.device("cpu")
-    out = {}
-    for label, g, n_k, lib in (("flagship", lp, 2000, library_ms),
+    lat = add_latency_ns(dev)
+    say(f"    one dependent fp32 add: {lat['ns']:.4f} ns (chains of "
+        f"{COO_ADD_CHAIN[0]} and {COO_ADD_CHAIN[1]} adds in one thread: "
+        f"{lat['chains_ms'][0]:.6f} and {lat['chains_ms'][1]:.6f} ms), "
+        f"{lat['cycles']:.2f} cycles at the {lat['mhz']:.0f} MHz SM clock "
+        f"nvidia-smi reads")
+    out = {"add_ns": lat["ns"], "add_cycles": lat["cycles"]}
+    for label, g, n_k, lib in (("flagship", lps["energy"], 2000, library_ms),
+                               ("flagship time", lps["time"], 2000, None),
                                ("8-stack", stack_lp, 1000, library8_ms)):
         operands = coo_operands(g, dev)
         start = coo_start(g, 0, False)
         ms = sorted(time_events(lambda: coo_run(operands, start, n_k, dev),
                                 1) / n_k for _ in range(3))[1]
         bound_ms, bound_by, nbytes, nops = coo_bound(g.n, g.m, len(g.val))
+        pair, sum_longest = coo_chain(g)
+        order_ms = pair * lat["ns"] * 1e-6
+        top = max(bound_ms, order_ms)
+        lib_s = (f"library {lib:.6f} ms per K.x + K^T.y pair (torch CSR "
+                 f"matmul, phases 6/15)" if lib is not None
+                 else "no library time")
         say(f"    {label}: kernel {ms:.6f} ms/iter (burst of {n_k}, median "
-            f"of 3; {ms / bound_ms:.2f}x its bound); bound {bound_ms:.6f} "
-            f"ms ({bound_by}: {nbytes} B at 3.35 TB/s, {nops} fp32 ops at "
-            f"67 TFLOP/s); library {lib:.6f} ms per K.x + K^T.y pair (torch "
-            f"CSR matmul, phases 6/15) ({card})")
+            f"of 3; {ms / top:.2f}x the larger bound); bytes bound "
+            f"{bound_ms:.6f} ms ({bound_by}: {nbytes} B at 3.35 TB/s, "
+            f"{nops} fp32 ops at 67 TFLOP/s); order bound {order_ms:.6f} ms "
+            f"(a chain of {pair} adds a step, the longest column and a row "
+            f"it meets; the longest column plus the longest row "
+            f"{sum_longest}); {lib_s} ({card})")
         out[label] = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=lib)
-    operands = coo_operands(lp, cpu)
-    start = coo_start(lp, 0, False)
+                          order_ms=order_ms, library_ms=lib)
+    operands = coo_operands(lps["energy"], cpu)
+    start = coo_start(lps["energy"], 0, False)
     n_p = 20
     t0 = time.perf_counter()
     coo_run(operands, start, n_p, cpu)
@@ -4787,12 +5029,47 @@ def coo_times(card: str, lp, stack_lp, dev, library_ms: float,
     return out
 
 
-def coo_paper_cells(dev, paper_fp32: dict) -> None:
+def coo_cpu_cell(cell: tuple) -> dict:
+    """Phase 33(b)'s host CPU side, in a helper process: the paper cell
+    (topology, objective) solved by solve_fast(backend="xla") on the
+    CPU's plain path.  Returns what the card's solve is held to and the
+    seconds it took."""
+    import torch
+    from repro_torch.core import solver
+    torch.set_num_threads(1)
+    name, obj = cell
+    t0 = time.perf_counter()
+    c = solver.solve_fast(problem(name, {}, GOLDEN_PATTERN, 2), obj,
+                          backend="xla", device="cpu")
+    return {"lp_x": c.lp_x, "lp_y": c.lp_y, "schedule": c.schedule,
+            "iterations": c.iterations, "metrics": metrics_of(c),
+            "seconds": time.perf_counter() - t0}
+
+
+def coo_cpu_pool():
+    """COO_CPU_WORKERS spawned processes of this script for phase 33's
+    host CPU side, so it runs while the card's checks run.  The caller
+    shuts the pool down."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    return ProcessPoolExecutor(COO_CPU_WORKERS,
+                               mp_context=multiprocessing.get_context(
+                                   "spawn"))
+
+
+def coo_cpu_cells(pool) -> dict:
+    """The 12 paper cells' CPU solves submitted to `pool`: each cell's
+    future."""
+    return {(name, obj): pool.submit(coo_cpu_cell, (name, obj))
+            for name in PAPER_TOPOS for obj in OBJECTIVES}
+
+
+def coo_paper_cells(dev, paper_fp32: dict, cpu_cells: dict) -> None:
     """Phase 33(b): solve_fast(backend="xla") on the six paper topologies x
     {energy, time}: certified, two card runs bitwise equal, bitwise the
-    host CPU's plain path (lp_x, lp_y, schedule, metrics), and within
-    METRIC_RTOL of the golden pins where there is one, else of phase
-    4's pallas solve."""
+    host CPU's plain path (lp_x, lp_y, schedule, iterations, metrics;
+    `cpu_cells`: coo_cpu_cells' futures), and within METRIC_RTOL of the
+    golden pins where there is one, else of phase 4's pallas solve."""
     import numpy as np
     from repro_torch.core import solver, verify
     golden = json.loads(GOLDEN.read_text())
@@ -4805,9 +5082,8 @@ def coo_paper_cells(dev, paper_fp32: dict) -> None:
             again = solver.solve_fast(p, obj, backend="xla", device=dev)
             verify.check_schedule(p, r.schedule).assert_ok(
                 f"{name}/{obj} xla on the card")
-            t0 = time.perf_counter()
-            c = solver.solve_fast(p, obj, backend="xla", device="cpu")
-            cpu_s = time.perf_counter() - t0
+            c = cpu_cells[name, obj].result()
+            cpu_s = c["seconds"]
 
             def same(a, b):
                 return (np.array_equal(a.lp_x, b.lp_x)
@@ -4815,6 +5091,13 @@ def coo_paper_cells(dev, paper_fp32: dict) -> None:
                         and np.array_equal(a.schedule, b.schedule)
                         and a.iterations == b.iterations
                         and metrics_of(a) == metrics_of(b))
+
+            def same_cpu(a, b):
+                return (np.array_equal(a.lp_x, b["lp_x"])
+                        and np.array_equal(a.lp_y, b["lp_y"])
+                        and np.array_equal(a.schedule, b["schedule"])
+                        and a.iterations == b["iterations"]
+                        and metrics_of(a) == b["metrics"])
 
             got = metrics_of(r)
             if name in GOLDEN_TOPOS:
@@ -4825,11 +5108,11 @@ def coo_paper_cells(dev, paper_fp32: dict) -> None:
             near = close(got, want, METRIC_RTOL)
             say(f"    {name:10s} {obj:6s} E={got['energy_j']:.6f} J "
                 f"M={got['completion_s']:.6f} s iters={r.iterations} "
-                f"wall={wall:.3f} s (cpu {cpu_s:.3f} s) cert=ok; twice "
-                f"bitwise {same(r, again)}; bitwise the cpu {same(r, c)}; "
-                f"within {METRIC_RTOL:g} of {pin} {near}")
+                f"wall={wall:.3f} s (cpu {cpu_s:.3f} s, a helper process) "
+                f"cert=ok; twice bitwise {same(r, again)}; bitwise the cpu "
+                f"{same_cpu(r, c)}; within {METRIC_RTOL:g} of {pin} {near}")
             require(same(r, again), f"{name}/{obj} xla: two card runs differ")
-            require(same(r, c), f"{name}/{obj} xla: card and cpu differ")
+            require(same_cpu(r, c), f"{name}/{obj} xla: card and cpu differ")
             require(near, f"{name}/{obj} xla: {got} vs {pin} {want}")
 
 
@@ -4886,40 +5169,82 @@ def coo_batch_and_sweep(dev, probs8, lps8) -> None:
                                  f"committed results")
 
 
-def coo_phase(card: str, dev, sms: int, lp_full, probs8, lps8,
+def coo_online(dev) -> None:
+    """Phase 33(e): run_online(backend="xla"), warm, on phase 20's heavy
+    spine-leaf trace (tests/test_arrivals.py's), on the card and on the
+    host CPU's plain path: bitwise equal in every epoch."""
+    from repro_torch.core import arrivals, topology, traffic
+    sl = topology.build("spine-leaf")
+    heavy = arrivals.generate_trace(
+        sl, traffic.pattern("uniform", **HEAVY),
+        arrivals.ArrivalSpec(family="poisson", n_coflows=4,
+                             mean_interarrival_s=2.0), seed=0)
+    runs = {}
+    for d in (dev, "cpu"):
+        t0 = time.perf_counter()
+        runs[d] = arrivals.run_online(sl, heavy, "energy", **ONLINE_KW,
+                                      backend="xla", device=d)
+        runs[d, "s"] = time.perf_counter() - t0
+    card = runs[dev]
+    report_online("spine-leaf heavy trace under xla, card", card, heavy,
+                  runs[dev, "s"], 0.0)
+    same = online_bitwise(card, runs["cpu"])
+    say(f"    the CPU's plain path ({runs['cpu', 's']:.1f} s): bitwise "
+        f"the card in every epoch: {same}"
+        + ("" if same else f" ({online_differs(card, runs['cpu'])[:4]})"))
+    require(card.n_epochs > 1 and any(e.warm for e in card.epochs[1:]),
+            "the heavy trace did not roll warm under xla")
+    require(same, "run_online(backend='xla'): the card differs from the CPU")
+
+
+def coo_phase(card: str, dev, sms: int, p_full, lp_full, probs8, lps8,
               paper_fp32: dict, library_ms: float,
               library8_ms: float) -> dict:
     """Phase 33: the COO lowering on the card.  (a) the kernel against its
-    plain version; (b)-(c) the main path with backend="xla", its launch
-    counts reset just before and read just after; (d) times.  Returns
-    the kernels line's numbers."""
+    plain version; (b)-(c) and (e) the main path with backend="xla", its
+    launch counts reset just before (b) and read after (e); (d) times.
+    Returns the kernels line's numbers."""
     from repro_torch.core import solver
     from repro_torch.kernels import ops
     say(f"[33] the reference's default COO lowering (backend='xla') on the "
         f"card ({card})")
-    err = coo_kernel_check(lp_full, dev, sms)
-    say("  (b) solve_fast(backend='xla'): six paper topologies x {energy, "
-        "time}")
-    ops.PDHG_COO_LAUNCHES = 0
-    ops.PDHG_COO_RESIDUAL_LAUNCHES = 0
-    coo_paper_cells(dev, paper_fp32)
+    lps = {"energy": lp_full,
+           "time": solver.build_routing_lp(p_full, "time")[0]}
+    with coo_cpu_pool() as pool:
+        plain = coo_plain_runs(pool, lps)
+        cpu_cells = coo_cpu_cells(pool)
+        err = coo_kernel_check(lps, dev, sms, plain)
+        say("  (b) solve_fast(backend='xla'): six paper topologies x "
+            "{energy, time}")
+        ops.PDHG_COO_LAUNCHES = 0
+        ops.PDHG_COO_RESIDUAL_LAUNCHES = 0
+        coo_paper_cells(dev, paper_fp32, cpu_cells)
     say("  (c) the batch and the sweep under backend='xla'")
     coo_batch_and_sweep(dev, probs8, lps8)
+    say("  (e) run_online(backend='xla') on the heavy trace")
+    coo_online(dev)
     launches = ops.PDHG_COO_LAUNCHES
     residuals = ops.PDHG_COO_RESIDUAL_LAUNCHES
-    say(f"    pdhg_coo_burst launches on (b)-(c): {launches} bursts (one "
-        f"cooperative launch each), residual entry {residuals}")
+    say(f"    pdhg_coo_burst launches on (b), (c) and (e): {launches} "
+        f"bursts (one cooperative launch each), residual entry "
+        f"{residuals}")
     require(launches > 0 and residuals == launches,
             "phase 33 did not go through the COO kernel")
     say("  (d) times")
-    times = coo_times(card, lp_full, solver.block_stack(lps8).lp, dev,
+    times = coo_times(card, lps, solver.block_stack(lps8).lp, dev,
                       library_ms, library8_ms)
     flag = times["flagship"]
     return {"name": "pdhg_coo_burst", "route": "cuda", "source": COO_SOURCE,
             "replaces": COO_REPLACES, "launches": launches,
             "max_abs_err": err, "ms": flag["ms"],
             "plain_ms": times["plain_ms"], "bound_ms": flag["bound_ms"],
-            "bound_by": flag["bound_by"], "library_ms": flag["library_ms"]}
+            "bound_by": flag["bound_by"], "library_ms": flag["library_ms"],
+            "order_bound_ms": flag["order_ms"],
+            "ms_time_lp": times["flagship time"]["ms"],
+            "order_bound_ms_time_lp": times["flagship time"]["order_ms"],
+            "ms_8stack": times["8-stack"]["ms"],
+            "bound_ms_8stack": times["8-stack"]["bound_ms"],
+            "add_ns": times["add_ns"]}
 
 
 def main(argv=None) -> int:
@@ -5926,8 +6251,8 @@ def main(argv=None) -> int:
         f"here ({card}); total {time.perf_counter() - t_start:.1f} s")
 
     # -- phase 33: the COO lowering ----------------------------------------
-    coo_entry = coo_phase(card, dev, sms, lp_full, probs8, lps8, paper_fp32,
-                          library_ms, library8_ms)
+    coo_entry = coo_phase(card, dev, sms, p_full, lp_full, probs8, lps8,
+                          paper_fp32, library_ms, library8_ms)
 
     kernels = {"kernels": [{
         "name": "pdhg_burst", "route": "cuda", "source": SOURCE,

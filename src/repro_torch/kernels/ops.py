@@ -605,15 +605,42 @@ def pdhg_adaptive(c, tau, xmax, q, sig, ub, row_idx, row_val, col_idx,
 def _coo_lib() -> ctypes.CDLL:
     lib = build.load("pdhg_coo.cu")
     if lib.pdhg_coo_max_blocks.argtypes is None:
-        lib.pdhg_coo_burst_f32.argtypes = ([ctypes.c_int] * 9
+        lib.pdhg_coo_burst_f32.argtypes = ([ctypes.c_int] * 11
                                            + [ctypes.c_void_p] * 26)
         lib.pdhg_coo_burst_f32.restype = ctypes.c_int
-        lib.pdhg_coo_residual_f32.argtypes = ([ctypes.c_int] * 2
+        lib.pdhg_coo_residual_f32.argtypes = ([ctypes.c_int] * 3
                                               + [ctypes.c_void_p] * 10)
         lib.pdhg_coo_residual_f32.restype = ctypes.c_int
+        lib.pdhg_coo_add_chain.argtypes = ([ctypes.c_int]
+                                           + [ctypes.c_void_p] * 3)
+        lib.pdhg_coo_add_chain.restype = ctypes.c_int
         lib.pdhg_coo_max_blocks.argtypes = [ctypes.c_int]
         lib.pdhg_coo_max_blocks.restype = ctypes.c_int
+        staged = lib.pdhg_coo_chunk_entries()
+        if staged != pc.CHUNK_ENTRIES:
+            raise RuntimeError(f"pdhg_coo.cu stages {staged} entries a warp, "
+                               f"the plan's chunks up to "
+                               f"{pc.CHUNK_ENTRIES}")
     return lib
+
+
+def coo_add_chain(n: int, ab: torch.Tensor) -> torch.Tensor:
+    """n dependent fp32 adds (a multiple of 8) in one thread on the card,
+    adding ab[0] and ab[1] (a CUDA float32 tensor) in turn: the chain
+    an output's sum is, timed for the COO burst's order bound.  Returns
+    the sum, a 1-element tensor."""
+    if n % 8 or ab.device.type != "cuda" or ab.dtype != _F32 \
+            or ab.numel() < 2:
+        raise ValueError("coo_add_chain takes n a multiple of 8 and a "
+                         "CUDA float32 tensor of two addends")
+    out = torch.empty(1, dtype=_F32, device=ab.device)
+    with torch.cuda.device(ab.device):
+        err = _coo_lib().pdhg_coo_add_chain(
+            int(n), ab.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(ab.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"coo_add_chain launch failed: CUDA error {err}")
+    return out
 
 
 def coo_max_blocks(device=None) -> int:
@@ -638,12 +665,17 @@ def _check_coo_args(named: dict, cols, rows) -> torch.device:
         for field, dtype, length in (
                 ("off", torch.int32, d.n_out + 1), ("idx", torch.int32, nnz),
                 ("val", _F32, nnz), ("out", torch.int64, nnz),
-                ("long", torch.int32, None), ("short", torch.int32, None)):
+                ("order", torch.int32, d.n_out),
+                ("chunk", torch.int32, None)):
             named[f"{side}.{field}"] = getattr(d, field)
             want[f"{side}.{field}"] = (dtype, length)
-        if d.long.shape[0] + d.short.shape[0] != d.n_out:
-            raise ValueError(f"pdhg_coo_burst: the {side}' long and short "
-                             f"outputs must cover its {d.n_out} outputs")
+        if not 0 <= d.n_block <= d.n_long <= d.n_out \
+                or d.chunk.shape[0] < 1:
+            raise ValueError(f"pdhg_coo_burst: the {side}' work order "
+                             f"needs 0 <= n_block <= n_long <= {d.n_out} "
+                             f"and a chunk list, got n_block {d.n_block}, "
+                             f"n_long {d.n_long} and {d.chunk.shape[0]} "
+                             f"chunk starts")
     devices = {t.device for t in named.values()}
     if len(devices) != 1:
         raise ValueError(f"pdhg_coo_burst operands span devices {devices}")
@@ -661,8 +693,8 @@ def _check_coo_args(named: dict, cols, rows) -> torch.device:
 
 
 def _coo_direction_args(d) -> tuple:
-    return tuple(t.data_ptr() for t in (d.off, d.idx, d.val, d.long,
-                                        d.short))
+    return tuple(t.data_ptr() for t in (d.order, d.off, d.idx, d.val,
+                                        d.chunk))
 
 
 def pdhg_coo_burst(c, tau, xmax, q, sig, ub, keep_n, keep_m, cols, rows,
@@ -677,7 +709,9 @@ def pdhg_coo_burst(c, tau, xmax, q, sig, ub, keep_n, keep_m, cols, rows,
     On CUDA tensors this is kernels/csrc/pdhg_coo.cu: one cooperative
     launch of pdhg_coo_burst_f32 on as many blocks as fit (`_blocks` > 0
     asks for that many; a launch the card refuses raises), then one
-    launch of its residual entry; bitwise the plain version.  On CPU
+    launch of its residual entry; bitwise the plain version.  The
+    kernel trusts the directions' work order (pdhg_coo.coo_plan: every
+    chunk within CHUNK_OUTPUTS outputs and CHUNK_ENTRIES entries).  On CPU
     tensors it is the plain version, kernels.pdhg_coo.coo_update_burst.
     Raises under autograd: the kernel has no backward."""
     global PDHG_COO_LAUNCHES, PDHG_COO_RESIDUAL_LAUNCHES
@@ -704,8 +738,9 @@ def pdhg_coo_burst(c, tau, xmax, q, sig, ub, keep_n, keep_m, cols, rows,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.pdhg_coo_burst_f32(
-            n, m, int(iters), int(_blocks), index, cols.long.shape[0],
-            cols.short.shape[0], rows.long.shape[0], rows.short.shape[0],
+            n, m, int(iters), int(_blocks), index, cols.n_block,
+            cols.n_long, cols.n_chunks, rows.n_block, rows.n_long,
+            rows.n_chunks,
             *(t.data_ptr() for t in (c, tau, xmax, q, sig, ub, keep_n,
                                      keep_m)),
             *_coo_direction_args(cols), *_coo_direction_args(rows),
@@ -717,7 +752,7 @@ def pdhg_coo_burst(c, tau, xmax, q, sig, ub, keep_n, keep_m, cols, rows,
                                f"CUDA error {err}")
         PDHG_COO_LAUNCHES += 1
         err = lib.pdhg_coo_residual_f32(
-            rows.long.shape[0], rows.short.shape[0],
+            rows.n_block, rows.n_long, rows.n_chunks,
             *_coo_direction_args(rows), x_out.data_ptr(), q.data_ptr(),
             ub.data_ptr(), worst.data_ptr(), stream)
         if err != 0:

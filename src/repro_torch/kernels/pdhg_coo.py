@@ -23,12 +23,17 @@ equality rows and max(K x - q, 0) on inequalities, K x summed as in 5.
 
 This module holds:
 
-  * the plan (`coo_plan`, `coo_fill`): for each direction the stable
-    permutation of the COO entries by output index (column for K^T y,
-    row for K x) with offsets, so each output's entries stay in COO
-    order, and the outputs split into those summed by a thread and the
-    long ones summed by a warp on the card (`LONG`); built once per
-    sparsity pattern, refilled with values in O(nnz);
+  * the plan (`coo_plan`, `coo_fill`): for each direction the outputs
+    (columns for K^T y, rows for K x) in the card's work order, the
+    long ones first (more than `LONG` entries, longest first: a warp
+    each, or a block each past `CHUNK_ENTRIES`) and then the rest in
+    index order, cut into chunks of at most `CHUNK_OUTPUTS` outputs and
+    `CHUNK_ENTRIES` entries (a warp each);
+    and a stable permutation of the COO entries grouped by output in
+    that order, so each output's entries stay contiguous and in COO
+    order.  The tiers change which warp sums an output, never the order
+    of its sum.  Built once per sparsity pattern, refilled with values
+    in O(nnz);
   * the plain version of the burst (`coo_update_burst`) and of the
     residual (`coo_residual`): sequential `index_add_` on 1-D CPU
     tensors (one add an entry, in entry order), and the two contracted
@@ -46,22 +51,30 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-# an output with more entries than this is summed by a warp on the card
-# (lanes fetch and multiply, one sum adds in order); the rest by a thread
+# an output with more entries than this is long: a warp of its own on the
+# card (kernels/csrc/pdhg_coo.cu), or a block past CHUNK_ENTRIES
 LONG = 32
+# a chunk of the other outputs, also a warp's: one output a lane, and the
+# chunk's products staged in the warp's shared-memory buffer, which holds
+# CHUNK_ENTRIES, 16 a lane (the kernel's kBuf; ops checks the two agree)
+CHUNK_OUTPUTS = 32
+CHUNK_ENTRIES = 512
 
 
 @dataclasses.dataclass(frozen=True)
 class CooPlanSide:
-    """One direction of a COO operator, values excluded: the entries
-    grouped by output index in COO order within each output."""
+    """One direction of a COO operator, values excluded: the outputs in
+    work order (positions), and the entries grouped by position in COO
+    order within each output."""
 
-    perm: np.ndarray     # (nnz,) int64 stable sort of the entries by output
-    off: np.ndarray      # (n_out + 1,) int32 each output's first entry
+    perm: np.ndarray     # (nnz,) int64 stable sort of the entries by position
+    off: np.ndarray      # (n_out + 1,) int32 each position's first entry
     idx: np.ndarray      # (nnz,) int32 the index each sorted entry gathers
     out: np.ndarray      # (nnz,) int64 the output of each sorted entry
-    long: np.ndarray     # int32 outputs with more than LONG entries
-    short: np.ndarray    # int32 the other outputs (empty ones included)
+    order: np.ndarray    # (n_out,) int32 the output at each position
+    n_long: int          # positions [0, n_long): the long outputs
+    n_block: int         # [0, n_block): those past CHUNK_ENTRIES
+    chunk: np.ndarray    # (n_chunks + 1,) int32 each chunk's first position
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,16 +89,43 @@ class CooPlan:
     n: int
 
 
+def _chunks(counts: np.ndarray, first: int) -> np.ndarray:
+    """Cut positions [first, len(counts)) of entry counts (each at most
+    LONG) into runs of at most CHUNK_OUTPUTS outputs and CHUNK_ENTRIES
+    entries, greedily in order; returns each run's first position and
+    the end."""
+    starts = []
+    outs = entries = 0
+    for p, k in enumerate(counts[first:].tolist(), first):
+        if p == first or outs == CHUNK_OUTPUTS or entries + k > CHUNK_ENTRIES:
+            starts.append(p)
+            outs = entries = 0
+        outs += 1
+        entries += k
+    starts.append(len(counts))
+    return np.asarray(starts, np.int32)
+
+
 def _plan_side(key: np.ndarray, other: np.ndarray, n_out: int) -> CooPlanSide:
     key = np.asarray(key, np.int64)
-    perm = np.argsort(key, kind="stable")
     counts = np.bincount(key, minlength=n_out)[:n_out]
-    off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
-    outs = np.arange(n_out, dtype=np.int32)
+    outs = np.arange(n_out)
+    is_long = counts > LONG
+    # long outputs longest first (ties by index), then the rest by index
+    long_ = outs[is_long][np.argsort(-counts[is_long], kind="stable")]
+    order = np.concatenate([long_, outs[~is_long]]).astype(np.int32)
+    pos = np.empty(n_out, np.int64)
+    pos[order] = np.arange(n_out)
+    # stable: an output's entries keep their COO order
+    perm = np.argsort(pos[key], kind="stable")
+    by_pos = counts[order]
+    off = np.concatenate([[0], np.cumsum(by_pos)]).astype(np.int32)
     return CooPlanSide(
         perm=perm, off=off,
         idx=np.asarray(other, np.int64)[perm].astype(np.int32),
-        out=key[perm], long=outs[counts > LONG], short=outs[counts <= LONG])
+        out=key[perm], order=order, n_long=len(long_),
+        n_block=int(np.count_nonzero(counts > CHUNK_ENTRIES)),
+        chunk=_chunks(by_pos, len(long_)))
 
 
 def coo_plan(row: np.ndarray, col: np.ndarray, m: int, n: int) -> CooPlan:
@@ -130,19 +170,26 @@ def coo_fill(plan: CooPlan, val: np.ndarray) -> CooOperator:
 
 
 class CooDirection(NamedTuple):
-    """One direction of a filled operator as tensors on a device: the
-    kernel reads off/idx/val/long/short, the plain version idx/val/out."""
+    """One direction of a filled operator as tensors on a device (the
+    plan side's fields): the kernel reads order/off/idx/val/chunk,
+    n_long and n_block, the plain version idx/val/out."""
 
     off: torch.Tensor     # (n_out + 1,) int32
     idx: torch.Tensor     # (nnz,) int32
     val: torch.Tensor     # (nnz,) float32
     out: torch.Tensor     # (nnz,) int64
-    long: torch.Tensor    # int32
-    short: torch.Tensor   # int32
+    order: torch.Tensor   # (n_out,) int32
+    chunk: torch.Tensor   # (n_chunks + 1,) int32
+    n_long: int
+    n_block: int
 
     @property
     def n_out(self) -> int:
         return self.off.shape[0] - 1
+
+    @property
+    def n_chunks(self) -> int:
+        return self.chunk.shape[0] - 1
 
 
 def coo_directions(op: CooOperator, device) -> tuple[CooDirection,
@@ -153,7 +200,8 @@ def coo_directions(op: CooOperator, device) -> tuple[CooDirection,
 
     def side(s: CooPlanSide, val):
         return CooDirection(put(s.off), put(s.idx), put(val), put(s.out),
-                            put(s.long), put(s.short))
+                            put(s.order), put(s.chunk), s.n_long,
+                            s.n_block)
 
     return side(op.plan.cols, op.col_val), side(op.plan.rows, op.row_val)
 

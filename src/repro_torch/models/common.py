@@ -161,7 +161,9 @@ def set_sharder(fn: Callable[[torch.Tensor, tuple], torch.Tensor] | None
 
 def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
     """Annotate activation x with logical axes (x itself without a
-    sharder)."""
+    sharder).  The gradient that reaches the result in the backward is
+    laid out by the same axes before it goes on to x, as the transpose of
+    the reference's sharding constraint constrains the cotangent."""
     if _SHARDER is None:
         return x
     return _SHARDER(x, axes)

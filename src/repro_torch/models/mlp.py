@@ -54,15 +54,26 @@ class MLP(CastWeights):
             self.w_gate = init_normal((d, f), **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # Under a strategy every activation operand of the three products
+        # is laid out by its logical axes, and so is its gradient (see
+        # `shard`), as the reference's constraints lay out both: under
+        # "fsdp" the tokens split over every rank, so each product and
+        # each weight gradient's sum over tokens is split over "model".
+        # Left to DTensor's propagation, the gate's gradient came back
+        # whole on "model", and torch 2.11 then multiplied a data row's
+        # sequences by the whole weight on every rank of the row (16x a
+        # rank's flops at 16 x 16).
         dt = x.dtype
         up = shard(matmul(x, self.weight("w_up", dt)), "batch", None, "mlp")
-        if self.kind == "swiglu":
-            h = silu(matmul(x, self.weight("w_gate", dt))) * up
-        elif self.kind == "geglu":
-            h = gelu_tanh(matmul(x, self.weight("w_gate", dt))) * up
+        if self.kind in ("swiglu", "geglu"):
+            gate = shard(matmul(x, self.weight("w_gate", dt)),
+                         "batch", None, "mlp")
+            act = silu if self.kind == "swiglu" else gelu_tanh
+            h = act(gate) * up
         elif self.kind == "relu2":
             h = torch.square(F.relu(up))
         else:
             h = gelu_tanh(up)
+        h = shard(h, "batch", None, "mlp")
         return shard(matmul(h, self.weight("w_down", dt)),
                      "batch", "seq", "embed")

@@ -332,10 +332,29 @@ def _dedupe(out: list) -> tuple:
     return tuple(out)
 
 
+class _Pinned(torch.autograd.Function):
+    """x redistributed to `placements`; in the backward the gradient is
+    redistributed to the same placements and handed to x as it is (a
+    gradient may lie in any layout of x's global shape).  DTensor's own
+    redistribute hands it back in x's layout instead, and a Partial x
+    then gets a Replicate gradient, which the products before take
+    whole."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, placements):
+        ctx.mesh, ctx.placements = mesh, placements
+        return x.redistribute(mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(ctx.mesh, ctx.placements), None, None
+
+
 def install_sharder(strategy: Strategy | None) -> None:
-    """Hook models.common.shard to redistribute a DTensor activation to
-    its logical spec (`None` removes the hook).  A plain tensor passes
-    through: the hook lays out what is already distributed."""
+    """Hook models.common.shard to redistribute a DTensor activation, and
+    its gradient in the backward, to its logical spec (`None` removes the
+    hook).  A plain tensor passes through: the hook lays out what is
+    already distributed."""
     if strategy is None:
         mcommon.set_sharder(None)
         return
@@ -343,7 +362,7 @@ def install_sharder(strategy: Strategy | None) -> None:
     def sharder(x, axes):
         if not isinstance(x, DTensor):
             return x
-        return x.redistribute(strategy.mesh, strategy.placements(
+        return _Pinned.apply(x, strategy.mesh, strategy.placements(
             strategy.logical_to_spec(axes, x.shape), x.shape))
     mcommon.set_sharder(sharder)
 

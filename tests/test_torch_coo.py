@@ -269,6 +269,140 @@ def test_plain_burst_holds_frozen_coordinates_as_the_model():
     assert np.array_equal(got[1][keep_m], y0[keep_m])
 
 
+# ---------------------------------------------------------------------------
+# the plan's work order (the card's tiers)
+# ---------------------------------------------------------------------------
+
+# (LONG, CHUNK_OUTPUTS, CHUNK_ENTRIES): the plan's, many small tiers, and
+# one tier of single-output chunks in index order (no long outputs)
+TIERINGS = [None, (4, 3, 16), (10 ** 9, 1, 10 ** 9)]
+
+
+def _tiered_plan(monkeypatch, row, col, m, n, tiering):
+    if tiering is not None:
+        for name, v in zip(("LONG", "CHUNK_OUTPUTS", "CHUNK_ENTRIES"),
+                           tiering):
+            monkeypatch.setattr(pdhg_coo, name, v)
+    return pdhg_coo.coo_plan(row, col, m, n)
+
+
+def _tier_lps():
+    """A paper LP with long outputs in both directions (the min-time
+    LP's theta column) and a random one with duplicate entries."""
+    _, lp = _lps("spine-leaf", "time")
+    c, row, col, val, b, h, _, m_eq = _random_lp(6, m=120, n=90, nnz=1500)
+    return [(lp.row, lp.col, lp.val, lp.m, lp.n),
+            (row, col, val, len(b) + len(h), len(c))]
+
+
+@pytest.mark.parametrize("tiering", TIERINGS)
+def test_plan_tiers_partition_the_outputs(monkeypatch, tiering):
+    """Each direction's work order holds every output once: the long
+    ones first, longest first, then the rest in index order, cut into
+    chunks within the plan's bounds that cover them in order."""
+    for i, (row, col, _, m, n) in enumerate(_tier_lps()):
+        plan = _tiered_plan(monkeypatch, row, col, m, n, tiering)
+        for side, n_out, key in ((plan.cols, n, col), (plan.rows, m, row)):
+            counts = np.bincount(key, minlength=n_out)
+            assert np.array_equal(np.sort(side.order), np.arange(n_out))
+            longs = side.order[:side.n_long]
+            shorts = side.order[side.n_long:]
+            assert np.all(counts[longs] > pdhg_coo.LONG)
+            block = counts[side.order[:side.n_block]]
+            assert np.all(block > pdhg_coo.CHUNK_ENTRIES)
+            assert np.all(counts[side.order[side.n_block:side.n_long]]
+                          <= pdhg_coo.CHUNK_ENTRIES)
+            assert np.all(counts[shorts] <= pdhg_coo.LONG)
+            assert np.all(np.diff(counts[longs]) <= 0)
+            assert np.all(np.diff(shorts) > 0)
+            ch = side.chunk
+            assert ch[0] == side.n_long and ch[-1] == n_out
+            assert np.all(np.diff(ch) > 0)
+            assert np.all(np.diff(ch) <= pdhg_coo.CHUNK_OUTPUTS)
+            assert np.all(np.diff(side.off[ch]) <= pdhg_coo.CHUNK_ENTRIES)
+        if tiering is None and i == 0:     # the theta column is long
+            assert plan.cols.n_long > 0
+
+
+@pytest.mark.parametrize("tiering", TIERINGS)
+def test_plan_keeps_each_outputs_entries_contiguous_in_coo_order(
+        monkeypatch, tiering):
+    """Position p's entries are off[p]:off[p+1] of the permutation: all
+    of output order[p]'s entries, in COO entry order, each gathering the
+    other index of its entry."""
+    for row, col, _, m, n in _tier_lps():
+        plan = _tiered_plan(monkeypatch, row, col, m, n, tiering)
+        for side, key, other in ((plan.cols, col, row),
+                                 (plan.rows, row, col)):
+            assert np.array_equal(np.sort(side.perm), np.arange(len(key)))
+            for p, o in enumerate(side.order):
+                ents = side.perm[side.off[p]:side.off[p + 1]]
+                assert np.array_equal(ents, np.flatnonzero(key == o))
+            assert np.array_equal(side.out, key[side.perm])
+            assert np.array_equal(side.idx, other[side.perm])
+
+
+def _walk(side, val, vec, start):
+    """The card's walk of one direction in numpy (kernels/csrc/
+    pdhg_coo.cu): each work item's products val * vec[idx] staged in
+    float32 (a long output CHUNK_ENTRIES at a time, as a warp stages it;
+    a block stages more at once, which changes no add), then each output
+    added from its start one product at a time, in order."""
+    f32 = np.float32
+    out = np.asarray(start, f32).copy()
+    prod = (val * vec[side.idx]).astype(f32)
+    for p in range(side.n_long):
+        s = out[side.order[p]]
+        for e0 in range(side.off[p], side.off[p + 1],
+                        pdhg_coo.CHUNK_ENTRIES):
+            staged = prod[e0:min(e0 + pdhg_coo.CHUNK_ENTRIES,
+                                 side.off[p + 1])]
+            for v in staged:
+                s = f32(s + v)
+        out[side.order[p]] = s
+    for c in range(len(side.chunk) - 1):
+        p0, p1 = side.chunk[c], side.chunk[c + 1]
+        staged = prod[side.off[p0]:side.off[p1]]
+        for p in range(p0, p1):
+            s = out[side.order[p]]
+            for v in staged[side.off[p] - side.off[p0]:
+                            side.off[p + 1] - side.off[p0]]:
+                s = f32(s + v)
+            out[side.order[p]] = s
+    return out
+
+
+@pytest.mark.parametrize("tiering", TIERINGS)
+def test_plain_bits_do_not_change_with_the_tiering(monkeypatch, tiering):
+    """The plain burst over each tiering's directions is bitwise the one
+    over the plan's own, and each direction's sums are bitwise the
+    card's walk of its work items emulated in numpy."""
+    rng = np.random.default_rng(8)
+    for row, col, val, m, n in _tier_lps():
+        plans = [pdhg_coo.coo_plan(row, col, m, n),
+                 _tiered_plan(monkeypatch, row, col, m, n, tiering)]
+        runs = []
+        x0 = rng.random(n).astype(np.float32)
+        y0 = rng.standard_normal(m).astype(np.float32)
+        c, q = (rng.standard_normal(k).astype(np.float32) for k in (n, m))
+        for plan in plans:
+            op = pdhg_coo.coo_fill(plan, val)
+            cols, rows = pdhg_coo.coo_directions(op, "cpu")
+            runs.append([t.numpy() for t in pdhg_coo.coo_update_burst(
+                _t(x0), _t(y0), _t(c), _t(op.tau), _t(np.full(n, 2.0)),
+                _t(q), _t(op.sig), _t(np.arange(m) >= m // 2, torch.bool),
+                _t(np.zeros(n), torch.bool), _t(np.zeros(m), torch.bool),
+                cols, rows, iters=20)])
+            for side, d, vec, start in ((plan.cols, cols, y0, c),
+                                        (plan.rows, rows, x0,
+                                         np.zeros(m))):
+                want = pdhg_coo._sums(_t(start), d, _t(vec)).numpy()
+                got = _walk(side, d.val.numpy(), vec, start)
+                assert np.array_equal(got, want)
+        for g, w in zip(*runs):
+            assert np.array_equal(g, w)
+
+
 def _round_f32(exact) -> np.float32:
     """The float32 nearest a rational (ties to the even significand)."""
     from fractions import Fraction

@@ -330,6 +330,61 @@ def sharded_step_cases(rank: int, world: int, payload: dict) -> dict:
     return out
 
 
+def mlp_layout_case(rank: int, world: int, payload: dict) -> dict:
+    """phi4-mini smoke's train step under "fsdp" on a (world // 2) x 2
+    ("data", "model") mesh, seed 0's parameters, payload["batch"] (numpy,
+    whole).  Every DTensor product of the MLP (an operand with a d_ff
+    dim) is recorded, forward and backward: each operand's global shape
+    and placements.  Returns the records, the step's metrics and its
+    first AdamW moments (whole), and on rank 0 the same step's without a
+    strategy."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.runtime import sharding, steps
+    from repro_torch.train import optimizer as opt
+    batch = {k: torch.from_numpy(v) for k, v in payload["batch"].items()}
+
+    class Products(TorchDispatchMode):
+        def __init__(self, d_ff):
+            super().__init__()
+            self.d_ff, self.seen = d_ff, []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                ts = [a for a in args if isinstance(a, DTensor)]
+                if (func._overloadpacket in (torch.ops.aten.mm,
+                                             torch.ops.aten.bmm)
+                        and any(self.d_ff in a.shape for a in ts)):
+                    self.seen.append({
+                        "backward": torch._C._current_graph_task_id() != -1,
+                        "operands": [(tuple(a.shape),
+                                      [repr(p) for p in a.placements])
+                                     for a in ts]})
+                return NotImplemented
+            return func(*args, **(kwargs or {}))
+
+    out: dict = {}
+    mesh = lmesh.make_host_mesh((world // 2, 2), ("data", "model"))
+    runs = {"sharded": sharding.Strategy(mesh, "fsdp", False)}
+    if rank == 0:
+        runs["plain"] = None
+    for run, strategy in runs.items():
+        cfg, model = smoke_model("phi4_mini_3_8b", None)
+        if strategy is not None:
+            strategy.distribute(model)
+        state = opt.adamw_init(dict(model.named_parameters()))
+        step = steps.make_train_step(cfg, opt.AdamWConfig(total_steps=10),
+                                     strategy=strategy)
+        log = Products(cfg.d_ff)
+        with log:
+            _, state, m = step(model, state, batch)
+        out[run] = {"metrics": {k: v.numpy() for k, v in m.items()},
+                    "m": {k: _full(v) for k, v in state["m"].items()},
+                    "products": log.seen, "d_ff": cfg.d_ff}
+    return out
+
+
 def eval_after_train_case(rank: int, world: int, payload: dict) -> dict:
     """phi4-mini smoke under "2d" on a world x 1 "data" mesh, whose
     parameters each step gathers anew from their shards: a prefill
@@ -476,6 +531,39 @@ def dryrun_cases(out_dir: str) -> dict:
     finally:
         dist.destroy_process_group()
     return {"cells": cells, "product": product}
+
+
+def dryrun_mlp_products() -> list:
+    """The dry run's phi4-mini x train_4k cell (16 x 16, fsdp, full
+    width on meta tensors), recording every DTensor product of the MLP
+    (an operand with a d_ff dim), forward and backward: each operand's
+    global shape and placements."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    d_ff = configs.get("phi4_mini_3_8b").d_ff
+    seen = []
+    counted = dryrun.RankCounter.__torch_dispatch__
+
+    def recording(self, func, types, args=(), kwargs=None):
+        ts = [a for a in args if isinstance(a, DTensor)]
+        if ts and func._overloadpacket in (torch.ops.aten.mm,
+                                           torch.ops.aten.bmm) \
+                and any(d_ff in a.shape for a in ts):
+            seen.append({
+                "backward": torch._C._current_graph_task_id() != -1,
+                "operands": [(tuple(a.shape), [repr(p) for p in a.placements])
+                             for a in ts]})
+        return counted(self, func, types, args, kwargs)
+
+    dryrun.RankCounter.__torch_dispatch__ = recording
+    try:
+        res = dryrun.run_cell("phi4_mini_3_8b", "train_4k", multi_pod=False)
+    finally:
+        dryrun.RankCounter.__torch_dispatch__ = counted
+    if not res.ok:
+        raise RuntimeError(res.error)
+    return seen
 
 
 def staged_case(rank: int, world: int, payload) -> list:
