@@ -230,11 +230,16 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      drift, in fp32 on the einsum path: each layer fed world 1's input
      within one bf16 place of world 1's output; and a 2-layer train step
      under fsdp on a 2 x 1 data mesh, loss within 5e-3 of world 1's and
-     every parameter equal on both ranks; (d) the dry run's phi4-mini x
-     train_4k cell at 16 x 16 (ok, flops a rank within 10% of the
-     model's count, tests/test_torch_dryrun.py's bound, its largest ops,
-     all-gathers and reduce-scatters); the attention kernel at a rank's
-     shape against its plain version, timed beside SDPA, and its bound.
+     every parameter equal on both ranks; (d) the dry run's train_4k
+     cells at 16 x 16: phi4-mini under its default strategy, granite-moe
+     and qwen2-moe each under "auto" (their "2d") and fsdp, run one after
+     another by a helper process started at the top (meta tensors and a
+     fake world: host time only) and collected here: ok, all-gathers and
+     reduce-scatters counted, flops a rank within 10% of the model's
+     count (tests/test_torch_dryrun.py's and tests/test_torch_moe_dryrun.py's
+     bound and formulas), torch's release, the largest ops; the attention
+     kernel at a rank's shape against its plain version, timed beside
+     SDPA, and its bound.
  33. the reference's default COO lowering (backend="xla"): (a) the COO
      burst kernel (pdhg_coo.cu) against its plain version on CPU tensors
      from the same inputs (torch's CUDA index_add_ adds in no fixed
@@ -258,13 +263,32 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      entry) and phase 6's and 15's CSR mat-vecs; (e) run_online
      (backend="xla") warm on phase 20's heavy trace, bitwise the host
      CPU's plain path in every epoch.
+ 34. the seven examples (examples_torch/), each run's `run` on the card
+     at EXAMPLE_SIZES: quickstart on pon3 (the oracle's time limit the
+     reference's), pattern_sweep and failure_sweep at 2 seeds (the
+     latter under link1 alone), online_arrivals, coflow_schedule and
+     serve_batch as they are, train_lm for 3 steps; the four that solve
+     under both lowerings.  Every schedule certified; each run's printed
+     numbers within 1e-4 of the same call on the host CPU (a helper
+     process started at the top) under "pallas" (where they differ
+     more, phase 20's order rule: bitwise the CPU summing in the
+     kernel's order; the warm heavy trace flips so), bitwise under "xla";
+     serve_batch's tokens equal to the host CPU's greedy decode of the
+     same weights up to a row's first near tie; train_lm's three losses
+     finite; the ELL and COO bursts, attention and scan kernels each
+     launched; the phase's wall.
 
 Each phase's wall is printed when the next begins ("wall: phase N"), and
 all of them, with phases 1-18's sum, before the kernels line.  The last
 lines are one JSON object describing the kernels, the card's name and
 power limit, and `{"ok": true, "device": {...}}`.  Imports
-torch, numpy, scipy and repro_torch only.  Phase 24 starts helper
-processes of this script (--placement-cpu, on the host CPU only), phase
+torch, numpy, scipy and repro_torch only.  Right after the card check
+the script starts two helper processes of itself on the host CPU, one
+thread each (--dryrun-cells: phase 32(d)'s five cells; --example-cpu:
+phase 34's CPU runs of five examples); the phase that reads one waits
+for it, a helper that fails fails the phase, and any still running when
+the script ends (HELPER_TIMEOUT_S after its start at most) is killed.  Phase 24 starts
+helper processes of this script (--placement-cpu, on the host CPU only), phase
 30 two (--shard-rank, on the card) and phase 33 a pool of four (the
 paper cells' CPU solves); each waits for all of its processes before it
 goes on, and phases 24 and 30 kill any still running at their time
@@ -592,6 +616,13 @@ SHARDED_TP = (8, 4, 2048)
 SHARDED_FSDP = (2, 2, 2048)
 SHARDED_LOSS_TOL = 5e-3              # tests/test_distributed.py's
 SHARDED_DRYRUN = ("phi4_mini_3_8b", "train_4k")
+# (d)'s cells (arch, strategy), all at SHARDED_DRYRUN's shape: phi4 and
+# the MoE train cells under their default strategy ("auto": 2d) and
+# under fsdp, run by a helper process started at the top
+DRYRUN_CELLS = ((SHARDED_DRYRUN[0], "auto"),
+                ("granite_moe_1b_a400m", "auto"),
+                ("granite_moe_1b_a400m", "fsdp"),
+                ("qwen2_moe_a2_7b", "auto"), ("qwen2_moe_a2_7b", "fsdp"))
 DRYRUN_TOP_OPS = 16                  # (d) prints the cell's largest ops
 # (d): flops a rank against the model's count (tests/test_torch_dryrun.py's
 # FLOP_RTOL and formula)
@@ -623,6 +654,27 @@ COO_ADD_CHAIN = (1 << 20, 1 << 21)
 COO_SWEEP_ARGS = ["--topos", "spine-leaf", "--objectives", "energy",
                   "--patterns", "skew", "--oracle-check", "0",
                   "--backend", "xla"]
+
+# phase 34: the seven examples (examples_torch/) on the card, each run's
+# keyword sizes; those that solve run under both lowerings.  The host
+# CPU's runs of the same calls are helper processes started at the top
+EXAMPLES = ("quickstart", "pattern_sweep", "failure_sweep",
+            "online_arrivals", "coflow_schedule", "serve_batch", "train_lm")
+EXAMPLE_SIZES = {"quickstart": dict(topos=("pon3",)),
+                 "pattern_sweep": dict(n_seeds=2),
+                 "failure_sweep": dict(n_seeds=2, presets=("link1",)),
+                 "online_arrivals": {}, "coflow_schedule": {},
+                 "serve_batch": {}, "train_lm": dict(steps=3)}
+EXAMPLE_BACKENDS = {"quickstart": ("pallas", "xla"),
+                    "pattern_sweep": ("pallas", "xla"),
+                    "failure_sweep": ("pallas", "xla"),
+                    "online_arrivals": ("pallas", "xla")}
+EXAMPLE_ATOL = 1e-9                  # a value of 0 beside float noise
+# serve_batch: a greedy token is exact where its logit leads the next by
+# more than this many bf16 places of its own value
+GREEDY_EXACT_PLACES = 4
+# a helper process's time limit, from its start
+HELPER_TIMEOUT_S = 900
 
 
 def host_staged():
@@ -4122,16 +4174,17 @@ def shard_phase(card, dev, p_full, lp_full, phase4, phase5, library_ms):
                             library_ms, collect)
 
 
-def sharded_phase(card, dev, ranks) -> dict:
+def sharded_phase(card, dev, ranks, helpers: dict) -> dict:
     """Phase 32: the sharded steps.  (a) and (b) at world 1 over NCCL on a
     1 x 1 ("data", "model") mesh; (c) the results of phase 30's ranks
-    (sharded_rank_part); (d) one dry-run cell; and the attention kernel
+    (sharded_rank_part); (d) the dry-run cells of their helper processes
+    (`helpers`, from start_helpers); and the attention kernel
     timed at the TP-local shape of (c)'s ranks beside SDPA.  Returns the
     attention launches of (b) and (c) and the timed numbers."""
     with one_rank_world("nccl" if dev.type == "cuda" else "gloo"):
         out = sharded_world1(card, dev)
     out.update(sharded_ranks_report(ranks))
-    out.update(sharded_dryrun())
+    out.update(sharded_dryrun(helpers))
     out.update(sharded_attention_times(card, dev))
     return out
 
@@ -4359,40 +4412,109 @@ def train_model_flops(arch: str, seq: int, tokens: int, ranks: int) -> float:
             + 6 * d * cfg.padded_vocab(1) * tokens) / ranks
 
 
-def sharded_dryrun() -> dict:
-    """Phase 32(d): one dry-run cell at 16 x 16, its flops a rank within
-    DRYRUN_FLOP_RTOL of the model's count."""
+def moe_train_model_flops(arch: str, tp: int, seq: int, tokens: int,
+                          ranks: int) -> float:
+    """An MoE train step's flops a rank as tests/test_torch_moe_dryrun.py
+    counts them: 8 a weight a token for the dense weights (attention,
+    router, shared expert), the experts' three products at their capacity
+    (groups x padded experts x C slots), the dispatch (3 products) and
+    combine (4) over groups x tokens x slots x d_model, attention's S x S
+    products, and 6 a weight a token for the unembedding."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+    cfg = configs.get(arch)
+    m = cfg.moe
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    ep = moe.padded_experts(m, tp)
+    dense = 2 * d * hq * hd + 2 * d * hkv * hd + d * ep
+    if m.n_shared:
+        dense += 3 * d * m.d_shared + d
+    g = m.group_size
+    cap = max(math.ceil(g * m.top_k * m.capacity_factor / m.n_experts),
+              m.top_k)
+    slots = (tokens // g) * ep * cap
+    layer = (8 * dense * tokens + 8 * 3 * d * m.d_expert * slots
+             + 2 * (3 + 4) * slots * g * d
+             + 4 * (4 * seq * seq * hq * hd) * (tokens // seq))
+    return (cfg.n_layers * layer
+            + 6 * d * cfg.padded_vocab(tp) * tokens) / ranks
+
+
+def dryrun_cells_main(cells: str, out: str) -> int:
+    """A helper process (--dryrun-cells ARCH:STRATEGY,...): each train_4k
+    cell of the dry run at 16 x 16 on the host CPU (meta tensors, a fake
+    world), one after another, written to `out` by cell with its largest
+    ops, torch's release and its wall."""
+    import pickle
     import torch
     from repro_torch.launch import dryrun
-    arch, shape = SHARDED_DRYRUN
+    os.nice(10)
+    torch.set_num_threads(1)
+    res = {}
+    for cell in cells.split(","):
+        arch, strategy = cell.split(":")
+        t0 = time.perf_counter()
+        by_op: dict = {}
+        r = dryrun.run_cell(arch, SHARDED_DRYRUN[1], multi_pod=False,
+                            strategy_kind=strategy, by_op=by_op)
+        res[arch, strategy] = {**dataclasses.asdict(r),
+                               "by_op": list(by_op.items()),
+                               "torch": torch.__version__,
+                               "wall": time.perf_counter() - t0}
+    pathlib.Path(out).write_bytes(pickle.dumps(res))
+    return 0
+
+
+def sharded_dryrun(helpers: dict) -> dict:
+    """Phase 32(d): the dry run's train_4k cells at 16 x 16 (phi4-mini
+    under its default strategy; granite-moe and qwen2-moe under "auto"
+    and fsdp), run by a helper process started at the top: each ok, with
+    all-gathers and reduce-scatters counted, its flops a rank within
+    DRYRUN_FLOP_RTOL of the model's count."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
     t0 = time.perf_counter()
-    by_op: dict = {}
-    res = dryrun.run_cell(arch, shape, multi_pod=False, by_op=by_op)
-    wall = time.perf_counter() - t0
-    coll = res.collectives or {}
-    say(f"  (d) the dry run, {arch} x {shape} at {res.mesh} (torch "
-        f"{torch.__version__}): ok {res.ok} in {wall:.1f} s; flops a rank "
-        f"{res.flops_per_device:.6g}, bytes a rank "
-        f"{res.bytes_per_device:.6g}, collectives {coll.get('_counts')}, "
-        f"memory {res.memory}; params {res.params_total:.6g} "
-        f"({res.params_active:.6g} active)")
-    require(res.ok, f"(d) the dry-run cell failed: {res.error[:2000]}")
-    spec = dryrun.SHAPES[shape]
-    want = train_model_flops(arch, spec["seq"], res.tokens, 256)
-    ratio = res.flops_per_device / want
-    say(f"    the model's count {want:.6g} flops a rank; the cell's "
-        f"{ratio:.4f} of it (within {DRYRUN_FLOP_RTOL:.0%} required)")
-    for op, flops in list(by_op.items())[:DRYRUN_TOP_OPS]:
-        say(f"      {flops:.6g} flops a rank: {op}")
-    require(res.flops_per_device > 0
-            and coll["_counts"].get("all-gather", 0) > 0
-            and coll["_counts"].get("reduce-scatter", 0) > 0,
-            "(d) the dry-run cell counted no flops, or no all-gather or "
-            "reduce-scatter")
-    require(abs(ratio - 1.0) <= DRYRUN_FLOP_RTOL,
-            f"(d) the dry-run cell's flops a rank {res.flops_per_device:.6g} "
-            f"are {ratio:.4f} of the model's {want:.6g}")
-    return {"dryrun_s": wall, "dryrun_ratio": ratio}
+    out = {}
+    cells = collect_helper(helpers["dryrun"])
+    for arch, strategy in DRYRUN_CELLS:
+        res = cells[arch, strategy]
+        coll = res["collectives"] or {}
+        cfg = configs.get(arch)
+        kind = (dryrun.pick_strategy_kind(cfg, "train")
+                if strategy == "auto" else strategy)
+        say(f"  (d) the dry run, {arch} x {res['shape']} under {strategy} "
+            f"({kind}) at {res['mesh']} (torch {res['torch']}): ok "
+            f"{res['ok']} in {res['wall']:.1f} s in the helper; flops a "
+            f"rank {res['flops_per_device']:.6g}, bytes a rank "
+            f"{res['bytes_per_device']:.6g}, collectives "
+            f"{coll.get('_counts')}, memory {res['memory']}; params "
+            f"{res['params_total']:.6g} ({res['params_active']:.6g} "
+            f"active)")
+        require(res["ok"], f"(d) the dry-run cell {arch} x {strategy} "
+                           f"failed: {res['error'][:2000]}")
+        spec = dryrun.SHAPES[res["shape"]]
+        tp = 16 if kind == "2d" else 1
+        want = (moe_train_model_flops(arch, tp, spec["seq"], res["tokens"],
+                                      256) if cfg.moe else
+                train_model_flops(arch, spec["seq"], res["tokens"], 256))
+        ratio = res["flops_per_device"] / want
+        say(f"    the model's count {want:.6g} flops a rank; the cell's "
+            f"{ratio:.4f} of it (within {DRYRUN_FLOP_RTOL:.0%} required)")
+        for op, flops in res["by_op"][:DRYRUN_TOP_OPS]:
+            say(f"      {flops:.6g} flops a rank: {op}")
+        require(res["flops_per_device"] > 0
+                and coll["_counts"].get("all-gather", 0) > 0
+                and coll["_counts"].get("reduce-scatter", 0) > 0,
+                f"(d) the dry-run cell {arch} x {strategy} counted no "
+                f"flops, or no all-gather or reduce-scatter")
+        require(abs(ratio - 1.0) <= DRYRUN_FLOP_RTOL,
+                f"(d) the dry-run cell {arch} x {strategy}'s flops a rank "
+                f"{res['flops_per_device']:.6g} are {ratio:.4f} of the "
+                f"model's {want:.6g}")
+        out[arch, strategy] = (res["flops_per_device"], ratio, res["wall"])
+    say(f"    (d) waited {time.perf_counter() - t0:.1f} s for the cells' "
+        f"helper")
+    return {"dryrun": out}
 
 
 def sharded_attention_times(card, dev) -> dict:
@@ -5247,6 +5369,304 @@ def coo_phase(card: str, dev, sms: int, p_full, lp_full, probs8, lps8,
             "add_ns": times["add_ns"]}
 
 
+HELPERS: list = []                   # start_helper's processes
+
+
+def start_helper(label: str, args: list[str], root: pathlib.Path) -> dict:
+    """A process of this script in a helper mode (`args`), writing its
+    result to a file under `root` and its output to a log beside it."""
+    tag = re.sub(r"[^A-Za-z0-9_.-]", "_", label)
+    out, log = root / f"{tag}.pkl", root / f"{tag}.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), *args,
+             "--helper-out", str(out)], stdout=f, stderr=subprocess.STDOUT)
+    HELPERS.append(proc)
+    return {"label": label, "proc": proc, "out": out, "log": log,
+            "deadline": time.monotonic() + HELPER_TIMEOUT_S}
+
+
+def start_helpers() -> dict:
+    """Phase 32(d)'s dry-run cells and phase 34's host CPU runs of the
+    examples, each set in one helper process (two processes, one thread
+    each, niced: the phases before them run host work of their own),
+    started together at the top so that their host time overlaps the
+    card's phases."""
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-helpers-"))
+    cells = ",".join(f"{a}:{s}" for a, s in DRYRUN_CELLS)
+    names = ",".join(n for n in EXAMPLES
+                     if n not in ("serve_batch", "train_lm"))
+    return {"dryrun": start_helper("dryrun", ["--dryrun-cells", cells],
+                                   root),
+            "examples": start_helper("examples", ["--example-cpu", names],
+                                     root)}
+
+
+def collect_helper(h: dict):
+    """A helper's result, once it has exited (killed at its deadline);
+    raises naming its exit code and the end of its log if it failed."""
+    import pickle
+    if "result" in h:
+        return h["result"]
+    proc = h["proc"]
+    try:
+        proc.wait(timeout=max(h["deadline"] - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    if proc.returncode != 0 or not h["out"].exists():
+        raise AssertionError(f"helper {h['label']} exited with "
+                             f"{proc.returncode}:\n"
+                             f"{h['log'].read_text()[-4000:]}")
+    h["result"] = pickle.loads(h["out"].read_bytes())
+    return h["result"]
+
+
+def stop_helpers() -> None:
+    """Kill every helper process still running."""
+    for proc in HELPERS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def load_example(name: str):
+    """examples_torch/<name>.py as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(name: str, device: str, backend: str | None,
+                tmp: pathlib.Path | None = None):
+    """One example's run at phase 34's sizes, printing as it runs
+    (train_lm checkpoints under `tmp`)."""
+    mod = load_example(name)
+    kw = dict(EXAMPLE_SIZES[name])
+    if backend is not None:
+        return mod.run(device, backend, **kw)
+    if name == "train_lm":
+        kw["ckpt_dir"] = tmp / f"train_lm_{device}"
+    return mod.run(device, **kw)
+
+
+def example_numbers(name: str, out):
+    """The numbers an example's run printed (its output less "results")."""
+    if isinstance(out, dict):
+        return {k: (v.tolist() if hasattr(v, "tolist") else v)
+                for k, v in out.items() if k != "results"}
+    return list(out)
+
+
+def example_cpu_main(names: str, out: str) -> int:
+    """A helper process (--example-cpu NAME,...): each example's runs of
+    phase 34 on the host CPU, under each of its lowerings, one after
+    another, written to `out` by name."""
+    import pickle
+    import torch
+    os.nice(10)
+    torch.set_num_threads(1)
+    res = {name: {b: example_numbers(name, run_example(name, "cpu", b))
+                  for b in EXAMPLE_BACKENDS.get(name, (None,))}
+           for name in names.split(",")}
+    pathlib.Path(out).write_bytes(pickle.dumps(res))
+    return 0
+
+
+def numbers_differ(got, want, rtol: float, where: str = "") -> list[str]:
+    """Where two runs' printed numbers differ: floats by more than rtol of
+    the larger and EXAMPLE_ATOL (rtol 0: bitwise), anything else
+    unequal."""
+    import numpy as np
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            return [f"{where}: keys differ"]
+        return [m for k in want
+                for m in numbers_differ(got[k], want[k], rtol,
+                                        f"{where}/{k}")]
+    if isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            return [f"{where}: {len(got)} != {len(want)} entries"]
+        return [m for i, (a, b) in enumerate(zip(got, want))
+                for m in numbers_differ(a, b, rtol, f"{where}[{i}]")]
+    if isinstance(want, (float, np.floating)):
+        a, b = float(got), float(want)
+        if a == b or (math.isnan(a) and math.isnan(b)) or (
+                rtol and abs(a - b) <= max(rtol * max(abs(a), abs(b)),
+                                           EXAMPLE_ATOL)):
+            return []
+        return [f"{where}: {a!r} != {b!r}"]
+    return [] if got == want else [f"{where}: {got!r} != {want!r}"]
+
+
+def certify_example(name: str, out) -> int:
+    """Certify every schedule an example's run returned; the number
+    certified."""
+    from repro_torch.core import verify
+    import numpy as np
+    if name in ("serve_batch", "train_lm"):
+        return 0
+    n = 0
+    for r in out["results"]:
+        if name == "online_arrivals":
+            require(all(e.feasible for e in r.epochs),
+                    f"{name}: an epoch is not feasible")
+            n += len(r.epochs)
+        elif name == "coflow_schedule":
+            sent = r.share.sum(axis=(1, 2))
+            require(np.allclose(sent, 1.0, atol=1e-6) and r.share.min()
+                    >= -1e-9, f"{name}: a bucket's shares sum to "
+                              f"{sent.min()}..{sent.max()}")
+            n += 1
+        else:
+            p, res = r
+            verify.check_schedule(p, res.schedule).assert_ok(name)
+            n += 1
+    return n
+
+
+def greedy_tokens_hold(arch: str, card_tokens, dev) -> str:
+    """serve_batch's tokens on the card against the host CPU's greedy
+    decode of the same weights (drawn on the card by serve.build, copied
+    to the host): equal at every step up to a row's first step whose
+    CPU greedy choice is not exact (its logit leads the next by
+    GREEDY_EXACT_PLACES bf16 places or fewer); the rows' report."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.runtime import steps
+    kw = {**load_example("serve_batch").run.__kwdefaults__,
+          **EXAMPLE_SIZES["serve_batch"]}
+    B, P, G = kw["batch"], kw["prompt_len"], kw["gen"]
+    cfg = configs.get(arch, smoke=True)
+    drawn, inputs = serve.build(cfg, B, P, 0, dev)
+    cpu = torch.device("cpu")
+    model = transformer.Transformer(cfg, generator=torch.Generator(),
+                                    device=cpu)
+    model.load_state_dict({k: v.cpu() for k, v in
+                           drawn.state_dict().items()})
+    inputs = {k: v.cpu() for k, v in inputs.items()}
+    # serve.generate's greedy loop, keeping each step's two largest logits
+    pos0 = P + serve.prefix_len(cfg)
+    prefill = steps.make_prefill_step(cfg, impl="kernel", max_len=pos0 + G)
+    decode = steps.make_decode_step(cfg, impl="kernel")
+    logits, caches = prefill(model, inputs)
+    toks, tops = [], []
+    for i in range(G):
+        if i:
+            logits, caches = decode(model, caches, toks[-1][:, None],
+                                    pos0 + i - 1, None)
+        toks.append(torch.argmax(logits[:, -1], dim=-1))
+        tops.append(logits[:, -1].float().topk(2, dim=-1).values)
+    cpu_tokens = torch.stack(toks, dim=1).numpy()
+    top2 = torch.stack(tops, dim=1)
+    rows = []
+    for b in range(B):
+        for j in range(G):
+            lead = float(top2[b, j, 0] - top2[b, j, 1])
+            place = 2.0 ** (math.floor(math.log2(max(
+                abs(float(top2[b, j, 0])), 1e-30))) - 7)
+            if card_tokens[b, j] != cpu_tokens[b, j]:
+                require(lead <= GREEDY_EXACT_PLACES * place,
+                        f"serve_batch {arch} row {b} step {j}: the card "
+                        f"chose {card_tokens[b, j]}, the CPU "
+                        f"{cpu_tokens[b, j]}, whose logit leads by "
+                        f"{lead:.4g} ({lead / place:.1f} bf16 places)")
+                rows.append(f"row {b} equal to step {j}, then a near tie "
+                            f"({lead / place:.1f} places)")
+                break
+        else:
+            rows.append(f"row {b} equal at all {G} steps")
+    return "; ".join(rows)
+
+
+def compare_examples(card_runs: dict, helpers: dict, dev) -> None:
+    """Phase 34's checks of the card's runs against the host CPU's (each
+    example's helper): the printed numbers within METRIC_RTOL under
+    "pallas" (where they differ more, phase 20's order rule: the CPU run
+    summing each row in the kernel's order must give the card's numbers
+    bitwise), bitwise under "xla"; serve_batch's tokens by
+    greedy_tokens_hold; train_lm's losses, one a step, finite (the
+    launcher draws its weights on the device, so no CPU run trains the
+    same draw; phase 28 holds training to the CPU)."""
+    import numpy as np
+    for (arch, toks) in card_runs["serve_batch", None].items():
+        say(f"    serve_batch {arch}: {greedy_tokens_hold(arch, toks, dev)}")
+    losses = card_runs["train_lm", None]
+    say(f"    train_lm: losses {losses}")
+    require(len(losses) == EXAMPLE_SIZES["train_lm"]["steps"]
+            and np.isfinite(losses).all(), f"train_lm's losses {losses}")
+    for name in EXAMPLES:
+        if name in ("serve_batch", "train_lm"):
+            continue
+        for backend, want in collect_helper(
+                helpers["examples"])[name].items():
+            got = example_numbers(name, card_runs[name, backend])
+            if backend == "xla":
+                off = numbers_differ(got, want, 0.0)
+                rule = "bitwise the CPU's"
+            else:
+                off = numbers_differ(got, want, METRIC_RTOL)
+                rule = f"within {METRIC_RTOL:g} of the CPU's"
+                if off:
+                    say(f"    {name}/{backend}: off the CPU's ("
+                        f"{'; '.join(off[:4])}); the CPU run in the "
+                        f"kernel's summation order")
+                    with in_kernel_order():
+                        ko = example_numbers(name, run_example(
+                            name, "cpu", backend))
+                    off = numbers_differ(got, ko, 0.0)
+                    rule = "bitwise the CPU's in the kernel's order"
+            say(f"    {name}{'/' + backend if backend else ''}: "
+                f"{rule}: {not off}")
+            require(not off, f"{name} ({backend}) off the CPU: {off[:10]}")
+
+
+def examples_phase(card: str, dev, helpers: dict) -> dict:
+    """Phase 34: each example's run at EXAMPLE_SIZES on the card, under
+    each lowering it takes, every schedule certified, held to the host
+    CPU by compare_examples; the launch counts of the four kernels reset
+    before the runs and read after."""
+    from repro_torch.kernels import ops
+    say(f"[34] the seven examples (examples_torch/) on the card ({card})")
+    t_phase = time.perf_counter()
+    ops.PDHG_BURST_LAUNCHES = 0
+    ops.PDHG_COO_LAUNCHES = 0
+    ops.FLASH_ATTENTION_LAUNCHES = 0
+    ops.RGLRU_SCAN_LAUNCHES = 0
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-examples-"))
+    card_runs, walls, certs = {}, {}, 0
+    try:
+        for name in EXAMPLES:
+            for backend in EXAMPLE_BACKENDS.get(name, (None,)):
+                t0 = time.perf_counter()
+                out = run_example(name, "cuda", backend, tmp)
+                walls[name, backend] = time.perf_counter() - t0
+                certs += certify_example(name, out)
+                card_runs[name, backend] = out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {"pdhg_burst": ops.PDHG_BURST_LAUNCHES,
+                "pdhg_coo_burst": ops.PDHG_COO_LAUNCHES,
+                "flash_attention": ops.FLASH_ATTENTION_LAUNCHES,
+                "rglru_scan": ops.RGLRU_SCAN_LAUNCHES}
+    card_s = time.perf_counter() - t_phase
+    say(f"  the card's runs: {card_s:.1f} s ("
+        + ", ".join(f"{n}{'/' + b if b else ''} {w:.1f}"
+                    for (n, b), w in walls.items())
+        + f"); {certs} schedules certified; launches {launches}")
+    require(all(v > 0 for v in launches.values()),
+            f"phase 34 did not launch every kernel: {launches}")
+    compare_examples(card_runs, helpers, dev)
+    wall = time.perf_counter() - t_phase
+    say(f"    phase 34: {wall:.1f} s ({card_s:.1f} s of the card's runs)")
+    return {"launches": launches, "wall": wall}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep-out", default="",
@@ -5260,9 +5680,17 @@ def main(argv=None) -> int:
     ap.add_argument("--shard-world", type=int, default=0,
                     help=argparse.SUPPRESS)
     ap.add_argument("--shard-dir", default="", help=argparse.SUPPRESS)
+    # phase 32(d)'s and phase 34's helpers (see start_helpers)
+    ap.add_argument("--dryrun-cells", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--example-cpu", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--helper-out", default="", help=argparse.SUPPRESS)
     opts = ap.parse_args(argv)
     if opts.placement_cpu:
         return placement_cpu_cell(opts.placement_cpu)
+    if opts.dryrun_cells:
+        return dryrun_cells_main(opts.dryrun_cells, opts.helper_out)
+    if opts.example_cpu:
+        return example_cpu_main(opts.example_cpu, opts.helper_out)
     if opts.shard_rank >= 0:
         return shard_rank_main(opts.shard_rank, opts.shard_world,
                                opts.shard_dir)
@@ -5284,6 +5712,7 @@ def main(argv=None) -> int:
     from repro_torch.runtime import steps
 
     t_start = time.perf_counter()
+    helpers = start_helpers()
     # -- phase 1: card -----------------------------------------------------
     card = card_line()
     say(f"[1] card: {card}")
@@ -6242,7 +6671,7 @@ def main(argv=None) -> int:
 
     # -- phase 32: the sharded steps --------------------------------------
     t_phase = time.perf_counter()
-    sharded = sharded_phase(card, dev, shard_results)
+    sharded = sharded_phase(card, dev, shard_results, helpers)
     fa_launches += sharded["serve_launches"] + sharded["rank_launches"]
     fa_max_err = max(fa_max_err, sharded["tp_err"])
     say(f"    flash_attention launches through the DTensor wrapper: "
@@ -6253,6 +6682,9 @@ def main(argv=None) -> int:
     # -- phase 33: the COO lowering ----------------------------------------
     coo_entry = coo_phase(card, dev, sms, p_full, lp_full, probs8, lps8,
                           paper_fp32, library_ms, library8_ms)
+
+    # -- phase 34: the examples ---------------------------------------------
+    examples_phase(card, dev, helpers)
 
     kernels = {"kernels": [{
         "name": "pdhg_burst", "route": "cuda", "source": SOURCE,
@@ -6292,4 +6724,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_helpers()

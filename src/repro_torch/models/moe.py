@@ -6,8 +6,9 @@ C = max(ceil(g * top_k * cf / E), top_k) tokens, in token order, and the
 (token, k) pairs past an expert's capacity are dropped, as in the
 reference.
 
-The dispatch `disp` and combine `comb` tensors (n, g, E, C) go into the
-reference's einsums with the tokens and the experts' outputs.  The
+The dispatch `disp` and combine `comb` tensors (n, g, E, C) meet the
+tokens and the experts' outputs in the reference's einsums, written
+here as batched matmuls (`MoE.forward`).  The
 reference builds them from a one-hot (n, g, K, E, C + 1) of every
 (token, k)'s slot, 1.35 GB in bf16 at granite's prefill; here each kept
 (token, k) pair writes its 1 and its bf16 gate at (token, expert, slot)
@@ -34,8 +35,8 @@ import math
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate
 
-from .common import (CastWeights, ModelConfig, MoEConfig, einsum, init_normal,
-                     matmul, shard)
+from .common import (CastWeights, ModelConfig, MoEConfig, init_normal, matmul,
+                     shard)
 from .mlp import sigmoid, silu
 
 
@@ -176,14 +177,18 @@ class MoE(CastWeights):
                                  shard(logits, "batch", None, None))
         return route_logits(self.cfg.moe, logits)
 
-    def experts(self, xin: torch.Tensor) -> torch.Tensor:
-        """The expert FFNs on their queues xin (n, E, C, D)."""
-        dt = xin.dtype
-        gate = einsum("necd,edf->necf", xin, self.weight("w_gate", dt))
-        up = einsum("necd,edf->necf", xin, self.weight("w_up", dt))
-        h = shard(silu(gate) * up, "batch", "experts", None, None)
-        return shard(einsum("necf,efd->necd", h, self.weight("w_down", dt)),
-                     "batch", "experts", None, None)
+    def experts(self, xe: torch.Tensor) -> torch.Tensor:
+        """The expert FFNs on their queues xe (E, n * C, D): each expert's
+        slots of every group in one row, so each product is a bmm over the
+        experts whose summed dim (D, then F) is whole on every rank."""
+        dt = xe.dtype
+
+        def w(name):
+            return shard(self.weight(name, dt), "experts", None, None)
+        gate = matmul(xe, w("w_gate"))
+        up = matmul(xe, w("w_up"))
+        h = shard(silu(gate) * up, "experts", "batch", None)
+        return shard(matmul(h, w("w_down")), "experts", "batch", None)
 
     def dispatch(self, r: Routing, dtype: torch.dtype):
         """The dispatch and combine tensors (n, g, E, C) of routing r,
@@ -219,7 +224,16 @@ class MoE(CastWeights):
         return disp.to(dtype), comb.to(dtype)
 
     def forward(self, x: torch.Tensor):
-        """x: (B, S, D) -> (out (B, S, D), aux)."""
+        """x: (B, S, D) -> (out (B, S, D), aux).
+
+        The reference's three einsums are written as bmm of laid-out
+        operands: dispatch (n, E * C, g) @ (n, g, D), the experts over E,
+        and combine (n, g, E * C) @ (n, E * C, D).  Every reshape keeps a
+        split dim first among the dims it merges (the experts ahead of
+        their slots, the groups ahead of theirs), which DTensor can lay
+        out in every torch release.  The combine sums its K non-zero
+        terms a token in expert order (the reference's einsum: slot
+        order); with top-2 the two orders give the same bits."""
         B, S, D = x.shape
         dt = x.dtype
         xt = self.groups(x)
@@ -230,15 +244,26 @@ class MoE(CastWeights):
                                              r.probs.placements,
                                              run_check=False)
                           for t in (disp, comb))
-        disp = shard(disp, "batch", None, "experts", None)
-        comb = shard(comb, "batch", None, "experts", None)
-        xin = shard(einsum("ngec,ngd->necd", disp, xt),
-                    "batch", "experts", None, None)
-        out = einsum("ngec,necd->ngd", comb, self.experts(xin))
+        n, g, ep, cap = disp.shape
+        disp, comb = (shard(t, "batch", None, "experts", None)
+                      .reshape(n, g, ep * cap) for t in (disp, comb))
+        xt = shard(xt, "batch", None, None)
+        xin = matmul(disp.transpose(1, 2), xt)                # (n, EC, D)
+        xe = shard(xin.reshape(n, ep, cap, D).transpose(0, 1)
+                   .reshape(ep, n * cap, D), "experts", "batch", None)
+        y = self.experts(xe).reshape(ep, n, cap, D).transpose(0, 1)
+        y = shard(y.reshape(n, ep * cap, D), "batch", "experts", None)
+        out = matmul(comb, y)
         if self.cfg.moe.n_shared:
-            sg = matmul(xt, self.weight("shared_gate", dt))
-            su = matmul(xt, self.weight("shared_up", dt))
-            sh = matmul(silu(sg) * su, self.weight("shared_down", dt))
+            # laid out as the MLP's products (models/mlp.py), and so
+            # their gradients: left to DTensor, the down weight's
+            # gradient was taken whole on every "model" rank under "2d"
+            sg = shard(matmul(xt, self.weight("shared_gate", dt)),
+                       "batch", None, "mlp")
+            su = shard(matmul(xt, self.weight("shared_up", dt)),
+                       "batch", None, "mlp")
+            sh = matmul(shard(silu(sg) * su, "batch", None, "mlp"),
+                        self.weight("shared_down", dt))
             mix = sigmoid(matmul(xt, self.weight("shared_mix", dt)))
             out = out + mix * sh
         return shard(out.reshape(B, S, D), "batch", "seq", "embed"), r.aux

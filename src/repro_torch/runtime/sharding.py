@@ -39,6 +39,7 @@ import math
 
 import torch
 import torch.distributed as dist
+from torch._prims_common import make_contiguous_strides_for
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
@@ -338,7 +339,10 @@ class _Pinned(torch.autograd.Function):
     gradient may lie in any layout of x's global shape).  DTensor's own
     redistribute hands it back in x's layout instead, and a Partial x
     then gets a Replicate gradient, which the products before take
-    whole."""
+    whole.  The gradient's shard is handed on contiguous: torch 2.11's
+    DTensor can hand one laid out in another order than the DTensor's
+    strides say (attention's einsum backward, under "2d"), and a view of
+    it then fails on the shard."""
 
     @staticmethod
     def forward(ctx, x, mesh, placements):
@@ -347,7 +351,14 @@ class _Pinned(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return grad.redistribute(ctx.mesh, ctx.placements), None, None
+        grad = grad.redistribute(ctx.mesh, ctx.placements)
+        local = grad.to_local()
+        if not local.is_contiguous():
+            grad = DTensor.from_local(
+                local.contiguous(), ctx.mesh, ctx.placements,
+                run_check=False, shape=grad.shape,
+                stride=make_contiguous_strides_for(grad.shape))
+        return grad, None, None
 
 
 def install_sharder(strategy: Strategy | None) -> None:

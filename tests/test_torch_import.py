@@ -18,7 +18,8 @@ from repro_torch.core import solver, timeslot, topology, traffic
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "attention_tiles.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "attention_tiles.py"] + sorted(
+    (ROOT / "examples_torch").glob("*.py"))
 
 
 def test_import_leaves_jax_and_repro_out():

@@ -566,6 +566,116 @@ def dryrun_mlp_products() -> list:
     return seen
 
 
+MOE_DRYRUN_CELLS = (("granite_moe_1b_a400m", "auto"),
+                    ("granite_moe_1b_a400m", "fsdp"),
+                    ("qwen2_moe_a2_7b", "auto"),
+                    ("qwen2_moe_a2_7b", "fsdp"))
+
+
+def _flattens_a_split_dim(t, shape) -> bool:
+    """Whether viewing DTensor `t` as `shape` merges a group of dims in
+    which a dim other than the group's first is sharded: the views torch
+    2.11's DTensor refuses ("Attempted to flatten multiple dimensions,
+    with dimension d being sharded")."""
+    import math
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor._ops._view_ops import Flatten, view_groups
+    shape = list(shape)
+    if -1 in shape:
+        shape[shape.index(-1)] = t.numel() // -math.prod(shape)
+    split = {p.dim for p in t.placements if isinstance(p, Shard)}
+    return any(isinstance(g, Flatten)
+               and any(d.input_dim in split for d in g.input_dims[1:])
+               for g in view_groups(list(t.shape), shape))
+
+
+def moe_dryrun_cases(n_layers: int) -> dict:
+    """The dry run's MoE train_4k cells (MOE_DRYRUN_CELLS) at 16 x 16,
+    full width, their configs cut to `n_layers` layers in this process
+    only.  Every view, _unsafe_view and reshape the step asks of a
+    DTensor (forward, remat recompute and backward) is recorded: the
+    number made inside an MoE block's forward, and each one that merges
+    a sharded dim other than the first of its group.  Returns each
+    cell's CellResult fields with "views_in_moe" and "bad_views"."""
+    import dataclasses
+    from torch.distributed.tensor import DTensor
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.models import moe
+    get = configs.get
+    views = (torch.ops.aten.view.default, torch.ops.aten._unsafe_view.default,
+             torch.ops.aten.reshape.default)
+    seen = {"in_moe": 0, "views_in_moe": 0, "bad_views": []}
+    counted = dryrun.RankCounter.__torch_dispatch__
+    forward = moe.MoE.forward
+
+    def recording(self, func, types, args=(), kwargs=None):
+        if func in views and isinstance(args[0], DTensor):
+            seen["views_in_moe"] += seen["in_moe"] > 0
+            if _flattens_a_split_dim(args[0], args[1]):
+                seen["bad_views"].append(
+                    f"{func} {tuple(args[0].shape)} "
+                    f"{list(args[0].placements)} -> {list(args[1])} "
+                    f"(backward: {torch._C._current_graph_task_id() != -1})")
+        return counted(self, func, types, args, kwargs)
+
+    def moe_forward(self, x):
+        seen["in_moe"] += 1
+        try:
+            return forward(self, x)
+        finally:
+            seen["in_moe"] -= 1
+
+    cells = {}
+    configs.get = lambda name, smoke=False: (
+        get(name, smoke) if smoke
+        else dataclasses.replace(get(name), n_layers=n_layers))
+    dryrun.RankCounter.__torch_dispatch__ = recording
+    moe.MoE.forward = moe_forward
+    try:
+        for arch, strategy in MOE_DRYRUN_CELLS:
+            seen.update(views_in_moe=0, bad_views=[])
+            res = dryrun.run_cell(arch, "train_4k", multi_pod=False,
+                                  strategy_kind=strategy)
+            cells[f"{arch}/{strategy}"] = {
+                **dataclasses.asdict(res),
+                "views_in_moe": seen["views_in_moe"],
+                "bad_views": seen["bad_views"][:20]}
+    finally:
+        configs.get = get
+        dryrun.RankCounter.__torch_dispatch__ = counted
+        moe.MoE.forward = forward
+    return cells
+
+
+def pinned_gradient_case(store_dir: str) -> dict:
+    """A gradient handed to runtime.sharding's `shard` pin with its shard
+    laid out transposed, as torch 2.11's DTensor hands attention's under
+    "2d", on a 1 x 1 gloo world joined through a FileStore: whether the
+    gradient that reaches x has a contiguous shard, and its values."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.runtime import sharding
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(store_dir, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = lmesh.make_host_mesh((1, 1), ("data", "model"))
+        pl = (Shard(0), Replicate())
+        x = DTensor.from_local(torch.zeros(3, 4), mesh, pl,
+                               run_check=False).requires_grad_() + 0
+        seen = []
+        x.register_hook(seen.append)       # the gradient the pin hands on
+        g = torch.arange(12.0).reshape(4, 3).t()
+        sharding._Pinned.apply(x, mesh, pl).backward(
+            DTensor.from_local(g, mesh, pl, run_check=False))
+        got = seen[0].to_local()
+        return {"given_contiguous": g.is_contiguous(),
+                "contiguous": got.is_contiguous(),
+                "equal": bool(torch.equal(got, g))}
+    finally:
+        dist.destroy_process_group()
+
+
 def staged_case(rank: int, world: int, payload) -> list:
     """The collectives that chip_smoke.py's host_staged mode stages (it
     stages those of CUDA tensors; on the CPU it passes them on), as it is
