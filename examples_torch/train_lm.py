@@ -4,9 +4,9 @@ straggler monitoring.
 
 The port's counterpart of examples/train_lm.py.  It drives
 repro_torch.launch.train (the einsum path under autograd; no kernel has
-a backward) and checkpoints to /tmp/repro_torch_train_lm, not the
-reference's /tmp/repro_train_lm: the two checkpoint formats must not
-meet on a resume.
+a backward) and checkpoints to repro_torch_train_lm under the temporary
+directory ($TMPDIR, else /tmp), not the reference's /tmp/repro_train_lm:
+the two checkpoint formats must not meet on a resume.
 
 Run:  PYTHONPATH=src python examples_torch/train_lm.py [--steps 200]
           [--device cpu]
@@ -15,17 +15,20 @@ Run:  PYTHONPATH=src python examples_torch/train_lm.py [--steps 200]
 pass.)
 """
 import argparse
+import os
+import tempfile
 
 from repro_torch.device import resolve
 from repro_torch.launch import train
 
-CKPT_DIR = "/tmp/repro_torch_train_lm"
+CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_torch_train_lm")
 
 
 def run(device="cuda", *, steps=200, d_model=512, n_layers=8, batch=8,
         seq=512, lr=1e-3, ckpt_dir=CKPT_DIR, ckpt_every=100,
-        log_every=10) -> list[float]:
-    """Train through the launcher; returns its losses, one a step."""
+        log_every=10, resume=False) -> list[float]:
+    """Train through the launcher; returns its losses, one a step.  With
+    `resume`, it starts from the newest checkpoint in `ckpt_dir`."""
     resolve(device)
     return train.main([
         "--arch", "phi4-mini-3.8b", "--smoke",
@@ -34,7 +37,7 @@ def run(device="cuda", *, steps=200, d_model=512, n_layers=8, batch=8,
         "--lr", str(lr), "--ckpt-dir", str(ckpt_dir),
         "--ckpt-every", str(ckpt_every), "--log-every", str(log_every),
         "--device", str(device),
-    ])
+    ] + (["--resume"] if resume else []))
 
 
 def main(argv=None) -> list[float]:

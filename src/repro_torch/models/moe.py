@@ -131,6 +131,12 @@ def route_sharded(moe: MoEConfig, logits: DTensor) -> Routing:
     return dataclasses.replace(r, probs=probs, counts=counts, aux=aux)
 
 
+def _splits(t: torch.Tensor, dim: int) -> bool:
+    """Whether DTensor `t` is sharded along `dim`."""
+    return isinstance(t, DTensor) and any(
+        p.is_shard(dim) for p in t.placements)
+
+
 class MoE(CastWeights):
     """router (d, E), w_gate and w_up (E, d, f), w_down (E, f, d); with a
     shared expert also shared_gate, shared_up (d, fs), shared_down (fs, d)
@@ -228,12 +234,13 @@ class MoE(CastWeights):
 
         The reference's three einsums are written as bmm of laid-out
         operands: dispatch (n, E * C, g) @ (n, g, D), the experts over E,
-        and combine (n, g, E * C) @ (n, E * C, D).  Every reshape keeps a
-        split dim first among the dims it merges (the experts ahead of
-        their slots, the groups ahead of theirs), which DTensor can lay
-        out in every torch release.  The combine sums its K non-zero
-        terms a token in expert order (the reference's einsum: slot
-        order); with top-2 the two orders give the same bits."""
+        and combine (n, g, C * E) @ (n, C * E, D).  The combine sums a
+        token's K terms in slot order, as torch.einsum of the reference's
+        "ngec,necd->ngd" does.  With the experts split over ranks it
+        takes (n, g, E * C) instead: every reshape then keeps a split dim
+        first among the dims it merges (the experts ahead of their slots,
+        the groups ahead of theirs), which DTensor lays out in every torch
+        release, and the terms are summed in expert order."""
         B, S, D = x.shape
         dt = x.dtype
         xt = self.groups(x)
@@ -246,14 +253,19 @@ class MoE(CastWeights):
                           for t in (disp, comb))
         n, g, ep, cap = disp.shape
         disp, comb = (shard(t, "batch", None, "experts", None)
-                      .reshape(n, g, ep * cap) for t in (disp, comb))
+                      for t in (disp, comb))
         xt = shard(xt, "batch", None, None)
-        xin = matmul(disp.transpose(1, 2), xt)                # (n, EC, D)
+        xin = matmul(disp.reshape(n, g, ep * cap).transpose(1, 2), xt)
         xe = shard(xin.reshape(n, ep, cap, D).transpose(0, 1)
                    .reshape(ep, n * cap, D), "experts", "batch", None)
-        y = self.experts(xe).reshape(ep, n, cap, D).transpose(0, 1)
-        y = shard(y.reshape(n, ep * cap, D), "batch", "experts", None)
-        out = matmul(comb, y)
+        y = self.experts(xe).reshape(ep, n, cap, D)
+        if _splits(comb, 2):
+            comb = comb.reshape(n, g, ep * cap)
+            y = y.transpose(0, 1).reshape(n, ep * cap, D)
+        else:
+            comb = comb.transpose(2, 3).reshape(n, g, cap * ep)
+            y = y.permute(1, 2, 0, 3).reshape(n, cap * ep, D)
+        out = matmul(comb, shard(y, "batch", "experts", None))
         if self.cfg.moe.n_shared:
             # laid out as the MLP's products (models/mlp.py), and so
             # their gradients: left to DTensor, the down weight's

@@ -28,13 +28,17 @@ DTensor.
   witness shows it by the views themselves.  Each cell's MoE blocks made
   views, so the witness saw them.
 - The MoE layer, unsharded on the CPU, is bitwise the reference's three
-  einsums (the form the port used before the bmm layout) at the smoke
-  configs' top-2: forward and every gradient.  The combine sums each
-  token's top-k terms in expert order; with two terms any order gives
-  the same bits.
+  einsums (the form the port used before the bmm layout), forward and
+  every gradient: at the smoke configs' top-2, and at the full configs'
+  expert count and top-k (granite's 32 and 8, qwen2's 60 and 4) in bf16
+  and in fp32.  fp32 shows the combine's summation order even at top-2
+  (each term is a fused multiply-add onto the last), so the fp32 cases
+  see a combine that sums a token's terms in another order than the
+  einsum's.
 """
+import dataclasses
+import importlib.util
 import json
-import math
 import os
 import pathlib
 import subprocess
@@ -47,6 +51,12 @@ from repro_torch import configs
 from repro_torch.models import common, moe, mlp
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+# chip_smoke.py's phase 32(d) holds the same cells at full depth to the
+# same count: one copy of it
+_spec = importlib.util.spec_from_file_location("chip_smoke",
+                                               ROOT / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 FLOP_RTOL = 0.10
 N_LAYERS = 2
 CELLS = ("granite_moe_1b_a400m/auto", "granite_moe_1b_a400m/fsdp",
@@ -70,28 +80,6 @@ def cells(tmp_path_factory):
     return json.loads((tmp / "out.json").read_text())
 
 
-def moe_model_flops(arch: str, tp: int, n_layers: int, S: int = 4096,
-                    T: int = 256 * 4096, ranks: int = 256) -> float:
-    """A train_4k step's flops a rank of an MoE config (module
-    docstring)."""
-    cfg = configs.get(arch)
-    m = cfg.moe
-    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    ep = moe.padded_experts(m, tp)
-    dense = 2 * d * hq * hd + 2 * d * hkv * hd + d * ep
-    if m.n_shared:
-        dense += 3 * d * m.d_shared + d
-    g = m.group_size
-    cap = max(math.ceil(g * m.top_k * m.capacity_factor / m.n_experts),
-              m.top_k)
-    slots = (T // g) * ep * cap
-    experts = 8 * 3 * d * m.d_expert * slots
-    dispatch_combine = 2 * (3 + 4) * slots * g * d
-    attention = 4 * (4 * S * S * hq * hd) * (T // S)
-    layer = 8 * dense * T + experts + dispatch_combine + attention
-    return (n_layers * layer + 6 * d * cfg.padded_vocab(tp) * T) / ranks
-
-
 @pytest.mark.parametrize("cell", CELLS)
 def test_moe_train_cell_runs(cells, cell):
     got = cells[cell]
@@ -107,7 +95,8 @@ def test_moe_train_cell_flops_are_one_ranks_share(cells, cell):
     arch, strategy = cell.split("/")
     got = cells[cell]
     tp = 16 if strategy == "auto" else 1      # MoE train picks "2d"
-    want = moe_model_flops(arch, tp, N_LAYERS)
+    want = chip_smoke.moe_train_model_flops(arch, tp, 4096, 256 * 4096, 256,
+                                            n_layers=N_LAYERS)
     assert abs(got["flops_per_device"] - want) <= FLOP_RTOL * want, \
         (got["flops_per_device"], want)
 
@@ -160,15 +149,31 @@ def _run(layer, forward, x):
         p.grad for _, p in sorted(layer.named_parameters())]
 
 
-@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "qwen2_moe_a2_7b"])
-def test_moe_layer_is_bitwise_the_einsum_form(arch):
-    cfg = configs.get(arch, smoke=True)
-    assert cfg.moe.top_k == 2
+def _assert_bitwise_the_einsum_form(cfg, dtype):
     g = torch.Generator().manual_seed(0)
     layer = moe.MoE(cfg, generator=g, device=torch.device("cpu"))
-    x = torch.randn(2, 64, cfg.d_model, generator=g).to(torch.bfloat16)
+    x = torch.randn(2, 64, cfg.d_model, generator=g).to(dtype)
     got = _run(layer, moe.MoE.forward, x)
     want = _run(layer, _einsum_forward, x)
     assert len(got) == len(want)
     for i, (a, b) in enumerate(zip(got, want)):
         assert (a is None and b is None) or torch.equal(a, b), i
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "qwen2_moe_a2_7b"])
+def test_moe_layer_is_bitwise_the_einsum_form(arch):
+    cfg = configs.get(arch, smoke=True)
+    assert cfg.moe.top_k == 2
+    _assert_bitwise_the_einsum_form(cfg, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "qwen2_moe_a2_7b"])
+def test_moe_layer_is_bitwise_the_einsum_form_at_full_top_k(arch, dtype):
+    """The smoke width with the full config's experts and top-k."""
+    full = configs.get(arch).moe
+    assert full.top_k >= 4
+    cfg = configs.get(arch, smoke=True)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_experts=full.n_experts, top_k=full.top_k))
+    _assert_bitwise_the_einsum_form(cfg, getattr(torch, dtype))
