@@ -29,9 +29,13 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      and one block an SM), its plain version, two CSR mat-vecs as a
      library yardstick, and the bound;
   7. build of the flash-attention kernel (phase 2): seconds, and each
-     template's registers and spills (the bf16 tensor-core kernel and the
-     fp32 SIMT kernel, one template per padded head dim);
-  8. attention kernel vs its plain version on the card: the grid of
+     template's registers and spills (the bf16 wgmma / TMA kernel, one
+     template per padded head dim, with its setmaxnreg split, and the fp32
+     SIMT kernel); no spills and no serialized wgmma in the bf16 kernel;
+  8. attention kernel vs its plain version on the card: first a layout
+     probe of the bf16 kernel on structured inputs at each padded head
+     dim, reporting apart whether S = Q K^T's or O = P V's layout is
+     wrong; then the grid of
      tests/test_kernels.py, a danube-shaped windowed case, the phi4 serving
      shape and recurrentgemma's (hd 256, one kv head, window 2048), a
      ragged S = T = 1000, two non-causal cases, hd 100 (zero-padded to
@@ -379,8 +383,8 @@ FA_CASES = [
 FA_DTYPES = ("float32", "bfloat16")
 SERVE_ARGS = ["--arch", "phi4-mini-3.8b", "--batch", "4", "--prompt-len",
               "2048", "--gen", "32", "--impl", "kernel"]
-# keys the negative control drops: the fp32 kernel's kv tile, two or more
-# of the bf16 kernel's (kernels/csrc/flash_attention.cu)
+# keys the negative control drops: the fp32 kernel's kv tile, half of the
+# bf16 kernel's at hd 128 (kernels/flash_attention.py::tile_plan)
 KV_TILE = 64
 # bf16 storage against fp32 (tests/test_precision.py): energy-objective
 # metrics within 1e-3, time-objective completion within 1.25x
@@ -1355,6 +1359,61 @@ def fa_drop_last_tile(q, k, v, window, cap):
     return fa_plain(q, k[:, :T], v[:, :T], window, cap)
 
 
+def attention_layout_probe(dev) -> list[str]:
+    """The bf16 kernel on structured inputs (B = 1, one head, S = T = 256)
+    at each padded head dim of its tile plan, before the full cases, with
+    the two products' layouts reported apart:
+      O = P V: q = 0 under the causal mask, so every score is 0 whatever
+        S's layout and row i weighs keys 0..i alike; v random, so out[i] =
+        mean(v[:i+1]), which a wrong P register layout, V descriptor or O
+        fragment moves;
+      S = Q K^T: no mask, q row i = 8 sqrt(hd) e_(i mod hd) and k row j =
+        e_(j mod hd), so row i favours the keys j = i (mod hd) by e^8; v
+        row j = j / 256 in every column, so out[i] says which keys won,
+        which a wrong Q or K descriptor moves.
+    Each is held to the plain version within FA_TOL; the worst element's
+    row and column are printed.  Returns the failures, "S" or "O" with
+    the head dim."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_attention as fa
+    bad = []
+    n = 256
+    for hd in sorted({fa.tile_plan(d).hdp for d in range(8, 257, 8)}):
+        g = torch.Generator(device=dev).manual_seed(hd)
+        i = torch.arange(n, device=dev)
+        eye = torch.nn.functional.one_hot(i % hd, hd).float()
+        cases = {
+            "O": (torch.zeros(1, n, 1, hd, device=dev),
+                  torch.randn(1, n, 1, hd, generator=g, device=dev),
+                  torch.randn(1, n, 1, hd, generator=g, device=dev), True),
+            "S": ((8 * hd ** 0.5 * eye)[None, :, None],
+                  eye[None, :, None],
+                  (i.float() / n)[None, :, None, None].expand(1, n, 1, hd)
+                  .contiguous(), False),
+        }
+        for what, (q, k, v, causal) in cases.items():
+            q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+            got = ops.flash_attention(q, k, v, causal=causal)
+            want = fa_plain(q, k, v, 0, 0.0, causal)
+            torch.cuda.synchronize()
+            atol, rtol = FA_TOL["bfloat16"]
+            rel = ((got.float() - want.float()).abs()
+                   / (atol + rtol * want.float().abs()))[0, :, 0]
+            worst = int(rel.argmax())
+            row, col = divmod(worst, hd)
+            ok = bool(torch.isfinite(got).all()) and float(rel.max()) <= 1.0
+            say(f"    layout probe hd {hd}, {what} = "
+                f"{'P V' if what == 'O' else 'Q K^T'}: "
+                f"{'ok' if ok else 'WRONG'}; worst |kernel-plain|/limit "
+                f"{float(rel.max()):.3f} at row {row}, column {col} (kernel "
+                f"{float(got[0, row, 0, col]):.5g}, plain "
+                f"{float(want[0, row, 0, col]):.5g})")
+            if not ok:
+                bad.append(f"{what} at hd {hd}")
+    return bad
+
+
 def fa_excess(got, want) -> float:
     """max over elements of |got - want| / (atol + rtol * |want|), with
     FA_TOL of want's dtype: at most 1 when got is within tolerance."""
@@ -1387,9 +1446,21 @@ def compare_attention(label, q, k, v, window, cap, causal) -> float:
     return err
 
 
-def ptxas_templates(log: str) -> list[str]:
+def setmaxnreg_split() -> tuple[int, int]:
+    """(producer, consumer) registers a thread that the bf16 attention
+    kernel's setmaxnreg asks for (kProducerRegs, kConsumerRegs in its
+    source)."""
+    from repro_torch.kernels import build
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    return tuple(int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
+                 for n in ("kProducerRegs", "kConsumerRegs"))
+
+
+def ptxas_templates(log: str, split: tuple | None = None) -> list[str]:
     """One line per compiled kernel template from nvcc's -Xptxas -v log:
-    its name and template arguments, registers, and spill bytes."""
+    its name and template arguments, registers (at entry), and spill
+    bytes; with `split` (setmaxnreg_split()), the bf16 wgmma templates also
+    name the registers their producer and consumers run with."""
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -1405,7 +1476,9 @@ def ptxas_templates(log: str) -> list[str]:
             spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            out.append(f"{name}: {m.group(1)} registers, {spills}")
+            regs = (f", setmaxnreg {split[0]} (producer) / {split[1]} "
+                    f"(consumers)" if split and "wgmma" in name else "")
+            out.append(f"{name}: {m.group(1)} registers{regs}, {spills}")
             name = None
     return out
 
@@ -3086,7 +3159,7 @@ def zoo_phase(card: str) -> dict:
             f"is_causal, enable_gqa); bound {bound_ms:.6f} ms ({bound_by}: "
             f"{flop} flop at 989 TFLOP/s bf16, {nbytes} B at 3.35 TB/s); "
             f"{flop / ms * 1e-9:.3f} TFLOP/s, {ms / bound_ms:.3f}x its bound,"
-            f" {ms / lib_ms:.3f}x the library; max|kernel-plain| {err:.3e}")
+            f" {ms / lib_ms:.3f}x SDPA; max|kernel-plain| {err:.3e}")
     return {"launches": launches}
 
 
@@ -5936,15 +6009,24 @@ def main(argv=None) -> int:
     say(f"[7] built flash_attention.cu in {fa_info['seconds']:.3f} s "
         f"(started with the others in phase 2) -> "
         f"{pathlib.Path(fa_info['library']).name}")
-    templates = ptxas_templates(fa_info["log"])
+    templates = ptxas_templates(fa_info["log"], setmaxnreg_split())
     for line in templates:
         say(f"    ptxas: {line}")
-    require(len(templates) == 10 or not fa_info["log"],
-            f"expected 10 attention templates (5 bf16, 5 fp32) in the "
+    require(len(templates) == 8 or not fa_info["log"],
+            f"expected 8 attention templates (3 bf16, 5 fp32) in the "
             f"ptxas log, found {len(templates)}")
+    wgmma_lines = [t for t in templates if "wgmma" in t]
+    require(all("spill stores 0 B" in t for t in wgmma_lines),
+            "the bf16 attention kernel spills registers")
+    require("C7512" not in fa_info["log"] and "C7508" not in fa_info["log"],
+            "ptxas serialized the bf16 attention kernel's wgmma or ignored "
+            "its setmaxnreg")
 
     # -- phase 8: attention kernel vs plain version ------------------------
     say("[8] attention kernel vs plain version on the card")
+    bad_layout = attention_layout_probe(dev)
+    require(not bad_layout, f"layout probe: the bf16 kernel's "
+                            f"{', '.join(bad_layout)} laid out wrong")
     fa_errs = []
     for seed, (name, B, S, H, Hkv, hd, window, cap, causal) in enumerate(
             FA_CASES):
@@ -6040,6 +6122,12 @@ def main(argv=None) -> int:
                                          enable_gqa=True), 10)
     fa_bound_ms, fa_bound_by, fa_bytes, fa_flop = attention_bound(
         4, 2048, 24, 8, 128, 0, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        ops.flash_attention(q, k, v)
+    fa_host_us = (time.perf_counter() - t0) / 20 * 1e6
+    torch.cuda.synchronize()
     del q, k, v, qt, kt, vt
     say(f"    attention kernel {fa_ms:.6f} ms a launch (q (4, 2048, 24, 128),"
         f" k/v (4, 2048, 8, 128), bf16, causal; median of 3 runs of 10)")
@@ -6051,7 +6139,10 @@ def main(argv=None) -> int:
     say(f"    useful work      {fa_flop / fa_ms * 1e-9:.3f} TFLOP/s (the "
         f"bound's flop over the kernel's time); the kernel takes "
         f"{fa_ms / fa_bound_ms:.3f}x its bound and {fa_ms / fa_lib_ms:.3f}x "
-        f"the library's time")
+        f"SDPA's time")
+    say(f"    host time        {fa_host_us:.3f} us a call (the wrapper, three "
+        f"tensor-map encodes and the launch, 20 calls queued behind the "
+        f"card)")
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -6534,7 +6625,7 @@ def main(argv=None) -> int:
         f"{rfa_flop} flop at 989 TFLOP/s bf16, {rfa_bytes} B at 3.35 TB/s)")
     say(f"    attention useful work {rfa_flop / rfa_ms * 1e-9:.3f} TFLOP/s; "
         f"the kernel takes {rfa_ms / rfa_bound_ms:.3f}x its bound and "
-        f"{rfa_ms / rfa_lib_ms:.3f}x the library's time")
+        f"{rfa_ms / rfa_lib_ms:.3f}x SDPA's time")
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()

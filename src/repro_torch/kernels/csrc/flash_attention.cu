@@ -14,7 +14,8 @@
 // and write out (B, S, H, hd): no transposes and no padding of hd in device
 // memory (the reference's wrapper transposes to (B*H, S, hd) and pads hd to
 // 128).  hd is any multiple of 8 up to 256; inside the block it is padded
-// with zeros in shared memory to HDP (16, 32, 64, 128 or 256).
+// with zeros in shared memory to HDP (fp32: 16, 32, 64, 128 or 256; bf16:
+// 64, 128 or 256).
 //
 // What bounds it at the main-path shape (phi4-mini-3.8b prefill: q (4, 2048,
 // 24, 128), k / v (4, 2048, 8, 128), bf16, causal): 4*B*H*S*T*hd/2 = 1.03e11
@@ -26,30 +27,43 @@
 //
 // Two entries, chosen by the input dtype (never as a fallback):
 //
-// bf16, flash_fwd_tc (the served path: models serve in bf16).  Both products
-// run on the tensor cores as mma.sync.m16n8k16 (bf16 in, fp32 accumulate),
-// operands brought from shared memory by ldmatrix.  One block of 4 warps
-// owns 64 query rows (16 a warp, kept as the m16 of the product); K and V
-// tiles of BKV keys stream through a two-stage ring filled by cp.async, so
-// tile j+1's load overlaps tile j's math, with one barrier a tile.  Rows of
-// shared memory are padded by 16 bytes, so ldmatrix's eight row reads fall
-// in distinct banks.  mma.sync is synchronous in the warp, so what hides
-// its latency and the softmax between the products is other warps: the
-// tiles are sized for three or four resident blocks an SM, and a warp
-// skips a tile that is wholly masked for its own 16 rows.
-//   * S = Q K^T: products of bf16 values are exact in fp32.  Scale, softcap,
-//     mask, the row max, p = exp(s - m_new) (ex2 of scores kept times
-//     log2 e) and l run in fp32 registers on the accumulator fragment (4
-//     lanes share a row); l is summed from the fp32 p.
+// bf16, flash_fwd_wgmma (the served path: models serve in bf16), the
+// Hopper form: warp-specialized, TMA loads and asynchronous warpgroup
+// products.  A persistent grid of one block an SM walks the items (b, h,
+// 128 query rows), heaviest first.  A block is three warpgroups: one
+// producer thread keeps TMA loads in flight (each item's Q, then the K and
+// V tiles of BKV keys into a ring of STAGES slots, each slot with a full
+// and an empty mbarrier for K and for V, so that S = Q K^T can start
+// before V lands; the ring runs on across items, so the next item's first
+// tiles load while the last one finishes), and two consumer warpgroups
+// each own 64 rows, the M of wgmma.m64nNk16.  setmaxnreg hands the
+// producer's registers to the consumers (24 and 240 a thread).  The TMA reads q (B, S, H, hd) and
+// k / v (B, T, Hkv, hd) through 4-D tensor maps over the tensors as they
+// lie, in boxes of 64 columns (128 bytes) under the 128-byte swizzle, so a
+// row of HDP = 64, 128 or 256 columns is HDP / 64 column blocks in shared
+// memory; columns past hd and rows past S or T arrive as zeros.
+//   * S = Q K^T: wgmma with both operands in shared memory (K-major,
+//     descriptors with the TMA's swizzle), N = BKV.  bf16 products are
+//     exact in fp32.  Scale, softcap, mask (only on tiles that cross the
+//     diagonal, the window's edge or T), the row max, p = exp(s - m_new)
+//     (ex2 of scores kept times log2 e) and l run in fp32 registers on
+//     the accumulator fragment (4 lanes share a row); l is summed from the
+//     fp32 p.
 //   * O += P V as two bf16 products, hi . V + lo . V with hi = bf16(p) and
 //     lo = bf16(p - hi), summed in fp32: p keeps 16 significant bits, where
 //     a single rounding of p to bf16 would move the output by several bf16
 //     places.  The split costs 1.5x the useful tensor work.  The S
-//     fragment is already P's A-operand layout, so P never touches shared
-//     memory; V feeds ldmatrix.trans in its stored (T, hd) layout.
-// This is the mma.sync form, not the faster wgmma/TMA form (a producer warp
-// with TMA and mbarriers, warpgroup products): that is the next step.
-//
+//     accumulator fragment is already the register A operand's layout, so
+//     P never touches shared memory; V is the B operand in its stored
+//     (T, hd) layout through the descriptor's transpose bit, one
+//     m64n64k16 product a 64-column block.
+//   * Overlap inside a consumer: tile j's S = Q K^T and tile j-1's P V are
+//     in flight together, and tile j's softmax runs under tile j-1's P V;
+//     O's rescale waits for that product.
+// The tile plan (HDP, BKV, STAGES, shared bytes) comes from the caller
+// (kernels/flash_attention.py::tile_plan); FA_WGMMA_TEMPLATES lists the
+// plans built.
+
 // fp32, flash_fwd_simt: the exact form of the first port, every product and
 // sum on the fp32 FMA units.  One block of 256 threads per (b * h, 64-row
 // query tile); 64-row kv tiles staged in shared memory; the 64 x HDP
@@ -65,6 +79,7 @@
 // i.e. no weight at all, and ragged rows are masked in the kernel.  No
 // atomics and no split over kv: two runs are bitwise equal.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -286,60 +301,217 @@ cudaError_t launch_simt(int B, int S, int Tk, int H, int Hkv, int hd,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 entry: the tensor-core kernel
+// bf16 entry: the warp-specialized wgmma / TMA kernel
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-constexpr int kTcWarps = 4;
-constexpr int kTcThreads = 32 * kTcWarps;
-constexpr int kTcBQ = 16 * kTcWarps;  // query rows a block, 16 a warp
-constexpr int kStages = 2;            // K/V tiles in the copy ring
+constexpr int kWg = 128;                  // threads of a warpgroup
+constexpr int kConsumers = 2;             // consumer warpgroups a block
+constexpr int kTcBQ = 64 * kConsumers;    // query rows a block, 64 a consumer
+constexpr int kTcThreads = kWg * (kConsumers + 1);  // + the producer
+constexpr int kAtom = 64;                 // bf16 columns of one 128-byte row
+constexpr int kProducerRegs = 24;         // setmaxnreg: 128 x 24 + 256 x 240
+constexpr int kConsumerRegs = 240;        //   <= the SM's 65,536 registers
 constexpr float kLog2e = 1.4426950408889634f;
+// tries of a barrier wait before the kernel traps (each try may suspend
+// the thread for a while): seconds, where any wait of a working launch
+// lasts microseconds
+constexpr int kWaitTries = 1 << 24;
+
+// The shared memory of one block, from a base aligned to 1024 bytes (the
+// 128-byte swizzle repeats every 8 rows of 128 bytes): Q, the K ring, the
+// V ring, then the barriers.  A tile of R rows x HDP columns is stored as
+// HDP / 64 column blocks of R rows x 128 bytes, each as TMA's 128-byte
+// swizzle writes it.  kernels/flash_attention.py::tile_plan computes the
+// same bytes; the entry refuses a plan that disagrees.
+template <int HDP, int BKV, int STAGES>
+struct TcLayout {
+  static constexpr int kQBytes = kTcBQ * HDP * 2;
+  static constexpr int kTileBytes = BKV * HDP * 2;  // one K or one V tile
+  static constexpr int kK = kQBytes;
+  static constexpr int kV = kK + STAGES * kTileBytes;
+  static constexpr int kBar = kV + STAGES * kTileBytes;
+  // q_full, q_empty, then k_full, k_empty, v_full, v_empty for each stage
+  static constexpr int kBars = 2 + 4 * STAGES;
+  static constexpr int kSmem = 1024 + kBar + 8 * kBars;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, asynchronously; zeros when !valid
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// one arrival that also expects `bytes` of TMA writes before the phase ends
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed.  The loop is
+// PTX alone (a loop in C++ around try_wait, with a clock, costs the
+// consumers registers and serializes their wgmma); after kWaitTries
+// unsuccessful tries, a phase or byte count that never completes, it traps
+// rather than hang the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.ge.u32 p, n, %2;\n"
+      "@p trap;\n"
+      "bra WAIT;\n"
+      "DONE:\n}\n" ::"r"(bar),
+      "r"(parity), "n"(kWaitTries)
+      : "memory");
+}
+
+// TMA: the box at (c0, c1, c2, c3) of a 4-D tensor map -> shared memory,
+// completing `bar`'s expected bytes; out-of-range elements arrive as zeros
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
+// address, leading byte offset (between 64-column blocks; read only for an
+// MN-major operand wider than 64), stride byte offset 1024 (between groups
+// of 8 rows of 128 bytes), swizzle mode 1 (128 bytes)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// all but the last committed group
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// registers an asynchronous wgmma writes or reads: no access to them may
+// move across this point (the compiler sees the asm as done at issue)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// d (+)= A B, A (64 x 16) and B (16 x 64) both from shared memory,
+// K-major, 128-byte swizzle; d is zeroed first when !accumulate
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// the same with B 16 x 128
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int accumulate);
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  wgmma_ss_n64(d, a, b, accumulate);
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  wgmma_ss_n128(d, a, b, accumulate);
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+// d += A B, A (64 x 16) from registers in the accumulator's layout, B
+// (16 x 64) from shared memory, MN-major (the transpose bit), 128-byte
+// swizzle
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d += a . b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
@@ -362,278 +534,459 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// rows [row0, row0 + ROWS) of a (len, n_heads, hd) bf16 sequence -> rows of
-// LD bf16 in shared memory, 16 bytes a copy; rows past `len` and columns
-// past hd are zero-filled
-template <int ROWS, int HDP, int LD>
-__device__ __forceinline__ void load_rows_async(bf16* dst,
-                                                const bf16* __restrict__ src,
-                                                int64_t row_stride, int row0,
-                                                int len, int hd) {
-  constexpr int kChunks = HDP / 8;                // 16-byte copies a row
-  constexpr int kRowStep = kTcThreads / kChunks;  // rows a pass
-  static_assert(kTcThreads % kChunks == 0 && ROWS % kRowStep == 0,
-                "whole rows a pass, whole passes a tile");
-  // a thread copies the same column of rows r, r + kRowStep, ...
-  const int c = threadIdx.x % kChunks, r = threadIdx.x / kChunks;
-  const bool col_ok = c * 8 < hd;
-  const bf16* g = src + (int64_t)(row0 + r) * row_stride + c * 8;
-  const uint32_t d = smem_u32(dst + r * LD + c * 8);
-#pragma unroll
-  for (int n = 0; n < ROWS / kRowStep; ++n) {
-    const bool ok = col_ok && row0 + r + n * kRowStep < len;
-    cp_async16(d + n * kRowStep * LD * (int)sizeof(bf16),
-               ok ? g + n * kRowStep * row_stride : src, ok);
-  }
+// The work: items (b, h, query tile of kTcBQ rows), heaviest first (the
+// last query tiles have the most kv tiles under a causal mask), each block
+// walking its share in place of a grid of one block an item.
+struct Work {
+  int S, Tk, H, Hkv, causal, window, n_items, n_qt;
+};
+
+struct Item {
+  int b, h, q0;
+};
+
+// item i of the heaviest-first order: query tiles from the last, then the
+// (b, h) pairs
+__device__ __forceinline__ Item item_at(const Work& w, int i) {
+  const int bh = i % (w.n_items / w.n_qt);
+  const int qt = w.n_qt - 1 - i / (w.n_items / w.n_qt);
+  return {bh / w.H, bh % w.H, qt * kTcBQ};
 }
 
-// grid (B * H, query tiles): x walks the heads, y the query tiles from the
-// last (the most kv tiles under a causal mask) to the first.  Warp w owns
-// rows q0 + 16 w .. q0 + 16 w + 15.  K/V tiles of BKV keys pass through a
-// ring of kStages stages.  MINB blocks an SM bound the registers: the
-// kernel waits on its own loads and barriers, so resident warps are what
-// hides that latency.
-template <int HDP, int BKV, int MINB>
-__global__ void __launch_bounds__(kTcThreads, MINB)
-    flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out, int S,
-                 int Tk, int H, int Hkv, int hd, int causal, int window,
-                 float cap, float scale) {
-  constexpr int LD = HDP + 8;   // bf16 row stride: 16-byte shift a row
-  constexpr int NDB = HDP / 8;  // n8 blocks of the output row
-  constexpr int NKB = BKV / 8;  // n8 blocks of the score row
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kTcBQ][LD]
-  bf16* ks = qs + kTcBQ * LD;                     // [kStages][BKV][LD]
-  bf16* vs = ks + kStages * BKV * LD;             // [kStages][BKV][LD]
+// block k's r-th item: rounds of gridDim.x items, dealt in a snake (block
+// k takes k in even rounds, gridDim.x - 1 - k in odd ones) so that the
+// heavy first rounds even out; -1 past the end
+__device__ __forceinline__ int item_of(int k, int r, int n_items) {
+  const int g = gridDim.x;
+  const int i = r * g + ((r & 1) ? g - 1 - k : k);
+  return i < n_items ? i : -1;
+}
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;  // fragment row group, column pair
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int hk = h / (H / Hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcBQ;
-  const int64_t q_stride = (int64_t)H * hd;
-  const int64_t k_stride = (int64_t)Hkv * hd;
-  const bf16* qb = q + ((int64_t)b * S * H + h) * hd;
-  const bf16* kb = k + ((int64_t)b * Tk * Hkv + hk) * hd;
-  const bf16* vb = v + ((int64_t)b * Tk * Hkv + hk) * hd;
-
-  // the kv tiles [j_lo, j_hi) not wholly above the diagonal or wholly
-  // outside the window for the block's rows
-  const int q_last = min(q0 + kTcBQ, S) - 1;
-  int j_hi = (Tk + BKV - 1) / BKV;
-  if (causal) j_hi = min(j_hi, q_last / BKV + 1);
-  int j_lo = 0;
-  if (window > 0) {
-    const int first = q0 - window - BKV + 2;  // tile j is in iff j*BKV >= it
+// the kv tiles [j_lo, j_hi) not wholly above the diagonal or wholly
+// outside the window for rows [r0, r_last]
+__device__ __forceinline__ void tile_range(const Work& w, int BKV, int r0,
+                                           int r_last, int& j_lo,
+                                           int& j_hi) {
+  j_hi = (w.Tk + BKV - 1) / BKV;
+  if (w.causal) j_hi = min(j_hi, r_last / BKV + 1);
+  j_lo = 0;
+  if (w.window > 0) {
+    const int first = r0 - w.window - BKV + 2;  // tile j is in iff j*BKV >= it
     if (first > 0) j_lo = (first + BKV - 1) / BKV;
   }
-  // the same for this warp's rows: a tile it skips is masked in all of
-  // them (exact, as for the block)
-  const int wq0 = q0 + 16 * warp;
-  const int wq_last = min(wq0 + 16, S) - 1;
+  j_lo = min(j_lo, j_hi);
+}
 
-  // copy groups: Q with tile j_lo, then one a tile (empty past j_hi)
-  auto load_kv = [&](int j, int stage) {
-    if (j < j_hi) {
-      load_rows_async<BKV, HDP, LD>(ks + stage * BKV * LD, kb, k_stride,
-                                    j * BKV, Tk, hd);
-      load_rows_async<BKV, HDP, LD>(vs + stage * BKV * LD, vb, k_stride,
-                                    j * BKV, Tk, hd);
+// A persistent grid of at most one block an SM.  Warpgroups 0 ..
+// kConsumers-1 each own 64 query rows of the block's item (warp w of a
+// warpgroup rows 16w .. 16w+15, the wgmma's M); warpgroup kConsumers is the
+// producer, of which one thread issues every TMA load.  The ring runs on
+// across items, so the next item's Q and first tiles load while the
+// consumers finish the last one.
+template <int HDP, int BKV, int STAGES>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    bf16* __restrict__ out, const Work w, int hd, float cap,
+                    float scale) {
+  using L = TcLayout<HDP, BKV, STAGES>;
+  constexpr int NCB = HDP / kAtom;  // 64-column blocks of a row
+  constexpr int NKC = BKV / 16;     // k16 chunks of a kv tile
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base, k_s = base + L::kK, v_s = base + L::kV;
+  const uint32_t q_full = base + L::kBar, q_empty = q_full + 8;
+  auto k_full = [&](int s) { return q_full + 8u * (2 + s); };
+  auto k_empty = [&](int s) { return q_full + 8u * (2 + STAGES + s); };
+  auto v_full = [&](int s) { return q_full + 8u * (2 + 2 * STAGES + s); };
+  auto v_empty = [&](int s) { return q_full + 8u * (2 + 3 * STAGES + s); };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, kConsumers * kWg);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(k_empty(s), kConsumers * kWg);
+      mbar_init(v_full(s), 1);
+      mbar_init(v_empty(s), kConsumers * kWg);
     }
-    cp_async_commit();
-  };
-  load_rows_async<kTcBQ, HDP, LD>(qs, qb, q_stride, q0, S, hd);
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) load_kv(j_lo + i, i);
-
-  float acc[NDB][4];
-#pragma unroll
-  for (int n = 0; n < NDB; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-  // scores are kept times log2(e), so p = 2^(y - m).  Per thread: rows
-  // q_row ([0]) and q_row + 8 ([1]); m is the row's max of y, l this
-  // thread's part of the row sum (summed over the row's 4 lanes at the end)
-  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.0f, 0.0f};
-  const int q_row = wq0 + g;
-  const float scale2 = scale * kLog2e;
-  // ldmatrix row addresses: lane l supplies row l % 8 of matrix l / 8
-  const int lrow = lane & 7, lm = lane >> 3;
-  const bf16* q_frag =
-      qs + (16 * warp + lrow + 8 * (lm & 1)) * LD + 8 * (lm >> 1);
-
-  for (int j = j_lo, st = 0; j < j_hi;
-       ++j, st = st + 1 < kStages ? st + 1 : 0) {
-    cp_async_wait<kStages - 2>();  // tile j has landed (stage st)
-    // tile j is visible to every warp, and every warp is done with tile
-    // j-1, whose stage now takes tile j+kStages-1: that load overlaps the
-    // math of tiles j .. j+kStages-2
-    __syncthreads();
-    load_kv(j + kStages - 1, st > 0 ? st - 1 : kStages - 1);
-    const int k0 = j * BKV;
-    if (wq0 >= S || (causal && k0 > wq_last) ||
-        (window > 0 && wq0 - (k0 + BKV - 1) >= window))
-      continue;
-    const bf16* kt = ks + st * BKV * LD;
-    const bf16* vt = vs + st * BKV * LD;
-
-    // S = Q K^T on the tensor cores (exact products, fp32 sums)
-    float s[NKB][4];
-#pragma unroll
-    for (int n = 0; n < NKB; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
-#pragma unroll
-    for (int kc = 0; kc < HDP / 16; ++kc) {
-      if (16 * kc >= hd) break;  // zero columns of the padding
-      uint32_t a[4];
-      ldmatrix_x4(a, smem_u32(q_frag + 16 * kc));
-#pragma unroll
-      for (int nb = 0; nb < NKB; nb += 2) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, smem_u32(kt + (8 * nb + lrow + 8 * (lm >> 1)) * LD +
-                                 16 * kc + 8 * (lm & 1)));
-        mma_bf16(s[nb], a, bk[0], bk[1]);
-        mma_bf16(s[nb + 1], a, bk[2], bk[3]);
-      }
-    }
-
-    // scale, softcap, then the mask (the reference's order); element e of
-    // s[nb] is row q_row + 8 (e / 2), key k0 + 8 nb + 2 t + e % 2
-    const bool edge = (causal && k0 + BKV - 1 > wq0) ||
-                      (window > 0 && wq_last - k0 >= window) || k0 + BKV > Tk;
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nb = 0; nb < NKB; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float y;
-        if (cap != 0.0f)
-          y = cap * tanhf(s[nb][e] * scale / cap) * kLog2e;
-        else
-          y = s[nb][e] * scale2;
-        if (edge) {
-          const int qi = q_row + 8 * (e >> 1);
-          const int ki = k0 + 8 * nb + 2 * t + (e & 1);
-          bool keep = true;
-          if (causal) keep = keep && qi >= ki;
-          if (window > 0) keep = keep && (qi - ki) < window;
-          y = keep ? y : kNegInf;
-          if (ki >= Tk) y = -INFINITY;  // no such key: weight exactly 0
-        }
-        s[nb][e] = y;
-        mx[e >> 1] = fmaxf(mx[e >> 1], y);
-      }
-
-    // online softmax in fp32: the 4 lanes of a row group share its max
-    float alpha[2];
-    bool moved = false;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float x = mx[r];
-      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-      const float m_new = fmaxf(m_r[r], x);
-      const bool up = m_new != m_r[r];
-      alpha[r] = up ? fast_exp2(m_r[r] - m_new) : 1.0f;
-      moved = moved || up;
-      m_r[r] = m_new;
-      l_r[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int nb = 0; nb < NKB; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = fast_exp2(s[nb][e] - m_r[e >> 1]);
-        s[nb][e] = p;
-        l_r[e >> 1] += p;
-      }
-    if (__any_sync(0xffffffffu, moved)) {  // alpha is 1 where no max moved
-#pragma unroll
-      for (int n = 0; n < NDB; ++n) {
-        acc[n][0] *= alpha[0];
-        acc[n][1] *= alpha[0];
-        acc[n][2] *= alpha[1];
-        acc[n][3] *= alpha[1];
-      }
-    }
-
-    // O += hi . V + lo . V: blocks 2kc and 2kc+1 of S are the A operand of
-    // key chunk kc; V (keys x hd) is read transposed by ldmatrix
-#pragma unroll
-    for (int kc = 0; kc < BKV / 16; ++kc) {
-      uint32_t ph[4], pl[4];
-      split_bf16(s[2 * kc][0], s[2 * kc][1], ph[0], pl[0]);
-      split_bf16(s[2 * kc][2], s[2 * kc][3], ph[1], pl[1]);
-      split_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1], ph[2], pl[2]);
-      split_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3], ph[3], pl[3]);
-#pragma unroll
-      for (int nd = 0; nd < NDB; nd += 2) {
-        if (8 * nd >= hd) break;  // zero columns of the padding
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, smem_u32(vt + (16 * kc + lrow + 8 * (lm & 1)) *
-                                               LD + 8 * nd + 8 * (lm >> 1)));
-        mma_bf16(acc[nd], ph, bv[0], bv[1]);
-        mma_bf16(acc[nd + 1], ph, bv[2], bv[3]);
-        mma_bf16(acc[nd], pl, bv[0], bv[1]);
-        mma_bf16(acc[nd + 1], pl, bv[2], bv[3]);
-      }
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_wait<0>();  // no copy may outlive the block
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWg;
+  if (wg == kConsumers) {
+    // ---- producer: per item Q, then K and V of each tile into the ring ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x % kWg == 0) {
+      int it = 0;  // tiles through the ring so far
+      for (int r = 0, i; (i = item_of(blockIdx.x, r, w.n_items)) >= 0; ++r) {
+        const Item m = item_at(w, i);
+        const int hk = m.h / (w.H / w.Hkv);
+        int j_lo, j_hi;
+        tile_range(w, BKV, m.q0, min(m.q0 + kTcBQ, w.S) - 1, j_lo, j_hi);
+        // Q once the consumers are done with the last item's
+        auto load_q = [&] {
+          if (r > 0) mbar_wait(q_empty, (r - 1) & 1);
+          mbar_expect_tx(q_full, L::kQBytes);
+#pragma unroll
+          for (int c = 0; c < NCB; ++c)
+            tma_load(q_s + c * kTcBQ * 128, &tm_q, q_full, c * kAtom, m.h,
+                     m.q0, m.b);
+        };
+        if (j_lo == j_hi) load_q();
+        for (int j = j_lo; j < j_hi; ++j, ++it) {
+          const int st = it % STAGES;
+          const uint32_t par = ((it / STAGES) & 1) ^ 1;  // the round before
+          mbar_wait(k_empty(st), par);
+          mbar_expect_tx(k_full(st), L::kTileBytes);
+#pragma unroll
+          for (int c = 0; c < NCB; ++c)
+            tma_load(k_s + st * L::kTileBytes + c * BKV * 128, &tm_k,
+                     k_full(st), c * kAtom, hk, j * BKV, m.b);
+          // the item's first K tile loads while the last item finishes
+          if (j == j_lo) load_q();
+          mbar_wait(v_empty(st), par);
+          mbar_expect_tx(v_full(st), L::kTileBytes);
+#pragma unroll
+          for (int c = 0; c < NCB; ++c)
+            tma_load(v_s + st * L::kTileBytes + c * BKV * 128, &tm_v,
+                     v_full(st), c * kAtom, hk, j * BKV, m.b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int ctid = threadIdx.x % kWg;
+    const int warp = ctid / 32, lane = ctid % 32;
+    const int g = lane / 4, t = lane % 4;  // fragment row group, column pair
+    const float scale2 = scale * kLog2e;
+    const uint32_t q_wg = q_s + wg * 64 * 128;  // its rows of each block
+
+    // O: column block c, n8 block nb, element e at row q_row + 8 (e / 2),
+    // column 64 c + 8 nb + 2 t + e % 2 (wgmma's accumulator layout)
+    float o[NCB][32];
+    // scores are kept times log2(e), so p = 2^(y - m); m is the row's max
+    // of y, l this thread's part of the row sum (summed over the row's 4
+    // lanes at the end)
+    float m_r[2], l_r[2];
+    // S = Q K^T of a tile: s[4 nb + e] is row q_row + 8 (e / 2), key 8 nb +
+    // 2 t + e % 2 of the tile; then p in place
+    float s[BKV / 2];
+    // P as the A operand of key chunk kc, p = hi + lo
+    uint32_t p_hi[NKC][4], p_lo[NKC][4];
+    float alpha[2];
+    bool rescale = false;
+
+    int it0 = 0;  // the ring position of the item's first tile
+    for (int r = 0, i; (i = item_of(blockIdx.x, r, w.n_items)) >= 0; ++r) {
+      const Item m = item_at(w, i);
+      const int wq0 = m.q0 + 64 * wg;  // the warpgroup's first row
+      const int wq_last = min(wq0 + 64, w.S) - 1;
+      const int q_row = wq0 + 16 * warp + g;  // rows q_row and q_row + 8
+      int j_lo, j_hi;
+      tile_range(w, BKV, m.q0, min(m.q0 + kTcBQ, w.S) - 1, j_lo, j_hi);
+      // the ring slot and parity of tile j
+      auto slot = [&](int j) { return (it0 + j - j_lo) % STAGES; };
+      auto parity = [&](int j) {
+        return (uint32_t)(((it0 + j - j_lo) / STAGES) & 1);
+      };
+      // a tile this warpgroup does not compute still takes part in the ring
+      auto pass = [&](int j) {
+        mbar_wait(k_full(slot(j)), parity(j));
+        mbar_arrive(k_empty(slot(j)));
+        mbar_wait(v_full(slot(j)), parity(j));
+        mbar_arrive(v_empty(slot(j)));
+      };
+      // S = Q K^T of tile j on the tensor cores (exact products, fp32
+      // sums), issued, not waited for
+      auto issue_s = [&](int j) {
+        const uint32_t kt = k_s + slot(j) * L::kTileBytes;
+        mbar_wait(k_full(slot(j)), parity(j));
+        wgmma_fence();
+#pragma unroll
+        for (int c = 0; c < NCB; ++c)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss<BKV>(s,
+                          sw128_desc(q_wg + c * kTcBQ * 128 + kk * 32, 16),
+                          sw128_desc(kt + c * BKV * 128 + kk * 32, 16),
+                          (c | kk) != 0);
+        wgmma_commit();
+      };
+      // O += hi . V + lo . V of tile j, issued: V (keys x hd) is read in
+      // its stored layout through the descriptor's transpose bit
+      auto issue_pv = [&](int j) {
+        const uint32_t vt = v_s + slot(j) * L::kTileBytes;
+        mbar_wait(v_full(slot(j)), parity(j));
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < NKC; ++kc)
+#pragma unroll
+          for (int c = 0; c < NCB; ++c) {
+            const uint64_t dv =
+                sw128_desc(vt + c * BKV * 128 + kc * 16 * 128, BKV * 128);
+            wgmma_rs_n64(o[c], p_hi[kc], dv);
+            wgmma_rs_n64(o[c], p_lo[kc], dv);
+          }
+        wgmma_commit();
+      };
+      auto pv_done = [&] {
+        wgmma_wait_all();
+#pragma unroll
+        for (int c = 0; c < NCB; ++c) fence_regs(o[c]);
+        fence_regs(p_hi);
+        fence_regs(p_lo);
+      };
+      // the online softmax of tile j on s, in fp32: scale, softcap, then
+      // the mask (the reference's order; the mask only on tiles that cross
+      // the diagonal, the window's edge or T), the row max over the row's
+      // 4 lanes, p = 2^(y - m) in s, l; O's rescale is left in alpha (O
+      // may be in flight)
+      auto softmax = [&](int j) {
+        const int k0 = j * BKV;
+        const bool edge = (w.causal && k0 + BKV - 1 > wq0) ||
+                          (w.window > 0 && wq_last - k0 >= w.window) ||
+                          k0 + BKV > w.Tk;
+        float mx[2] = {-INFINITY, -INFINITY};
+        if (cap == 0.0f && !edge) {
+#pragma unroll
+          for (int x = 0; x < BKV / 2; ++x) {
+            s[x] *= scale2;
+            mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], s[x]);
+          }
+        } else {
+#pragma unroll
+          for (int x = 0; x < BKV / 2; ++x) {
+            float y;
+            if (cap != 0.0f)
+              y = cap * tanhf(s[x] * scale / cap) * kLog2e;
+            else
+              y = s[x] * scale2;
+            if (edge) {
+              const int qi = q_row + 8 * ((x >> 1) & 1);
+              const int ki = k0 + 8 * (x >> 2) + 2 * t + (x & 1);
+              bool keep = true;
+              if (w.causal) keep = keep && qi >= ki;
+              if (w.window > 0) keep = keep && (qi - ki) < w.window;
+              y = keep ? y : kNegInf;
+              if (ki >= w.Tk) y = -INFINITY;  // no such key: weight 0
+            }
+            s[x] = y;
+            mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], y);
+          }
+        }
+        bool moved = false;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          float x = mx[q];
+          x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+          x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+          const float m_new = fmaxf(m_r[q], x);
+          const bool up = m_new != m_r[q];
+          alpha[q] = up ? fast_exp2(m_r[q] - m_new) : 1.0f;
+          moved = moved || up;
+          m_r[q] = m_new;
+          l_r[q] *= alpha[q];
+        }
+#pragma unroll
+        for (int x = 0; x < BKV / 2; ++x) {
+          const float p = fast_exp2(s[x] - m_r[(x >> 1) & 1]);
+          s[x] = p;
+          l_r[(x >> 1) & 1] += p;
+        }
+        rescale = __any_sync(0xffffffffu, moved);  // alpha is 1 elsewhere
+      };
+      auto rescale_o = [&] {
+        if (rescale) {
+#pragma unroll
+          for (int c = 0; c < NCB; ++c)
+#pragma unroll
+            for (int e = 0; e < 32; ++e) o[c][e] *= alpha[(e >> 1) & 1];
+        }
+      };
+      // n8 blocks 2 kc and 2 kc + 1 of S are already in the A fragment's
+      // layout for key chunk kc
+      auto split_p = [&] {
+#pragma unroll
+        for (int kc = 0; kc < NKC; ++kc)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            split_bf16(s[8 * kc + 2 * e], s[8 * kc + 2 * e + 1], p_hi[kc][e],
+                       p_lo[kc][e]);
+      };
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_r[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const int qi = q_row + 8 * r;
-    if (qi >= S) continue;
-    const float denom = fmaxf(l, 1e-30f);
-    bf16* orow = out + ((int64_t)b * S + qi) * q_stride + (int64_t)h * hd;
+      for (int c = 0; c < NCB; ++c)
 #pragma unroll
-    for (int n = 0; n < NDB; ++n) {
-      const int d = 8 * n + 2 * t;
-      if (d < hd)
-        *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
-            acc[n][2 * r] / denom, acc[n][2 * r + 1] / denom);
+        for (int e = 0; e < 32; ++e) o[c][e] = 0.0f;
+      m_r[0] = m_r[1] = kNegInf;
+      l_r[0] = l_r[1] = 0.0f;
+      // this warpgroup's tiles [a, z): those not wholly masked for its
+      // rows (a tile wholly masked changes nothing in them: exact, as for
+      // the block)
+      int a = j_hi, z = j_hi;
+      if (wq0 < w.S) tile_range(w, BKV, wq0, wq_last, a, z);
+      a = max(a, j_lo);
+      z = max(min(z, j_hi), a);
+      mbar_wait(q_full, r & 1);
+      for (int j = j_lo; j < a; ++j) pass(j);
+      if (a < z) {
+        issue_s(a);
+        wgmma_wait_all();
+        fence_regs(s);
+        mbar_arrive(k_empty(slot(a)));
+        softmax(a);
+        split_p();
+        // tile j's S = Q K^T and tile j-1's P V in flight together, and
+        // the softmax of tile j under tile j-1's P V
+        for (int j = a + 1; j < z; ++j) {
+          issue_s(j);
+          rescale_o();
+          issue_pv(j - 1);
+          wgmma_wait_one();
+          fence_regs(s);
+          mbar_arrive(k_empty(slot(j)));
+          softmax(j);
+          pv_done();
+          mbar_arrive(v_empty(slot(j - 1)));
+          split_p();
+        }
+        rescale_o();
+        issue_pv(z - 1);
+        pv_done();
+        mbar_arrive(v_empty(slot(z - 1)));
+      }
+      for (int j = z; j < j_hi; ++j) pass(j);
+      mbar_arrive(q_empty);  // the producer may load the next Q
+      it0 += j_hi - j_lo;
+
+      // out = O / max(l, 1e-30), rounded once, rows < S, columns < hd
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float l = l_r[q];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        const int qi = q_row + 8 * q;
+        if (qi >= w.S) continue;
+        const float denom = fmaxf(l, 1e-30f);
+        bf16* orow = out + (((int64_t)m.b * w.S + qi) * w.H + m.h) * hd;
+#pragma unroll
+        for (int c = 0; c < NCB; ++c)
+#pragma unroll
+          for (int nb = 0; nb < 8; ++nb) {
+            const int d = c * kAtom + 8 * nb + 2 * t;
+            if (d < hd)
+              *reinterpret_cast<__nv_bfloat162*>(orow + d) =
+                  __floats2bfloat162_rn(o[c][4 * nb + 2 * q] / denom,
+                                        o[c][4 * nb + 2 * q + 1] / denom);
+          }
+      }
     }
   }
 }
 
-template <int HDP, int BKV, int MINB>
-cudaError_t launch_tc(int B, int S, int Tk, int H, int Hkv, int hd,
-                      int causal, int window, float cap, float scale,
-                      const void* q, const void* k, const void* v, void* out,
-                      cudaStream_t stream) {
-  const size_t smem =
-      sizeof(bf16) * (size_t)(kTcBQ + 2 * kStages * BKV) * (HDP + 8);
+// cuTensorMapEncodeTiled, found through the runtime so that the library
+// needs no -lcuda; null when the driver has none
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a (B, len, heads, hd) bf16 tensor as a 4-D map (innermost first) read in
+// boxes of 64 columns x 1 head x `rows` positions, 128-byte swizzled; the
+// maps are encoded on the host at every launch (a few hundred ns each)
+bool encode_map(CUtensorMap* map, const void* ptr, int B, int len, int heads,
+                int hd, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)len, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
+                                 (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)len * heads * hd * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kAtom, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HDP, int BKV, int STAGES>
+cudaError_t launch_wgmma(int B, int S, int Tk, int H, int Hkv, int hd,
+                         int causal, int window, float cap, float scale,
+                         const void* q, const void* k, const void* v,
+                         void* out, cudaStream_t stream) {
+  using L = TcLayout<HDP, BKV, STAGES>;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!encode_map(&tm_q, q, B, S, H, hd, kTcBQ) ||
+      !encode_map(&tm_k, k, B, Tk, Hkv, hd, BKV) ||
+      !encode_map(&tm_v, v, B, Tk, Hkv, hd, BKV))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tc<HDP, BKV, MINB>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_wgmma<HDP, BKV, STAGES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (S + kTcBQ - 1) / kTcBQ);
-  flash_fwd_tc<HDP, BKV, MINB><<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), S, Tk, H, Hkv, hd,
-      causal, window, cap, scale);
+  int dev, sms;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  const int n_qt = (S + kTcBQ - 1) / kTcBQ;
+  const long long items = (long long)B * H * n_qt;
+  if (items > 0x7fffffff) return cudaErrorInvalidValue;
+  const Work w{S, Tk, H, Hkv, causal, window, (int)items, n_qt};
+  const int grid = (int)(items < sms ? items : sms);
+  flash_fwd_wgmma<HDP, BKV, STAGES><<<grid, kTcThreads, L::kSmem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<bf16*>(out), w, hd, cap, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (the SIMT kernel), 1 = bfloat16 (the tensor-core
-// kernel); q, k, v and out share it.  q, k, v and out are contiguous
-// (B, S, H, hd), (B, T, Hkv, hd), (B, T, Hkv, hd), (B, S, H, hd); for
-// bfloat16 each starts on a 16-byte boundary.  window 0 means no window.
-// Launches on `stream` and returns cudaGetLastError() (0 on success); the
-// caller checks shapes.
+// The bf16 templates built, as (HDP, BKV, STAGES): the plans that
+// kernels/flash_attention.py::tile_plan may name.
+#define FA_WGMMA_TEMPLATES(X) X(64, 128, 2) X(128, 128, 2) X(256, 64, 2)
+
+// dtype: 0 = float32 (the SIMT kernel), 1 = bfloat16 (the wgmma kernel);
+// q, k, v and out share it.  q, k, v and out are contiguous (B, S, H,
+// hd), (B, T, Hkv, hd), (B, T, Hkv, hd), (B, S, H, hd); for bfloat16 each
+// starts on a 16-byte boundary.  window 0 means no window.  For bfloat16,
+// (hdp, bq, bkv, stages, smem) is the tile plan of
+// kernels/flash_attention.py::tile_plan: a built template with these
+// parameters and these shared bytes, else cudaErrorInvalidValue; float32
+// ignores them.  Launches on `stream` and returns cudaGetLastError() (0 on
+// success); the caller checks shapes.
 extern "C" int flash_attention_fwd(int dtype, int B, int S, int Tk, int H,
                                    int Hkv, int hd, int causal, int window,
                                    float softcap, float scale, const void* q,
                                    const void* k, const void* v, void* out,
-                                   void* stream) {
+                                   void* stream, int hdp, int bq, int bkv,
+                                   int stages, int smem) {
   if (hd <= 0 || hd > 256 || hd % 8 != 0 || Hkv <= 0 || H % Hkv != 0 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
@@ -642,15 +995,15 @@ extern "C" int flash_attention_fwd(int dtype, int B, int S, int Tk, int H,
 #define FA_ARGS B, S, Tk, H, Hkv, hd, causal, window, softcap, scale, q, k, \
                 v, out, st
   if (dtype == 1) {
-    // (HDP, BKV, MINB): four blocks an SM up to hd 128 (128 registers a
-    // thread, 52 KB of shared memory at hd 128), three at hd 256 (16-key
-    // tiles, 68 KB): the fastest of the tile sizes timed on the H100 by
-    // tools/attention_tiles.py
-    if (hd <= 16) return (int)launch_tc<16, 64, 4>(FA_ARGS);
-    if (hd <= 32) return (int)launch_tc<32, 64, 4>(FA_ARGS);
-    if (hd <= 64) return (int)launch_tc<64, 64, 4>(FA_ARGS);
-    if (hd <= 128) return (int)launch_tc<128, 32, 4>(FA_ARGS);
-    return (int)launch_tc<256, 16, 3>(FA_ARGS);
+#define FA_PLAN(HDP_, BKV_, ST_)                                           \
+  if (hdp == HDP_ && bkv == BKV_ && stages == ST_)                         \
+    return hd <= HDP_ && bq == kTcBQ &&                                      \
+                   smem == TcLayout<HDP_, BKV_, ST_>::kSmem                \
+               ? (int)launch_wgmma<HDP_, BKV_, ST_>(FA_ARGS)               \
+               : (int)cudaErrorInvalidValue;
+    FA_WGMMA_TEMPLATES(FA_PLAN)
+#undef FA_PLAN
+    return (int)cudaErrorInvalidValue;
   }
   if (hd <= 16) return (int)launch_simt<1>(FA_ARGS);
   if (hd <= 32) return (int)launch_simt<2>(FA_ARGS);

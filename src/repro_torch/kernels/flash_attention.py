@@ -21,17 +21,63 @@ the card holds the CUDA kernel (kernels/csrc/flash_attention.cu) against
 it.  Memory is O(B * H * S * T) fp32: it is a reference, not a fast path.
 
 `flash_attention_bf16_model` is the same function with the bf16
-tensor-core kernel's rounding: q.k^T of bf16 values summed in fp32, fp32
-p and l, and p . v as two bf16 products hi . v + lo . v (hi = bf16(p),
+wgmma kernel's rounding: q.k^T of bf16 values summed in fp32, fp32 p and
+l, and p . v as two bf16 products hi . v + lo . v (hi = bf16(p),
 lo = bf16(p - hi)) summed in fp32, the output rounded once.  With
 split=False p is rounded once to bf16 instead: the rounding the kernel
 must not use, which the checks show to fail.
+
+`tile_plan` is the bf16 kernel's tiling for a head dim, the one copy of
+it: kernels.ops passes it to the kernel's entry, which launches the
+template built for it or refuses.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
 NEG_INF = -2.3819763e38
+
+# the bf16 kernel's tiling (kernels/csrc/flash_attention.cu)
+SWIZZLE_BYTES = 128         # TMA's and wgmma's swizzle: one row of a box
+ATOM = SWIZZLE_BYTES // 2   # bf16 columns a swizzled row holds, the N of
+                            # each O += P V wgmma
+CONSUMERS = 2               # consumer warpgroups a block, 64 query rows each
+WGMMA_M = 64
+# padded head dim -> (keys a K/V tile, tiles in the ring): the templates
+# FA_WGMMA_TEMPLATES of kernels/csrc/flash_attention.cu builds
+_TILES = {64: (128, 2), 128: (128, 2), 256: (64, 2)}
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """The bf16 kernel's tiling for one padded head dim."""
+    hdp: int           # head dim padded in shared memory, a multiple of ATOM
+    bq: int            # query rows a block (CONSUMERS x WGMMA_M)
+    bkv: int           # keys a K/V tile: the N of S = Q K^T's wgmma
+    stages: int        # K/V tiles in the ring
+    smem: int          # shared bytes a block asks for
+    box_q: tuple       # TMA box of q, innermost first: (hd, head, row, batch)
+    box_kv: tuple      # the same for k and v
+
+
+def tile_plan(hd: int) -> TilePlan:
+    """The plan for a head dim `hd` (a multiple of 8 from 8 to 256): hd
+    padded to 64, 128 or 256 (zero columns that TMA fills), BKV
+    and the ring's stages from the built templates, and the shared bytes:
+    Q, the K and V rings and 2 + 4 stages mbarriers of 8 bytes, after up to
+    1024 bytes that align the base to the swizzle's 1024-byte repeat."""
+    if hd % 8 or not 8 <= hd <= 256:
+        raise ValueError(f"tile_plan: head dim {hd} must be a multiple of 8 "
+                         f"from 8 to 256")
+    hdp = next(d for d in sorted(_TILES) if hd <= d)
+    bkv, stages = _TILES[hdp]
+    bq = CONSUMERS * WGMMA_M
+    smem = (1024 + 2 * (bq * hdp + 2 * stages * bkv * hdp)
+            + 8 * (2 + 4 * stages))
+    return TilePlan(hdp=hdp, bq=bq, bkv=bkv, stages=stages, smem=smem,
+                    box_q=(ATOM, 1, bq, 1), box_kv=(ATOM, 1, bkv, 1))
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

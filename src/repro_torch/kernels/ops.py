@@ -822,7 +822,7 @@ def _flash_fn():
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] * 9 + [ctypes.c_float] * 2
-                       + [ctypes.c_void_p] * 5)
+                       + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5)
         fn.restype = ctypes.c_int
     return fn
 
@@ -839,7 +839,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     hd, as the reference's wrapper pads to 128 lanes (zero columns add
     nothing to q.k and give zero output columns).  On CUDA tensors this
     is the kernel of kernels/csrc/flash_attention.cu, chosen by dtype:
-    bfloat16 runs the tensor-core kernel (its operands on 16-byte
+    bfloat16 runs the wgmma / TMA kernel on the tiles of
+    kernels.flash_attention.tile_plan (its operands on 16-byte
     boundaries), float32 the SIMT kernel.  On CPU tensors it is the
     plain version, kernels.flash_attention.flash_attention_plain.
     Raises RuntimeError under autograd: there is no backward.
@@ -908,17 +909,21 @@ def _attend(q, k, v, causal, window, softcap, scale):
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
                                          for t in (q, k, v)):
         raise ValueError("flash_attention: bfloat16 q, k and v must start "
-                         "on 16-byte boundaries (the kernel copies 16 bytes "
-                         "at a time)")
+                         "on 16-byte boundaries (the kernel's TMA maps need "
+                         "it)")
     B, S, H, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
+    plan = (0,) * 5                 # the fp32 kernel picks its own tiles
+    if q.dtype == torch.bfloat16:
+        p = fa.tile_plan(hd)
+        plan = (p.hdp, p.bq, p.bkv, p.stages, p.smem)
     fn = _flash_fn()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_FA_DTYPES[q.dtype], B, S, T, H, Hkv, hd, int(causal),
                  window, float(softcap), scale, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(), stream)
+                 v.data_ptr(), out.data_ptr(), stream, *plan)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -1,6 +1,6 @@
 """The bf16 attention kernel's arithmetic, on the CPU.
 
-The tensor-core kernel (kernels/csrc/flash_attention.cu, bf16 entry) takes
+The wgmma kernel (kernels/csrc/flash_attention.cu, bf16 entry) takes
 q.k^T of bf16 values summed in fp32, keeps p and l in fp32, and computes
 p.v as two bf16 products, hi.v + lo.v with hi = bf16(p) and
 lo = bf16(p - hi), summed in fp32, rounding the output once to bf16.

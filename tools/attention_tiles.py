@@ -1,24 +1,32 @@
 #!/usr/bin/env python3
-"""Time the bf16 attention kernel at other tile sizes, on one CUDA card.
+"""Time the bf16 attention kernel at other tile plans, on one CUDA card.
 
-The tensor-core entry of src/repro_torch/kernels/csrc/flash_attention.cu
-picks one (HDP, BKV, MINB) template per padded head dim: BKV keys a K/V
-tile, at least MINB resident blocks an SM.  This script builds copies of
-the source whose dispatch for hd 128 and hd 256 names other templates (one
-nvcc each, started together, into kernels/_build/tiles/), holds each
-against the plain version on ragged, windowed, softcapped and non-causal
-cases, and times each at the two serving shapes of chip_smoke.py
-(phi4-mini: q (4, 2048, 24, 128), causal; recurrentgemma-2b: q (4, 4096,
-10, 256), one kv head, window 2048) beside torch's SDPA, in two rounds of
-opposite order.  Run from the root of a checkout:
+The bf16 entry of src/repro_torch/kernels/csrc/flash_attention.cu builds
+the (HDP, BKV, STAGES) templates that its FA_WGMMA_TEMPLATES line lists,
+and kernels/flash_attention.py::tile_plan picks one per padded head dim
+(HDP 64, 128 or 256).  This script builds copies of the source whose
+FA_WGMMA_TEMPLATES line names other BKV and STAGES for a head dim (one
+nvcc each, started together, into kernels/_build/tiles/), launches each
+under the matching plan, holds each against the plain version on ragged,
+windowed, softcapped and non-causal cases, and times each at the serving
+shapes of that head dim (PERF.md rows 2-2e: phi4-mini and its TP-local
+shape at hd 128, granite-moe and internvl2 at hd 64, recurrentgemma-2b at
+hd 256 with one kv head and window 2048) beside torch's SDPA, in two
+rounds of opposite order.  With --baseline SRC it also builds SRC, a
+flash_attention.cu whose C entry takes the 16 arguments of the earlier
+mma.sync kernel (no plan; the source at an earlier commit), and times it
+beside the variants, so that two versions are compared in one run.  Run
+from the root of a checkout:
 
     PYTHONPATH=src python3 tools/attention_tiles.py \\
-        [--tiles128 "32,4 64,2 16,4"] [--tiles256 "16,3 32,2 16,2"]
+        [--tiles64 "128,2 128,3"] [--tiles128 "128,2 64,2"] \\
+        [--tiles256 "64,2"] [--baseline PATH]
 
-Each line names the template, its ptxas registers and spills, the median
-ms a launch of 3 runs of 10, the useful TFLOP/s (4 hd flop an unmasked
-pair) and the ratio to SDPA.  Exits 1 without a card, or when a variant
-fails to build or to agree with the plain version.
+Each line names the build, the median ms a launch of 3 runs of 10, the
+useful TFLOP/s (4 hd flop an unmasked pair), the ratio to its bound and
+the ratio to SDPA; each variant's ptxas registers and spills come first.
+Exits 1 without a card, or when a build fails or a variant disagrees with
+the plain version.
 """
 from __future__ import annotations
 
@@ -29,135 +37,177 @@ import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import ExitStack
 from unittest import mock
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-# hd -> (serving shape (B, S, H, Hkv, window), checks (B, S, H, Hkv, hd,
-# window, softcap, causal))
+# padded hd -> (serving shapes (row, B, S, H, Hkv, window), checks (B, S,
+# H, Hkv, hd, window, softcap, causal))
 SHAPES = {
-    128: ((4, 2048, 24, 8, 0),
+    64: ([("2c granite-moe", 4, 2048, 16, 8, 0),
+          ("2d internvl2", 4, 2304, 14, 2, 0)],
+         [(2, 1000, 8, 2, 64, 0, 0.0, True),
+          (2, 512, 4, 4, 32, 0, 50.0, True),
+          (1, 1000, 4, 1, 64, 300, 0.0, False)]),
+    128: ([("2 phi4-mini", 4, 2048, 24, 8, 0),
+           ("2e phi4 TP-local", 4, 2048, 12, 4, 0)],
           [(2, 1000, 8, 2, 128, 0, 0.0, True),
            (2, 512, 4, 4, 128, 0, 50.0, True),
            (1, 2000, 4, 2, 120, 300, 0.0, True),
            (2, 1000, 6, 2, 80, 0, 0.0, False)]),
-    256: ((4, 4096, 10, 1, 2048),
+    256: ([("2b recurrentgemma", 4, 4096, 10, 1, 2048)],
           [(2, 1000, 2, 1, 256, 300, 0.0, True),
            (1, 1000, 4, 1, 256, 300, 30.0, False)]),
 }
+ARGTYPES = ([ctypes.c_int] * 9 + [ctypes.c_float] * 2
+            + [ctypes.c_void_p] * 5)
 
 
-def build_variants(tiles: dict[int, list[str]]) -> dict:
-    """{(hd, "BKV, MINB"): (flash_attention_fwd, ptxas line)}"""
-    from chip_smoke import ptxas_templates
+def variant_source(src: str, hd: int, bkv: int, stages: int) -> str:
+    """`src` with the FA_WGMMA_TEMPLATES entry of padded head dim `hd`
+    replaced by (hd, bkv, stages)."""
+    line = re.search(r"#define FA_WGMMA_TEMPLATES\(X\).*", src)
+    entry = line and re.search(rf"X\({hd}, \d+, \d+\)", line.group(0))
+    if entry is None:
+        raise SystemExit(f"no hd-{hd} entry in the source's "
+                         f"FA_WGMMA_TEMPLATES line")
+    return src.replace(line.group(0), line.group(0).replace(
+        entry.group(0), f"X({hd}, {bkv}, {stages})"))
+
+
+def build_all(jobs: dict) -> dict:
+    """{name: source text} -> {name: (library path, nvcc log)}, one nvcc
+    each, started together."""
     from repro_torch.kernels import build
-    src = (build.CSRC / "flash_attention.cu").read_text()
     out = build.BUILD_DIR / "tiles"
     out.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for hd, choices in tiles.items():
-        line = re.search(rf"launch_tc<{hd}, \d+, \d+>", src)
-        if line is None:
-            raise SystemExit(f"no hd-{hd} dispatch line in the source")
-        for c in choices:
-            name = f"hd{hd}_" + c.replace(", ", "_")
-            path = out / f"{name}.cu"
-            path.write_text(src.replace(line.group(0),
-                                        f"launch_tc<{hd}, {c}>"))
-            jobs.append((hd, c, path))
 
-    def compile_one(job):
-        hd, c, path = job
+    def compile_one(item):
+        name, text = item
+        path = out / f"{name}.cu"
+        path.write_text(text)
         r = subprocess.run([build.nvcc_path(),
                             *build.SOURCE_FLAGS["flash_attention.cu"], "-o",
                             str(path.with_suffix(".so")), str(path)],
                            capture_output=True, text=True)
-        return job, r.returncode, r.stdout + r.stderr
+        if r.returncode:
+            raise SystemExit(f"nvcc failed on {path}:\n"
+                             f"{r.stdout + r.stderr}")
+        return name, (path.with_suffix(".so"), r.stdout + r.stderr)
 
     with ThreadPoolExecutor(len(jobs)) as pool:
-        built = list(pool.map(compile_one, jobs))
-    fns = {}
-    for (hd, c, path), rc, log in built:
-        if rc:
-            raise SystemExit(f"nvcc failed on {path}:\n{log}")
-        tag = f"flash_fwd_tc<{hd}, {c}>"
-        info = [t for t in ptxas_templates(log) if t.startswith(tag)]
-        fn = ctypes.CDLL(str(path.with_suffix(".so"))).flash_attention_fwd
-        fn.argtypes = ([ctypes.c_int] * 9 + [ctypes.c_float] * 2
-                       + [ctypes.c_void_p] * 5)
-        fn.restype = ctypes.c_int
-        fns[(hd, c)] = (fn, info[0] if info else tag)
-    return fns
+        return dict(pool.map(compile_one, jobs.items()))
+
+
+def entry(lib: pathlib.Path, plan_args: bool):
+    """The library's flash_attention_fwd, as ops._attend calls it (the 16
+    arguments of an entry without a plan take the first 16)."""
+    fn = ctypes.CDLL(str(lib)).flash_attention_fwd
+    fn.argtypes = ARGTYPES + [ctypes.c_int] * 5 * plan_args
+    fn.restype = ctypes.c_int
+    return fn if plan_args else (lambda *a: fn(*a[:16]))
+
+
+def use_build(ops, fa, fn, tiles=None):
+    """Route ops.flash_attention's CUDA launches to another build, under
+    the plan {padded hd: (BKV, STAGES)} `tiles`."""
+    stack = ExitStack()
+    stack.enter_context(mock.patch.object(ops, "_flash_fn", lambda: fn))
+    stack.enter_context(mock.patch.dict(fa._TILES, tiles or {}))
+    return stack
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--tiles128", default="32,4 64,2 16,4",
-                    help="BKV,MINB pairs to build for hd 128")
-    ap.add_argument("--tiles256", default="16,3 32,2 16,2",
-                    help="BKV,MINB pairs to build for hd 256")
+    for hd in SHAPES:
+        ap.add_argument(f"--tiles{hd}", default="",
+                        help=f"BKV,STAGES pairs to build for hd {hd} "
+                             f"(the plan's own is always built)")
+    ap.add_argument("--baseline", default=None,
+                    help="a flash_attention.cu with the 16-argument entry "
+                         "to time beside the variants")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("attention_tiles: no CUDA card", file=sys.stderr)
         return 1
     import chip_smoke as cs
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import flash_attention as fa
 
-    tiles = {128: [p.replace(",", ", ") for p in args.tiles128.split()],
-             256: [p.replace(",", ", ") for p in args.tiles256.split()]}
-    fns = build_variants(tiles)
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    tiles = {}
+    for hd in SHAPES:
+        own = fa.tile_plan(hd)
+        pairs = [(own.bkv, own.stages)] + [
+            tuple(int(x) for x in p.split(","))
+            for p in getattr(args, f"tiles{hd}").split()]
+        tiles[hd] = list(dict.fromkeys(pairs))
+    jobs = {f"hd{hd}_{bkv}_{st}": variant_source(src, hd, bkv, st)
+            for hd, pairs in tiles.items() for bkv, st in pairs}
+    if args.baseline:
+        jobs["baseline"] = pathlib.Path(args.baseline).read_text()
+    built = build_all(jobs)
     print(cs.card_line(), flush=True)
     dev = torch.device("cuda", 0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ok = True
-    for hd, ((B, S, H, Hkv, w), checks) in SHAPES.items():
-        for c in tiles[hd]:
-            fn, info = fns[(hd, c)]
-            print(f"ptxas: {info}", flush=True)
-            with use_build(ops, fn):
+    for hd, (serving, checks) in SHAPES.items():
+        builds = {}
+        for bkv, st in tiles[hd]:
+            name = f"hd{hd}_{bkv}_{st}"
+            lib, log = built[name]
+            tag = f"flash_fwd_wgmma<{hd}, {bkv}, {st}>"
+            info = [t for t in cs.ptxas_templates(log) if t.startswith(tag)]
+            print(f"ptxas: {info[0] if info else tag}", flush=True)
+            builds[f"<{hd}, {bkv}, {st}>"] = (entry(lib, True),
+                                              {hd: (bkv, st)})
+            with use_build(ops, fa, *builds[f"<{hd}, {bkv}, {st}>"]):
                 for seed, (b, s, h, hkv, d, win, cap, causal) in enumerate(
                         checks):
                     q, k, v = cs.fa_inputs(seed, b, s, h, hkv, d,
                                            torch.bfloat16, dev)
                     try:
                         cs.compare_attention(
-                            f"<{hd}, {c}> S={s} hd={d} w={win}", q, k, v,
-                            win, cap, causal)
+                            f"<{hd}, {bkv}, {st}> S={s} hd={d} w={win}", q,
+                            k, v, win, cap, causal)
                     except AssertionError as e:
                         print(f"FAILED: {e}", flush=True)
                         ok = False
-        q, k, v = cs.fa_inputs(99, B, S, H, Hkv, hd, torch.bfloat16, dev)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        if w:
-            kt, vt = (t.repeat_interleave(H // Hkv, 1) for t in (kt, vt))
-            i = torch.arange(S, device=dev)
-            mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < w)
-            lib = lambda: sdpa(qt, kt, vt, attn_mask=mask)  # noqa: E731
-        else:
-            lib = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa: E731
-                               enable_gqa=True)
-        _, _, _, flop = cs.attention_bound(B, S, H, Hkv, hd, w, 2)
-        for rnd, order in enumerate((tiles[hd], tiles[hd][::-1])):
-            lib_ms = cs.time_events(lib, 10)
-            print(f"hd {hd} round {rnd}: SDPA {lib_ms:.6f} ms", flush=True)
-            for c in order:
-                with use_build(ops, fns[(hd, c)][0]):
-                    ms = sorted(cs.time_events(
-                        lambda: ops.flash_attention(q, k, v, window=w), 10)
-                        for _ in range(3))[1]
-                print(f"hd {hd} round {rnd}: <{hd}, {c}> {ms:.6f} ms, "
-                      f"{flop / ms * 1e-9:.3f} TFLOP/s useful, "
-                      f"{ms / lib_ms:.3f}x SDPA", flush=True)
-        del q, k, v, qt, kt, vt
+        if args.baseline:
+            builds["baseline"] = (entry(built["baseline"][0], False), None)
+        for row, B, S, H, Hkv, w in serving:
+            q, k, v = cs.fa_inputs(99, B, S, H, Hkv, hd, torch.bfloat16, dev)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            if w:
+                kt, vt = (t.repeat_interleave(H // Hkv, 1) for t in (kt, vt))
+                i = torch.arange(S, device=dev)
+                mask = ((i[:, None] >= i[None, :])
+                        & (i[:, None] - i[None, :] < w))
+                lib = lambda: sdpa(qt, kt, vt, attn_mask=mask)  # noqa: E731
+            else:
+                lib = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa: E731
+                                   enable_gqa=True)
+            bound, by, _, flop = cs.attention_bound(B, S, H, Hkv, hd, w, 2)
+            names = list(builds)
+            for rnd, order in enumerate((names, names[::-1])):
+                lib_ms = cs.time_events(lib, 10)
+                print(f"{row} round {rnd}: SDPA {lib_ms:.6f} ms; bound "
+                      f"{bound:.6f} ms ({by})", flush=True)
+                for name in order:
+                    with use_build(ops, fa, *builds[name]):
+                        ms = sorted(cs.time_events(
+                            lambda: ops.flash_attention(q, k, v, window=w),
+                            10) for _ in range(3))[1]
+                    print(f"{row} round {rnd}: {name} {ms:.6f} ms, "
+                          f"{flop / ms * 1e-9:.3f} TFLOP/s useful, "
+                          f"{ms / bound:.3f}x its bound, "
+                          f"{ms / lib_ms:.3f}x SDPA", flush=True)
+            del q, k, v, qt, kt, vt
     return 0 if ok else 1
-
-
-def use_build(ops, fn):
-    """Route ops.flash_attention's CUDA launches to another build."""
-    return mock.patch.object(ops, "_flash_fn", lambda: fn)
 
 
 if __name__ == "__main__":
