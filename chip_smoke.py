@@ -194,22 +194,29 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      share, the forward, backward and AdamW parts, peak device memory,
      granite's MoE dispatch against its backward, and each checkpoint's
      write and read.
- 30. the row-sharded PDHG solve: (a) the burst kernel's split entries
-     (fp32 and bf16; one process holding 1, 2 and 4 shards of the
-     flagship LP) bitwise the plain sharded body in the kernel's order,
-     and at one shard the fused kernel; (b) the sharded driver at world 1
-     over NCCL bitwise the fused burst (energy and time, fp32; bf16's
-     first rung); (c) 2 ranks sharing the card over gloo, processes of
+ 30. the row-sharded PDHG solve: the split step's registers and spills;
+     (a) the burst kernel's split step (fp32 and bf16; one process
+     holding 1, 2 and 4 shards of the flagship LP, a burst one
+     cooperative launch, on as many blocks as fit and on one block an
+     SM, 50 and 7 iterations) bitwise the plain sharded body in the
+     kernel's order, and at one shard the fused kernel; (b) the sharded
+     driver at world 1 over NCCL (a burst plan reused across the
+     ladder's rungs, its iterations a CUDA graph replayed) bitwise the
+     fused burst (energy and time, fp32; bf16's first rung), graph
+     replays required, and a graph-replayed burst bitwise the same
+     plan's eager launches and the burst without a collective; (c) 2
+     ranks sharing the card over gloo, processes of
      this script (--shard-rank): solve_fast(shards=2) on spine-leaf
      (twice) and the flagship, x the same on every
      rank and from run to run, certified, within 1e-4 of phases 4-5, and
      a fixed burst twice, bitwise the host CPU's single-process model in
      the kernel's order; (d) ms an iteration of the split form at world 1
-     and at 2 ranks beside the fused burst, the collective's share (and
-     gloo's gather of the CUDA tensors without the pinned staging), the
-     bound, and the split kernels' own device time an iteration at world
-     1, with no collective and over NCCL (torch's profiler: the kernels'
-     durations; and each entry relaunched back to back between CUDA
+     over NCCL (the graph, and the same step launched eagerly), without a
+     collective, and at 2 ranks, beside the fused burst, the collective's
+     share (and gloo's gather of the CUDA tensors without the pinned
+     staging), the bound, and the split step's own device time at world
+     1, with no collective and over NCCL (torch's profiler: the kernel's
+     durations; and a step launch relaunched back to back between CUDA
      events on a stream kept ahead of the host: the stream's time a
      launch).  The ranks start first and set up while this process runs
      (a), (b), (d) and phase 31 at world 1, then wait for it;
@@ -573,14 +580,14 @@ TRAIN_GRAD_TOL = 5e-2
 MB_LOSS_TOL = 1e-5
 MB_ATOL = 2e-5
 MB_RTOL = 2e-4
-# phase 30: the row-sharded solve.  The split entries of pdhg_burst.cu
-# replace the sharded form of the burst's body (plain jnp under shard_map
-# there); (a) holds them to the plain body in the kernel's order on the
+# phase 30: the row-sharded solve.  The split step of pdhg_burst.cu
+# replaces the sharded form of the burst's body (plain jnp under shard_map
+# there); (a) holds it to the plain body in the kernel's order on the
 # flagship LP at these shard counts and storage types, over these
-# iterations
+# iterations (an even and an odd count: the graph's pairs and its tail)
 SHARD_REPLACES = "src/repro/kernels/pdhg_spmv.py:450"
 SPLIT_CASES = ((1, ("fp32", "bf16")), (2, ("fp32", "bf16")), (4, ("fp32",)))
-SPLIT_ITERS = (50,)
+SPLIT_ITERS = (50, 7)
 # (c): ranks sharing the one card over gloo, processes of this script;
 # their x after this many iterations against the host CPU's model
 SHARD_WORLD = 2
@@ -594,7 +601,7 @@ SHARD_TIMEOUT_S = 400
 # all_gather of the partials, about 1.1 ms between two processes of one
 # host, sets the pace), and the plain body's
 SHARD_TIME_ITERS = 500
-# (d): the split kernels' own time: each entry relaunched SPLIT_OWN_REPS
+# (d): the split step's own time: a step launch relaunched SPLIT_OWN_REPS
 # times between two CUDA events behind a sleep of this many cycles (about
 # 25 ms, longer than the host takes to enqueue them), and in the profiler
 # over a burst of SPLIT_OWN_ITERS
@@ -1481,6 +1488,37 @@ def ptxas_templates(log: str, split: tuple | None = None) -> list[str]:
             out.append(f"{name}: {m.group(1)} registers{regs}, {spills}")
             name = None
     return out
+
+
+def fa32_times(card, dev, launches) -> None:
+    """Phase 10, PERF.md row 2f: the fp32 SIMT entry of the attention
+    kernel at phi4-mini's serving shape, beside its plain version and
+    torch SDPA in fp32, and its bound at the fp32 rate outside the tensor
+    cores (FP32_OPS_S).  No model path launches it (activations are bf16);
+    `launches` are phase 8's grid's."""
+    import torch
+    from repro_torch.kernels import ops
+    shape = (4, 2048, 24, 8, 128)
+    q, k, v = fa_inputs(99, *shape[:2], *shape[2:], torch.float32, dev)
+    ms = sorted(time_events(lambda: ops.flash_attention(q, k, v), 3)
+                for _ in range(3))[1]
+    plain_ms = time_events(lambda: fa_plain(q, k, v, 0, 0.0), 1)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_events(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                      enable_gqa=True), 3)
+    _, _, nbytes, flop = attention_bound(*shape, 0, 4)
+    t_ops, t_bytes = flop / FP32_OPS_S * 1e3, nbytes / HBM_BYTES_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    del q, k, v, qt, kt, vt
+    say(f"    fp32 SIMT entry (row 2f, q (4, 2048, 24, 128), k/v (4, 2048, "
+        f"8, 128), fp32, causal; {card}): {ms:.6f} ms a launch (median of "
+        f"3 runs of 3); plain {plain_ms:.6f} ms; SDPA in fp32 "
+        f"{lib_ms:.6f} ms; bound {bound_ms:.6f} ms ({bound_by}: {flop} "
+        f"flop at 67 TFLOP/s fp32, {nbytes} B at 3.35 TB/s); "
+        f"{ms / bound_ms:.3f}x its bound, {ms / lib_ms:.3f}x SDPA; "
+        f"launches: {launches} in phase 8's grid, none on a model path")
 
 
 def attention_bound(B, S, H, Hkv, hd, window, itemsize):
@@ -3727,107 +3765,123 @@ def split_kw(op, dev, iters, precision, shards=None):
                 **pdhg_spmv.sharded_work(op, dev, shards))
 
 
-def check_split(label, op, args, iters, precision) -> tuple[float, bool]:
-    """Phase 30(a): the split entries (one process holding all S shards,
-    the launches of a sharded burst without the collective) against the
-    plain body summing in the kernel's order, bitwise over (x, y, worst);
-    at one shard also against the fused kernel, bitwise.  Returns the
-    largest |split - plain| (the plain body in torch's order) and
-    whether that plain body differs bitwise (so the check can fail)."""
+def check_split(label, op, args, iters, precision,
+                sms) -> tuple[float, bool]:
+    """Phase 30(a): the split step (one process holding all S shards: a
+    whole burst one cooperative launch) on as many blocks as fit and on
+    one block an SM (`sms`), each against the plain body summing in the
+    kernel's order, bitwise over (x, y, worst); at one shard also
+    against the fused kernel, bitwise.  Returns the largest |split -
+    plain| (the plain body in torch's order) and whether that plain body
+    differs bitwise (so the check can fail)."""
     import torch
     from repro_torch.kernels import ops, pdhg_spmv
     dev = args[0].device
     kw = split_kw(op, dev, iters, precision)
-    got = ops.pdhg_burst_sharded(None, *args, **kw)
     model = pdhg_spmv.pdhg_update_burst_sharded(
         args[12], args[13], *args[:12], **kw, order="kernel")
     plain = pdhg_spmv.pdhg_update_burst_sharded(
         args[12], args[13], *args[:12],
         **{k: v for k, v in kw.items() if not k.endswith("_work")})
-    torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in zip(got, model))
-    fused = ""
+    one = None
     if op.shards == 1:
         one = ops.pdhg_burst(*args, row_meta=op.row_meta,
                              col_meta=op.col_meta, iters=iters,
                              precision=precision,
                              row_work=kw["row_work"][0],
                              col_work=kw["col_work"][0])
+    err, differs = 0.0, False
+    for blocks, grid in ((0, "as many blocks as fit"),
+                         (sms, "one block an SM")):
+        before = ops.PDHG_SPLIT_LAUNCHES
+        got = ops.pdhg_burst_sharded(None, *args, **kw, _blocks=blocks)
         torch.cuda.synchronize()
-        same_fused = all(torch.equal(a, b) for a, b in zip(got, one))
-        fused = f"; to the fused kernel: {same_fused}"
-        require(same_fused, f"{label}: the split entries at one shard "
-                            f"differ from the fused kernel")
-    err = max(float((a - b).abs().max()) for a, b in zip(got, plain))
-    say(f"  {label} S={op.shards} {precision} iters={iters}: bitwise equal "
-        f"to the kernel-order model: {same}{fused}; max|split - plain| "
-        f"{err:.3e}")
-    off = max(float((a - b).abs().max()) for a, b in zip(got, model))
-    require(same, f"{label} S={op.shards} {precision} iters={iters}: the "
-                  f"split entries differ from the kernel-order model by "
-                  f"{off:.3e}")
-    require(all(bool(torch.isfinite(t).all()) for t in got),
-            f"{label}: split output not finite")
-    require(bool((got[0][op.n:] == 0).all()), f"{label}: a padded x moved")
-    return err, not all(torch.equal(a, b) for a, b in zip(got, plain))
+        launches = ops.PDHG_SPLIT_LAUNCHES - before
+        same = all(torch.equal(a, b) for a, b in zip(got, model))
+        fused = ""
+        if one is not None:
+            same_fused = all(torch.equal(a, b) for a, b in zip(got, one))
+            fused = f"; to the fused kernel: {same_fused}"
+            require(same_fused, f"{label}: the split step at one shard "
+                                f"({grid}) differs from the fused kernel")
+        err = max([err] + [float((a - b).abs().max())
+                           for a, b in zip(got, plain)])
+        differs |= not all(torch.equal(a, b) for a, b in zip(got, plain))
+        say(f"  {label} S={op.shards} {precision} iters={iters} ({grid}, "
+            f"{launches} launch): bitwise equal to the kernel-order model: "
+            f"{same}{fused}; max|split - plain| {err:.3e}")
+        off = max(float((a - b).abs().max()) for a, b in zip(got, model))
+        require(same, f"{label} S={op.shards} {precision} iters={iters} "
+                      f"({grid}): the split step differs from the "
+                      f"kernel-order model by {off:.3e}")
+        require(launches == 1, f"{label}: a burst without a collective "
+                               f"took {launches} launches, not one")
+        require(all(bool(torch.isfinite(t).all()) for t in got),
+                f"{label}: split output not finite")
+        require(bool((got[0][op.n:] == 0).all()),
+                f"{label}: a padded x moved")
+    return err, differs
 
 
-def split_device_ms(group, args, kw) -> dict:
-    """The split entries' own device time, two ways.  torch's profiler
-    (CUPTI): the kernels' durations over one burst of kw["iters"], each
-    kernel's execution alone.  CUDA events: one burst's launches of kty,
-    primal and dual captured (each entry's first call), then each
+def split_plan(group, op, args, precision):
+    """A burst plan (ops.ShardedBurst) over sharded_args's operands of
+    one process holding every shard."""
+    from repro_torch.kernels import ops
+    kw = split_kw(op, args[0].device, 0, precision)
+    del kw["iters"]
+    return ops.ShardedBurst(group, *args[:12], **kw)
+
+
+def split_device_ms(group, op, args, precision) -> dict:
+    """The split step's own device time, two ways.  torch's profiler
+    (CUPTI): the step kernel's durations over one burst of
+    SPLIT_OWN_ITERS (without a group one launch of the whole burst, its
+    begin and finish phases in it; over NCCL one launch an iteration),
+    ms an iteration.  CUDA events: one step launch (a step from buffer 0)
     relaunched SPLIT_OWN_REPS times back to back between two events,
     behind a sleeping kernel that keeps the stream ahead of the host, so
     the events time what the stream spends a launch, the kernel and the
-    device's turnaround between two launches, and not the host's gaps
-    (a relaunch with the same arguments computes the same step again).  Returns
-    {"events": ..., "cupti": ...}, each ms an iteration by entry (kty,
-    primal, dual: one launch each an iteration at world 1)."""
+    device's turnaround between two launches, and not the host's gaps (a
+    relaunch with the same operands computes the same step again).
+    Returns {"cupti": ... (None unless the profiler saw every launch),
+    "events": ..., "seen", "launched": the step's records and launches
+    in the profiled burst}, ms."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
-    lib = ops._split_lib()
-    entries = ("kty", "primal", "dual")
-    first: dict = {}
-
-    class Capture:
-        def __getattr__(self, name):
-            fn = getattr(lib, name)
-            entry = name[len("pdhg_split_"):].rsplit("_", 1)[0]
-            if entry not in entries:
-                return fn
-
-            def call(*a):
-                first.setdefault(entry, (fn, a))
-                return fn(*a)
-            return call
-
-    with mock.patch.object(ops, "_split_lib", Capture):
-        ops.pdhg_burst_sharded(group, *args, **kw)
+    plan = split_plan(group, op, args, precision)
+    x0, y0 = args[12], args[13]
+    plan(x0, y0, SPLIT_OWN_ITERS)
     torch.cuda.synchronize()
-    events = {}
-    for entry in entries:
-        fn, a = first[entry]
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPLIT_SLEEP_CYCLES)
-        e0.record()
-        for _ in range(SPLIT_OWN_REPS):
-            fn(*a)
-        e1.record()
-        torch.cuda.synchronize()
-        events[entry] = e0.elapsed_time(e1) / SPLIT_OWN_REPS
-    iters = kw["iters"]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ops.pdhg_burst_sharded(group, *args, **kw)
-        torch.cuda.synchronize()
-    cupti = dict.fromkeys(entries, 0.0)
-    for e in prof.key_averages():
-        for k in entries:
-            if f"split_{k}<" in e.key:
-                cupti[k] += getattr(e, "device_time_total", 0.0) / 1e3 / iters
-    return {"events": events, "cupti": cupti}
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPLIT_SLEEP_CYCLES)
+    e0.record()
+    for _ in range(SPLIT_OWN_REPS):
+        plan._launch(1, 0, 0, 0)
+    e1.record()
+    torch.cuda.synchronize()
+    events = e0.elapsed_time(e1) / SPLIT_OWN_REPS
+    # late in a whole run of this script the profiler keeps only some of
+    # the step's records: a time is kept only when it saw every launch
+    before = ops.PDHG_SPLIT_LAUNCHES
+    prof = profile_device(lambda: plan(x0, y0, SPLIT_OWN_ITERS)) or {}
+    launched = ops.PDHG_SPLIT_LAUNCHES - before
+    seen = [v for name, v in prof.items() if "pdhg_split_step" in name]
+    count = sum(c for c, _ in seen)
+    cupti = (sum(us for _, us in seen) / 1e3 / SPLIT_OWN_ITERS
+             if count == launched else None)
+    return {"events": events, "cupti": cupti, "seen": count,
+            "launched": launched}
+
+
+def split_step_ptxas(log: str) -> list[str]:
+    """The split step's lines of nvcc's -Xptxas -v log, in phase 7's
+    form: its storage type, registers and spill bytes."""
+    out = [t for t in ptxas_templates(log) if "pdhg_split_step" in t]
+    return [re.sub(r"\S*pdhg_split_stepI(\w+?)EEv\w*",
+                   lambda m: "pdhg_split_step<"
+                   + ("bf16" if "bfloat16" in m.group(1) else "fp32") + ">",
+                   t) for t in out]
 
 
 def split_bound(op_s, op, nnz, it=4) -> tuple[float, str]:
@@ -3845,6 +3899,7 @@ def reset_split_counts():
     from repro_torch.kernels import ops
     ops.PDHG_SPLIT_LAUNCHES = 0
     ops.PDHG_SPLIT_BF16_LAUNCHES = 0
+    ops.PDHG_SPLIT_GRAPH_REPLAYS = 0
     ops.PDHG_SHARDED_CALLS = 0
     ops.PDHG_BURST_LAUNCHES = 0
 
@@ -3923,7 +3978,7 @@ def shard_rank_main(rank, world, out_dir) -> int:
     try:
         p_full = problem(*FULL)
         lp_full, _ = solver.build_routing_lp(p_full, "energy")
-        # (c) the split entries over `world` ranks, a fixed burst
+        # (c) the split step over `world` ranks, a fixed burst
         op, args = sharded_args(lp_full, world, dev)
         xs = [ops.pdhg_burst_sharded(
             group, *shard_operands(op, args, rank, 1),
@@ -4250,7 +4305,7 @@ def shard_phase(card, dev, p_full, lp_full, phase4, phase5, library_ms):
     parts (a), (b) and (d) and phase 31 at world 1; then it lets the
     ranks go on (they wait for it before their solves and timings, so
     that no two processes' kernels share the card) and checks their
-    results.  Returns the two `kernels` entries of the split entries, and
+    results.  Returns the two `kernels` entries of the split step, and
     the ranks' results (phase 32(c)'s among them)."""
     with shard_ranks(SHARD_WORLD) as collect:
         return _shard_phase(card, dev, p_full, lp_full, phase4, phase5,
@@ -4634,12 +4689,24 @@ def _shard_phase(card, dev, p_full, lp_full, phase4, phase5, library_ms,
     import torch
     import torch.distributed as dist
     from repro_torch.core import solver
-    from repro_torch.kernels import ops, pdhg_spmv
+    from repro_torch.kernels import build, ops, pdhg_spmv
     nnz = len(lp_full.val)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     say(f"[30] row-sharded PDHG on the card ({card}); {SHARD_WORLD} ranks "
         f"started for part (c)")
-    say("  (a) the split entries against the plain body in the kernel's "
-        "order (one process holding every shard)")
+    step_ptxas = split_step_ptxas(build.BUILD_INFO["pdhg_burst.cu"]["log"])
+    for line in step_ptxas:
+        say(f"    ptxas: {line}")
+    require(len(step_ptxas) == 2 or not build.BUILD_INFO["pdhg_burst.cu"]
+            ["log"], f"expected the split step's 2 templates in the ptxas "
+                     f"log, found {len(step_ptxas)}")
+    require(all("spill stores 0 B" in t for t in step_ptxas),
+            "the split step spills registers")
+    say(f"    split step grid: {ops.split_max_blocks('fp32', dev)} blocks "
+        f"(fp32), {ops.split_max_blocks('bf16', dev)} (bf16) of 512 fit "
+        f"at once on {sms} SMs")
+    say("  (a) the split step against the plain body in the kernel's "
+        "order (one process holding every shard: a burst one launch)")
     errs = {"fp32": [], "bf16": []}
     differs = []
     for shards, precisions in SPLIT_CASES:
@@ -4647,14 +4714,13 @@ def _shard_phase(card, dev, p_full, lp_full, phase4, phase5, library_ms,
         for precision in precisions:
             for iters in SPLIT_ITERS:
                 err, d = check_split("fat-tree-k16", op, args, iters,
-                                     precision)
+                                     precision, sms)
                 errs[precision].append(err)
                 differs.append(d)
     say(f"    the plain body in torch's order differs from the split "
-        f"entries bitwise in {sum(differs)} of {len(differs)} cases, so "
+        f"step bitwise in {sum(differs)} of {len(differs)} cases, so "
         f"the bitwise check can fail")
-    require(any(differs), "the split entries' bitwise check cannot fail")
-
+    require(any(differs), "the split step's bitwise check cannot fail")
 
     store = tempfile.mkdtemp(prefix="chip-smoke-nccl-")
     dist.init_process_group("nccl", store=dist.FileStore(
@@ -4671,12 +4737,13 @@ def _shard_phase(card, dev, p_full, lp_full, phase4, phase5, library_ms,
                                       ("energy", "bf16", 0)):
             lp, _ = solver.build_routing_lp(p_full, obj)
             tol = 1e-4 * max(float(np.abs(lp.b).max(initial=0.0)), 1.0)
-            before = ops.PDHG_SPLIT_LAUNCHES
+            before = (ops.PDHG_SPLIT_LAUNCHES, ops.PDHG_SPLIT_GRAPH_REPLAYS)
             t0 = time.perf_counter()
             shard = solver._solve_lp_pallas_sharded(
                 lp, 4000, tol, rungs, None, None, 1, dev, precision)
             wall = time.perf_counter() - t0
-            launched = ops.PDHG_SPLIT_LAUNCHES - before
+            launched = ops.PDHG_SPLIT_LAUNCHES - before[0]
+            replays = ops.PDHG_SPLIT_GRAPH_REPLAYS - before[1]
             t0 = time.perf_counter()
             fused = solver._solve_lp_ell(lp, 4000, tol, rungs, None, None,
                                          dev, precision)
@@ -4688,28 +4755,58 @@ def _shard_phase(card, dev, p_full, lp_full, phase4, phase5, library_ms,
             say(f"    {obj:6s} {precision}: iters={shard.iterations} "
                 f"primal={shard.primal_residual:.3e} objective "
                 f"{obj_s!r} (fused {obj_f!r}); x, y bitwise the fused "
-                f"burst: {same}; {launched} split launches; wall "
-                f"{wall:.3f} s (fused {fused_wall:.3f} s)")
+                f"burst: {same}; {launched} split launches, {replays} of "
+                f"the graph's replays among them; wall {wall:.3f} s "
+                f"(fused {fused_wall:.3f} s)")
             require(same and obj_s == obj_f,
                     f"world-1 sharded driver {obj} {precision} differs "
                     f"from the fused burst")
         w1 = (ops.PDHG_SPLIT_LAUNCHES, ops.PDHG_SPLIT_BF16_LAUNCHES)
+        w1_replays = ops.PDHG_SPLIT_GRAPH_REPLAYS
         say(f"    split launches on this part's solves: {w1[0]} "
-            f"(bf16 {w1[1]}); sharded bursts {ops.PDHG_SHARDED_CALLS}")
+            f"(bf16 {w1[1]}), {w1_replays} graph replays; sharded bursts "
+            f"{ops.PDHG_SHARDED_CALLS}")
         require(w1[0] > 0 and w1[1] > 0 and ops.PDHG_SHARDED_CALLS > 0,
-                "part (b) did not go through the split entries")
+                "part (b) did not go through the split step")
+        require(w1_replays > 0, "part (b)'s NCCL ladder replayed no graph")
+        op1, args1 = sharded_args(lp_full, 1, dev)
+        x0, y0 = args1[12], args1[13]
+        for precision in ("fp32", "bf16"):
+            graph = split_plan(group, op1, args1, precision)
+            eager = split_plan(group, op1, args1, precision)
+            eager.capture = False
+            alone = split_plan(None, op1, args1, precision)
+            for iters in SPLIT_ITERS:
+                r0 = ops.PDHG_SPLIT_GRAPH_REPLAYS
+                got = [t.clone() for t in graph(x0, y0, iters)]
+                replays = ops.PDHG_SPLIT_GRAPH_REPLAYS - r0
+                want = eager(x0, y0, iters)
+                one = alone(x0, y0, iters)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(got, want))
+                same_one = all(torch.equal(a, b) for a, b in zip(got, one))
+                say(f"    {precision} burst of {iters} over NCCL, "
+                    f"{replays} graph replays: bitwise the eager step "
+                    f"launches: {same}; the burst without a collective: "
+                    f"{same_one}")
+                require(replays == iters // 2 and same and same_one,
+                        f"the graph-replayed {precision} burst of {iters} "
+                        f"differs from the eager one")
 
         say(f"  (d) times at world 1, flagship LP ({card})")
-        op1, args1 = sharded_args(lp_full, 1, dev)
         op_f, args_f = lp_burst_args(lp_full, dev)
         kw_f = layout(op_f, dev)
         n = SHARD_TIME_ITERS
         times = {}
         for precision in ("fp32", "bf16"):
-            kw = split_kw(op1, dev, n, precision)
-            times["split", precision] = sorted(time_events(
-                lambda: ops.pdhg_burst_sharded(group, *args1, **kw), 1) / n
-                for _ in range(3))[1]
+            plans = {"graph": split_plan(group, op1, args1, precision),
+                     "eager": split_plan(group, op1, args1, precision),
+                     "alone": split_plan(None, op1, args1, precision)}
+            plans["eager"].capture = False
+            for name, plan in plans.items():
+                plan(x0, y0, n)                  # its graph captured
+                times[name, precision] = sorted(time_events(
+                    lambda: plan(x0, y0, n), 1) / n for _ in range(3))[1]
             times["fused", precision] = sorted(time_events(
                 lambda: ops.pdhg_burst(*args_f, iters=n,
                                        precision=precision, **kw_f), 1) / n
@@ -4720,43 +4817,45 @@ def _shard_phase(card, dev, p_full, lp_full, phase4, phase5, library_ms,
                 lambda: pdhg_spmv.pdhg_update_burst_sharded(
                     args1[12], args1[13], *args1[:12], **kw_p),
                 1) / SHARD_PLAIN_ITERS
+            del plans
         parts = torch.zeros((1, op1.n_pad), device=dev)
         gather = ops.ShardGather(group, (1, op1.n_pad), torch.float32, dev)
         coll = time_events(lambda: [gather(parts) for _ in range(n)], 1) / n
         for precision in ("fp32", "bf16"):
-            say(f"    split {precision} {times['split', precision]:.6f} "
-                f"ms/iter (3 launches and the collective an iteration, "
-                f"median of 3 bursts of {n}); fused "
-                f"{times['fused', precision]:.6f} ms/iter; plain "
-                f"{times['plain', precision]:.6f} ms/iter")
+            t = {k: times[k, precision]
+                 for k in ("graph", "eager", "alone", "fused", "plain")}
+            say(f"    split {precision} over NCCL {t['graph']:.6f} ms/iter "
+                f"(the graph of two iterations replayed, median of 3 "
+                f"bursts of {n}); the same step launched eagerly with the "
+                f"collective between {t['eager']:.6f}; without a "
+                f"collective (one launch a burst) {t['alone']:.6f}, "
+                f"{t['alone'] / t['fused']:.3f}x the fused burst's "
+                f"{t['fused']:.6f}; plain {t['plain']:.6f} ms/iter")
         say(f"    the collective (NCCL all_gather of {op1.n_pad} floats, "
-            f"world 1) {coll:.6f} ms, {coll / times['split', 'fp32']:.1%} "
-            f"of a split fp32 iteration")
+            f"world 1, eager) {coll:.6f} ms, "
+            f"{coll / times['eager', 'fp32']:.1%} of an eager split fp32 "
+            f"iteration")
         for precision in ("fp32", "bf16"):
             for label, grp in (("no collective (group=None)", None),
                                ("over NCCL", group)):
-                own = split_device_ms(grp, args1, split_kw(
-                    op1, dev, SPLIT_OWN_ITERS, precision))
-                ev, cu = own["events"], own["cupti"]
-                k, k_ev = sum(cu.values()), sum(ev.values())
+                own = split_device_ms(grp, op1, args1, precision)
+                k, k_ev = own["cupti"], own["events"]
                 times["kernels", precision, grp is None] = k
                 times["stream", precision, grp is None] = k_ev
-                say(f"    split {precision} kernels' own device time, "
-                    f"{label}, ms an iteration (CUPTI's kernel durations "
-                    f"over a burst; CUDA events over {SPLIT_OWN_REPS} "
-                    f"launches queued behind a sleep, so the stream's "
-                    f"time a launch with the host ahead): kty "
-                    f"{cu['kty']:.6f}; {ev['kty']:.6f}, primal "
-                    f"{cu['primal']:.6f}; {ev['primal']:.6f}, dual "
-                    f"{cu['dual']:.6f}; {ev['dual']:.6f}; together "
-                    f"{k:.6f}; {k_ev:.6f} (the stream's "
-                    f"{(k_ev - k) / 3 * 1e3:.3f} us a launch outside the "
-                    f"kernels), {k / times['split', precision]:.1%} ; "
-                    f"{k_ev / times['split', precision]:.1%} of the "
-                    f"iteration's {times['split', precision]:.6f} ms over "
-                    f"NCCL, whose collective is "
-                    f"{coll / times['split', precision]:.1%}; the CSR "
-                    f"pair {library_ms:.6f} ms")
+                it = times["graph" if grp is not None else "alone",
+                           precision]
+                cupti = (f"not measured (the profiler kept "
+                         f"{own['seen']} of its {own['launched']} launches)"
+                         if k is None else
+                         f"{k:.6f} ms an iteration, {k / it:.1%} of the "
+                         f"iteration's {it:.6f} ms")
+                say(f"    split step {precision}, {label}: its own "
+                    f"device time (CUPTI's kernel durations over a burst "
+                    f"of {SPLIT_OWN_ITERS}) {cupti}; {k_ev:.6f} ms a step "
+                    f"launch (CUDA events over {SPLIT_OWN_REPS} launches "
+                    f"queued behind a sleep: the stream's time a launch "
+                    f"with the host ahead); the CSR pair "
+                    f"{library_ms:.6f} ms")
 
         t_phase = time.perf_counter()
         sync_phase(card, dev)
@@ -4810,7 +4909,7 @@ def _shard_phase(card, dev, p_full, lp_full, phase4, phase5, library_ms,
         f"{[res['fused_launches'] for res in ranks]}")
     require(all(res["launches"] > 0 and res["fused_launches"] == 0
                 for res in ranks),
-            "the ranks' solves did not go through the split entries alone")
+            "the ranks' solves did not go through the split step alone")
     it = max(res["iter_ms"] for res in ranks)
     co = max(res["collective_ms"] for res in ranks)
     direct = max(res["direct_ms"] for res in ranks)
@@ -4835,17 +4934,24 @@ def _shard_phase(card, dev, p_full, lp_full, phase4, phase5, library_ms,
         n_launch = (w1[0] - w1[1] + launches) if precision == "fp32" \
             else w1[1]
         entries.append({
-            "name": f"pdhg_split_{'f32' if precision == 'fp32' else 'bf16'}",
+            "name": f"pdhg_split_step_"
+                    f"{'f32' if precision == 'fp32' else 'bf16'}",
             "route": "cuda", "source": SOURCE, "replaces": SHARD_REPLACES,
             "launches": n_launch, "max_abs_err": max(errs[precision]),
-            "ms": times["split", precision],
+            "ms": times["graph", precision],
             "plain_ms": times["plain", precision], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
-            "kernels_ms": times["kernels", precision, True],
-            "kernels_stream_ms": times["stream", precision, True]})
-        say(f"    {entries[-1]['name']}: {times['split', precision]:.6f} "
-            f"ms/iter at world 1, bound {bound_ms:.6f} ms ({bound_by}), "
-            f"library {library_ms:.6f} ms (phase 6's CSR pair)")
+            "eager_ms": times["eager", precision],
+            "alone_ms": times["alone", precision],
+            "fused_ms": times["fused", precision],
+            "graph_replays": w1_replays,
+            "kernels_ms": times["kernels", precision, False],
+            "kernels_alone_ms": times["kernels", precision, True],
+            "kernels_stream_ms": times["stream", precision, False]})
+        say(f"    {entries[-1]['name']}: {times['graph', precision]:.6f} "
+            f"ms/iter at world 1 over NCCL, bound {bound_ms:.6f} ms "
+            f"({bound_by}), library {library_ms:.6f} ms (phase 6's CSR "
+            f"pair)")
     return entries, ranks
 
 
@@ -5816,10 +5922,10 @@ def main(argv=None) -> int:
         f"{pathlib.Path(info['library']).name}")
     for line in info["log"].splitlines():
         if "Compiling entry" in line:
-            # the fused kernel and the split entries, each in its two
+            # the fused kernel and the split step, each in its two
             # templates: fp32 and bf16-storage iterates
             kind = "bf16" if "bfloat16" in line else "fp32"
-            name = re.search(r"(pdhg_burst_kernel|split_[a-z]+)", line)
+            name = re.search(r"(pdhg_burst_kernel|pdhg_split_step)", line)
             say(f"    ptxas [{name.group(1) if name else '?'} {kind}]: "
                 f"{line.strip()}")
         elif "registers" in line or "spill" in line or "stack" in line:
@@ -6028,15 +6134,19 @@ def main(argv=None) -> int:
     require(not bad_layout, f"layout probe: the bf16 kernel's "
                             f"{', '.join(bad_layout)} laid out wrong")
     fa_errs = []
+    fa32_launches = 0           # the fp32 SIMT entry's (PERF.md row 2f)
     for seed, (name, B, S, H, Hkv, hd, window, cap, causal) in enumerate(
             FA_CASES):
         for dt in FA_DTYPES:
             q, k, v = fa_inputs(seed, B, S, H, Hkv, hd, getattr(torch, dt),
                                 dev)
+            before = ops.FLASH_ATTENTION_LAUNCHES
             fa_errs.append(compare_attention(
                 f"{name} S={S} H={H}/{Hkv} hd={hd} w={window} cap={cap:g}"
                 f"{'' if causal else ' non-causal'}",
                 q, k, v, window, cap, causal))
+            if dt == "float32":
+                fa32_launches += ops.FLASH_ATTENTION_LAUNCHES - before
             if name == "phi4-serve" and dt == "bfloat16":
                 want = fa_plain(q, k, v, window, cap)
                 for what, wrong in (("the last kv tile dropped",
@@ -6143,6 +6253,7 @@ def main(argv=None) -> int:
     say(f"    host time        {fa_host_us:.3f} us a call (the wrapper, three "
         f"tensor-map encodes and the launch, 20 calls queued behind the "
         f"card)")
+    fa32_times(card, dev, fa32_launches)
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()

@@ -16,9 +16,10 @@ The port of the reference `repro.core.solver` single-instance path:
 
 With `shards` > 1 the LP's rows are partitioned across that many
 torch.distributed ranks (runtime.sharding.solver_group), each rank
-solving the same LP SPMD: every rung is one row-sharded burst
-(kernels.ops.pdhg_burst_sharded; on the card the burst kernel's split
-entries with one collective an iteration).
+solving the same LP SPMD: every rung is one burst of a row-sharded
+burst plan made once per LP (kernels.ops.ShardedBurst; on the card the
+burst kernel's split step, one cooperative launch an iteration with one
+collective between two, replayed as a CUDA graph over NCCL).
 
 The batched form (`solve_lp_batch`, `solve_fast_batch`,
 `solve_fast_ensemble`) stacks instances block-diagonally and runs each
@@ -230,12 +231,14 @@ def _sharded_burst(c, row, col, val, b, h, xmax, m_eq, shards: int,
     """Pack an LP for a row-sharded burst across the `shards` ranks of
     runtime.sharding.solver_group (which raises unless torch.distributed
     runs that many) and return (op, burst): burst(x, y, iters,
-    precision) runs kernels.ops.pdhg_burst_sharded on this rank's row
-    block and returns (x, y, worst), every vector in the global padded
-    layout (x n_pad, y and worst shards * m_loc) and the same on every
-    rank.  The pack is made on the host and only this rank's block
-    (its rows' vectors, its tables and work lists) and the replicated
-    x side go to `device`."""
+    precision) runs a burst of this rank's row block and returns (x, y,
+    worst), every vector in the global padded layout (x n_pad, y and
+    worst shards * m_loc) and the same on every rank.  The pack is made
+    on the host and only this rank's block (its rows' vectors, its
+    tables and work lists) and the replicated x side go to `device`.
+    Each precision's kernels.ops.ShardedBurst is made at its first
+    burst and reused by the later ones (its buffers, and over NCCL its
+    captured graph), so x is overwritten by the next burst."""
     from ..runtime.sharding import solver_group
 
     group = solver_group(shards)
@@ -255,11 +258,15 @@ def _sharded_burst(c, row, col, val, b, h, xmax, m_eq, shards: int,
     keep_m = torch.zeros(op.m_loc, dtype=torch.bool, device=device)
     work = pdhg_spmv.sharded_work(op, device, [rank])
 
+    plans: dict = {}
+
     def burst(x, y, iters: int, precision: str):
-        return kops.pdhg_burst_sharded(
-            group, *x_side, *y_side, keep_n, keep_m, *tables, x, y[rows],
-            row_meta=op.row_meta, col_meta=op.col_meta, iters=iters,
-            precision=precision, **work)
+        if precision not in plans:
+            plans[precision] = kops.ShardedBurst(
+                group, *x_side, *y_side, keep_n, keep_m, *tables,
+                row_meta=op.row_meta, col_meta=op.col_meta,
+                precision=precision, **work)
+        return plans[precision](x, y[rows], iters)
 
     return op, burst
 
@@ -324,9 +331,9 @@ def _solve_lp_pallas_sharded(lp: StructuredLP, iters: int, tol: float,
                              precision: str = "fp32") -> PDHGResult:
     """_solve_lp_ell with the [eq; ub] rows partitioned across the
     `shards` ranks of runtime.sharding.solver_group and each rung one
-    row-sharded burst (kernels.ops.pdhg_burst_sharded: one collective an
-    iteration for K^T y).  Every rank calls it with the same LP and gets
-    the same result.  solve_lp engages it for shards > 1 only, so the
+    row-sharded burst (one plan, kernels.ops.ShardedBurst, for every
+    rung: one collective an iteration for K^T y).  Every rank calls it
+    with the same LP and gets the same result.  solve_lp engages it for shards > 1 only, so the
     single-device trajectory stays bit-for-bit untouched; at one shard
     it equals that trajectory bitwise."""
     dev = _device.resolve(device)
@@ -557,7 +564,7 @@ def solve_lp(lp: StructuredLP, iters: int = 4000, *,
     shards=1 leaves the single-device trajectory bit-for-bit untouched.
 
     `device="cuda"` (the default) runs each rung as one burst of the CUDA
-    kernel (sharded: the kernel's split entries) and raises RuntimeError
+    kernel (sharded: the kernel's split step) and raises RuntimeError
     when no card is available; `device="cpu"` runs the kernel's plain
     PyTorch version."""
     dev = _device.resolve(device)

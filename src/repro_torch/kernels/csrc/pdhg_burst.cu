@@ -4,11 +4,13 @@
 // (pl.pallas_call of _burst_kernel, body pdhg_update_burst, SpMV spmv_blocks),
 // in both of its iterate storage types: fp32 (pdhg_burst_f32) and bf16
 // storage with fp32 arithmetic (pdhg_burst_bf16, the body's bf16 branch).
-// The split entries at the end (pdhg_split_*) replace the sharded form of
-// the same body, src/repro/kernels/pdhg_spmv.py::pdhg_update_burst_sharded
-// (plain jnp under shard_map there, no pallas_call): the same step, cut
-// into plain launches around the one collective of a row-sharded
-// iteration (see the note above them).
+// The split step at the end (pdhg_split_step_*) replaces the sharded form
+// of the same body, src/repro/kernels/pdhg_spmv.py::pdhg_update_burst_sharded
+// (plain jnp under shard_map there, no pallas_call): the same iteration on
+// the same persistent cooperative grid, cut where the one collective of a
+// row-sharded iteration comes in, so that a whole burst is one launch
+// without a collective and one launch an iteration with one, the
+// iterations replayed as a CUDA graph over NCCL (see the note above it).
 //
 // What bounds it on this card.  One iteration reads both ELL tables once
 // (8 bytes a slot: int32 index + fp32 value) and a handful of fp32 vectors:
@@ -79,6 +81,7 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace cg = cooperative_groups;
@@ -290,34 +293,36 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
            [&](int r, float kx) { p.worst[r] = residual_value(p.v, r, kx); });
 }
 
-// Blocks of the kernel that fit on `device` at once (0 on an error).
-template <typename T>
-int max_blocks(int device) {
+// Blocks of `kernel` that fit on `device` at once (0 on an error).
+template <typename P>
+int fit_blocks(void (*kernel)(P), int device) {
   int sms = 0, per_sm = 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
           cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, pdhg_burst_kernel<T>, kThreads, 0) != cudaSuccess)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    kThreads, 0) !=
+          cudaSuccess)
     return 0;
   return sms * per_sm;
 }
 
-// One cooperative launch of the burst on `stream`: `blocks` resident
+// One cooperative launch of `kernel` on `stream`: `blocks` resident
 // blocks, or as many as fit when it is 0.  A launch the runtime refuses
 // (too many blocks for the card, no cooperative launch) returns its error.
-template <typename T>
-int launch(Burst<T> p, int blocks, int device, cudaStream_t stream) {
+template <typename P>
+int cooperative(void (*kernel)(P), P p, int blocks, int device,
+                cudaStream_t stream) {
   int coop = 0;
   cudaError_t err =
       cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  if (blocks <= 0) blocks = max_blocks<T>(device);
+  if (blocks <= 0) blocks = fit_blocks(kernel, device);
   if (blocks <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(pdhg_burst_kernel<T>), dim3(blocks),
-      dim3(kThreads), args, 0, stream);
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    dim3(blocks), dim3(kThreads), args, 0,
+                                    stream);
   if (err != cudaSuccess) {
     cudaGetLastError();   // clear it; the caller raises
     return static_cast<int>(err);
@@ -333,142 +338,176 @@ Direction direction(int bm, int n_items, const int64_t* off,
 }
 
 // ---------------------------------------------------------------------------
-// The split entries: the same step, cut where a collective must come in.
+// The split step: the same iteration, cut where a collective comes in.
 //
-// A row-sharded burst (kernels.ops.pdhg_burst_sharded) gives each shard
-// a block of the constraint rows; its K^T y is the sum over shards of
-// each shard's partial K^T_loc y_loc, which needs all of them before any
-// x can move.  One cooperative launch cannot wait on a collective, so
-// an iteration is three plain launches with the collective between the
-// first two:
+// A row-sharded burst (kernels.ops.ShardedBurst) gives each shard a block
+// of the constraint rows; its K^T y is the sum over the S shards of each
+// shard's partial K^T_loc y_loc, which needs all of them before any x can
+// move.  A process holds k consecutive shards (k = S when it is alone; at
+// most kMaxLocal on the card), their directions in the parameter block.
+// One launch of pdhg_split_step runs a sequence of phases on a persistent
+// cooperative grid, as the fused kernel does, with grid.sync() between two
+// consecutive phases:
 //
-//   split_kty      partial[i] = (K^T_loc y_loc)_i, every column, in the
-//                  lane-split order (row_sums, as the fused kernel);
-//   (the caller gathers every shard's partial, in shard order)
-//   split_primal   g_i = ((p_0 + p_1) + p_2) + ..., then primal_step;
-//   split_dual     the shard's rows: dual_value on K_loc xbar;
+//   begin   x, y in storage from fp32 x0, y0 (bf16 rounded to nearest
+//           even), then kty;
+//   a step  primal: g_i = ((p_0 + p_1) + p_2) + ... over the S gathered
+//           partials in shard order (pdhg_spmv.ordered_sum), then
+//           primal_step; dual: the k local shards' rows, dual_value on
+//           K_loc xbar; kty: the k local shards' columns, in the
+//           lane-split order, into parts[s]: the NEXT step's partials
+//           (left out where the finish follows);
+//   finish  x and y widened to fp32, and each local row's residual on the
+//           stored x (widening is exact, so this is the residual of x_out).
 //
-// and split_residual ends the burst.  Each is a grid-stride loop, so any
-// grid gives the same bits; with one shard, g = p_0 is the fused
-// kernel's kty, and the split burst equals the fused one bitwise.  The
-// launches are plain (not cooperative), so ranks that share a card may
-// interleave theirs.  Bound: the fused burst's bytes, plus the partials
-// written once and read once a step.
+// Without a collective (one process holds all S shards; the gathered
+// partials are `parts` itself) a whole burst is one launch: begin, iters
+// steps, finish.  With one, the collective sits between a step's kty and
+// the next step's primal, so the host launches begin, then one step a
+// launch with the all_gather between two launches, then finish; over NCCL
+// it captures two iterations (all_gather, step, all_gather, step: both
+// parities of the ping-pong buffers) into a CUDA graph once per plan and
+// replays it.  Any grid gives the same bits (every row summed by one warp
+// in the lane-split order, nothing atomic); with one shard g = p_0 is the
+// fused kernel's kty, and the split burst equals the fused one bitwise.
+// Ranks that share a card each launch a grid of the whole card: the card
+// time-slices the processes' contexts, and a cooperative grid is resident
+// within its own process's slice.  chip_smoke.py phase 30(c) runs two
+// ranks so on one H100, bitwise the single-process model, at gloo's pace
+// (about 1.7 ms an iteration, 1.2 ms of it the gather).
+// Bound: the fused burst's bytes, plus the partials written once and read
+// once a step.
 // ---------------------------------------------------------------------------
 
-// x0/y0 in the storage type (fp32 copied, bf16 rounded to nearest even)
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    split_init(int n, int m, const float* x0, const float* y0, T* x, T* y) {
-  const int stride = gridDim.x * kThreads;
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += stride)
-    x[i] = narrow<T>(__ldg(x0 + i));
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < m; i += stride)
-    y[i] = narrow<T>(__ldg(y0 + i));
-}
+// local shards a process may hold (kernels.ops.SPLIT_MAX_LOCAL): their
+// directions live in the parameter block, as the fused kernel's do, and
+// the loops over them unroll to constant indices (from a table in device
+// memory, a direction's nine fields sat in registers across its row sums
+// and the kernel spilled)
+constexpr int kMaxLocal = 4;
+
+// The operands of a split burst, fixed for the life of a burst plan
+// (kernels.ops._SplitArgs mirrors this layout and checks it against
+// pdhg_split_layout).  The y side, y_out and worst hold the k local
+// shards' rows, shard-major: k * m_loc each.
+struct SplitArgs {
+  int n_pad, m_loc, k, shards;
+  Direction rows[kMaxLocal];  // the k local shards' directions (k first)
+  Direction cols[kMaxLocal];
+  const float *c, *tau, *xmax;
+  const uint8_t* keep_n;
+  const float *q, *sig;
+  const uint8_t *ub, *keep_m;
+  const float *x0, *y0;      // the burst's start (fp32)
+  const float* gathered;     // shards x n_pad: every shard's partial
+  float* parts;              // k x n_pad: the local shards' partials
+  void* xs[2];               // the stored x's ping-pong buffers (n_pad)
+  void* ys[2];               // the stored y's (k * m_loc)
+  float* x_bar;
+  float *x_out, *y_out, *worst;
+};
+
+// One launch: the begin phases (when begin), `steps` steps from the
+// ping-pong buffer `parity`, then the finish (when finish).
+struct Step {
+  SplitArgs a;
+  int steps, begin, finish, parity;
+};
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-    split_kty(const Direction cols, const T* y, float* part) {
-  const int warp = (threadIdx.x >> 5) * gridDim.x + blockIdx.x;
-  row_sums(cols, y, warp, (gridDim.x * kThreads) >> 5, threadIdx.x & 31,
-           [&](int i, float s) { part[i] = s; });
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    split_primal(int n_pad, int shards, const float* parts, const Vecs v,
-                 const T* x, T* xn, float* x_bar) {
-  const int stride = gridDim.x * kThreads;
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n_pad;
-       i += stride) {
-    float g = parts[i];
-    for (int s = 1; s < shards; ++s) g += parts[(int64_t)s * n_pad + i];
-    primal_step(v, i, load(x + i), g, xn, x_bar);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-    split_dual(const Direction rows, const Vecs v, const float* x_bar,
-               const T* y, T* yn) {
-  const int warp = (threadIdx.x >> 5) * gridDim.x + blockIdx.x;
-  row_sums(rows, x_bar, warp, (gridDim.x * kThreads) >> 5, threadIdx.x & 31,
-           [&](int r, float kx) {
-             yn[r] = narrow<T>(dual_value(v, r, load(y + r), kx));
-           });
-}
-
-// the burst's fp32 outputs: x widened (when x_out is not null), the
-// shard's y widened, and its rows' residual on the stored x (widening is
-// exact, so gathering the stored x equals gathering x_out)
-template <typename T>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-    split_residual(const Direction rows, int n_pad, int m_loc, const Vecs v,
-                   const T* x, const T* y, float* x_out, float* y_out,
-                   float* worst) {
-  const int stride = gridDim.x * kThreads;
+    pdhg_split_step(const Step p) {
+  cg::grid_group grid = cg::this_grid();
+  const SplitArgs& s = p.a;
+  const int lane = threadIdx.x & 31;
   const int tid = blockIdx.x * kThreads + threadIdx.x;
-  if (x_out != nullptr)
-    for (int i = tid; i < n_pad; i += stride) x_out[i] = load(x + i);
-  for (int i = tid; i < m_loc; i += stride) y_out[i] = load(y + i);
+  const int n_threads = gridDim.x * kThreads;
+  // warps numbered block-minor, as in the fused kernel
   const int warp = (threadIdx.x >> 5) * gridDim.x + blockIdx.x;
-  row_sums(rows, x, warp, (gridDim.x * kThreads) >> 5, threadIdx.x & 31,
-           [&](int r, float kx) { worst[r] = residual_value(v, r, kx); });
-}
+  const int n_warps = n_threads >> 5;
+  const int m_all = s.k * s.m_loc;
+  const Vecs v{s.c, s.tau, s.xmax, s.q, s.sig, s.ub, s.keep_n, s.keep_m};
+  // grid.sync() between two phases of the launch, none before the first
+  bool started = false;
+  auto phase = [&]() {
+    if (started) grid.sync();
+    started = true;
+  };
+  // the ping-pong buffers (selected, not indexed; see the fused kernel)
+  auto xs = [&](int a) { return static_cast<T*>(a ? s.xs[1] : s.xs[0]); };
+  auto ys = [&](int a) { return static_cast<T*>(a ? s.ys[1] : s.ys[0]); };
+  auto kty = [&](const T* y) {
+#pragma unroll
+    for (int sh = 0; sh < kMaxLocal; ++sh) {
+      if (sh >= s.k) break;
+      float* part = s.parts + (int64_t)sh * s.n_pad;
+      row_sums(s.cols[sh], y + sh * s.m_loc, warp, n_warps, lane,
+               [&](int i, float sum) { part[i] = sum; });
+    }
+  };
 
-// blocks for a grid-stride loop over n elements, or over n warp tasks
-int elem_blocks(int n) { return n > 0 ? (n + kThreads - 1) / kThreads : 1; }
-int task_blocks(int n) {
-  constexpr int warps = kThreads / 32;
-  return n > 0 ? (n + warps - 1) / warps : 1;
-}
-
-int last_error() { return static_cast<int>(cudaGetLastError()); }
-
-template <typename T>
-int split_init_launch(int n, int m, const float* x0, const float* y0, T* x,
-                      T* y, void* stream) {
-  split_init<T><<<elem_blocks(n > m ? n : m), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(n, m, x0, y0, x, y);
-  return last_error();
-}
-
-template <typename T>
-int split_kty_launch(Direction cols, const T* y, float* part, void* stream) {
-  split_kty<T><<<task_blocks(cols.n_items), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(cols, y, part);
-  return last_error();
-}
-
-template <typename T>
-int split_primal_launch(int n_pad, int shards, const float* parts, Vecs v,
-                        const T* x, T* xn, float* x_bar, void* stream) {
-  split_primal<T><<<elem_blocks(n_pad), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      n_pad, shards, parts, v, x, xn, x_bar);
-  return last_error();
-}
-
-template <typename T>
-int split_dual_launch(Direction rows, Vecs v, const float* x_bar, const T* y,
-                      T* yn, void* stream) {
-  split_dual<T><<<task_blocks(rows.n_items), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(rows, v, x_bar, y,
-                                                       yn);
-  return last_error();
-}
-
-template <typename T>
-int split_residual_launch(Direction rows, int n_pad, int m_loc, Vecs v,
-                          const T* x, const T* y, float* x_out, float* y_out,
-                          float* worst, void* stream) {
-  const int tasks = task_blocks(rows.n_items);
-  const int elems = elem_blocks(n_pad > m_loc ? n_pad : m_loc);
-  split_residual<T><<<tasks > elems ? tasks : elems, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      rows, n_pad, m_loc, v, x, y, x_out, y_out, worst);
-  return last_error();
+  int a = p.parity;
+  if (p.begin) {
+    phase();
+    T* x = xs(a);
+    T* y = ys(a);
+    for (int i = tid; i < s.n_pad; i += n_threads)
+      x[i] = narrow<T>(__ldg(s.x0 + i));
+    for (int i = tid; i < m_all; i += n_threads)
+      y[i] = narrow<T>(__ldg(s.y0 + i));
+    if (p.steps > 0 || !p.finish) {
+      phase();
+      kty(y);
+    }
+  }
+  for (int step = 0; step < p.steps; ++step) {
+    const T* x = xs(a);
+    const T* y = ys(a);
+    T* const xn = xs(a ^ 1);
+    T* const yn = ys(a ^ 1);
+    // primal: the partials summed in shard order (plain loads: without a
+    // collective this launch wrote them), then x' and xbar
+    phase();
+    for (int i = tid; i < s.n_pad; i += n_threads) {
+      float g = s.gathered[i];
+      for (int sh = 1; sh < s.shards; ++sh)
+        g += s.gathered[(int64_t)sh * s.n_pad + i];
+      primal_step(v, i, load(x + i), g, xn, s.x_bar);
+    }
+    // dual: y' of the local shards' rows from K_loc xbar
+    phase();
+#pragma unroll
+    for (int sh = 0; sh < kMaxLocal; ++sh) {
+      if (sh >= s.k) break;
+      const int off = sh * s.m_loc;
+      row_sums(s.rows[sh], static_cast<const float*>(s.x_bar), warp,
+               n_warps, lane,
+               [&](int r, float kx) {
+                 yn[off + r] =
+                     narrow<T>(dual_value(v, off + r, load(y + off + r), kx));
+               });
+    }
+    a ^= 1;
+    if (step + 1 < p.steps || !p.finish) {
+      phase();
+      kty(yn);
+    }
+  }
+  if (p.finish) {
+    phase();
+    const T* x = xs(a);
+    const T* y = ys(a);
+    for (int i = tid; i < s.n_pad; i += n_threads) s.x_out[i] = load(x + i);
+    for (int i = tid; i < m_all; i += n_threads) s.y_out[i] = load(y + i);
+#pragma unroll
+    for (int sh = 0; sh < kMaxLocal; ++sh) {
+      if (sh >= s.k) break;
+      const int off = sh * s.m_loc;
+      row_sums(s.rows[sh], x, warp, n_warps, lane, [&](int r, float kx) {
+        s.worst[off + r] = residual_value(v, off + r, kx);
+      });
+    }
+  }
 }
 
 }  // namespace
@@ -514,7 +553,8 @@ extern "C" int pdhg_burst_f32(
   p.xs[1] = (iters % 2) ? x_tmp : x_out;
   p.ys[0] = (iters % 2) ? y_out : y_tmp;
   p.ys[1] = (iters % 2) ? y_tmp : y_out;
-  return launch(p, blocks, device, static_cast<cudaStream_t>(stream));
+  return cooperative(pdhg_burst_kernel<float>, p, blocks, device,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // bf16-stored iterates; x_tmp (2 * n_pad) and y_tmp (2 * m_pad) bf16
@@ -547,70 +587,55 @@ extern "C" int pdhg_burst_bf16(
   p.xs[1] = x_tmp + n_pad;
   p.ys[0] = y_tmp;
   p.ys[1] = y_tmp + m_pad;
-  return launch(p, blocks, device, static_cast<cudaStream_t>(stream));
+  return cooperative(pdhg_burst_kernel<__nv_bfloat16>, p, blocks, device,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // Blocks of the burst kernel that fit on `device` at once (bf16 != 0: the
 // bf16-storage kernel); 0 on an error.
 extern "C" int pdhg_burst_max_blocks(int bf16, int device) {
-  return bf16 ? max_blocks<__nv_bfloat16>(device) : max_blocks<float>(device);
+  return bf16 ? fit_blocks(pdhg_burst_kernel<__nv_bfloat16>, device)
+              : fit_blocks(pdhg_burst_kernel<float>, device);
 }
 
 
-// The split entries (see above), in fp32 (_f32) and bf16 (_bf16) storage
-// of the iterates x and y: T* below is float* or __nv_bfloat16*.  A
-// direction is passed as bm, n_items, block offsets (int64), block
-// widths, slot indices, slot values, row lengths, row order and warp
-// tasks (int32 pairs), as in the fused entries, for one shard.  Each
-// entry is one plain launch on `stream`; it returns 0, or the CUDA error
-// of a launch the runtime refused.
-#define PDHG_DIR_ARGS                                                   \
-  int bm, int n_items, const int64_t *off, const int *w, const int *idx, \
-      const float *val, const int *len, const int *order, const int *items
-#define PDHG_DIR direction(bm, n_items, off, w, idx, val, len, order, items)
-
-#define PDHG_SPLIT_ENTRIES(SUFFIX, T)                                        \
-  /* x (n) and y (m) in storage from fp32 x0 and y0 */                       \
-  extern "C" int pdhg_split_init_##SUFFIX(int n, int m, const float* x0,     \
-                                          const float* y0, T* x, T* y,       \
-                                          void* stream) {                    \
-    return split_init_launch<T>(n, m, x0, y0, x, y, stream);                 \
-  }                                                                          \
-  /* part (n_pad fp32) = K^T_loc y_loc over the shard's column pack */       \
-  extern "C" int pdhg_split_kty_##SUFFIX(PDHG_DIR_ARGS, const T* y,          \
-                                         float* part, void* stream) {        \
-    return split_kty_launch<T>(PDHG_DIR, y, part, stream);                   \
-  }                                                                          \
-  /* x' and xbar from the shards' partials (shards x n_pad, shard order) */ \
-  extern "C" int pdhg_split_primal_##SUFFIX(                                 \
-      int n_pad, int shards, const float* parts, const float* c,             \
-      const float* tau, const float* xmax, const uint8_t* keep_n,            \
-      const T* x, T* xn, float* x_bar, void* stream) {                       \
-    return split_primal_launch<T>(                                           \
-        n_pad, shards, parts,                                                \
-        Vecs{c, tau, xmax, nullptr, nullptr, nullptr, keep_n, nullptr}, x,   \
-        xn, x_bar, stream);                                                  \
-  }                                                                          \
-  /* y' of the shard's rows from K_loc xbar */                               \
-  extern "C" int pdhg_split_dual_##SUFFIX(                                   \
-      PDHG_DIR_ARGS, const float* q, const float* sig, const uint8_t* ub,    \
-      const uint8_t* keep_m, const float* x_bar, const T* y, T* yn,          \
-      void* stream) {                                                        \
-    return split_dual_launch<T>(                                             \
-        PDHG_DIR,                                                            \
-        Vecs{nullptr, nullptr, nullptr, q, sig, ub, nullptr, keep_m}, x_bar, \
-        y, yn, stream);                                                      \
-  }                                                                          \
-  /* fp32 x_out (n_pad; skipped when null), y_out and worst (m_loc) */       \
-  extern "C" int pdhg_split_residual_##SUFFIX(                               \
-      PDHG_DIR_ARGS, int n_pad, int m_loc, const float* q,                   \
-      const uint8_t* ub, const T* x, const T* y, float* x_out,               \
-      float* y_out, float* worst, void* stream) {                            \
-    return split_residual_launch<T>(                                         \
-        PDHG_DIR, n_pad, m_loc,                                              \
-        Vecs{nullptr, nullptr, nullptr, q, nullptr, ub, nullptr, nullptr}, x, \
-        y, x_out, y_out, worst, stream);                                     \
+// The split step (see above), in fp32 (_f32) and bf16 (_bf16) storage of
+// the iterates: one cooperative launch on `stream` of `blocks` resident
+// blocks (0: as many as fit) over the operands *args, running the begin
+// phases when begin != 0, then `steps` steps from the ping-pong buffer
+// `parity`, then the finish when finish != 0.  Returns 0, or the CUDA
+// error of a launch the runtime refused.
+#define PDHG_SPLIT_STEP(SUFFIX, T)                                            \
+  extern "C" int pdhg_split_step_##SUFFIX(                                    \
+      const void* args, int steps, int begin, int finish, int parity,         \
+      int blocks, int device, void* stream) {                                 \
+    return cooperative(                                                       \
+        pdhg_split_step<T>,                                                   \
+        Step{*static_cast<const SplitArgs*>(args), steps, begin, finish,      \
+             parity},                                                         \
+        blocks, device, static_cast<cudaStream_t>(stream));                   \
   }
 
-PDHG_SPLIT_ENTRIES(f32, float)
-PDHG_SPLIT_ENTRIES(bf16, __nv_bfloat16)
+PDHG_SPLIT_STEP(f32, float)
+PDHG_SPLIT_STEP(bf16, __nv_bfloat16)
+
+// Blocks of the split step that fit on `device` at once (bf16 != 0: the
+// bf16-storage kernel); 0 on an error.
+extern "C" int pdhg_split_max_blocks(int bf16, int device) {
+  return bf16 ? fit_blocks(pdhg_split_step<__nv_bfloat16>, device)
+              : fit_blocks(pdhg_split_step<float>, device);
+}
+
+// The layout the host's mirrors of Direction and SplitArgs must match:
+// sizeof(Direction), offsetof(Direction, items), sizeof(SplitArgs),
+// offsetof(SplitArgs, cols), offsetof(SplitArgs, xs),
+// offsetof(SplitArgs, worst) and kMaxLocal, into out[0..6].
+extern "C" void pdhg_split_layout(long long* out) {
+  out[0] = sizeof(Direction);
+  out[1] = offsetof(Direction, items);
+  out[2] = sizeof(SplitArgs);
+  out[3] = offsetof(SplitArgs, cols);
+  out[4] = offsetof(SplitArgs, xs);
+  out[5] = offsetof(SplitArgs, worst);
+  out[6] = kMaxLocal;
+}

@@ -36,13 +36,16 @@ PDHG_BURST_LAUNCHES = 0
 PDHG_BURST_BF16_LAUNCHES = 0
 # calls of the adaptive driver on the card (each runs one burst a chunk)
 PDHG_ADAPTIVE_CALLS = 0
-# launches of the burst kernel's split entries on the card, either storage
-# type (a row-sharded burst: per iteration a partial K^T y launch a local
-# shard, one primal and one dual launch a shard; one start and one
-# residual launch a burst)
+# launches of the split step (pdhg_burst.cu's pdhg_split_step_*) on the
+# card, either storage type, those inside CUDA-graph replays included: a
+# burst without a collective is one launch; with one, a begin launch, one
+# a step, and a finish launch
 PDHG_SPLIT_LAUNCHES = 0
 # of which with bf16-stored iterates
 PDHG_SPLIT_BF16_LAUNCHES = 0
+# replays of a burst plan's captured two-iteration graph (over NCCL; each
+# replay is two step launches and two all_gathers)
+PDHG_SPLIT_GRAPH_REPLAYS = 0
 # calls of the row-sharded burst on the card
 PDHG_SHARDED_CALLS = 0
 # launches of the COO burst on the card (kernels/csrc/pdhg_coo.cu: one
@@ -210,6 +213,8 @@ def _check_burst_args(named: dict, row_meta: tuple, col_meta: tuple,
         "col_val": (_F32, table_len(col_meta)),
     }
     for name, (dtype, length) in want.items():
+        if name not in named:       # a burst plan checks x0, y0 per burst
+            continue
         t = named[name]
         if t.dtype != dtype or t.dim() != 1 or t.shape[0] != length:
             raise ValueError(f"pdhg_burst: {name} must be a 1-D {dtype} "
@@ -306,24 +311,75 @@ def pdhg_burst(c, tau, xmax, q, sig, ub, keep_n, keep_m,
     return x_out, y_out, worst
 
 
-# the split entries of pdhg_burst.cu: name -> argument kinds after the
-# direction's (i: int, p: pointer); every entry ends with the stream
-_DIRECTION = "ii" + "p" * 7
-_SPLIT_ARGS = {"init": "iipppp", "kty": _DIRECTION + "pp",
-               "primal": "ii" + "p" * 8, "dual": _DIRECTION + "p" * 7,
-               "residual": _DIRECTION + "ii" + "p" * 7}
-_CTYPES = {"i": ctypes.c_int, "p": ctypes.c_void_p}
+class _Direction(ctypes.Structure):
+    """pdhg_burst.cu's Direction: one shard's ELL direction and its work
+    list, as the split step reads it from a table on the card."""
+    _fields_ = [("bm", ctypes.c_int), ("n_items", ctypes.c_int)] + [
+        (name, ctypes.c_void_p)
+        for name in ("off", "width", "idx", "val", "len", "order", "items")]
+
+
+# local shards a process may hold on the card (pdhg_burst.cu's kMaxLocal:
+# their directions ride in the split step's parameter block)
+SPLIT_MAX_LOCAL = 4
+
+
+class _SplitArgs(ctypes.Structure):
+    """pdhg_burst.cu's SplitArgs: the operands of a split burst."""
+    _fields_ = ([(name, ctypes.c_int)
+                 for name in ("n_pad", "m_loc", "k", "shards")]
+                + [("rows", _Direction * SPLIT_MAX_LOCAL),
+                   ("cols", _Direction * SPLIT_MAX_LOCAL)]
+                + [(name, ctypes.c_void_p) for name in (
+                    "c", "tau", "xmax", "keep_n", "q", "sig", "ub", "keep_m",
+                    "x0", "y0", "gathered", "parts")]
+                + [("xs", ctypes.c_void_p * 2), ("ys", ctypes.c_void_p * 2)]
+                + [(name, ctypes.c_void_p)
+                   for name in ("x_bar", "x_out", "y_out", "worst")])
 
 
 def _split_lib() -> ctypes.CDLL:
     lib = _burst_lib()
-    if lib.pdhg_split_init_f32.argtypes is None:
-        for name, kinds in _SPLIT_ARGS.items():
-            for sfx in ("f32", "bf16"):
-                fn = getattr(lib, f"pdhg_split_{name}_{sfx}")
-                fn.argtypes = [_CTYPES[k] for k in kinds] + [ctypes.c_void_p]
-                fn.restype = ctypes.c_int
+    if lib.pdhg_split_max_blocks.argtypes is None:
+        for sfx in ("f32", "bf16"):
+            fn = getattr(lib, f"pdhg_split_step_{sfx}")
+            fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 \
+                + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.pdhg_split_layout.argtypes = [ctypes.c_void_p]
+        lib.pdhg_split_layout.restype = None
+        out = (ctypes.c_longlong * 7)()
+        lib.pdhg_split_layout(out)
+        want = (ctypes.sizeof(_Direction), _Direction.items.offset,
+                ctypes.sizeof(_SplitArgs), _SplitArgs.cols.offset,
+                _SplitArgs.xs.offset, _SplitArgs.worst.offset,
+                SPLIT_MAX_LOCAL)
+        if tuple(out) != want:
+            raise RuntimeError(f"pdhg_burst.cu lays out Direction and "
+                               f"SplitArgs as {tuple(out)}, the host's "
+                               f"mirrors as {want}")
+        lib.pdhg_split_max_blocks.argtypes = [ctypes.c_int] * 2
+        lib.pdhg_split_max_blocks.restype = ctypes.c_int
     return lib
+
+
+def split_max_blocks(precision: str = "fp32", device=None) -> int:
+    """Blocks of the split step that fit on the card at once: the grid of
+    a split launch by default."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return int(_split_lib().pdhg_split_max_blocks(int(precision == "bf16"),
+                                                  index))
+
+
+def split_schedule(iters: int) -> tuple[int, int]:
+    """(pairs, tail): a burst of `iters` iterations as `pairs` replays of
+    the two-iteration graph and `tail` (0 or 1) eager iterations after
+    them."""
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
+    return iters // 2, iters % 2
 
 
 class ShardGather:
@@ -332,12 +388,14 @@ class ShardGather:
     every rank, into buffers kept across calls.  An all_gather, so each
     rank then sums the same partials in the same order
     (pdhg_spmv.ordered_sum); an all_reduce would leave the order to the
-    backend.  gloo takes CUDA tensors as they are, but a gather through
-    pinned host memory of our own is faster (PERF.md, phase 30): a copy
-    to the host (which waits for the stream), the gather there, and a
-    copy back on the current stream.  The next call's copy to the host
-    waits for that one, so the buffers are reused safely; over NCCL the
-    collective is ordered with the current stream."""
+    backend.  Over NCCL it gathers straight into the kept buffer
+    (all_gather_into_tensor), ordered with the current stream and so
+    capturable in a CUDA graph.  gloo takes CUDA tensors as they are,
+    but a gather through pinned host memory of our own is faster
+    (PERF.md, phase 30): a copy to the host (which waits for the stream),
+    the gather there, and a copy back on the current stream.  The next
+    call's copy to the host waits for that one, so the buffers are
+    reused safely."""
 
     def __init__(self, group, shape, dtype, device):
         self.group = group
@@ -345,8 +403,8 @@ class ShardGather:
         n = shape[0] * (shape[1] if len(shape) > 1 else 1)
         self.shape = (world * shape[0], *shape[1:])
         self.out = torch.empty((world, n), dtype=dtype, device=device)
-        self.stage = (device.type == "cuda"
-                      and dist.get_backend(group) != "nccl")
+        self.nccl = dist.get_backend(group) == "nccl"
+        self.stage = device.type == "cuda" and not self.nccl
         if self.stage:
             self.host_in = torch.empty(n, dtype=dtype, pin_memory=True)
             self.host_out = torch.empty((world, n), dtype=dtype,
@@ -356,7 +414,10 @@ class ShardGather:
             self.rows = list(self.out.unbind(0))
 
     def __call__(self, t):
-        if self.stage:
+        if self.nccl:
+            dist.all_gather_into_tensor(self.out, t.reshape(-1),
+                                        group=self.group)
+        elif self.stage:
             self.host_in.copy_(t.reshape(-1))
             dist.all_gather(self.rows, self.host_in, group=self.group)
             self.out.copy_(self.host_out, non_blocking=True)
@@ -373,162 +434,271 @@ def gather_shards(t, group):
     return ShardGather(group, tuple(t.shape), t.dtype, t.device)(t)
 
 
+class ShardedBurst:
+    """A row-sharded PDHG burst plan: the operands of one LP's k local
+    shards and every buffer a burst needs, made once and reused by every
+    burst (a restart ladder's rungs), run by every rank of `group` (a
+    torch.distributed process group, see runtime.sharding.solver_group;
+    None: this process holds every shard).
+
+    The layout is kernels.pdhg_spmv.ell_pack_sharded's.  Each rank
+    passes the replicated x side (c, tau, xmax, keep_n; n_pad) and its
+    own k consecutive shards: the y side (q, sig, ub, keep_m; k * m_loc)
+    and their tables (k shards' tables, shard-major), with each shard's
+    work lists (`row_work` / `col_work`, k triples each, as
+    pdhg_spmv.sharded_work gives them; required on the card).
+    `plan(x0, y0, iters)` runs one burst from x0 (n_pad) and the local
+    y0 (k * m_loc).  The one collective an iteration gathers the S =
+    world * k partials of K^T y (ShardGather) and sums them in shard
+    order, so x is bitwise the same on every rank and equal to one
+    process stepping all S shards.  Returns (x, y, worst), y and worst
+    gathered to the global layout (S * m_loc) on every rank; x is the
+    plan's own buffer, overwritten by its next burst.
+
+    On CUDA tensors a burst is pdhg_burst.cu's split step, a cooperative
+    launch on `_blocks` blocks (0: as many as fit) on the current stream:
+    without a group one launch of the whole burst; with one, a begin
+    launch, then for each iteration the all_gather and one step launch,
+    then a finish launch.  Over NCCL the iterations run as a CUDA graph of
+    two (all_gather, step, all_gather, step), captured at the plan's first
+    burst of two or more iterations and replayed iters // 2 times, an odd
+    iteration after it eagerly (`capture`; the communicator is warmed by
+    one gather first, since NCCL cannot set up under capture).  gloo's
+    gather stages through pinned host memory and waits on the host, which
+    a graph cannot hold, so over gloo every iteration is launched
+    eagerly.  A launch the card refuses raises.  On CPU tensors a burst
+    is the plain body, kernels.pdhg_spmv.pdhg_update_burst_sharded."""
+
+    def __init__(self, group, c, tau, xmax, q, sig, ub, keep_n, keep_m,
+                 row_idx, row_val, col_idx, col_val, *, row_meta: tuple,
+                 col_meta: tuple, precision: str = "fp32", row_work=None,
+                 col_work=None, _blocks: int = 0):
+        if precision not in _BURST_ENTRY:
+            raise ValueError(f"unknown precision {precision!r}; "
+                             f"have {tuple(_BURST_ENTRY)}")
+        m_loc = row_meta[3]
+        k = max(q.shape[0] // m_loc, 1)
+        # the shard checks of pdhg_burst on a k-shard layout
+        shard_meta = tuple(row_meta[:3]) + (k * m_loc,)
+        rsize, csize = ps.table_len(row_meta), ps.table_len(col_meta)
+        named = dict(c=c, tau=tau, xmax=xmax, q=q, sig=sig, ub=ub,
+                     keep_n=keep_n, keep_m=keep_m)
+        device = _check_burst_args(
+            dict(named, row_idx=row_idx[:rsize], row_val=row_val[:rsize],
+                 col_idx=col_idx[:csize], col_val=col_val[:csize]),
+            shard_meta, col_meta, 0)
+        for name, t, size in (("row_idx", row_idx, rsize),
+                              ("row_val", row_val, rsize),
+                              ("col_idx", col_idx, csize),
+                              ("col_val", col_val, csize)):
+            if t.shape[0] != k * size or t.device != device:
+                raise ValueError(f"pdhg_burst_sharded: {name} must hold {k} "
+                                 f"shards' tables ({k * size} slots on "
+                                 f"{device}), got {tuple(t.shape)} on "
+                                 f"{t.device}")
+        for name, work, meta in (("row_work", row_work, row_meta),
+                                 ("col_work", col_work, col_meta)):
+            if work is not None or device.type == "cuda":
+                if not isinstance(work, (list, tuple)) or len(work) != k:
+                    raise ValueError(f"pdhg_burst_sharded: {name} must list "
+                                     f"the work lists of the {k} local "
+                                     f"shards")
+                for w in work:
+                    _check_work(name, w, meta, device)
+        if device.type not in ("cpu", "cuda"):
+            raise ValueError(f"pdhg_burst_sharded runs on cuda or cpu "
+                             f"tensors, got {device}")
+        self.group, self.device, self.precision = group, device, precision
+        self.row_meta, self.col_meta = row_meta, col_meta
+        self.k, self.m_loc, self.n_pad = k, m_loc, col_meta[3]
+        self.shard_meta = shard_meta
+        self.operands = (c, tau, xmax, q, sig, ub, keep_n, keep_m, row_idx,
+                         row_val, col_idx, col_val)
+        self.work = dict(row_work=row_work, col_work=col_work)
+        self.capture = False
+        if device.type == "cuda":
+            self._setup(int(_blocks))
+
+    def _setup(self, blocks: int) -> None:
+        """The card's side of the plan: its buffers, the kernel's operands
+        and the gather."""
+        dev, k, m_loc, n_pad = self.device, self.k, self.m_loc, self.n_pad
+        if k > SPLIT_MAX_LOCAL:
+            raise ValueError(f"pdhg_burst_sharded: a process holds at most "
+                             f"{SPLIT_MAX_LOCAL} shards on the card, got "
+                             f"{k}")
+        (c, tau, xmax, q, sig, ub, keep_n, keep_m, row_idx, row_val,
+         col_idx, col_val) = self.operands
+        lib = _split_lib()
+        bf16 = self.precision == "bf16"
+        self.fn = getattr(lib, f"pdhg_split_step_{'bf16' if bf16 else 'f32'}")
+        self.index = dev.index if dev.index is not None \
+            else torch.cuda.current_device()
+        self.blocks = blocks or split_max_blocks(self.precision, dev)
+        store = torch.bfloat16 if bf16 else _F32
+
+        def empty(n, dtype=_F32):
+            return torch.empty(n, dtype=dtype, device=dev)
+
+        self.xs = [empty(n_pad, store) for _ in range(2)]
+        self.ys = [empty(k * m_loc, store) for _ in range(2)]
+        self.x_in, self.x_bar, self.x_out = (empty(n_pad) for _ in range(3))
+        self.y_in, self.y_out, self.worst = (empty(k * m_loc)
+                                             for _ in range(3))
+        self.parts = torch.empty((k, n_pad), dtype=_F32, device=dev)
+        self.gather = (None if self.group is None
+                       else ShardGather(self.group, (k, n_pad), _F32, dev))
+        gathered = self.parts if self.gather is None else self.gather.out
+        shards = (1 if self.group is None
+                  else dist.get_world_size(self.group)) * k
+
+        def directions(meta, idx, val, work):
+            off, width = _meta_tensors(meta, dev)
+            size = ps.table_len(meta)
+            # the plan keeps every tensor the kernel reads a pointer of
+            # (_meta_tensors' cache may drop these)
+            self.keep += (off, width)
+            return (_Direction * SPLIT_MAX_LOCAL)(*(
+                _Direction(int(meta[2]), work[s][2].shape[0],
+                           off.data_ptr(), width.data_ptr(),
+                           idx[s * size:].data_ptr(),
+                           val[s * size:].data_ptr(),
+                           *(t.data_ptr() for t in work[s]))
+                for s in range(k)))
+
+        self.keep = ()
+        self.args = _SplitArgs(
+            n_pad, m_loc, k, shards,
+            directions(self.row_meta, row_idx, row_val,
+                       self.work["row_work"]),
+            directions(self.col_meta, col_idx, col_val,
+                       self.work["col_work"]),
+            *(t.data_ptr() for t in (c, tau, xmax, keep_n, q, sig, ub, keep_m,
+                                     self.x_in, self.y_in, gathered,
+                                     self.parts)),
+            (ctypes.c_void_p * 2)(*(t.data_ptr() for t in self.xs)),
+            (ctypes.c_void_p * 2)(*(t.data_ptr() for t in self.ys)),
+            *(t.data_ptr() for t in (self.x_bar, self.x_out, self.y_out,
+                                     self.worst)))
+        self.graph = None
+        # over NCCL the iterations replay as a CUDA graph; over gloo the
+        # gather stages through host memory and waits on the host, which a
+        # graph cannot capture, so its iterations are launched eagerly
+        self.capture = self.gather is not None and self.gather.nccl
+        if self.capture:
+            with torch.cuda.device(dev):
+                self.gather(self.parts)       # NCCL sets up outside capture
+
+    def _count(self, launches: int) -> None:
+        global PDHG_SPLIT_LAUNCHES, PDHG_SPLIT_BF16_LAUNCHES
+        PDHG_SPLIT_LAUNCHES += launches
+        if self.precision == "bf16":
+            PDHG_SPLIT_BF16_LAUNCHES += launches
+
+    def _launch(self, steps: int, begin: int, finish: int, parity: int,
+                count: bool = True) -> None:
+        """One launch of the split step on the current stream (under
+        capture, the capture's: read here, never before)."""
+        err = self.fn(ctypes.byref(self.args), steps, begin, finish, parity,
+                      self.blocks, self.index,
+                      torch.cuda.current_stream(self.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"pdhg_burst_sharded ({self.precision}): "
+                               f"the split step's cooperative launch "
+                               f"failed: CUDA error {err}")
+        if count:
+            self._count(1)
+
+    def _step(self, parity: int, count: bool = True) -> None:
+        """One iteration with a group: the gather of the partials, then a
+        step launch from buffer `parity`."""
+        self.gather(self.parts)
+        self._launch(1, 0, 0, parity, count)
+
+    def _captured(self) -> torch.cuda.CUDAGraph:
+        """The two-iteration graph (gather, step from buffer 0, gather,
+        step from buffer 1), captured on a side stream at first use."""
+        if self.graph is None:
+            graph = torch.cuda.CUDAGraph()
+            here = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(here)
+            with torch.cuda.stream(side):
+                # thread_local: the NCCL watchdog's event queries from its
+                # own thread must not invalidate the capture
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self._step(0, count=False)
+                    self._step(1, count=False)
+                finally:
+                    graph.capture_end()
+            here.wait_stream(side)
+            self.graph = graph
+        return self.graph
+
+    def __call__(self, x0, y0, iters: int):
+        global PDHG_SPLIT_GRAPH_REPLAYS, PDHG_SHARDED_CALLS
+        k, m_loc, group = self.k, self.m_loc, self.group
+        device = _check_burst_args(dict(x0=x0, y0=y0), self.shard_meta,
+                                   self.col_meta, iters)
+        if device != self.device:
+            raise ValueError(f"pdhg_burst_sharded: x0 and y0 lie on "
+                             f"{device}, the plan on {self.device}")
+
+        def gather_rows(t):
+            return gather_shards(t.view(k, -1), group).reshape(-1)
+
+        if device.type == "cpu":
+            reduce = None if group is None else (
+                lambda parts: ps.ordered_sum(
+                    list(gather_shards(torch.stack(parts), group)
+                         .unbind(0))))
+            x, y, worst = ps.pdhg_update_burst_sharded(
+                x0, y0, *self.operands, row_meta=self.row_meta,
+                col_meta=self.col_meta, iters=iters, reduce=reduce,
+                precision=self.precision, **self.work)
+            return x, gather_rows(y), gather_rows(worst)
+        with torch.cuda.device(device):
+            self.x_in.copy_(x0)
+            self.y_in.copy_(y0)
+            if group is None:
+                self._launch(iters, 1, 1, 0)
+            else:
+                self._launch(0, 1, 0, 0)
+                pairs, tail = (split_schedule(iters) if self.capture
+                               else (0, iters))
+                for _ in range(pairs):
+                    self._captured().replay()
+                    PDHG_SPLIT_GRAPH_REPLAYS += 1
+                    self._count(2)
+                for it in range(tail):
+                    self._step(it & 1)
+                self._launch(0, 0, 1, iters & 1)
+        PDHG_SHARDED_CALLS += 1
+        return self.x_out, gather_rows(self.y_out), gather_rows(self.worst)
+
+
 def pdhg_burst_sharded(group, c, tau, xmax, q, sig, ub, keep_n, keep_m,
                        row_idx, row_val, col_idx, col_val, x0, y0, *,
                        row_meta: tuple, col_meta: tuple, iters: int,
                        precision: str = "fp32", row_work=None,
-                       col_work=None):
+                       col_work=None, _blocks: int = 0):
     """One `iters`-iteration PDHG burst over a row-block-sharded operator,
     run by every rank of `group` (a torch.distributed process group, see
-    runtime.sharding.solver_group; None: this process holds every shard).
-
-    The layout is kernels.pdhg_spmv.ell_pack_sharded's.  Each rank
-    passes the replicated x side (c, tau, xmax, keep_n, x0; n_pad) and
-    its own k consecutive shards: the y side (q, sig, ub, keep_m, y0;
-    k * m_loc) and their tables (k shards' tables, shard-major), with
-    each shard's work lists (`row_work` / `col_work`, k triples each, as
-    pdhg_spmv.sharded_work gives them; required on the card).  The one
-    collective an iteration gathers the S = world * k partials of K^T y
-    (gather_shards) and sums them in shard order, so x is bitwise the
-    same on every rank and equal to one process stepping all S shards.
-    Returns (x, y, worst), y and worst gathered to the global layout
-    (S * m_loc) on every rank.
-
-    On CUDA tensors each iteration is the split entries of
-    kernels/csrc/pdhg_burst.cu on the current stream (a partial launch
-    a local shard, the collective, a primal launch, a dual launch a
-    local shard), after one start launch and before one residual launch
-    a local shard; a launch the card refuses raises.  On CPU tensors it
-    is the plain body, kernels.pdhg_spmv.pdhg_update_burst_sharded."""
-    global PDHG_SPLIT_LAUNCHES, PDHG_SPLIT_BF16_LAUNCHES, PDHG_SHARDED_CALLS
-    if precision not in _BURST_ENTRY:
-        raise ValueError(f"unknown precision {precision!r}; "
-                         f"have {tuple(_BURST_ENTRY)}")
-    m_loc = row_meta[3]
-    k = max(y0.shape[0] // m_loc, 1)
-    # the shard checks of pdhg_burst on a k-shard layout
-    shard_meta = tuple(row_meta[:3]) + (k * m_loc,)
-    rsize, csize = ps.table_len(row_meta), ps.table_len(col_meta)
-    named = dict(c=c, tau=tau, xmax=xmax, q=q, sig=sig, ub=ub,
-                 keep_n=keep_n, keep_m=keep_m, x0=x0, y0=y0)
-    device = _check_burst_args(
-        dict(named, row_idx=row_idx[:rsize], row_val=row_val[:rsize],
-             col_idx=col_idx[:csize], col_val=col_val[:csize]),
-        shard_meta, col_meta, iters)
-    for name, t, size in (("row_idx", row_idx, rsize),
-                          ("row_val", row_val, rsize),
-                          ("col_idx", col_idx, csize),
-                          ("col_val", col_val, csize)):
-        if t.shape[0] != k * size or t.device != device:
-            raise ValueError(f"pdhg_burst_sharded: {name} must hold {k} "
-                             f"shards' tables ({k * size} slots on "
-                             f"{device}), got {tuple(t.shape)} on "
-                             f"{t.device}")
-    for name, work, meta in (("row_work", row_work, row_meta),
-                             ("col_work", col_work, col_meta)):
-        if work is not None or device.type == "cuda":
-            if not isinstance(work, (list, tuple)) or len(work) != k:
-                raise ValueError(f"pdhg_burst_sharded: {name} must list "
-                                 f"the work lists of the {k} local shards")
-            for w in work:
-                _check_work(name, w, meta, device)
-    world = 1 if group is None else dist.get_world_size(group)
-
-    def gather_rows(t):
-        return gather_shards(t.view(k, -1), group).reshape(-1)
-
-    if device.type == "cpu":
-        reduce = None if group is None else (
-            lambda parts: ps.ordered_sum(
-                list(gather_shards(torch.stack(parts), group).unbind(0))))
-        x, y, worst = ps.pdhg_update_burst_sharded(
-            x0, y0, c, tau, xmax, q, sig, ub, keep_n, keep_m, row_idx,
-            row_val, col_idx, col_val, row_meta=row_meta, col_meta=col_meta,
-            iters=iters, reduce=reduce, precision=precision,
-            row_work=row_work, col_work=col_work)
-        return x, gather_rows(y), gather_rows(worst)
-    if device.type != "cuda":
-        raise ValueError(f"pdhg_burst_sharded runs on cuda or cpu tensors, "
-                         f"got {device}")
-    lib = _split_lib()
-    sfx = "bf16" if precision == "bf16" else "f32"
-    store = torch.bfloat16 if precision == "bf16" else _F32
-    n_pad = col_meta[3]
-    row_off, row_w = _meta_tensors(row_meta, device)
-    col_off, col_w = _meta_tensors(col_meta, device)
-
-    def direction(meta, off, w, idx, val, size, work, s):
-        lengths, order, items = work[s]
-        return (int(meta[2]), items.shape[0], off.data_ptr(), w.data_ptr(),
-                idx[s * size:].data_ptr(), val[s * size:].data_ptr(),
-                lengths.data_ptr(), order.data_ptr(), items.data_ptr())
-
-    def local(t, s):
-        return t[s * m_loc:].data_ptr()
-
-    xs = [torch.empty(n_pad, dtype=store, device=device) for _ in range(2)]
-    ys = [torch.empty(k * m_loc, dtype=store, device=device)
-          for _ in range(2)]
-    parts = torch.empty((k, n_pad), dtype=_F32, device=device)
-    x_bar, x_out = (torch.empty(n_pad, dtype=_F32, device=device)
-                    for _ in range(2))
-    y_out, worst = (torch.empty(k * m_loc, dtype=_F32, device=device)
-                    for _ in range(2))
-    gather = (None if group is None
-              else ShardGather(group, (k, n_pad), _F32, device))
-    # every pointer of every launch, for either parity of the ping-pong
-    # buffers, computed once: an iteration is then three C calls and
-    # the collective
-    rows = [direction(row_meta, row_off, row_w, row_idx, row_val, rsize,
-                      row_work, s) for s in range(k)]
-    cols = [direction(col_meta, col_off, col_w, col_idx, col_val, csize,
-                      col_work, s) for s in range(k)]
-    kty = [[(*cols[s], local(ys[a], s), parts[s].data_ptr())
-            for s in range(k)] for a in range(2)]
-    dual = [[(*rows[s], local(q, s), local(sig, s), local(ub, s),
-              local(keep_m, s), x_bar.data_ptr(), local(ys[a], s),
-              local(ys[1 - a], s)) for s in range(k)] for a in range(2)]
-    primal = [(c.data_ptr(), tau.data_ptr(), xmax.data_ptr(),
-               keep_n.data_ptr(), xs[a].data_ptr(), xs[1 - a].data_ptr(),
-               x_bar.data_ptr()) for a in range(2)]
-    fns = {name: getattr(lib, f"pdhg_split_{name}_{sfx}")
-           for name in _SPLIT_ARGS}
-    launched = 0
-
-    def launch(name, *args):
-        nonlocal launched
-        err = fns[name](*args, stream)
-        if err != 0:
-            raise RuntimeError(f"pdhg_burst_sharded ({precision}): the "
-                               f"{name} launch failed: CUDA error {err}")
-        launched += 1
-
-    try:
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            launch("init", n_pad, k * m_loc, x0.data_ptr(), y0.data_ptr(),
-                   xs[0].data_ptr(), ys[0].data_ptr())
-            for it in range(iters):
-                a = it & 1
-                for args in kty[a]:
-                    launch("kty", *args)
-                g = parts if gather is None else gather(parts)
-                launch("primal", n_pad, world * k, g.data_ptr(), *primal[a])
-                for args in dual[a]:
-                    launch("dual", *args)
-            a = iters & 1
-            for s in range(k):
-                launch("residual", *rows[s], n_pad, m_loc, local(q, s),
-                       local(ub, s), xs[a].data_ptr(), local(ys[a], s),
-                       x_out.data_ptr() if s == 0 else None,
-                       local(y_out, s), local(worst, s))
-    finally:
-        PDHG_SPLIT_LAUNCHES += launched
-        if precision == "bf16":
-            PDHG_SPLIT_BF16_LAUNCHES += launched
-    PDHG_SHARDED_CALLS += 1
-    return x_out, gather_rows(y_out), gather_rows(worst)
-
+    runtime.sharding.solver_group; None: this process holds every shard):
+    a ShardedBurst over these operands, made and run once.  x0 is the
+    replicated start (n_pad), y0 this rank's k shards' rows (k * m_loc);
+    the other operands, the layout, the result (x, y, worst) and what
+    runs where are ShardedBurst's.  `_blocks` > 0 asks the card for that
+    many blocks a launch."""
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
+    plan = ShardedBurst(group, c, tau, xmax, q, sig, ub, keep_n, keep_m,
+                        row_idx, row_val, col_idx, col_val,
+                        row_meta=row_meta, col_meta=col_meta,
+                        precision=precision, row_work=row_work,
+                        col_work=col_work, _blocks=_blocks)
+    return plan(x0, y0, iters)
 
 def _segment_max(values, segments, num_segments: int):
     """out[s] = max of values[segments == s], -inf for an empty segment

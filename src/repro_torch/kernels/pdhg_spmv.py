@@ -29,8 +29,8 @@ This module holds the parts that are not the CUDA kernel:
     the reference's S-way row-block partition, bitwise its layout, and
     the plain body of a sharded burst, whose one collective an
     iteration (the sum of the shards' partials of K^T.y) the caller
-    passes in; kernels.ops.pdhg_burst_sharded runs it across ranks, on
-    the card through the burst kernel's split entries.
+    passes in; kernels.ops.ShardedBurst runs it across ranks, on the
+    card through the burst kernel's split step.
 
 Blocked-ELL layout
 ------------------
