@@ -31,7 +31,9 @@ Phases, in order; any failure ends the script with a non-zero exit code:
   7. build of the flash-attention kernel (phase 2): seconds, and each
      template's registers and spills (the bf16 wgmma / TMA kernel, one
      template per padded head dim, with its setmaxnreg split, and the fp32
-     SIMT kernel); no spills and no serialized wgmma in the bf16 kernel;
+     SIMT kernel, one template per padded head dim of its simt_plan); no
+     spills in either, no serialized wgmma in the bf16 kernel, and no
+     mma, wgmma or TF32 in the fp32 entry's source;
   8. attention kernel vs its plain version on the card: first a layout
      probe of the bf16 kernel on structured inputs at each padded head
      dim, reporting apart whether S = Q K^T's or O = P V's layout is
@@ -54,8 +56,10 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      for the window, hd=120 and the ring-buffer cache;
  10. times at the serving shapes: the attention kernel, its plain
      version, torch's scaled_dot_product_attention as a library
-     yardstick, the bound and the useful TFLOP/s reached; prefill wall,
-     decode ms a token, and the device's busy share of one prefill;
+     yardstick, the bound and the useful TFLOP/s reached; the fp32 SIMT
+     entry at the same shape in fp32 beside SDPA in fp32 and its bound at
+     the fp32 FMA rate, with its tile plan; prefill wall, decode ms a
+     token, and the device's busy share of one prefill;
  11. the bf16-storage burst (pdhg_burst_bf16) vs its plain version on
      phase 3's operators at 1 and 500 iterations: bitwise equal to the
      kernel-order model and on two grids, every output on the bf16 grid
@@ -1463,6 +1467,30 @@ def setmaxnreg_split() -> tuple[int, int]:
                  for n in ("kProducerRegs", "kConsumerRegs"))
 
 
+def attention_template_counts() -> tuple[int, int]:
+    """(bf16, fp32) templates that flash_attention.cu builds: the entries
+    of its FA_WGMMA_TEMPLATES and FA_SIMT_TEMPLATES lines."""
+    from repro_torch.kernels import build
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    counts = []
+    for name in ("FA_WGMMA_TEMPLATES", "FA_SIMT_TEMPLATES"):
+        line = re.search(rf"#define {name}\(X\)((?:.*\\\n)*.*)", src)
+        counts.append(len(re.findall(r"X\(", line.group(1))))
+    return tuple(counts)
+
+
+def simt_tensor_core_words() -> list[str]:
+    """Tensor-core words (mma, wgmma, tf32) in the code of the attention
+    kernel's fp32 entry, from its banner to its end marker, comments
+    left out: empty when every product and sum is on the FMA units."""
+    from repro_torch.kernels import build
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    body = src[src.index("// fp32 entry: the SIMT kernel"):
+               src.index("// end of the fp32 entry")]
+    code = re.sub(r"//.*", "", body)
+    return [w for w in ("mma", "tf32", "TF32") if w in code]
+
+
 def ptxas_templates(log: str, split: tuple | None = None) -> list[str]:
     """One line per compiled kernel template from nvcc's -Xptxas -v log:
     its name and template arguments, registers (at entry), and spill
@@ -1490,14 +1518,17 @@ def ptxas_templates(log: str, split: tuple | None = None) -> list[str]:
     return out
 
 
-def fa32_times(card, dev, launches) -> None:
+def fa32_times(card, dev, launches, max_err) -> dict:
     """Phase 10, PERF.md row 2f: the fp32 SIMT entry of the attention
     kernel at phi4-mini's serving shape, beside its plain version and
     torch SDPA in fp32, and its bound at the fp32 rate outside the tensor
-    cores (FP32_OPS_S).  No model path launches it (activations are bf16);
-    `launches` are phase 8's grid's."""
+    cores (attention_bound_fp32), with the tile plan it ran on.  No model
+    path launches it (activations are bf16); `launches` are phase 8's
+    grid's and `max_err` its largest |kernel - plain| over the fp32 cases.
+    Returns the kernel's entry of the kernels line."""
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_attention as fa
     shape = (4, 2048, 24, 8, 128)
     q, k, v = fa_inputs(99, *shape[:2], *shape[2:], torch.float32, dev)
     ms = sorted(time_events(lambda: ops.flash_attention(q, k, v), 3)
@@ -1507,11 +1538,9 @@ def fa32_times(card, dev, launches) -> None:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = time_events(lambda: sdpa(qt, kt, vt, is_causal=True,
                                       enable_gqa=True), 3)
-    _, _, nbytes, flop = attention_bound(*shape, 0, 4)
-    t_ops, t_bytes = flop / FP32_OPS_S * 1e3, nbytes / HBM_BYTES_S * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    bound_ms, bound_by, nbytes, flop = attention_bound_fp32(*shape, 0)
     del q, k, v, qt, kt, vt
+    p = fa.simt_plan(shape[-1])
     say(f"    fp32 SIMT entry (row 2f, q (4, 2048, 24, 128), k/v (4, 2048, "
         f"8, 128), fp32, causal; {card}): {ms:.6f} ms a launch (median of "
         f"3 runs of 3); plain {plain_ms:.6f} ms; SDPA in fp32 "
@@ -1519,6 +1548,25 @@ def fa32_times(card, dev, launches) -> None:
         f"flop at 67 TFLOP/s fp32, {nbytes} B at 3.35 TB/s); "
         f"{ms / bound_ms:.3f}x its bound, {ms / lib_ms:.3f}x SDPA; "
         f"launches: {launches} in phase 8's grid, none on a model path")
+    say(f"    its plan (kernels/flash_attention.py::simt_plan): "
+        f"flash_fwd_simt<{p.hdp}, {p.bq}, {p.bkv}, {p.stages}>, {p.threads} "
+        f"threads, {p.smem} B of shared memory a block")
+    return {"name": "flash_attention_f32", "route": "cuda",
+            "source": FA_SOURCE, "replaces": FA_REPLACES,
+            "launches": launches, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def attention_bound_fp32(B, S, H, Hkv, hd, window):
+    """attention_bound for fp32 operands, whose products run on the FMA
+    units: the same flop at the fp32 rate outside the tensor cores
+    (FP32_OPS_S), against the fp32 bytes at the HBM rate.  Returns (ms,
+    bound_by, bytes, flop)."""
+    _, _, nbytes, flop = attention_bound(B, S, H, Hkv, hd, window, 4)
+    t_ops, t_bytes = flop / FP32_OPS_S * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else
+            "bytes", nbytes, flop)
 
 
 def attention_bound(B, S, H, Hkv, hd, window, itemsize):
@@ -6118,12 +6166,24 @@ def main(argv=None) -> int:
     templates = ptxas_templates(fa_info["log"], setmaxnreg_split())
     for line in templates:
         say(f"    ptxas: {line}")
-    require(len(templates) == 8 or not fa_info["log"],
-            f"expected 8 attention templates (3 bf16, 5 fp32) in the "
-            f"ptxas log, found {len(templates)}")
+    n_bf16, n_fp32 = attention_template_counts()
+    require(len(templates) == n_bf16 + n_fp32 or not fa_info["log"],
+            f"expected {n_bf16 + n_fp32} attention templates ({n_bf16} "
+            f"bf16, {n_fp32} fp32) in the ptxas log, found "
+            f"{len(templates)}")
     wgmma_lines = [t for t in templates if "wgmma" in t]
     require(all("spill stores 0 B" in t for t in wgmma_lines),
             "the bf16 attention kernel spills registers")
+    simt_lines = [t for t in templates if "simt" in t]
+    require(all("spill stores 0 B" in t and "loads 0 B" in t
+                for t in simt_lines),
+            "the fp32 attention kernel spills registers")
+    tc_words = simt_tensor_core_words()
+    require(not tc_words, f"the fp32 attention entry's source names "
+                          f"{tc_words}: its products must stay on the FMA "
+                          f"units")
+    say(f"    fp32 entry: {len(simt_lines)} templates without spills, no "
+        f"mma, wgmma or TF32 in its source")
     require("C7512" not in fa_info["log"] and "C7508" not in fa_info["log"],
             "ptxas serialized the bf16 attention kernel's wgmma or ignored "
             "its setmaxnreg")
@@ -6134,7 +6194,8 @@ def main(argv=None) -> int:
     require(not bad_layout, f"layout probe: the bf16 kernel's "
                             f"{', '.join(bad_layout)} laid out wrong")
     fa_errs = []
-    fa32_launches = 0           # the fp32 SIMT entry's (PERF.md row 2f)
+    fa32_errs = []              # the fp32 SIMT entry's (PERF.md row 2f)
+    fa32_launches = 0
     for seed, (name, B, S, H, Hkv, hd, window, cap, causal) in enumerate(
             FA_CASES):
         for dt in FA_DTYPES:
@@ -6147,6 +6208,7 @@ def main(argv=None) -> int:
                 q, k, v, window, cap, causal))
             if dt == "float32":
                 fa32_launches += ops.FLASH_ATTENTION_LAUNCHES - before
+                fa32_errs.append(fa_errs[-1])
             if name == "phi4-serve" and dt == "bfloat16":
                 want = fa_plain(q, k, v, window, cap)
                 for what, wrong in (("the last kv tile dropped",
@@ -6161,6 +6223,9 @@ def main(argv=None) -> int:
                 del want
             del q, k, v
     fa_max_err = max(fa_errs)
+    require(fa32_launches == 2 * len(FA_CASES),
+            f"phase 8's fp32 cases launched the fp32 entry "
+            f"{fa32_launches} times, expected {2 * len(FA_CASES)}")
 
     # -- phase 9: serving path at full width --------------------------------
     say("[9] serving path: phi4-mini-3.8b at full width, batch 4, prompt "
@@ -6253,7 +6318,7 @@ def main(argv=None) -> int:
     say(f"    host time        {fa_host_us:.3f} us a call (the wrapper, three "
         f"tensor-map encodes and the launch, 20 calls queued behind the "
         f"card)")
-    fa32_times(card, dev, fa32_launches)
+    fa32_entry = fa32_times(card, dev, fa32_launches, max(fa32_errs))
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -6903,7 +6968,7 @@ def main(argv=None) -> int:
         "replaces": FA_REPLACES, "launches": fa_launches,
         "max_abs_err": fa_max_err, "ms": fa_ms, "plain_ms": fa_plain_ms,
         "bound_ms": fa_bound_ms, "bound_by": fa_bound_by,
-        "library_ms": fa_lib_ms}, {
+        "library_ms": fa_lib_ms}, fa32_entry, {
         "name": "pdhg_burst_bf16", "route": "cuda", "source": SOURCE,
         "replaces": BF16_REPLACES, "launches": path_bf16,
         "max_abs_err": bf16_max_err, "ms": bf16_ms,

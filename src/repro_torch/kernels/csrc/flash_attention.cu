@@ -64,13 +64,26 @@
 // (kernels/flash_attention.py::tile_plan); FA_WGMMA_TEMPLATES lists the
 // plans built.
 
-// fp32, flash_fwd_simt: the exact form of the first port, every product and
-// sum on the fp32 FMA units.  One block of 256 threads per (b * h, 64-row
-// query tile); 64-row kv tiles staged in shared memory; the 64 x HDP
-// accumulator in registers (a 4 x NJ register tile a thread).  The fp32
-// FMA units (67 TFLOP/s) bound it, far above the tensor-core bound.  No
-// served path runs attention in fp32; it is the float32 reference on the
-// card.
+// fp32, flash_fwd_simt: every product and sum on the fp32 FMA units (no
+// tensor-core instruction, no TF32), which bound it: 67 TFLOP/s, 1.54 ms
+// at the shape above.  No served path runs attention in fp32; it is the
+// float32 reference on the card.  One block a (b * h, query tile of BQ
+// rows), the heaviest query tiles first.  K and V tiles of BK keys arrive
+// by 16-byte cp.async into separate rings of STAGES slots, so tile t+1's
+// loads run under tile t's products, with two barriers a tile.  Both
+// products are register tiles fed by float4 shared loads: a thread owns 8
+// rows x 8 columns of O (256 FMAs per 16 loads of p and V) and 8 rows x
+// TNS keys of S, the head dim split over DS lanes where that keeps TNS at
+// 8 (256 FMAs per 16 loads of Q and K) and the split sums joined by a
+// recursive halving of shuffles.  The online softmax stays in the
+// registers of the lanes that computed the scores (row max and sum by
+// shuffles; ex2 of scores kept times log2 e, the mask applied after the
+// scaling so that the NEG_INF fill stays finite); p goes to shared memory
+// once, as the operand of P V.  Q and K rows are swizzled (float4 column c
+// of row r at c ^ (r & 7)) so that no load of either product conflicts in
+// the banks.  The tile plan (HDP, BQ, BK, STAGES, shared bytes) comes from
+// the caller (kernels/flash_attention.py::simt_plan); FA_SIMT_TEMPLATES
+// lists the plans built.
 //
 // Both entries skip kv tiles wholly above the causal diagonal or wholly
 // outside the window: such a tile leaves m, l and acc unchanged in the
@@ -88,217 +101,6 @@
 namespace {
 
 constexpr float kNegInf = -2.3819763e38f;
-
-// ---------------------------------------------------------------------------
-// fp32 entry: the SIMT kernel
-// ---------------------------------------------------------------------------
-
-constexpr int kBQ = 64;        // query rows a block
-constexpr int kBK = 64;        // key rows a kv tile
-constexpr int kThreads = 256;  // 16 x 16 thread grid
-constexpr int kLDS = kBK + 4;  // row stride of the score tile (floats)
-
-// rows [row0, row0 + 64) of a (len, n_heads, hd) sequence -> rows of `ld`
-// floats in shared memory; rows past `len` and columns past hd are 0
-template <int HDP>
-__device__ __forceinline__ void load_tile(float* dst, int ld,
-                                          const float* __restrict__ src,
-                                          int64_t row_stride, int row0,
-                                          int len, int hd) {
-  for (int i = threadIdx.x; i < 64 * HDP; i += kThreads) {
-    const int r = i / HDP, d = i % HDP;
-    const int row = row0 + r;
-    dst[r * ld + d] = (row < len && d < hd) ? src[row * row_stride + d] : 0.0f;
-  }
-}
-
-template <int NJ>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, float* __restrict__ out, int S,
-                   int Tk, int H, int Hkv, int hd, int causal, int window,
-                   float cap, float scale) {
-  constexpr int HDP = 16 * NJ;
-  constexpr int LDQ = HDP + 4;  // float4 rows, 4-bank shift between rows
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;               // [kBQ][LDQ]
-  float* kvs = qs + kBQ * LDQ;    // [kBK][LDQ]: K, then V of the same tile
-  float* ps = kvs + kBK * LDQ;    // [kBQ][kLDS]: scores, then p
-  float* m_s = ps + kBQ * kLDS;   // [kBQ] running max
-  float* l_s = m_s + kBQ;         // [kBQ] running denominator
-  float* a_s = l_s + kBQ;         // [kBQ] this tile's rescale alpha
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.y * kBQ;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int hk = h / (H / Hkv);
-  const int64_t q_stride = (int64_t)H * hd;
-  const int64_t k_stride = (int64_t)Hkv * hd;
-  const float* qb = q + ((int64_t)b * S * H + h) * hd;
-  const float* kb = k + ((int64_t)b * Tk * Hkv + hk) * hd;
-  const float* vb = v + ((int64_t)b * Tk * Hkv + hk) * hd;
-
-  load_tile<HDP>(qs, LDQ, qb, q_stride, q0, S, hd);
-  if (tid < kBQ) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.0f;
-  }
-  float acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
-
-  const int q_last = min(q0 + kBQ, S) - 1;
-  for (int k0 = 0; k0 < Tk; k0 += kBK) {
-    if (causal && k0 > q_last) break;  // wholly above the diagonal
-    if (window > 0 && q0 - (k0 + kBK - 1) >= window) continue;  // outside
-    __syncthreads();  // the previous tile's reads of V and p are done
-    load_tile<HDP>(kvs, LDQ, kb, k_stride, k0, Tk, hd);
-    __syncthreads();
-
-    // s = (Q K^T) * scale for rows ty + 16i, columns tx + 16j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < HDP; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * LDQ + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(kvs + (tx + 16 * j) * LDQ + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
-        }
-    }
-    // softcap, then the mask (the reference's order)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const int qi = q0 + r, ki = k0 + c;
-        float x = s[i][j] * scale;
-        if (cap != 0.0f) x = cap * tanhf(x / cap);
-        bool keep = true;
-        if (causal) keep = keep && qi >= ki;
-        if (window > 0) keep = keep && (qi - ki) < window;
-        x = keep ? x : kNegInf;
-        if (ki >= Tk) x = -INFINITY;  // no such key: weight exactly 0
-        ps[r * kLDS + c] = x;
-      }
-    __syncthreads();
-
-    // online softmax: 4 lanes a row, lane `part` takes columns part + 4jj
-    {
-      const int r = tid / 4, part = tid % 4;
-      float* row = ps + r * kLDS;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < kBK / 4; ++jj) mx = fmaxf(mx, row[part + 4 * jj]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_prev = m_s[r];
-      const float l_prev = l_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.0f;
-#pragma unroll
-      for (int jj = 0; jj < kBK / 4; ++jj) {
-        const float p = expf(row[part + 4 * jj] - m_new);
-        row[part + 4 * jj] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      __syncwarp();
-      if (part == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[r] = alpha;
-        l_s[r] = alpha * l_prev + sum;
-        m_s[r] = m_new;
-      }
-    }
-    // K is no longer read: stage V in its place
-    load_tile<HDP>(kvs, LDQ, vb, k_stride, k0, Tk, hd);
-    __syncthreads();
-
-    // acc = alpha * acc + p . V
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = a_s[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
-    }
-#pragma unroll 2
-    for (int c = 0; c < kBK; c += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * kLDS + c);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float* vc = kvs + c * LDQ + tx + 16 * j;
-        const float v0 = vc[0], v1 = vc[LDQ], v2 = vc[2 * LDQ],
-                    v3 = vc[3 * LDQ];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][j] = fmaf(pv[i].x, v0, acc[i][j]);
-          acc[i][j] = fmaf(pv[i].y, v1, acc[i][j]);
-          acc[i][j] = fmaf(pv[i].z, v2, acc[i][j]);
-          acc[i][j] = fmaf(pv[i].w, v3, acc[i][j]);
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const int qi = q0 + r;
-    if (qi >= S) continue;
-    const float denom = fmaxf(l_s[r], 1e-30f);
-    float* orow = out + ((int64_t)b * S + qi) * q_stride + (int64_t)h * hd;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < hd) orow[d] = acc[i][j] / denom;
-    }
-  }
-}
-
-template <int NJ>
-cudaError_t launch_simt(int B, int S, int Tk, int H, int Hkv, int hd,
-                        int causal, int window, float cap, float scale,
-                        const void* q, const void* k, const void* v,
-                        void* out, cudaStream_t stream) {
-  constexpr int LDQ = 16 * NJ + 4;
-  const size_t smem =
-      sizeof(float) * ((size_t)(kBQ + kBK) * LDQ + kBQ * kLDS + 3 * kBQ);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_simt<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  // (batch, head) on x, where the limit is 2^31 - 1; query tiles on y
-  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
-  flash_fwd_simt<NJ><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, Tk, H, Hkv,
-      hd, causal, window, cap, scale);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // bf16 entry: the warp-specialized wgmma / TMA kernel
@@ -966,21 +768,389 @@ cudaError_t launch_wgmma(int B, int S, int Tk, int H, int Hkv, int hd,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// fp32 entry: the SIMT kernel (no tensor-core instruction below this line
+// up to "end of the fp32 entry")
+// ---------------------------------------------------------------------------
+
+// The tiling of one FA_SIMT_TEMPLATES entry (HDP, BQ, BK, STAGES).  A
+// thread owns 8 query rows, rg + R i (R = BQ / 8 row groups), and 8
+// columns of O, the float4 column blocks cg and cg + G (G = HDP / 8 lanes
+// a row group, contiguous in a warp).  For S = Q K^T the G lanes of a row
+// group are KL key lanes x DS slices of the head dim: lane (dq, kl) sums
+// the keys kl + KL jn (jn < TNS) over its slice of HDP / DS columns, and a
+// recursive halving over the DS slices leaves it TNO = TNS / DS whole
+// scores a row, keys kl + KL (dq TNO + u).  Both products then load
+// float4 operands from shared memory: 8 of Q and TNS of K for 32 TNS
+// FMAs, 8 of p and 8 of V for 256 FMAs.
+__host__ __device__ constexpr int ilog2(int x) {
+  return x <= 1 ? 0 : 1 + ilog2(x / 2);
+}
+
+template <int HDP, int BQ, int BK, int STAGES>
+struct SimtTile {
+  static constexpr int G = HDP / 8;
+  static constexpr int R = BQ / 8;
+  static constexpr int kThreads = R * G;
+  static constexpr int DS = G > 8 ? G / 8 : 1;
+  static constexpr int KL = G / DS;
+  static constexpr int TNS = BK / KL;
+  static constexpr int TNO = TNS / DS;
+  static constexpr int NC = HDP / 4;        // float4 columns of a row
+  static constexpr int NCH = NC / DS;       // float4 columns of a d slice
+  static constexpr int LDP = BK + 4;        // row stride of p (floats)
+  // shared memory, in floats: Q, the K ring, the V ring, p.  Q and K rows
+  // keep float4 column c at c ^ (row & 7); V and p are plain row-major.
+  // kernels/flash_attention.py::simt_plan computes the same bytes; the
+  // entry refuses a plan that disagrees.
+  static constexpr int kK = BQ * HDP;
+  static constexpr int kV = kK + STAGES * BK * HDP;
+  static constexpr int kP = kV + STAGES * BK * HDP;
+  static constexpr int kSmem = 4 * (kP + BQ * LDP);
+  static_assert(HDP % 32 == 0 && HDP <= 256 && 32 % G == 0, "head dim");
+  // R a multiple of 8: a thread's rows share row & 7, its Q swizzle
+  static_assert(BQ % 64 == 0 && kThreads % 32 == 0 && kThreads <= 1024,
+                "threads");
+  static_assert(BK % (4 * KL) == 0 && TNS % DS == 0 && NCH >= 8 &&
+                    (NCH & (NCH - 1)) == 0 && DS <= 8,
+                "tiles");
+  static_assert(STAGES >= 2 && kSmem <= 232448, "shared memory");
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [row0, row0 + ROWS) of a (len, heads, hd) sequence -> ROWS rows of
+// HDP floats at dst through 16-byte asynchronous copies, float4 column c
+// of row r at c ^ (r & 7) when SWZ; rows past len and columns past hd
+// arrive as zeros
+template <int ROWS, int HDP, int THREADS, bool SWZ>
+__device__ __forceinline__ void copy_rows(uint32_t dst,
+                                          const float* __restrict__ src,
+                                          int64_t stride, int row0, int len,
+                                          int hd) {
+  constexpr int NC = HDP / 4;
+  static_assert(ROWS * NC % THREADS == 0, "whole copies a thread");
+#pragma unroll
+  for (int e = 0; e < ROWS * NC / THREADS; ++e) {
+    const int i = threadIdx.x + e * THREADS;
+    const int r = i / NC, c = i % NC;
+    const bool ok = row0 + r < len && 4 * c < hd;
+    const int slot = r * NC + (SWZ ? c ^ (r & 7) : c);
+    cp_async16(dst + 16 * slot, ok ? src + (row0 + r) * stride + 4 * c : src,
+               ok);
+  }
+}
+
+// One block a (b * h, query tile of BQ rows), the heaviest tiles first
+// (blockIdx.y 0 takes the last query tile, which has the most kv tiles
+// under a causal mask).  K and V of each kv tile arrive through a ring of
+// STAGES slots each, fed by cp.async: tile t + STAGES - 1's V is issued
+// at barrier A of tile t, once every warp is done with tile t - 1's
+// P V, and tile t + STAGES's K at barrier B, once every warp is done with
+// tile t's Q K^T, so both load under the products of the tiles between.
+// Two barriers a tile: A (K of tile t landed, p and the old V slot free)
+// and B (p written, V of tile t landed, the old K slot free).
+template <int HDP, int BQ, int BK, int STAGES>
+__global__ void __launch_bounds__(SimtTile<HDP, BQ, BK, STAGES>::kThreads, 1)
+    flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ out,
+                   const Work w, int hd, float cap, float scale) {
+  using L = SimtTile<HDP, BQ, BK, STAGES>;
+  constexpr int G = L::G, R = L::R, KL = L::KL, DS = L::DS;
+  constexpr int TNS = L::TNS, TNO = L::TNO, NC = L::NC, NCH = L::NCH;
+  constexpr int LDP = L::LDP;
+  constexpr int LOG_G = ilog2(G), LOG_DS = ilog2(DS);
+  extern __shared__ __align__(16) float smem[];
+  const float4* qs4 = reinterpret_cast<const float4*>(smem);
+  float* ps = smem + L::kP;
+  const uint32_t s_base = smem_u32(smem);
+
+  const int tid = threadIdx.x;
+  const int cg = tid % G, rg = tid / G;
+  const int kl = cg % KL, dq = cg / KL;
+  const int q0 = (w.n_qt - 1 - (int)blockIdx.y) * BQ;
+  const int b = blockIdx.x / w.H, h = blockIdx.x % w.H;
+  const int hk = h / (w.H / w.Hkv);
+  const int64_t q_stride = (int64_t)w.H * hd;
+  const int64_t k_stride = (int64_t)w.Hkv * hd;
+  const float* kb = k + ((int64_t)b * w.Tk * w.Hkv + hk) * hd;
+  const float* vb = v + ((int64_t)b * w.Tk * w.Hkv + hk) * hd;
+  const int q_last = min(q0 + BQ, w.S) - 1;
+  int j_lo, j_hi;
+  tile_range(w, BK, q0, q_last, j_lo, j_hi);
+  const int n = j_hi - j_lo;
+
+  // the ring: every call commits one group, empty past the last tile, so
+  // that the groups run K_0 V_0 K_1 V_1 ... and each wait below leaves
+  // exactly the 2 STAGES - 2 younger groups in flight
+  auto load_k = [&](int t) {
+    if (t < n)
+      copy_rows<BK, HDP, L::kThreads, true>(
+          s_base + 4 * (L::kK + (t % STAGES) * BK * HDP), kb, k_stride,
+          (j_lo + t) * BK, w.Tk, hd);
+    cp_async_commit();
+  };
+  auto load_v = [&](int t) {
+    if (t < n)
+      copy_rows<BK, HDP, L::kThreads, false>(
+          s_base + 4 * (L::kV + (t % STAGES) * BK * HDP), vb, k_stride,
+          (j_lo + t) * BK, w.Tk, hd);
+    cp_async_commit();
+  };
+  copy_rows<BQ, HDP, L::kThreads, true>(
+      s_base, q + ((int64_t)b * w.S * w.H + h) * hd, q_stride, q0, w.S, hd);
+  load_k(0);  // one group with Q
+  for (int t = 1; t < STAGES; ++t) {
+    load_v(t - 1);
+    load_k(t);
+  }
+
+  // O: acc[i][e] is row rg + R i, column 4 cg + e (e < 4) or 4 (cg + G) +
+  // e - 4.  Scores are kept times log2(e): p = 2^(y - m), m the row's max
+  // of y (the same in the row group's lanes), l this lane's part of the
+  // row sum (summed over the row group's lanes at the end).
+  float acc[8][8];
+  float m_r[8], l_r[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m_r[i] = kNegInf;
+    l_r[i] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[i][e] = 0.0f;
+  }
+  const float scale2 = scale * kLog2e;
+  // this lane's d slice, walked from float4 column (8 / DS) dq on so that
+  // the slices of one row fall in different banks; Q and K swizzled by row
+  const int rot = dq * (8 / DS);
+  const int xq = rg & 7;
+  const float4* q_lane = qs4 + rg * NC + dq * NCH;
+
+  for (int t = 0; t < n; ++t) {
+    const int k0 = (j_lo + t) * BK;
+    const int st = t % STAGES;
+    cp_async_wait<2 * STAGES - 2>();
+    __syncthreads();  // A
+    load_v(t + STAGES - 1);
+
+    // S = Q K^T: s[i][jn] is row rg + R i, key kl + KL jn, over this
+    // lane's d slice
+    const float4* k_lane = reinterpret_cast<const float4*>(
+                               smem + L::kK + st * BK * HDP) +
+                           kl * NC + dq * NCH;
+    float s[8][TNS];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int jn = 0; jn < TNS; ++jn) s[i][jn] = 0.0f;
+#pragma unroll 2
+    for (int u = 0; u < NCH; ++u) {
+      const int c = (u + rot) & (NCH - 1);
+      float4 kv[TNS];
+#pragma unroll
+      for (int jn = 0; jn < TNS; ++jn) {
+        const int xk = KL % 8 == 0 ? kl & 7 : (kl + KL * jn) & 7;
+        kv[jn] = k_lane[jn * KL * NC + (c ^ xk)];
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 qv = q_lane[i * R * NC + (c ^ xq)];
+#pragma unroll
+        for (int jn = 0; jn < TNS; ++jn) {
+          s[i][jn] = fmaf(qv.x, kv[jn].x, s[i][jn]);
+          s[i][jn] = fmaf(qv.y, kv[jn].y, s[i][jn]);
+          s[i][jn] = fmaf(qv.z, kv[jn].z, s[i][jn]);
+          s[i][jn] = fmaf(qv.w, kv[jn].w, s[i][jn]);
+        }
+      }
+    }
+    // recursive halving over the d slices: at each level the lanes whose
+    // dq has the level's bit keep the upper half of their keys and send
+    // the lower half; the kept sums move to the front of s
+#pragma unroll
+    for (int lvl = 0; lvl < LOG_DS; ++lvl) {
+      const int bit = DS >> (lvl + 1), half = TNS >> (lvl + 1);
+      const bool up = (dq & bit) != 0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int x = 0; x < half; ++x) {
+          const float send = up ? s[i][x] : s[i][x + half];
+          const float keep = up ? s[i][x + half] : s[i][x];
+          s[i][x] = keep + __shfl_xor_sync(0xffffffffu, send, KL * bit);
+        }
+    }
+
+    // the online softmax in fp32: scale, softcap, then the mask (the
+    // reference's order; the mask only on tiles that cross the diagonal,
+    // the window's edge or T), the row max over the row group's lanes,
+    // p = 2^(y - m) written to shared memory once, l, and O rescaled
+    const bool edge = (w.causal && k0 + BK - 1 > q0) ||
+                      (w.window > 0 && q_last - k0 >= w.window) ||
+                      k0 + BK > w.Tk;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int qi = q0 + rg + R * i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int u = 0; u < TNO; ++u) {
+        float y;
+        if (cap != 0.0f)
+          y = cap * tanhf(s[i][u] * scale / cap) * kLog2e;
+        else
+          y = s[i][u] * scale2;
+        if (edge) {
+          const int ki = k0 + kl + KL * (dq * TNO + u);
+          bool keep = true;
+          if (w.causal) keep = keep && qi >= ki;
+          if (w.window > 0) keep = keep && (qi - ki) < w.window;
+          y = keep ? y : kNegInf;
+          if (ki >= w.Tk) y = -INFINITY;  // no such key: weight 0
+        }
+        s[i][u] = y;
+        mx = fmaxf(mx, y);
+      }
+#pragma unroll
+      for (int o = 0; o < LOG_G; ++o)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1 << o));
+      const float m_new = fmaxf(m_r[i], mx);
+      const float alpha = m_new != m_r[i] ? fast_exp2(m_r[i] - m_new) : 1.0f;
+      m_r[i] = m_new;
+      float sum = 0.0f;
+      float* prow = ps + (rg + R * i) * LDP + kl + KL * dq * TNO;
+#pragma unroll
+      for (int u = 0; u < TNO; ++u) {
+        const float p = fast_exp2(s[i][u] - m_new);
+        prow[KL * u] = p;
+        sum += p;
+      }
+      l_r[i] = l_r[i] * alpha + sum;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[i][e] *= alpha;
+    }
+    cp_async_wait<2 * STAGES - 2>();
+    __syncthreads();  // B
+    load_k(t + STAGES);
+
+    // O += P V, four keys a step: 8 float4 of p, 8 of V
+    const float* p_lane = ps + rg * LDP;
+    const float* v_lane = smem + L::kV + st * BK * HDP + 4 * cg;
+#pragma unroll 2
+    for (int kk = 0; kk < BK; kk += 4) {
+      float4 pv[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(p_lane + i * R * LDP + kk);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float* vr = v_lane + (kk + e) * HDP;
+        const float4 v0 = *reinterpret_cast<const float4*>(vr);
+        const float4 v1 = *reinterpret_cast<const float4*>(vr + 4 * G);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float p = e == 0 ? pv[i].x
+                          : e == 1 ? pv[i].y
+                          : e == 2 ? pv[i].z
+                                   : pv[i].w;
+          acc[i][0] = fmaf(p, v0.x, acc[i][0]);
+          acc[i][1] = fmaf(p, v0.y, acc[i][1]);
+          acc[i][2] = fmaf(p, v0.z, acc[i][2]);
+          acc[i][3] = fmaf(p, v0.w, acc[i][3]);
+          acc[i][4] = fmaf(p, v1.x, acc[i][4]);
+          acc[i][5] = fmaf(p, v1.y, acc[i][5]);
+          acc[i][6] = fmaf(p, v1.z, acc[i][6]);
+          acc[i][7] = fmaf(p, v1.w, acc[i][7]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // the empty groups past the last tile
+
+  // out = O / max(l, 1e-30), rows < S, columns < hd
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float l = l_r[i];
+#pragma unroll
+    for (int o = 0; o < LOG_G; ++o)
+      l += __shfl_xor_sync(0xffffffffu, l, 1 << o);
+    const int qi = q0 + rg + R * i;
+    if (qi >= w.S) continue;
+    const float denom = fmaxf(l, 1e-30f);
+    float* orow = out + ((int64_t)b * w.S + qi) * q_stride + (int64_t)h * hd;
+    if (4 * cg < hd)
+      *reinterpret_cast<float4*>(orow + 4 * cg) =
+          make_float4(acc[i][0] / denom, acc[i][1] / denom,
+                      acc[i][2] / denom, acc[i][3] / denom);
+    if (4 * (cg + G) < hd)
+      *reinterpret_cast<float4*>(orow + 4 * (cg + G)) =
+          make_float4(acc[i][4] / denom, acc[i][5] / denom,
+                      acc[i][6] / denom, acc[i][7] / denom);
+  }
+}
+
+template <int HDP, int BQ, int BK, int STAGES>
+cudaError_t launch_simt(int B, int S, int Tk, int H, int Hkv, int hd,
+                        int causal, int window, float cap, float scale,
+                        const void* q, const void* k, const void* v,
+                        void* out, cudaStream_t stream) {
+  using L = SimtTile<HDP, BQ, BK, STAGES>;
+  // the 16-byte copies and stores need 16-byte aligned rows: hd is a
+  // multiple of 8, so the base pointers decide
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
+      16)
+    return cudaErrorInvalidValue;
+  const int n_qt = (S + BQ - 1) / BQ;
+  if (n_qt > 65535 || (long long)B * H > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_simt<HDP, BQ, BK, STAGES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+  if (err != cudaSuccess) return err;
+  const Work w{S, Tk, H, Hkv, causal, window, 0, n_qt};
+  // (batch, head) on x, where the limit is 2^31 - 1; query tiles on y
+  const dim3 grid(B * H, n_qt);
+  flash_fwd_simt<HDP, BQ, BK, STAGES><<<grid, L::kThreads, L::kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), w, hd, cap,
+      scale);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// end of the fp32 entry
+// ---------------------------------------------------------------------------
+
 }  // namespace
 
 // The bf16 templates built, as (HDP, BKV, STAGES): the plans that
 // kernels/flash_attention.py::tile_plan may name.
 #define FA_WGMMA_TEMPLATES(X) X(64, 128, 2) X(128, 128, 2) X(256, 64, 2)
+// The fp32 templates built, as (HDP, BQ, BK, STAGES): the plans that
+// kernels/flash_attention.py::simt_plan may name.
+#define FA_SIMT_TEMPLATES(X) \
+  X(32, 256, 32, 2) X(64, 256, 64, 2) X(128, 128, 64, 2) X(256, 64, 32, 2)
 
 // dtype: 0 = float32 (the SIMT kernel), 1 = bfloat16 (the wgmma kernel);
 // q, k, v and out share it.  q, k, v and out are contiguous (B, S, H,
-// hd), (B, T, Hkv, hd), (B, T, Hkv, hd), (B, S, H, hd); for bfloat16 each
-// starts on a 16-byte boundary.  window 0 means no window.  For bfloat16,
-// (hdp, bq, bkv, stages, smem) is the tile plan of
-// kernels/flash_attention.py::tile_plan: a built template with these
-// parameters and these shared bytes, else cudaErrorInvalidValue; float32
-// ignores them.  Launches on `stream` and returns cudaGetLastError() (0 on
-// success); the caller checks shapes.
+// hd), (B, T, Hkv, hd), (B, T, Hkv, hd), (B, S, H, hd), each starting on a
+// 16-byte boundary.  window 0 means no window.  (hdp, bq, bkv, stages,
+// smem) is the tile plan of kernels/flash_attention.py::tile_plan for
+// bfloat16 and ::simt_plan for float32: a built template with these
+// parameters and these shared bytes, else cudaErrorInvalidValue.  Launches
+// on `stream` and returns cudaGetLastError() (0 on success); the caller
+// checks shapes.
 extern "C" int flash_attention_fwd(int dtype, int B, int S, int Tk, int H,
                                    int Hkv, int hd, int causal, int window,
                                    float softcap, float scale, const void* q,
@@ -1005,10 +1175,13 @@ extern "C" int flash_attention_fwd(int dtype, int B, int S, int Tk, int H,
 #undef FA_PLAN
     return (int)cudaErrorInvalidValue;
   }
-  if (hd <= 16) return (int)launch_simt<1>(FA_ARGS);
-  if (hd <= 32) return (int)launch_simt<2>(FA_ARGS);
-  if (hd <= 64) return (int)launch_simt<4>(FA_ARGS);
-  if (hd <= 128) return (int)launch_simt<8>(FA_ARGS);
-  return (int)launch_simt<16>(FA_ARGS);
+#define FA_SIMT_PLAN(HDP_, BQ_, BK_, ST_)                                  \
+  if (hdp == HDP_ && bq == BQ_ && bkv == BK_ && stages == ST_)             \
+    return hd <= HDP_ && smem == SimtTile<HDP_, BQ_, BK_, ST_>::kSmem       \
+               ? (int)launch_simt<HDP_, BQ_, BK_, ST_>(FA_ARGS)            \
+               : (int)cudaErrorInvalidValue;
+  FA_SIMT_TEMPLATES(FA_SIMT_PLAN)
+#undef FA_SIMT_PLAN
+  return (int)cudaErrorInvalidValue;
 #undef FA_ARGS
 }

@@ -27,9 +27,15 @@ lo = bf16(p - hi)) summed in fp32, the output rounded once.  With
 split=False p is rounded once to bf16 instead: the rounding the kernel
 must not use, which the checks show to fail.
 
-`tile_plan` is the bf16 kernel's tiling for a head dim, the one copy of
-it: kernels.ops passes it to the kernel's entry, which launches the
-template built for it or refuses.
+`flash_attention_fp32_model` is the same function as the fp32 SIMT
+kernel computes it: an online softmax over the query blocks and kv tiles
+of `simt_plan`, the tiles the kernel skips skipped, scores kept times
+log2 e with the mask applied after the scaling (the NEG_INF fill stays
+finite) and p = 2^(y - m).
+
+`tile_plan` and `simt_plan` are the bf16 and the fp32 kernel's tilings
+for a head dim, the one copy of each: kernels.ops passes the plan to the
+kernel's entry, which launches the template built for it or refuses.
 """
 from __future__ import annotations
 
@@ -48,6 +54,18 @@ WGMMA_M = 64
 # padded head dim -> (keys a K/V tile, tiles in the ring): the templates
 # FA_WGMMA_TEMPLATES of kernels/csrc/flash_attention.cu builds
 _TILES = {64: (128, 2), 128: (128, 2), 256: (64, 2)}
+
+# the fp32 SIMT kernel's tiling (kernels/csrc/flash_attention.cu): a thread
+# owns SIMT_ROWS query rows and SIMT_COLS columns of O (two float4)
+SIMT_ROWS = 8
+SIMT_COLS = 8
+SIMT_PAD = 4                # floats past each row of p in shared memory
+# padded head dim -> (query rows a block, keys a K/V tile, tiles in each
+# ring): the templates FA_SIMT_TEMPLATES of kernels/csrc/flash_attention.cu
+# builds
+_SIMT_TILES = {32: (256, 32, 2), 64: (256, 64, 2), 128: (128, 64, 2),
+               256: (64, 32, 2)}
+LOG2E = 1.4426950408889634
 
 
 @dataclass(frozen=True)
@@ -80,6 +98,52 @@ def tile_plan(hd: int) -> TilePlan:
                     box_q=(ATOM, 1, bq, 1), box_kv=(ATOM, 1, bkv, 1))
 
 
+@dataclass(frozen=True)
+class SimtPlan:
+    """The fp32 kernel's tiling for one padded head dim."""
+    hdp: int           # head dim padded in shared memory
+    bq: int            # query rows a block
+    bkv: int           # keys a K/V tile
+    stages: int        # tiles in the K ring and in the V ring
+    smem: int          # shared bytes a block asks for
+    threads: int       # threads a block: SIMT_ROWS rows x SIMT_COLS
+                       # columns of O each
+
+
+def simt_plan(hd: int) -> SimtPlan:
+    """The fp32 plan for a head dim `hd` (a multiple of 8 from 8 to
+    256): hd padded to 32, 64, 128 or 256 (zero columns that the copies
+    fill), the block's rows, the tile's keys and the rings' stages from the
+    built templates, and the shared bytes: Q, the K and V rings, and p
+    with SIMT_PAD floats past each row."""
+    if hd % 8 or not 8 <= hd <= 256:
+        raise ValueError(f"simt_plan: head dim {hd} must be a multiple of 8 "
+                         f"from 8 to 256")
+    hdp = next(d for d in sorted(_SIMT_TILES) if hd <= d)
+    bq, bkv, stages = _SIMT_TILES[hdp]
+    smem = 4 * (bq * hdp + 2 * stages * bkv * hdp + bq * (bkv + SIMT_PAD))
+    threads = bq // SIMT_ROWS * (hdp // SIMT_COLS)
+    return SimtPlan(hdp=hdp, bq=bq, bkv=bkv, stages=stages, smem=smem,
+                    threads=threads)
+
+
+def kv_tiles(q0: int, q_last: int, T: int, bkv: int, causal: bool,
+             window: int) -> range:
+    """The kv tiles of `bkv` keys that a block of query rows [q0,
+    q_last] visits: those not wholly above the causal diagonal nor wholly
+    outside the window (kernels/csrc/flash_attention.cu's tile_range).  A
+    skipped tile changes nothing: its weights are 0, or, before a row's
+    first real score, are wiped by that score's rescale of 0."""
+    j_hi = -(-T // bkv)
+    if causal:
+        j_hi = min(j_hi, q_last // bkv + 1)
+    j_lo = 0
+    first = q0 - window - bkv + 2       # tile j is in iff j * bkv >= first
+    if window > 0 and first > 0:
+        j_lo = -(-first // bkv)
+    return range(min(j_lo, j_hi), j_hi)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool, window: int, softcap: float,
                           scale: float) -> torch.Tensor:
@@ -98,6 +162,58 @@ def flash_attention_bf16_model(q: torch.Tensor, k: torch.Tensor,
     return _attention(q, k, v, causal=causal, window=window,
                       softcap=softcap, scale=scale,
                       p_dot_v=_p_dot_v_split if split else _p_dot_v_once)
+
+
+def flash_attention_fp32_model(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, *, causal: bool, window: int,
+                               softcap: float, scale: float) -> torch.Tensor:
+    """flash_attention_plain as the fp32 kernel computes it: for each
+    block of simt_plan's query rows an online softmax over the kv tiles
+    that `kv_tiles` keeps, in fp32: y = s * scale * log2(e) (or
+    softcap * tanh(s * scale / softcap) * log2(e)), then NEG_INF where
+    masked, m the running row max of y, alpha = 2^(m_old - m_new) where
+    the max moved (else 1), p = 2^(y - m), l = alpha l + sum(p), acc =
+    alpha acc + p . v, out = acc / max(l, 1e-30).  q, k, v: float32
+    (B,S,H,hd), (B,T,Hkv,hd) with hd a multiple of 8 -> (B,S,H,hd)."""
+    B, S, H, hd = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    plan = simt_plan(hd)
+    qg = q.float().reshape(B, S, Hkv, H // Hkv, hd)
+    kf, vf = k.float(), v.float()
+    out = torch.zeros_like(qg)
+    for q0 in range(0, S, plan.bq):
+        q1 = min(q0 + plan.bq, S)
+        qi = torch.arange(q0, q1, device=q.device)[:, None]
+        m = torch.full((B, Hkv, H // Hkv, q1 - q0), NEG_INF,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(m.shape + (hd,), device=q.device)
+        for j in kv_tiles(q0, q1 - 1, T, plan.bkv, causal, window):
+            k0, k1 = j * plan.bkv, min((j + 1) * plan.bkv, T)
+            s = torch.einsum("bskgd,btkd->bkgst", qg[:, q0:q1], kf[:, k0:k1])
+            if softcap:
+                y = softcap * torch.tanh(s * scale / softcap) * LOG2E
+            else:
+                y = s * (scale * LOG2E)
+            ki = torch.arange(k0, k1, device=q.device)[None, :]
+            keep = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool,
+                              device=q.device)
+            if causal:
+                keep &= qi >= ki
+            if window > 0:
+                keep &= (qi - ki) < window
+            y = torch.where(keep, y, torch.tensor(NEG_INF, device=q.device))
+            m_new = torch.maximum(m, y.amax(dim=-1))
+            alpha = torch.where(m_new != m, torch.exp2(m - m_new),
+                                torch.ones_like(m))
+            p = torch.exp2(y - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = (acc * alpha[..., None]
+                   + torch.einsum("bkgst,btkd->bkgsd", p, vf[:, k0:k1]))
+            m = m_new
+        out[:, q0:q1] = (acc / torch.clamp(l, min=1e-30)[..., None]).permute(
+            0, 3, 1, 2, 4)
+    return out.reshape(B, S, H, hd).to(q.dtype)
 
 
 def _p_dot_v_fp32(p, v):

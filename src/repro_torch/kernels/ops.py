@@ -1010,9 +1010,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     nothing to q.k and give zero output columns).  On CUDA tensors this
     is the kernel of kernels/csrc/flash_attention.cu, chosen by dtype:
     bfloat16 runs the wgmma / TMA kernel on the tiles of
-    kernels.flash_attention.tile_plan (its operands on 16-byte
-    boundaries), float32 the SIMT kernel.  On CPU tensors it is the
-    plain version, kernels.flash_attention.flash_attention_plain.
+    kernels.flash_attention.tile_plan, float32 the SIMT kernel on those
+    of ::simt_plan (the operands on 16-byte boundaries).  On CPU tensors
+    it is the plain version, kernels.flash_attention.flash_attention_plain.
     Raises RuntimeError under autograd: there is no backward.
 
     DTensor q, k, v split alike over batch (dim 0) and heads (dim 2)
@@ -1076,17 +1076,14 @@ def _attend(q, k, v, causal, window, softcap, scale):
         return fa.flash_attention_plain(q, k, v, causal=causal,
                                         window=window, softcap=softcap,
                                         scale=scale)
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
-                                         for t in (q, k, v)):
-        raise ValueError("flash_attention: bfloat16 q, k and v must start "
-                         "on 16-byte boundaries (the kernel's TMA maps need "
-                         "it)")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v must start on 16-byte "
+                         "boundaries (the kernel's TMA maps and 16-byte "
+                         "copies need it)")
     B, S, H, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
-    plan = (0,) * 5                 # the fp32 kernel picks its own tiles
-    if q.dtype == torch.bfloat16:
-        p = fa.tile_plan(hd)
-        plan = (p.hdp, p.bq, p.bkv, p.stages, p.smem)
+    p = (fa.tile_plan if q.dtype == torch.bfloat16 else fa.simt_plan)(hd)
+    plan = (p.hdp, p.bq, p.bkv, p.stages, p.smem)
     fn = _flash_fn()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
