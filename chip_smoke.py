@@ -5,7 +5,12 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
     PYTHONPATH=src python3 chip_smoke.py [--sweep-out DIR]
 
-Phases, in order; any failure ends the script with a non-zero exit code:
+Phases, in order; any failure ends the script with a non-zero exit code.
+Every solve of phases 3-32 names backend="pallas" (the sweep CLI's
+--backend pallas): they hold the blocked-ELL lowering and its burst
+kernel.  The default lowering, "xla" as in the reference, is phase 33's,
+which drives the main path as a caller runs it, naming no backend; so do
+the fabric planner's solves (core.fabric: phases 22, 28, 31 and 34).
 
   1. card check: a CUDA device, its name and power limit, TF32 off;
   2. build: the four CUDA kernels from src/repro_torch/kernels/csrc (the
@@ -20,7 +25,8 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      raises;
   4. main path, paper topologies: solve_fast on the card for six paper
      DCNs x {energy, time}; certificates, agreement with the port's own
-     CPU solve, and the committed pins of tests/golden/metrics.json;
+     CPU solve (in helper processes meanwhile), and the committed pins of
+     tests/golden/metrics.json;
   5. main path at full size: fat-tree k=16 (1,024 servers) x {energy,
      time}, each solved twice on the card; certificates, bitwise repeat,
      and the kernel's launch count; the profiler sees one burst kernel
@@ -46,7 +52,10 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      each element within its tolerance (fp32: 2e-5 + 2e-5 of the element;
      bf16: one bf16 place more), two launches bitwise equal; an attention
      that drops the last kv tile, and one that rounds p once to bf16 in
-     p.v, must fail the same check;
+     p.v, must fail the same check; q, k and v as contiguous views 4
+     bytes past a 16-byte boundary (the wrapper copies them onto one) at
+     a causal GQA shape, fp32 and bf16, bitwise the same call on aligned
+     copies;
   9. serving path at full width: `launch.serve.main` on phi4-mini-3.8b
      (batch 4, prompt 2048, 32 tokens), run twice: 32 kernel launches a
      prefill, identical tokens, finite logits; in every layer the
@@ -105,7 +114,7 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      decode ms a token, and the device's busy share of one prefill and one
      decode step by kernel;
  19. failures at full size: phase 13's 8-stack degraded under link3 (all
-     eight members) and switch (the first four; one scenario a seed, a
+     eight members) and switch (the first two; one scenario a seed, a
      sparsity pattern a member), re-solved
      by solve_fast_ensemble warm from the healthy results and cold:
      every schedule certified, warm served equal to cold to 1e-6, energy
@@ -131,8 +140,9 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      demand; the heavy trace also on the CPU under phase 20's rule;
  22. the sweep's --failures, --arrivals and --chaos axes at their tests'
      sizes, each row against the CPU under phase 20's rule, and --chaos's
-     chaos_events.log; plan_collectives(v5e_fabric()) on the card against
-     the CPU;
+     chaos_events.log; plan_collectives(v5e_fabric()) on the card, in the
+     default lowering (the COO kernel launched, the ELL burst not),
+     against the CPU;
  23. baseline policies: the golden policy grid (spine-leaf and pon3 x
      energy/time x ecmp, least-loaded, scf) on the card against its pins
      (metrics within 1e-4, gaps within 5e-3), then policy_bench's default
@@ -255,7 +265,9 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      bound and formulas), torch's release, the largest ops; the attention
      kernel at a rank's shape against its plain version, timed beside
      SDPA, and its bound.
- 33. the reference's default COO lowering (backend="xla"): (a) the COO
+ 33. the default COO lowering (backend="xla", as in the reference),
+     every call of (b)-(f) naming no backend and holding that the COO
+     kernel launched and no ELL kernel did: (a) the COO
      burst kernel (pdhg_coo.cu) against its plain version on CPU tensors
      from the same inputs (torch's CUDA index_add_ adds in no fixed
      order) at the flagship's energy and min-time LPs (the latter with
@@ -263,21 +275,22 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      from a random start with a fifth of the coordinates held: bitwise,
      also on one block an SM; a launch on one block more than fit
      raises; a plain version rounding the two updates twice must fail;
-     (b) solve_fast(backend="xla") on the six paper topologies x
-     {energy, time}: certified, two card runs and the host CPU's plain
-     path bitwise equal, within 1e-4 of the golden pins (spine-leaf,
-     pon3) or of phase 4; (c) the 8-stack through
-     solve_fast_batch(backend="xla"), each member's LP bitwise its solo
-     solve, and the sweep CLI with --backend xla over phase 14's
-     spine-leaf energy/skew rows, every row within 1e-4 of
-     results/sweep/results.csv, the summation-order-sensitive seed 5
-     included; (d) the kernel's ms an iteration at the flagship (energy
+     (b) solve_fast on the six paper topologies x {energy, time}:
+     certified, two card runs and the host CPU's plain path bitwise
+     equal, within 1e-4 of the golden pins (spine-leaf, pon3) or of
+     phase 4; (c) the 8-stack through solve_fast_batch, each member's LP
+     bitwise its solo solve, and the sweep CLI over phase 14's
+     spine-leaf energy/skew rows, the backend column xla, every row
+     within 1e-4 of results/sweep/results.csv, the
+     summation-order-sensitive seed 5 included; (d) the kernel's ms an iteration at the flagship (energy
      and min-time) and the 8-stack, its plain version's on the host, its
      bytes bound, its order bound (the longest chain of dependent adds a
      step at one add's latency, measured by the kernel's add-chain
-     entry) and phase 6's and 15's CSR mat-vecs; (e) run_online
-     (backend="xla") warm on phase 20's heavy trace, bitwise the host
-     CPU's plain path in every epoch.
+     entry) and phase 6's and 15's CSR mat-vecs; (e) run_online warm on
+     phase 20's heavy trace, bitwise the host CPU's plain path in every
+     epoch; (f) solve_fast on the flagship, each objective twice:
+     certified, bitwise repeated, within 1e-4 of phase 5's ELL solves,
+     with its walls.
  34. the seven examples (examples_torch/), each run's `run` on the card
      at EXAMPLE_SIZES: quickstart on pon3 (the oracle's time limit the
      reference's), pattern_sweep and failure_sweep at 2 seeds (the
@@ -287,7 +300,8 @@ Phases, in order; any failure ends the script with a non-zero exit code:
      numbers within 1e-4 of the same call on the host CPU (a helper
      process started at the top) under "pallas" (where they differ
      more, phase 20's order rule: bitwise the CPU summing in the
-     kernel's order; the warm heavy trace flips so), bitwise under "xla";
+     kernel's order; the warm heavy trace flips so), bitwise under "xla"
+     (coflow_schedule's plans among them: the default lowering);
      serve_batch's tokens equal to the host CPU's greedy decode of the
      same weights up to a row's first near tie; train_lm (at the smoke
      width and 2 layers) resumed on the card and on the host from one
@@ -307,10 +321,10 @@ one waits for it (HELPER_TIMEOUT_S after its start at most), a helper
 that fails fails the phase, and any still running when the script ends
 is killed.  Phase 24 starts
 helper processes of this script (--placement-cpu, on the host CPU only), phase
-30 two (--shard-rank, on the card) and phase 33 a pool of four (the
-paper cells' CPU solves); each waits for all of its processes before it
-goes on, and phases 24 and 30 kill any still running at their time
-limit.
+30 two (--shard-rank, on the card) and phases 4 and 33 a pool of six each
+(the paper cells' CPU solves, and phase 33(a)'s plain bursts); each
+waits for all of its processes before it goes on, and phases 24 and 30
+kill any still running at their time limit.
 """
 from __future__ import annotations
 
@@ -392,6 +406,9 @@ FA_CASES = [
     ("bh-65600", 4100, 16, 16, 4, 32, 0, 0.0, True),
 ]
 FA_DTYPES = ("float32", "bfloat16")
+# (B, S, H, Hkv, hd): phase 8's views 4 bytes past a 16-byte boundary,
+# causal GQA
+FA_MISALIGNED = (2, 384, 8, 2, 64)
 SERVE_ARGS = ["--arch", "phi4-mini-3.8b", "--batch", "4", "--prompt-len",
               "2048", "--gen", "32", "--impl", "kernel"]
 # keys the negative control drops: the fp32 kernel's kv tile, half of the
@@ -405,9 +422,11 @@ BF16_COMPLETION_RATIO = 1.25
 BATCH_SEEDS = tuple(range(8))
 # adaptive=False against solve_lp (tests/test_solver_batch.py:38)
 BATCH_X_ATOL = 1e-6
-# the sweep: the reference's default grid over the six paper topologies,
-# held to the committed results of the reference's run (xla lowering)
-SWEEP_ARGS = ["--topos", ",".join(PAPER_TOPOS), "--oracle-check", "0"]
+# the sweep: the reference's default grid over the six paper topologies
+# under the blocked-ELL lowering, held to the committed results of the
+# reference's run (xla lowering; phase 33(c) runs the default, xla)
+SWEEP_ARGS = ["--topos", ",".join(PAPER_TOPOS), "--oracle-check", "0",
+              "--backend", "pallas"]
 SWEEP_RESULTS = ROOT / "results" / "sweep" / "results.csv"
 SWEEP_RTOL = 1e-4
 # No row of that grid is one whose committed number the reference's own
@@ -451,9 +470,9 @@ RGEMMA_ARGS = ["--arch", "recurrentgemma-2b", "--batch", "4", "--prompt-len",
 # equal to cold to 1e-6, energy within 5%
 FAIL_PRESETS = ("link3", "switch")
 # members degraded under each preset: link3 keeps all eight (and the
-# burst's order model and row 1d's times); switch runs the first four and
+# burst's order model and row 1d's times); switch runs the first two and
 # the bf16 warm ensemble, for the script's time limit
-FAIL_MEMBERS = {"link3": 8, "switch": 4}
+FAIL_MEMBERS = {"link3": 8, "switch": 2}
 FAIL_BF16_PRESETS = ("switch",)
 WARM_SERVED_RTOL = 1e-6
 WARM_ENERGY_BAND = 0.05
@@ -484,17 +503,18 @@ SWEEP_FAILURES_ARGS = ["--topos", "spine-leaf", "--objectives", "energy",
                        "--patterns", "uniform", "--seeds", "2",
                        "--total-gbits", "6", "--n-map", "4", "--n-reduce",
                        "3", "--iters", "1200", "--oracle-check", "0",
-                       "--failures", "link1"]
+                       "--backend", "pallas", "--failures", "link1"]
 SWEEP_ARRIVALS_ARGS = ["--topos", "spine-leaf", "--objectives", "energy",
                        "--patterns", "uniform", "--seeds", "1",
                        "--total-gbits", "8", "--n-map", "4", "--n-reduce",
                        "3", "--iters", "1200", "--oracle-check", "0",
-                       "--arrivals", "poisson", "--arrival-coflows", "3"]
+                       "--backend", "pallas", "--arrivals", "poisson",
+                       "--arrival-coflows", "3"]
 SWEEP_CHAOS_ARGS = ["--topos", "spine-leaf", "--objectives", "energy",
                     "--patterns", "uniform", "--seeds", "1",
                     "--total-gbits", "8", "--n-map", "4", "--n-reduce", "3",
-                    "--iters", "1200", "--oracle-check", "0", "--chaos",
-                    "storm"]
+                    "--iters", "1200", "--oracle-check", "0", "--backend",
+                    "pallas", "--chaos", "storm"]
 # the columns a sweep row is held to across devices
 SWEEP_ROW_COLS = ("energy_j", "completion_s", "survivability",
                   "degradation_ratio", "mean_response_s", "backlog_gbits",
@@ -512,7 +532,7 @@ POLICY_BENCH_PATTERN = dict(n_map=10, n_reduce=6, total_gbits=30.0)
 # the uniform pattern's rows only), without its oracle spot-check (the
 # MILP is host work the card does not touch)
 SEARCH_CFG = dict(method="sa", seed=0, generations=2, population=6,
-                  iters=1500)
+                  iters=1500, backend="pallas")
 # the pin the port's CPU run misses, and where the test that names the
 # flipped comparison lives (ROADMAP queue 3)
 SEARCH_PIN_FLIPS = {("spine-leaf", "time"): "the seed generation's "
@@ -521,7 +541,7 @@ SEARCH_PIN_FLIPS = {("spine-leaf", "time"): "the seed generation's "
 PLACEMENT_ARGS = ["--topos", "spine-leaf,pon3", "--patterns", "uniform",
                   "--placement-search", "sa,ga", "--seeds", "4", "--n-map",
                   "6", "--n-reduce", "4", "--total-gbits", "20",
-                  "--oracle-check", "0"]
+                  "--oracle-check", "0", "--backend", "pallas"]
 PLACEMENT_RESULTS = ROOT / "results" / "placement" / "results.csv"
 # a card row off the committed one is re-derived on the host CPU (its
 # search, or its LP cell), in torch's and the kernel's summation order,
@@ -540,7 +560,7 @@ SERVICE_FT_COFLOWS = 2
 SERVICE_SWEEP_ARGS = ["--service", "2", "--topos", "spine-leaf,pon3",
                       "--patterns", "uniform", "--total-gbits", "8",
                       "--n-map", "4", "--n-reduce", "3",
-                      "--arrival-coflows", "2"]
+                      "--arrival-coflows", "2", "--backend", "pallas"]
 # the rest of the model zoo at full width (phases 26-27): (arch, layers
 # kept, None for all), each at batch 4, prompt 2048, 16 tokens.
 # qwen2-moe keeps 12 of its 24 layers: its fp32 weights and their bf16
@@ -661,17 +681,21 @@ COO_SOURCE = "src/repro_torch/kernels/csrc/pdhg_coo.cu"
 COO_REPLACES = "src/repro/core/solver.py:105"
 COO_ITERS = (1, 500)
 COO_THREADS = 512                    # threads a block: pdhg_coo.cu's kThreads
-# (a)-(b): helper processes that run the plain version's bursts and solve
-# the paper cells on the host CPU
-COO_CPU_WORKERS = 6
+# phase 4 and phase 33(a)-(b): helper processes that solve the paper
+# cells on the host CPU (and run the COO plain version's bursts)
+CPU_WORKERS = 6
 COO_FROZEN = 0.2                     # share of coordinates held in (a)
 # (d): the add chains timed for one add's latency (adds, multiples of 8)
 COO_ADD_CHAIN = (1 << 20, 1 << 21)
-# (c): phase 14's order-sensitive sweep rows, on the card under --backend
-# xla (the sweep's defaults: 8 seeds, 30 Gbit, 10 x 6 tasks)
+# (c): phase 14's order-sensitive sweep rows, on the card with no
+# --backend (the default, xla; the sweep's defaults: 8 seeds, 30 Gbit,
+# 10 x 6 tasks)
 COO_SWEEP_ARGS = ["--topos", "spine-leaf", "--objectives", "energy",
-                  "--patterns", "skew", "--oracle-check", "0",
-                  "--backend", "xla"]
+                  "--patterns", "skew", "--oracle-check", "0"]
+# the counters of the blocked-ELL lowering's kernels, none of which a
+# call that names no backend may launch
+ELL_COUNTERS = ("PDHG_BURST_LAUNCHES", "PDHG_BURST_BF16_LAUNCHES",
+                "PDHG_SPLIT_LAUNCHES", "PDHG_SPLIT_BF16_LAUNCHES")
 
 # phase 34: the seven examples (examples_torch/) on the card, each run's
 # keyword sizes; those that solve run under both lowerings.  The host
@@ -1062,7 +1086,7 @@ def stage_breakdown(p, dev):
     t = [time.perf_counter()]
     lp, idx = solver.build_routing_lp(p, "energy")
     t.append(time.perf_counter())
-    res = solver.solve_lp(lp, device=dev)
+    res = solver.solve_lp(lp, backend="pallas", device=dev)
     t.append(time.perf_counter())
     r = solver._assemble_fast_result(p, lp, idx, res)
     t.append(time.perf_counter())
@@ -1073,10 +1097,11 @@ def stage_breakdown(p, dev):
     for name, a, b in zip(names, t, t[1:]):
         say(f"    stage {name}: {b - a:.3f} s")
     t0 = time.perf_counter()
-    solver.solve_fast(p, "energy", device=dev)
+    solver.solve_fast(p, "energy", backend="pallas", device=dev)
     wall = time.perf_counter() - t0
     before = ops.PDHG_BURST_LAUNCHES
     busy = profile_device(lambda: solver.solve_fast(p, "energy",
+                                                    backend="pallas",
                                                     device=dev))
     bursts = ops.PDHG_BURST_LAUNCHES - before
     require(busy is not None, "the profiler saw no device time, so it "
@@ -1315,7 +1340,8 @@ def check_order_sensitive(key, card_row, committed_row) -> None:
     from repro_torch.sweep import runner
     topo, obj, pat, seed = key
     spec = runner.SweepSpec(topos=(topo,), objectives=(obj,),
-                            patterns=(pat,), seeds=(seed,), device="cpu")
+                            patterns=(pat,), seeds=(seed,),
+                            backend="pallas", device="cpu")
     with in_kernel_order():
         (kernel_order,), _ = runner.run_sweep(spec)
     (own_order,), _ = runner.run_sweep(spec)
@@ -1455,6 +1481,31 @@ def compare_attention(label, q, k, v, window, cap, causal) -> float:
     require(excess <= 1.0, f"{label}: kernel differs from plain by {err:.3e}")
     require(torch.equal(out, again), f"{label}: two launches differ")
     return err
+
+
+def attention_misaligned(dev) -> int:
+    """Phase 8's alignment case: q, k and v as contiguous views 4 bytes
+    past a 16-byte boundary (the wrapper copies them onto one,
+    ops._aligned16) at FA_MISALIGNED's causal GQA shape, in each dtype:
+    finite and bitwise the same call on aligned copies.  Returns the
+    launches, two a dtype."""
+    import torch
+    from repro_torch.kernels import ops
+    B, S, H, Hkv, hd = FA_MISALIGNED
+    before = ops.FLASH_ATTENTION_LAUNCHES
+    for seed, dt in enumerate(FA_DTYPES):
+        q, k, v = fa_inputs(100 + seed, B, S, H, Hkv, hd, getattr(torch, dt),
+                            dev)
+        views = [misaligned(t) for t in (q, k, v)]
+        got = ops.flash_attention(*views, causal=True)
+        want = ops.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        say(f"    q, k, v 4 B past a 16-byte boundary ({B}, {S}, {H}/{Hkv}, "
+            f"{hd}) {dt}: bitwise the aligned call {same}")
+        require(bool(torch.isfinite(got).all()) and same,
+                f"misaligned {dt} attention differs from the aligned call")
+    return ops.FLASH_ATTENTION_LAUNCHES - before
 
 
 def setmaxnreg_split() -> tuple[int, int]:
@@ -1643,12 +1694,14 @@ def scan_fused(a, b, h0=None):
     return out, h.clone()
 
 
-def scan_misaligned(t):
-    """A contiguous copy of `t` that starts 4 bytes past a 16-byte
-    boundary."""
+def misaligned(t):
+    """A contiguous copy of `t` (4-byte or 2-byte elements) that starts 4
+    bytes past a 16-byte boundary."""
     import torch
-    flat = torch.empty(t.numel() + 3, dtype=t.dtype, device=t.device)
-    skip = (4 - flat.data_ptr()) % 16 // 4
+    size = t.element_size()
+    flat = torch.empty(t.numel() + 16 // size, dtype=t.dtype,
+                       device=t.device)
+    skip = (4 - flat.data_ptr()) % 16 // size
     view = flat[skip:skip + t.numel()].view(t.shape)
     view.copy_(t)
     require(view.data_ptr() % 16 == 4, "misaligned view not 4 B past 16")
@@ -1947,7 +2000,8 @@ def failure_phase(probs8, healthy, dev, sms, bf16_presets) -> dict:
                 stage_clock(stages) as spent:
             t0 = time.perf_counter()
             warm = solver.solve_fast_ensemble(dprobs, "energy",
-                                              warm=healthy_k, device=dev)
+                                              warm=healthy_k,
+                                              backend="pallas", device=dev)
             warm_wall = time.perf_counter() - t0
         warm_launches = ops.PDHG_BURST_LAUNCHES
         warm_calls = ops.PDHG_ADAPTIVE_CALLS
@@ -1955,7 +2009,8 @@ def failure_phase(probs8, healthy, dev, sms, bf16_presets) -> dict:
         ops.PDHG_BURST_LAUNCHES = 0
         with stage_clock(stages) as cold_spent:
             t0 = time.perf_counter()
-            cold = solver.solve_fast_ensemble(dprobs, "energy", device=dev)
+            cold = solver.solve_fast_ensemble(dprobs, "energy",
+                                              backend="pallas", device=dev)
             cold_wall = time.perf_counter() - t0
         cold_launches = ops.PDHG_BURST_LAUNCHES
         out["launches"] += warm_launches + cold_launches
@@ -1998,7 +2053,7 @@ def failure_phase(probs8, healthy, dev, sms, bf16_presets) -> dict:
         lps, kw = calls[0][0][0], calls[0][1]
         starts = kw["warm_starts"]
         again = solver.solve_lp_batch(lps, chunk=250, warm_starts=starts,
-                                      device=dev)
+                                      backend="pallas", device=dev)
         require(all(np.array_equal(a.x, w.lp_x) and np.array_equal(a.y, w.lp_y)
                     and a.iterations == w.iterations
                     for a, w in zip(again, warm)),
@@ -2006,7 +2061,7 @@ def failure_phase(probs8, healthy, dev, sms, bf16_presets) -> dict:
         solo_same = []
         for lp, st, w in zip(lps, starts, warm):
             s = solver.solve_lp_batch([lp], chunk=250, warm_starts=[st],
-                                      device=dev)[0]
+                                      backend="pallas", device=dev)[0]
             solo_same.append(np.array_equal(s.x, w.lp_x)
                              and np.array_equal(s.y, w.lp_y)
                              and s.iterations == w.iterations)
@@ -2019,7 +2074,8 @@ def failure_phase(probs8, healthy, dev, sms, bf16_presets) -> dict:
             ops.PDHG_BURST_BF16_LAUNCHES = 0
             t0 = time.perf_counter()
             bf = solver.solve_fast_ensemble(dprobs, "energy", warm=healthy_k,
-                                            precision="bf16", device=dev)
+                                            precision="bf16",
+                                            backend="pallas", device=dev)
             bf_wall = time.perf_counter() - t0
             out["bf16_launches"] += ops.PDHG_BURST_BF16_LAUNCHES
             for seed, q, b in zip(BATCH_SEEDS, dprobs, bf):
@@ -2177,14 +2233,14 @@ def online_phase(dev) -> dict:
     ops.PDHG_BURST_LAUNCHES = 0
     t0 = time.perf_counter()
     card = arrivals.run_online(sl, heavy, "energy", **ONLINE_KW,
-                               device=dev)
+                               backend="pallas", device=dev)
     wall = time.perf_counter() - t0
     launches += ops.PDHG_BURST_LAUNCHES
     report_online("spine-leaf heavy trace, card", card, heavy, wall, 0.0)
     require(card.n_epochs > 1 and any(e.warm for e in card.epochs[1:]),
             "the heavy trace did not roll warm")
     hold_card_to_cpu("spine-leaf heavy trace", lambda d: arrivals.run_online(
-        sl, heavy, "energy", **ONLINE_KW, device=d), card)
+        sl, heavy, "energy", **ONLINE_KW, backend="pallas", device=d), card)
     # one epoch: all co-flows at t = 0 reproduce solve_fast exactly
     cfs = [traffic.generate(sl, traffic.pattern("uniform", **LIGHT), s)
            for s in range(3)]
@@ -2195,8 +2251,10 @@ def online_phase(dev) -> dict:
 
     def one_epoch(d):
         res = arrivals.run_online(sl, arrivals.trace_at_t0(cfs), "energy",
-                                  iters=3000, tol=2e-3, device=d)
-        ref = solver.solve_fast(p, "energy", iters=3000, tol=2e-3, device=d)
+                                  iters=3000, tol=2e-3,
+                                  backend="pallas", device=d)
+        ref = solver.solve_fast(p, "energy", iters=3000, tol=2e-3,
+                                backend="pallas", device=d)
         return res, ref
 
     ops.PDHG_BURST_LAUNCHES = 0
@@ -2237,7 +2295,7 @@ def online_phase(dev) -> dict:
         with stage_clock((("driver", ops, "pdhg_adaptive"),)) as spent:
             t0 = time.perf_counter()
             r = arrivals.run_online(ft, ft_trace, "energy", **FT_ONLINE_KW,
-                                    warm=warm, device=dev)
+                                    warm=warm, backend="pallas", device=dev)
             wall = time.perf_counter() - t0
         launches += ops.PDHG_BURST_LAUNCHES
         report_online(f"{ft.name}, warm={warm}", r, ft_trace, wall,
@@ -2276,7 +2334,7 @@ def chaos_phase(traces, dev) -> int:
             t0 = time.perf_counter()
             r = arrivals.run_online(topo, trace, "energy", **kw,
                                     chaos=events, fallback_policy="scf",
-                                    device=dev)
+                                    backend="pallas", device=dev)
             wall = time.perf_counter() - t0
             launches += ops.PDHG_BURST_LAUNCHES
             runs.append(r)
@@ -2311,7 +2369,7 @@ def chaos_phase(traces, dev) -> int:
                     f"{label}: the CPU run's event trace differs")
             hold_card_to_cpu(f"{label} + storm", lambda d: arrivals.run_online(
                 sl, trace, "energy", **kw, chaos=cpu_events,
-                fallback_policy="scf", device=d), a)
+                fallback_policy="scf", backend="pallas", device=d), a)
     return launches
 
 
@@ -2398,17 +2456,26 @@ def sweep_axes_phase(dev) -> int:
     layers = [(f"l{i}", 50e6) for i in range(16)]
     buckets = fabric.grad_buckets_for(layers, bucket_bytes=100e6,
                                       data_axes=(0, 1))
+    # the plan solves in the default lowering (xla): the COO kernel
     ops.PDHG_BURST_LAUNCHES = 0
+    coo_before = ops.PDHG_COO_LAUNCHES
     plan = fabric.plan_collectives(fabric.v5e_fabric(), buckets,
                                    n_slots=10, device=dev)
-    launches += ops.PDHG_BURST_LAUNCHES
+    plan_coo = ops.PDHG_COO_LAUNCHES - coo_before
+    require(plan_coo > 0 and ops.PDHG_BURST_LAUNCHES == 0,
+            f"plan_collectives: {plan_coo} COO and "
+            f"{ops.PDHG_BURST_LAUNCHES} ELL bursts; the default lowering "
+            f"launches the COO kernel alone")
     cpu = fabric.plan_collectives(fabric.v5e_fabric(), buckets, n_slots=10,
                                   device="cpu")
     d_share = float(np.abs(plan.share - cpu.share).max())
-    say(f"    plan_collectives(v5e_fabric(), {len(buckets)} buckets): card "
-        f"completion {plan.completion_s:.9f} s, energy {plan.energy_j:.9f} "
-        f"J; CPU {cpu.completion_s:.9f} s, {cpu.energy_j:.9f} J; max share "
-        f"difference {d_share:.3e}; slot order {plan.slot_order()}")
+    say(f"    plan_collectives(v5e_fabric(), {len(buckets)} buckets), the "
+        f"default lowering ({plan_coo} COO bursts): card completion "
+        f"{plan.completion_s:.9f} s, energy {plan.energy_j:.9f} J; CPU "
+        f"{cpu.completion_s:.9f} s, {cpu.energy_j:.9f} J; max share "
+        f"difference {d_share:.3e} (bitwise "
+        f"{np.array_equal(plan.share, cpu.share)}); slot order "
+        f"{plan.slot_order()}")
     require(plan.n_slots == cpu.n_slots and d_share <= METRIC_RTOL
             and rel_diff(plan.completion_s, cpu.completion_s) <= METRIC_RTOL
             and rel_diff(plan.energy_j, cpu.energy_j) <= METRIC_RTOL,
@@ -2444,7 +2511,7 @@ def policy_phase(dev, p_full, full_lp, full_lp_s) -> int:
         for obj in OBJECTIVES:
             p_lp = problem(name, {}, GOLDEN_PATTERN, 2)
             ops.PDHG_BURST_LAUNCHES = 0
-            lp = solver.solve_fast(p_lp, obj, device=dev)
+            lp = solver.solve_fast(p_lp, obj, backend="pallas", device=dev)
             launches += ops.PDHG_BURST_LAUNCHES
             for pol in GOLDEN_POLICIES:
                 p = problem(name, {}, GOLDEN_PATTERN, 2)
@@ -2474,14 +2541,16 @@ def policy_phase(dev, p_full, full_lp, full_lp_s) -> int:
         if lp is None:
             ops.PDHG_BURST_LAUNCHES = 0
             t0 = time.perf_counter()
-            lp = solver.solve_fast(p, "energy", iters=3000, device=dev)
+            lp = solver.solve_fast(p, "energy", iters=3000,
+                                   backend="pallas", device=dev)
             lp_s = time.perf_counter() - t0
             launches += ops.PDHG_BURST_LAUNCHES
         parts = []
         for pol in policies.POLICIES:
             ops.PDHG_BURST_LAUNCHES = 0
             t0 = time.perf_counter()
-            r = policies.get(pol).solve(p, "energy", device=dev)
+            r = policies.get(pol).solve(p, "energy",
+                                        backend="pallas", device=dev)
             wall = time.perf_counter() - t0
             n = ops.PDHG_BURST_LAUNCHES
             launches += n
@@ -2568,7 +2637,7 @@ def placement_cpu_cell(spec: str) -> int:
     sw = runner.SweepSpec(topos=(topo,), objectives=(obj,),
                           patterns=("uniform",), seeds=(int(seed),),
                           n_map=6, n_reduce=4, total_gbits=20.0,
-                          device="cpu")
+                          backend="pallas", device="cpu")
     records, problems = [], []
     with (in_kernel_order() if order == ["kernel"]
           else contextlib.nullcontext()):
@@ -2724,7 +2793,7 @@ def placement_phase(dev) -> dict:
     # 8 candidates)
     topo = topology.build("pon3")
     ppat = traffic.pattern("uniform", n_map=6, n_reduce=4, total_gbits=20.0)
-    cfg = search.SearchConfig(device=dev)
+    cfg = search.SearchConfig(backend="pallas", device=dev)
     rng = np.random.default_rng(0)
     pls = [traffic.sample_placement(topo, ppat, rng) for _ in range(8)]
     map_out = traffic._map_outputs(ppat, np.random.default_rng(1))
@@ -2861,7 +2930,8 @@ def service_phase(dev) -> int:
 
     def golden_run(d):
         return service.run_service(tenants, service.ServiceConfig(
-            iters=3000, tol=2e-3, device=d, verify_schedules=True))
+            iters=3000, tol=2e-3,
+            backend="pallas", device=d, verify_schedules=True))
 
     runs = []
     for rep in range(2):
@@ -2905,7 +2975,8 @@ def service_phase(dev) -> int:
         for coalesce in (False, True):
             cfg = service.ServiceConfig(
                 iters=SERVICE_BENCH["iters"], tol=SERVICE_BENCH["tol"],
-                device=dev, coalesce=coalesce, overlap_build=coalesce,
+                backend="pallas", device=dev, coalesce=coalesce,
+                overlap_build=coalesce,
                 cost=measured)
             ops.PDHG_BURST_LAUNCHES = 0
             t0 = time.perf_counter()
@@ -2951,7 +3022,7 @@ def service_phase(dev) -> int:
     with stage_clock((("driver", ops, "pdhg_adaptive"),)) as spent:
         t0 = time.perf_counter()
         fr = service.run_service(ften, service.ServiceConfig(
-            device=dev, path_slack=FULL[3]))
+            backend="pallas", device=dev, path_slack=FULL[3]))
         wall = time.perf_counter() - t0
     n = ops.PDHG_BURST_LAUNCHES
     launches += n
@@ -4050,7 +4121,8 @@ def shard_rank_main(rank, world, out_dir) -> int:
         cells.insert(1, ("spine-leaf#1", cells[0][1]))
         for key, p in cells:
             t0 = time.perf_counter()
-            r = solver.solve_fast(p, "energy", shards=world, device=dev)
+            r = solver.solve_fast(p, "energy", shards=world,
+                                  backend="pallas", device=dev)
             runs[key] = (p, r, time.perf_counter() - t0)
         res["launches"] = ops.PDHG_SPLIT_LAUNCHES
         res["fused_launches"] = ops.PDHG_BURST_LAUNCHES
@@ -5388,57 +5460,83 @@ def coo_times(card: str, lps: dict, stack_lp, dev, library_ms: float,
     return out
 
 
-def coo_cpu_cell(cell: tuple) -> dict:
-    """Phase 33(b)'s host CPU side, in a helper process: the paper cell
-    (topology, objective) solved by solve_fast(backend="xla") on the
-    CPU's plain path.  Returns what the card's solve is held to and the
+def paper_cpu_cell(cell: tuple) -> dict:
+    """Phases 4 and 33(b)'s host CPU side, in a helper process: the paper
+    cell (topology, objective) solved by solve_fast on the CPU's plain
+    path, with the backend named (phase 4: "pallas") or none (phase 33:
+    the default, xla).  Returns what the card's solve is held to and the
     seconds it took."""
     import torch
     from repro_torch.core import solver
     torch.set_num_threads(1)
-    name, obj = cell
+    name, obj, backend = cell
+    kw = {} if backend is None else {"backend": backend}
     t0 = time.perf_counter()
     c = solver.solve_fast(problem(name, {}, GOLDEN_PATTERN, 2), obj,
-                          backend="xla", device="cpu")
+                          device="cpu", **kw)
     return {"lp_x": c.lp_x, "lp_y": c.lp_y, "schedule": c.schedule,
             "iterations": c.iterations, "metrics": metrics_of(c),
             "seconds": time.perf_counter() - t0}
 
 
-def coo_cpu_pool():
-    """COO_CPU_WORKERS spawned processes of this script for phase 33's
-    host CPU side, so it runs while the card's checks run.  The caller
-    shuts the pool down."""
+def cpu_pool():
+    """CPU_WORKERS spawned processes of this script for phase 4's and
+    phase 33's host CPU side, so it runs while the card's checks run.
+    The caller shuts the pool down."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
-    return ProcessPoolExecutor(COO_CPU_WORKERS,
+    return ProcessPoolExecutor(CPU_WORKERS,
                                mp_context=multiprocessing.get_context(
                                    "spawn"))
 
 
-def coo_cpu_cells(pool) -> dict:
-    """The 12 paper cells' CPU solves submitted to `pool`: each cell's
-    future."""
-    return {(name, obj): pool.submit(coo_cpu_cell, (name, obj))
+def paper_cpu_cells(pool, backend: str | None = None) -> dict:
+    """The 12 paper cells' CPU solves (paper_cpu_cell) submitted to
+    `pool`: each cell's future."""
+    return {(name, obj): pool.submit(paper_cpu_cell, (name, obj, backend))
             for name in PAPER_TOPOS for obj in OBJECTIVES}
 
 
+@contextlib.contextmanager
+def default_lowering(label: str, quiet: bool = False):
+    """Phase 33's rule for a call that names no backend: over the block
+    the COO kernel launched and no kernel of the ELL lowering did.
+    Yields a dict that holds the block's COO bursts ("coo") after it."""
+    from repro_torch.kernels import ops
+    coo = ops.PDHG_COO_LAUNCHES
+    ell = {c: getattr(ops, c) for c in ELL_COUNTERS}
+    n: dict = {}
+    yield n
+    n["coo"] = ops.PDHG_COO_LAUNCHES - coo
+    grew = {c: getattr(ops, c) - v for c, v in ell.items()
+            if getattr(ops, c) != v}
+    if not quiet:
+        say(f"    {label}: {n['coo']} COO bursts, no ELL launch: "
+            f"{not grew}")
+    require(n["coo"] > 0 and not grew,
+            f"{label}: {n['coo']} COO bursts, ELL launches {grew}; the "
+            f"default lowering launches the COO kernel alone")
+
+
 def coo_paper_cells(dev, paper_fp32: dict, cpu_cells: dict) -> None:
-    """Phase 33(b): solve_fast(backend="xla") on the six paper topologies x
-    {energy, time}: certified, two card runs bitwise equal, bitwise the
-    host CPU's plain path (lp_x, lp_y, schedule, iterations, metrics;
-    `cpu_cells`: coo_cpu_cells' futures), and within METRIC_RTOL of the
-    golden pins where there is one, else of phase 4's pallas solve."""
+    """Phase 33(b): solve_fast with no backend named (the default, xla)
+    on the six paper topologies x {energy, time}: the COO kernel
+    launched and the ELL burst not (default_lowering), certified, two
+    card runs bitwise equal, bitwise the host CPU's plain path (lp_x,
+    lp_y, schedule, iterations, metrics; `cpu_cells`: paper_cpu_cells'
+    futures), and within METRIC_RTOL of the golden pins where there is
+    one, else of phase 4's pallas solve."""
     import numpy as np
     from repro_torch.core import solver, verify
     golden = json.loads(GOLDEN.read_text())
     for name in PAPER_TOPOS:
         p = problem(name, {}, GOLDEN_PATTERN, 2)
         for obj in OBJECTIVES:
-            t0 = time.perf_counter()
-            r = solver.solve_fast(p, obj, backend="xla", device=dev)
-            wall = time.perf_counter() - t0
-            again = solver.solve_fast(p, obj, backend="xla", device=dev)
+            with default_lowering(f"{name}/{obj}", quiet=True) as n:
+                t0 = time.perf_counter()
+                r = solver.solve_fast(p, obj, device=dev)
+                wall = time.perf_counter() - t0
+                again = solver.solve_fast(p, obj, device=dev)
             verify.check_schedule(p, r.schedule).assert_ok(
                 f"{name}/{obj} xla on the card")
             c = cpu_cells[name, obj].result()
@@ -5468,6 +5566,7 @@ def coo_paper_cells(dev, paper_fp32: dict, cpu_cells: dict) -> None:
             say(f"    {name:10s} {obj:6s} E={got['energy_j']:.6f} J "
                 f"M={got['completion_s']:.6f} s iters={r.iterations} "
                 f"wall={wall:.3f} s (cpu {cpu_s:.3f} s, a helper process) "
+                f"COO bursts {n['coo']}, ELL 0; "
                 f"cert=ok; twice bitwise {same(r, again)}; bitwise the cpu "
                 f"{same_cpu(r, c)}; within {METRIC_RTOL:g} of {pin} {near}")
             require(same(r, again), f"{name}/{obj} xla: two card runs differ")
@@ -5476,32 +5575,37 @@ def coo_paper_cells(dev, paper_fp32: dict, cpu_cells: dict) -> None:
 
 
 def coo_batch_and_sweep(dev, probs8, lps8) -> None:
-    """Phase 33(c): the 8-stack through solve_fast_batch(backend="xla"),
-    each member certified and its LP solve bitwise its solo solve (a
-    batch of one, the same chunk schedule); then the sweep CLI with
-    --backend xla over phase 14's spine-leaf energy/skew rows, every row
-    within SWEEP_RTOL of the committed results (the reference's xla
-    run), the summation-order-sensitive seed 5 included."""
+    """Phase 33(c), every call naming no backend (the default, xla; the
+    COO kernel launched and the ELL burst not): the 8-stack through
+    solve_fast_batch, each member certified and its LP solve bitwise its
+    solo solve (a batch of one, the same chunk schedule); then the
+    sweep CLI without --backend over phase 14's spine-leaf energy/skew
+    rows, the backend column xla, every row within SWEEP_RTOL of the
+    committed results (the reference's xla run), the
+    summation-order-sensitive seed 5 included."""
     import numpy as np
     from repro_torch.core import solver, verify
     from repro_torch.sweep import __main__ as sweep_main
-    t0 = time.perf_counter()
-    batch = solver.solve_fast_batch(probs8, "energy", backend="xla",
-                                    device=dev)
-    wall = time.perf_counter() - t0
+    with default_lowering("the 8-stack"):
+        t0 = time.perf_counter()
+        batch = solver.solve_fast_batch(probs8, "energy", device=dev)
+        wall = time.perf_counter() - t0
     same = []
-    for seed, p, lp, b in zip(BATCH_SEEDS, probs8, lps8, batch):
-        verify.check_schedule(p, b.schedule).assert_ok(f"xla batch {seed}")
-        s = solver.solve_lp_batch([lp], chunk=500, backend="xla",
-                                  device=dev)[0]
-        same.append(np.array_equal(s.x, b.lp_x) and np.array_equal(s.y, b.lp_y)
-                    and s.iterations == b.iterations)
+    with default_lowering("its 8 solo solves"):
+        for seed, p, lp, b in zip(BATCH_SEEDS, probs8, lps8, batch):
+            verify.check_schedule(p, b.schedule).assert_ok(
+                f"xla batch {seed}")
+            s = solver.solve_lp_batch([lp], chunk=500, device=dev)[0]
+            same.append(np.array_equal(s.x, b.lp_x)
+                        and np.array_equal(s.y, b.lp_y)
+                        and s.iterations == b.iterations)
     say(f"    8-stack (fat-tree k=16, seeds {BATCH_SEEDS[0]}-"
         f"{BATCH_SEEDS[-1]}): wall {wall:.3f} s, iterations "
         f"{[b.iterations for b in batch]}, every schedule certified; each "
         f"member bitwise its solo solve: {sum(same)} of {len(same)}")
     require(all(same), "an xla batch member differs from its solo solve")
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, \
+            default_lowering("the sweep"):
         t0 = time.perf_counter()
         rc = sweep_main.main(COO_SWEEP_ARGS + ["--device", str(dev),
                                                "--out", tmp])
@@ -5529,9 +5633,10 @@ def coo_batch_and_sweep(dev, probs8, lps8) -> None:
 
 
 def coo_online(dev) -> None:
-    """Phase 33(e): run_online(backend="xla"), warm, on phase 20's heavy
-    spine-leaf trace (tests/test_arrivals.py's), on the card and on the
-    host CPU's plain path: bitwise equal in every epoch."""
+    """Phase 33(e): run_online with no backend named (the default, xla;
+    the COO kernel launched and the ELL burst not), warm, on phase 20's
+    heavy spine-leaf trace (tests/test_arrivals.py's), on the card and
+    on the host CPU's plain path: bitwise equal in every epoch."""
     from repro_torch.core import arrivals, topology, traffic
     sl = topology.build("spine-leaf")
     heavy = arrivals.generate_trace(
@@ -5540,51 +5645,97 @@ def coo_online(dev) -> None:
                              mean_interarrival_s=2.0), seed=0)
     runs = {}
     for d in (dev, "cpu"):
-        t0 = time.perf_counter()
-        runs[d] = arrivals.run_online(sl, heavy, "energy", **ONLINE_KW,
-                                      backend="xla", device=d)
-        runs[d, "s"] = time.perf_counter() - t0
+        with (default_lowering("the heavy trace on the card") if d == dev
+              else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            runs[d] = arrivals.run_online(sl, heavy, "energy", **ONLINE_KW,
+                                          device=d)
+            runs[d, "s"] = time.perf_counter() - t0
     card = runs[dev]
-    report_online("spine-leaf heavy trace under xla, card", card, heavy,
-                  runs[dev, "s"], 0.0)
+    report_online("spine-leaf heavy trace, the default lowering, card",
+                  card, heavy, runs[dev, "s"], 0.0)
     same = online_bitwise(card, runs["cpu"])
     say(f"    the CPU's plain path ({runs['cpu', 's']:.1f} s): bitwise "
         f"the card in every epoch: {same}"
         + ("" if same else f" ({online_differs(card, runs['cpu'])[:4]})"))
     require(card.n_epochs > 1 and any(e.warm for e in card.epochs[1:]),
             "the heavy trace did not roll warm under xla")
-    require(same, "run_online(backend='xla'): the card differs from the CPU")
+    require(same, "run_online (the default, xla): the card differs from "
+                  "the CPU")
+
+
+def coo_flagship(dev, p_full, ell: dict) -> None:
+    """Phase 33(f): the flagship (fat-tree k=16, 20 x 12 shuffle) through
+    solve_fast with no backend named, each objective twice: the COO
+    kernel launched and the ELL burst not, certified, the two runs
+    bitwise equal, and the metrics within METRIC_RTOL of phase 5's ELL
+    solve of the same problem (`ell`: objective -> metrics_of)."""
+    import numpy as np
+    from repro_torch.core import solver, verify
+    for obj in OBJECTIVES:
+        runs, walls = [], []
+        with default_lowering(f"flagship {obj}", quiet=True) as n:
+            for _ in range(2):
+                t0 = time.perf_counter()
+                runs.append(solver.solve_fast(p_full, obj, device=dev))
+                walls.append(time.perf_counter() - t0)
+        r, again = runs
+        t0 = time.perf_counter()
+        verify.check_schedule(p_full, r.schedule).assert_ok(
+            f"fat-tree-k16/{obj}, the default lowering")
+        cert_s = time.perf_counter() - t0
+        same = (np.array_equal(r.lp_x, again.lp_x)
+                and np.array_equal(r.lp_y, again.lp_y)
+                and np.array_equal(r.schedule, again.schedule)
+                and r.iterations == again.iterations)
+        got = metrics_of(r)
+        off = max(rel_diff(got[k], ell[obj][k]) for k in got)
+        say(f"    flagship {obj:6s}: walls {walls[0]:.3f} ; {walls[1]:.3f} s"
+            f" iters={r.iterations} restarts={restarts(r.iterations, 4000)}"
+            f" primal={r.lp_primal_residual:.3e} E={got['energy_j']:.6f} J "
+            f"M={got['completion_s']:.6f} s; COO bursts {n['coo']}, ELL 0; "
+            f"cert=ok ({cert_s:.3f} s); twice bitwise {same}; metrics "
+            f"{off:.3e} from phase 5's ELL solve")
+        require(same, f"fat-tree-k16/{obj}, the default lowering: two "
+                      f"runs differ")
+        require(close(got, ell[obj], METRIC_RTOL),
+                f"fat-tree-k16/{obj}, the default lowering: {got} vs "
+                f"phase 5's {ell[obj]}")
 
 
 def coo_phase(card: str, dev, sms: int, p_full, lp_full, probs8, lps8,
-              paper_fp32: dict, library_ms: float,
+              paper_fp32: dict, full_fp32: dict, library_ms: float,
               library8_ms: float) -> dict:
-    """Phase 33: the COO lowering on the card.  (a) the kernel against its
-    plain version; (b)-(c) and (e) the main path with backend="xla", its
-    launch counts reset just before (b) and read after (e); (d) times.
+    """Phase 33: the COO lowering, the port's default, on the card.  (a)
+    the kernel against its plain version; (b)-(c), (e) and (f) the main
+    path as a caller runs it, naming no backend (each block holds that
+    the COO kernel launched and the ELL lowering's did not), its launch
+    counts reset just before (b) and read after (f); (d) times.
     Returns the kernels line's numbers."""
     from repro_torch.core import solver
     from repro_torch.kernels import ops
-    say(f"[33] the reference's default COO lowering (backend='xla') on the "
-        f"card ({card})")
+    say(f"[33] the default COO lowering (backend='xla', as in the "
+        f"reference) on the card ({card})")
     lps = {"energy": lp_full,
            "time": solver.build_routing_lp(p_full, "time")[0]}
-    with coo_cpu_pool() as pool:
+    with cpu_pool() as pool:
         plain = coo_plain_runs(pool, lps)
-        cpu_cells = coo_cpu_cells(pool)
+        cpu_cells = paper_cpu_cells(pool)
         err = coo_kernel_check(lps, dev, sms, plain)
-        say("  (b) solve_fast(backend='xla'): six paper topologies x "
+        say("  (b) solve_fast, no backend named: six paper topologies x "
             "{energy, time}")
         ops.PDHG_COO_LAUNCHES = 0
         ops.PDHG_COO_RESIDUAL_LAUNCHES = 0
         coo_paper_cells(dev, paper_fp32, cpu_cells)
-    say("  (c) the batch and the sweep under backend='xla'")
+    say("  (c) the batch and the sweep, no backend named")
     coo_batch_and_sweep(dev, probs8, lps8)
-    say("  (e) run_online(backend='xla') on the heavy trace")
+    say("  (e) run_online on the heavy trace, no backend named")
     coo_online(dev)
+    say("  (f) solve_fast on the flagship, no backend named")
+    coo_flagship(dev, p_full, full_fp32)
     launches = ops.PDHG_COO_LAUNCHES
     residuals = ops.PDHG_COO_RESIDUAL_LAUNCHES
-    say(f"    pdhg_coo_burst launches on (b), (c) and (e): {launches} "
+    say(f"    pdhg_coo_burst launches on (b), (c), (e) and (f): {launches} "
         f"bursts (one cooperative launch each), residual entry "
         f"{residuals}")
     require(launches > 0 and residuals == launches,
@@ -5829,7 +5980,8 @@ def compare_examples(card_runs: dict, helpers: dict, dev) -> None:
     examples' helper): the printed numbers within METRIC_RTOL under
     "pallas" (where they differ more, phase 20's order rule: the CPU run
     summing each row in the kernel's order must give the card's numbers
-    bitwise), bitwise under "xla"; serve_batch's tokens by
+    bitwise), bitwise under "xla" (coflow_schedule's plans among them:
+    the default lowering); serve_batch's tokens by
     greedy_tokens_hold; train_lm's losses, one a step from the same
     weights, within TRAIN_LOSS_TOL."""
     import numpy as np
@@ -5850,7 +6002,9 @@ def compare_examples(card_runs: dict, helpers: dict, dev) -> None:
             continue
         for backend, want in cpu[name].items():
             got = example_numbers(name, card_runs[name, backend])
-            if backend == "xla":
+            # coflow_schedule names no backend: its plans solve in the
+            # default lowering, xla
+            if backend == "xla" or name == "coflow_schedule":
                 off = numbers_differ(got, want, 0.0)
                 rule = "bitwise the CPU's"
             else:
@@ -6037,30 +6191,35 @@ def main(argv=None) -> int:
     ops.PDHG_BURST_LAUNCHES = 0
     paper_launches = 0
     paper_fp32 = {}           # (topo, objective) -> metrics, for phase 12
-    for name in PAPER_TOPOS:
-        p = problem(name, {}, GOLDEN_PATTERN, 2)
-        for obj in OBJECTIVES:
-            before = ops.PDHG_BURST_LAUNCHES
-            t0 = time.perf_counter()
-            r = solver.solve_fast(p, obj, device="cuda")
-            wall = time.perf_counter() - t0
-            paper_launches += ops.PDHG_BURST_LAUNCHES - before
-            cert = verify.check_schedule(p, r.schedule)
-            cert.assert_ok(f"{name}/{obj} on the card")
-            got = metrics_of(r)
-            paper_fp32[name, obj] = got
-            cpu = metrics_of(solver.solve_fast(p, obj, device="cpu"))
-            require(close(got, cpu, METRIC_RTOL),
-                    f"{name}/{obj}: card {got} vs cpu {cpu}")
-            pin = ""
-            if name in GOLDEN_TOPOS:
-                want = golden[f"{name}/min-{obj}/seed0"]
-                require(close(got, {k: want[k] for k in got}, METRIC_RTOL),
-                        f"{name}/{obj}: card {got} vs golden {want}")
-                pin = " golden=ok"
-            say(f"    {name:10s} {obj:6s} E={got['energy_j']:.6f} J "
-                f"M={got['completion_s']:.6f} s iters={r.iterations} "
-                f"wall={wall:.3f} s cert=ok cpu=ok{pin}")
+    # the same solves on the host CPU, in helper processes meanwhile
+    with cpu_pool() as pool:
+        cpu_cells = paper_cpu_cells(pool, "pallas")
+        for name in PAPER_TOPOS:
+            p = problem(name, {}, GOLDEN_PATTERN, 2)
+            for obj in OBJECTIVES:
+                before = ops.PDHG_BURST_LAUNCHES
+                t0 = time.perf_counter()
+                r = solver.solve_fast(p, obj, backend="pallas",
+                                      device="cuda")
+                wall = time.perf_counter() - t0
+                paper_launches += ops.PDHG_BURST_LAUNCHES - before
+                cert = verify.check_schedule(p, r.schedule)
+                cert.assert_ok(f"{name}/{obj} on the card")
+                got = metrics_of(r)
+                paper_fp32[name, obj] = got
+                cpu = cpu_cells[name, obj].result()["metrics"]
+                require(close(got, cpu, METRIC_RTOL),
+                        f"{name}/{obj}: card {got} vs cpu {cpu}")
+                pin = ""
+                if name in GOLDEN_TOPOS:
+                    want = golden[f"{name}/min-{obj}/seed0"]
+                    require(close(got, {k: want[k] for k in got},
+                                  METRIC_RTOL),
+                            f"{name}/{obj}: card {got} vs golden {want}")
+                    pin = " golden=ok"
+                say(f"    {name:10s} {obj:6s} E={got['energy_j']:.6f} J "
+                    f"M={got['completion_s']:.6f} s iters={r.iterations} "
+                    f"wall={wall:.3f} s cert=ok cpu=ok{pin}")
     paper_read = ops.PDHG_BURST_LAUNCHES
     say(f"    pdhg_burst launches on this phase: {paper_read}")
     require(paper_read > 0 and paper_read == paper_launches,
@@ -6077,7 +6236,7 @@ def main(argv=None) -> int:
         runs = []
         for rep in range(2):
             t0 = time.perf_counter()
-            r = solver.solve_fast(p_full, obj, device="cuda")
+            r = solver.solve_fast(p_full, obj, backend="pallas", device="cuda")
             wall = time.perf_counter() - t0
             full_lp[obj], full_lp_s[obj] = r, wall
             t1 = time.perf_counter()
@@ -6226,6 +6385,11 @@ def main(argv=None) -> int:
     require(fa32_launches == 2 * len(FA_CASES),
             f"phase 8's fp32 cases launched the fp32 entry "
             f"{fa32_launches} times, expected {2 * len(FA_CASES)}")
+    n = attention_misaligned(dev)
+    say(f"    flash_attention launches on the misaligned case: {n}")
+    require(n == 2 * len(FA_DTYPES), f"the misaligned case launched the "
+                                     f"kernel {n} times, expected "
+                                     f"{2 * len(FA_DTYPES)}")
 
     # -- phase 9: serving path at full width --------------------------------
     say("[9] serving path: phi4-mini-3.8b at full width, batch 4, prompt "
@@ -6367,7 +6531,8 @@ def main(argv=None) -> int:
         p = problem(name, {}, GOLDEN_PATTERN, 2)
         for obj in OBJECTIVES:
             t0 = time.perf_counter()
-            r = solver.solve_fast(p, obj, precision="bf16", device="cuda")
+            r = solver.solve_fast(p, obj, precision="bf16",
+                                  backend="pallas", device="cuda")
             wall = time.perf_counter() - t0
             verify.check_schedule(p, r.schedule).assert_ok(
                 f"{name}/{obj} bf16 on the card")
@@ -6386,7 +6551,8 @@ def main(argv=None) -> int:
                 f"({ratio:.6f}x fp32) iters={r.iterations} "
                 f"wall={wall:.3f} s cert=ok")
     t0 = time.perf_counter()
-    r = solver.solve_fast(p_full, "energy", precision="bf16", device="cuda")
+    r = solver.solve_fast(p_full, "energy", precision="bf16",
+                          backend="pallas", device="cuda")
     wall = time.perf_counter() - t0
     verify.check_schedule(p_full, r.schedule).assert_ok("fat-tree-k16 bf16")
     require(r.remaining_gbits <= 1e-6, "fat-tree-k16 bf16: demand left")
@@ -6414,7 +6580,8 @@ def main(argv=None) -> int:
     solver.reset_dispatch_stats()
     with stage_clock(batch_stages()) as spent:
         t0 = time.perf_counter()
-        batch = solver.solve_fast_batch(probs8, "energy", device="cuda")
+        batch = solver.solve_fast_batch(probs8, "energy",
+                                        backend="pallas", device="cuda")
         batch_wall = time.perf_counter() - t0
     batch_calls = ops.PDHG_ADAPTIVE_CALLS
     batch_launches = ops.PDHG_BURST_LAUNCHES
@@ -6438,7 +6605,7 @@ def main(argv=None) -> int:
                 f"batch seed {seed}: residual {b.lp_primal_residual:.3e} "
                 f"(tol {tol:.3e}), {b.remaining_gbits:.3e} Gbit left")
         t0 = time.perf_counter()
-        s = solver.solve_fast(p, "energy", device="cuda")
+        s = solver.solve_fast(p, "energy", backend="pallas", device="cuda")
         solo_walls.append(time.perf_counter() - t0)
         say(f"    seed {seed}: batch E={b.metrics.energy_j:.6f} J "
             f"M={b.metrics.completion_s:.6f} s iters={b.iterations} "
@@ -6451,7 +6618,8 @@ def main(argv=None) -> int:
     say(f"    8 solo solve_fast {solo_wall:.3f} s against the batch's "
         f"{batch_wall:.3f} s ({solo_wall / batch_wall:.2f}x)")
     t0 = time.perf_counter()
-    again = solver.solve_fast_batch(probs8, "energy", device="cuda")
+    again = solver.solve_fast_batch(probs8, "energy",
+                                    backend="pallas", device="cuda")
     say(f"    (e) repeat wall {time.perf_counter() - t0:.3f} s")
     for seed, a, b in zip(BATCH_SEEDS, batch, again):
         require(np.array_equal(a.lp_x, b.lp_x) and np.array_equal(a.lp_y, b.lp_y)
@@ -6459,9 +6627,10 @@ def main(argv=None) -> int:
                 and a.iterations == b.iterations,
                 f"batch seed {seed}: two runs differ")
     say("    (e) two batch runs bitwise identical (lp_x, lp_y, schedule)")
-    fixed = solver.solve_lp_batch(lps8[:4], adaptive=False, device="cuda")
+    fixed = solver.solve_lp_batch(lps8[:4], adaptive=False,
+                                  backend="pallas", device="cuda")
     for seed, lp, b in zip(BATCH_SEEDS, lps8[:4], fixed):
-        single = solver.solve_lp(lp, device="cuda")
+        single = solver.solve_lp(lp, backend="pallas", device="cuda")
         err = float(np.abs(b.x - single.x).max())
         bitwise = np.array_equal(b.x, single.x)
         say(f"    (b) seed {seed} adaptive=False: iters {b.iterations} "
@@ -6469,7 +6638,7 @@ def main(argv=None) -> int:
             f"bitwise {bitwise}")
         require(err <= BATCH_X_ATOL and b.iterations == single.iterations,
                 f"adaptive=False seed {seed}: x differs by {err:.3e}")
-    dup = solver.solve_lp_batch([lp_full] * 8, device="cuda")
+    dup = solver.solve_lp_batch([lp_full] * 8, backend="pallas", device="cuda")
     require(all(np.array_equal(d.x, dup[0].x) and np.array_equal(d.y, dup[0].y)
                 and d.iterations == dup[0].iterations for d in dup[1:]),
             "8 identical members differ")
@@ -6543,6 +6712,7 @@ def main(argv=None) -> int:
         check_order_sensitive(key, rows[key], ref[key])
     t0 = time.perf_counter()
     cpu_recs, _ = runner.run_sweep(runner.SweepSpec(**SWEEP_CPU_CELLS,
+                                                    backend="pallas",
                                                     device="cpu"))
     cpu_worst = 0.0
     for rec in cpu_recs:
@@ -6557,6 +6727,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     with in_kernel_order():
         ko_recs, _ = runner.run_sweep(runner.SweepSpec(**SWEEP_CPU_CELLS,
+                                                       backend="pallas",
                                                        device="cpu"))
     ko_bad = [(r.topo, r.objective, r.pattern, r.seed) for r in ko_recs
               if row_differs(r, rows[r.topo, r.objective, r.pattern, r.seed])]
@@ -6567,7 +6738,7 @@ def main(argv=None) -> int:
                         f"reproduce: {ko_bad}")
     cell = dict(topos=("pon3",), objectives=("energy",),
                 patterns=("uniform",))
-    again, _ = runner.run_sweep(runner.SweepSpec(**cell))
+    again, _ = runner.run_sweep(runner.SweepSpec(backend="pallas", **cell))
     for rec in again:
         bad = row_differs(rec, rows[rec.topo, rec.objective, rec.pattern,
                                     rec.seed])
@@ -6634,7 +6805,7 @@ def main(argv=None) -> int:
         f"({bf16_bound_by}: {bf16_bytes} B at 3.35 TB/s); library as in "
         f"phase 6, {library_ms:.6f} ms")
     busy = profile_device(lambda: solver.solve_fast_batch(
-        probs8, "energy", device="cuda"))
+        probs8, "energy", backend="pallas", device="cuda"))
     if busy is None:
         say("    batch device busy share: not measured (the profiler saw no "
             "device time)")
@@ -6664,7 +6835,7 @@ def main(argv=None) -> int:
     for seed, (B, S, R, skew) in enumerate(cases):
         a, b, h0 = scan_inputs(seed, B, S, R, dev)
         if skew:
-            a, b = scan_misaligned(a), scan_misaligned(b)
+            a, b = misaligned(a), misaligned(b)
         for with_h0 in (False, True):
             scan_errs.append(compare_scan(
                 f"B={B} S={S} R={R}{' +4 B' if skew else ''} "
@@ -6919,11 +7090,13 @@ def main(argv=None) -> int:
     ops.FLASH_ATTENTION_LAUNCHES = 0
     ops.RGLRU_SCAN_LAUNCHES = 0
     ops.PDHG_BURST_LAUNCHES = 0
+    ops.PDHG_COO_LAUNCHES = 0
     train_phase(card)
     say(f"    training launched flash_attention {ops.FLASH_ATTENTION_LAUNCHES}"
         f" and rglru_scan {ops.RGLRU_SCAN_LAUNCHES} times (it runs the "
-        f"einsum path: no kernel has a backward) and pdhg_burst "
-        f"{ops.PDHG_BURST_LAUNCHES} (the launcher's co-flow plan); phases "
+        f"einsum path: no kernel has a backward), pdhg_coo_burst "
+        f"{ops.PDHG_COO_LAUNCHES} and pdhg_burst {ops.PDHG_BURST_LAUNCHES} "
+        f"(the launcher's co-flow plan, in the default lowering); phases "
         f"28-29 {time.perf_counter() - t_phase:.1f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     require(ops.FLASH_ATTENTION_LAUNCHES == 0
@@ -6953,7 +7126,7 @@ def main(argv=None) -> int:
 
     # -- phase 33: the COO lowering ----------------------------------------
     coo_entry = coo_phase(card, dev, sms, p_full, lp_full, probs8, lps8,
-                          paper_fp32, library_ms, library8_ms)
+                          paper_fp32, full_fp32, library_ms, library8_ms)
 
     # -- phase 34: the examples ---------------------------------------------
     examples_phase(card, dev, helpers)

@@ -7,9 +7,9 @@
 4. re-plan around a straggling axis (derated bandwidth).
 
 The port's counterpart of examples/coflow_schedule.py.  Each plan solves
-its LP through the PDHG burst kernel (core.fabric.plan_collectives), in
-the port's default lowering; the reference's plan runs the reference's
-default COO lowering, so the two agree to 1e-4, not bit for bit.
+its LP through the COO burst kernel (core.fabric.plan_collectives), in
+the default lowering, the reference's COO one, as the reference's plan
+does.
 
 Run:  PYTHONPATH=src python examples_torch/coflow_schedule.py [--device cpu]
 """

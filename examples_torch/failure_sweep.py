@@ -13,7 +13,7 @@ Each degraded instance re-solves warm-started from the healthy PDHG
 state (core.solver.solve_fast_ensemble).
 
 Run:  PYTHONPATH=src python examples_torch/failure_sweep.py [--device cpu]
-          [--backend xla]
+          [--backend pallas]
 """
 import argparse
 
@@ -23,7 +23,7 @@ from repro_torch.core import failures, solver, timeslot, topology, traffic
 from repro_torch.device import resolve
 
 
-def run(device="cuda", backend="pallas", *, topos=("spine-leaf", "pon3"),
+def run(device="cuda", backend="xla", *, topos=("spine-leaf", "pon3"),
         presets=("link1", "link3", "switch", "device"), n_seeds=4,
         n_map=4, n_reduce=3, total_gbits=6.0, iters=2000) -> dict:
     """Solve each topology's seeds healthy, then each preset's degraded
@@ -77,7 +77,7 @@ def run(device="cuda", backend="pallas", *, topos=("spine-leaf", "pon3"),
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--backend", choices=("pallas", "xla"), default="pallas")
+    ap.add_argument("--backend", choices=("xla", "pallas"), default="xla")
     args = ap.parse_args(argv)
     return run(args.device, args.backend)
 

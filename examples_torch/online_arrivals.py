@@ -10,7 +10,7 @@ picture: admitted co-flows, backlog, and the PDHG iterations each
 re-plan cost.
 
 Run:  PYTHONPATH=src python examples_torch/online_arrivals.py
-          [--device cpu] [--backend xla]
+          [--device cpu] [--backend pallas]
 """
 import argparse
 
@@ -18,7 +18,7 @@ from repro_torch.core import arrivals, topology, traffic
 from repro_torch.device import resolve
 
 
-def run(device="cuda", backend="pallas", *, topo="spine-leaf", n_map=4,
+def run(device="cuda", backend="xla", *, topo="spine-leaf", n_map=4,
         n_reduce=3, total_gbits=48.0, n_coflows=5, mean_interarrival_s=2.0,
         seed=0, epoch_s=1.0, iters=3000) -> dict:
     """Run the trace cold and warm; returns the printed numbers by
@@ -67,7 +67,7 @@ def run(device="cuda", backend="pallas", *, topo="spine-leaf", n_map=4,
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--backend", choices=("pallas", "xla"), default="pallas")
+    ap.add_argument("--backend", choices=("xla", "pallas"), default="xla")
     args = ap.parse_args(argv)
     return run(args.device, args.backend)
 

@@ -10,7 +10,7 @@ are solved together by solve_fast_batch (the adaptive driver over one
 block-diagonal LP).
 
 Run:  PYTHONPATH=src python examples_torch/pattern_sweep.py [--device cpu]
-          [--backend xla]
+          [--backend pallas]
 """
 import argparse
 
@@ -20,7 +20,7 @@ from repro_torch.core import solver, timeslot, topology, traffic
 from repro_torch.device import resolve
 
 
-def run(device="cuda", backend="pallas", *, topo="pon3", n_seeds=4,
+def run(device="cuda", backend="xla", *, topo="pon3", n_seeds=4,
         patterns=("uniform", "packed", "local"), n_map=4, n_reduce=3,
         total_gbits=6.0, iters=2000) -> dict:
     """Solve and print each pattern's seeds; returns the printed numbers
@@ -58,7 +58,7 @@ def run(device="cuda", backend="pallas", *, topo="pon3", n_seeds=4,
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--backend", choices=("pallas", "xla"), default="pallas")
+    ap.add_argument("--backend", choices=("xla", "pallas"), default="xla")
     args = ap.parse_args(argv)
     return run(args.device, args.backend)
 

@@ -7,11 +7,12 @@ on the fast path (the routing LP through the PDHG burst kernel), and
 prints the energy/completion-time trade-off the paper's §VI reports.
 
 Run:  PYTHONPATH=src python examples_torch/quickstart.py [--device cpu]
-          [--backend xla]
+          [--backend pallas]
 
 --device defaults to the card ("cuda") and raises without one; --device
-cpu runs the kernels' plain versions on the host.  --backend xla solves
-in the reference's default COO lowering.
+cpu runs the kernels' plain versions on the host.  --backend defaults to
+xla, the reference's default COO lowering; --backend pallas solves in
+blocked ELL.
 """
 import argparse
 
@@ -21,7 +22,7 @@ from repro_torch.device import resolve
 TOTAL_GBITS = 8.0
 
 
-def run(device="cuda", backend="pallas", *, topos=("spine-leaf", "pon3"),
+def run(device="cuda", backend="xla", *, topos=("spine-leaf", "pon3"),
         total_gbits=TOTAL_GBITS, n_map=4, n_reduce=3, seed=1, n_slots=6,
         rho=8.0, iters=4000, time_limit=120) -> dict:
     """Solve and print each (topology, objective); returns the printed
@@ -63,7 +64,7 @@ def run(device="cuda", backend="pallas", *, topos=("spine-leaf", "pon3"),
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--backend", choices=("pallas", "xla"), default="pallas")
+    ap.add_argument("--backend", choices=("xla", "pallas"), default="xla")
     args = ap.parse_args(argv)
     return run(args.device, args.backend)
 

@@ -327,7 +327,7 @@ def run_online(topo: Topology, trace: list[Arrival],
                rho: float = 8.0, q_weight: float = 100.0,
                path_slack: int | None = 2, iters: int = 3000,
                tol: float | None = 2e-3, chunk: int = 250,
-               backend: str = "pallas",
+               backend: str = "xla",
                device: str | torch.device = "cuda", warm: bool = True,
                max_epochs: int = 128,
                chaos: list[chaosmod.ChaosEvent] | None = None,
@@ -356,8 +356,8 @@ def run_online(topo: Topology, trace: list[Arrival],
     behavior.  It is a scheduling tier, taken on those conditions only:
     an error of the solve itself propagates.
 
-    `backend` is the PDHG lowering of every epoch's solve ("pallas", the
-    port's default, or "xla", the reference's; see solver.solve_lp), and
+    `backend` is the PDHG lowering of every epoch's solve ("xla", the
+    default as in the reference, or "pallas"; see solver.solve_lp), and
     `device` where its bursts run: "cuda" (default; the CUDA kernel,
     raising without a card) or "cpu" (its plain version).
 

@@ -163,9 +163,11 @@ def plan_collectives(spec: FabricSpec, buckets: list[Bucket], *,
 
     The slot duration is sized from the workload (ideal wire time spread
     over n_slots with headroom) and doubled until the schedule is
-    feasible, so the plan always ships every byte.  `device` is where the
-    PDHG bursts run, as in core.solver.solve_fast ("cuda" by default,
-    raising without a card; "cpu" runs the kernel's plain version)."""
+    feasible, so the plan always ships every byte.  Each attempt calls
+    core.solver.solve_fast with its default lowering ("xla", as the
+    reference's plan does).  `device` is where the PDHG bursts run, as
+    in solve_fast ("cuda" by default, raising without a card; "cpu"
+    runs the kernel's plain version)."""
     topo = fabric_topology(spec)
     A = len(spec.axis_names)
     # scale axis capacities: effective payload rate = bw / ring_factor

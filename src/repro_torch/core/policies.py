@@ -371,7 +371,7 @@ class Policy:
 
     def solve(self, p: ScheduleProblem, objective: str = "energy", *,
               iters: int = 0, tol: float | None = None,
-              backend: str = "pallas",
+              backend: str = "xla",
               device: str | torch.device = "cuda") -> FastPathResult:
         idx, paths = self.route(p, objective)
         x = self.pack(p, idx, paths)
@@ -463,7 +463,7 @@ class FairLpPolicy(Policy):
     a card); with uniform weights it coincides with the min-energy LP."""
 
     def solve(self, p, objective="energy", *, iters=3000,
-              tol=None, backend="pallas", device="cuda"):
+              tol=None, backend="xla", device="cuda"):
         r = solve_fast(p, "fair", iters=iters or 3000, tol=tol,
                        backend=backend, device=device)
         return dataclasses.replace(

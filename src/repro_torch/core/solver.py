@@ -4,11 +4,14 @@ The port of the reference `repro.core.solver` single-instance path:
 
   1. a *routing LP* over (flow, edge, wavelength) volumes for the whole
      horizon (`build_routing_lp`, numpy, structure-cached);
-  2. diagonally-preconditioned PDHG (Chambolle-Pock) over the LP packed
-     in blocked ELL (`solve_lp`): on the card every restart rung is one
-     call of the hand-written CUDA burst kernel (kernels/csrc/
-     pdhg_burst.cu via kernels.ops.pdhg_burst); with device="cpu" the
-     same rung runs the kernel's plain PyTorch version;
+  2. diagonally-preconditioned PDHG (Chambolle-Pock) over the LP
+     (`solve_lp`), by default (backend="xla", as in the reference) kept
+     in COO: on the card every burst is one call of the hand-written
+     CUDA kernel kernels/csrc/pdhg_coo.cu (kernels.ops.pdhg_coo_burst);
+     with backend="pallas" packed in blocked ELL, every restart rung one
+     call of kernels/csrc/pdhg_burst.cu (kernels.ops.pdhg_burst); with
+     device="cpu" the same bursts run the kernels' plain PyTorch
+     versions;
   3. path decomposition and a *temporal packing* pass that quantizes the
      fractional routing into the paper's discrete slots (numpy);
   4. exact re-evaluation with core.timeslot.evaluate — so reported E and M
@@ -23,8 +26,9 @@ collective between two, replayed as a CUDA graph over NCCL).
 
 The batched form (`solve_lp_batch`, `solve_fast_batch`,
 `solve_fast_ensemble`) stacks instances block-diagonally and runs each
-level of its restart ladder as one adaptive dispatch of the same kernel
-(kernels.ops.pdhg_adaptive), freezing each instance as it converges.
+level of its restart ladder as one adaptive dispatch of the lowering's
+kernel (kernels.ops.pdhg_coo_adaptive, or pdhg_adaptive under
+"pallas"), freezing each instance as it converges.
 
 The incremental re-solves (`project_warm_start`, `resolve_incremental`,
 `solve_fast_warm`, `solve_fast_group` and `solve_fast_ensemble(warm=...)`)
@@ -35,19 +39,20 @@ fabric (core.failures) or the next epoch of an arrival trace
 The port has both of the reference's PDHG lowerings, with their
 iters/tol/restart semantics, chosen by `backend=`:
 
-  * "pallas" (the port's default): K in blocked ELL, every burst one
-    call of pdhg_burst.cu, sums in the kernel's own fixed order, so the
-    solves track the reference's pallas lowering to fp32 tolerance;
-  * "xla" (the reference's default): K in COO, every burst one call of
-    pdhg_coo.cu (kernels.ops.pdhg_coo_burst), which sums each row and
-    column one entry at a time in COO entry order and rounds the two
-    updates the reference's XLA contracts once, as kernels.pdhg_coo
-    writes the order down; where the host's XLA orders the reference's
-    scatters so (tests/test_torch_coo.py probes it), the card's and the
-    CPU's trajectories are bitwise the reference's own.  Bucketing,
-    pad_and_stack and the reference's xla solve helpers (_pdhg_ops ...
-    _pdhg_run_batch) come with it.  The port's default stays "pallas":
-    its other paths and checks are built on that lowering.
+  * "xla" (the default, as in the reference): K in COO, every burst one
+    call of pdhg_coo.cu (kernels.ops.pdhg_coo_burst), which sums each
+    row and column one entry at a time in COO entry order and rounds
+    the two updates the reference's XLA contracts once, as
+    kernels.pdhg_coo writes the order down; where the host's XLA orders
+    the reference's scatters so (tests/test_torch_coo.py probes it), the
+    card's and the CPU's trajectories are bitwise the reference's own.
+    Bucketing, pad_and_stack and the reference's xla solve helpers
+    (_pdhg_ops ... _pdhg_run_batch) come with it;
+  * "pallas": K in blocked ELL, every burst one call of pdhg_burst.cu,
+    sums in the kernel's own fixed order, so the solves track the
+    reference's pallas lowering to fp32 tolerance.  The scale knobs
+    (bf16 iterate storage, shards > 1) exist only here, as in the
+    reference.
 
 Units follow the paper throughout: flow sizes and shipped volumes in
 Gbits, link/egress/ingress rates in Gbps, slot duration and completion
@@ -362,8 +367,10 @@ def _check_scale_opts(backend: str, shards: int, precision: str) -> None:
     the iterates in bfloat16 between iterations, fp32 arithmetic) and
     the shard count (> 1: the row-sharded operator across that many
     torch.distributed ranks).  Both exist only in the blocked-ELL
-    lowering, so anything but the defaults requires backend="pallas",
-    as in the reference."""
+    lowering, so a precision or shard count other than the defaults
+    (fp32, 1) requires backend="pallas", named by the caller: the
+    default lowering is "xla", as in the reference, which refuses them
+    the same way."""
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; "
                          f"have {PRECISIONS}")
@@ -535,7 +542,7 @@ def solve_lp(lp: StructuredLP, iters: int = 4000, *,
              tol: float | None = None, max_restarts: int = 3,
              x0: np.ndarray | None = None,
              y0: np.ndarray | None = None,
-             backend: str = "pallas", shards: int = 1,
+             backend: str = "xla", shards: int = 1,
              precision: str = "fp32",
              device: str | torch.device = "cuda") -> PDHGResult:
     """Solve with PDHG; objective is max-normalized (the schedule is re-scored
@@ -545,10 +552,10 @@ def solve_lp(lp: StructuredLP, iters: int = 4000, *,
     times.  `x0`/`y0` seed the primal/dual iterates (numpy, e.g. the
     state of an earlier solve); default is a cold start from zero.
 
-    `backend` selects the PDHG lowering: "pallas" (the port's default,
-    blocked ELL through pdhg_burst.cu) or "xla" (the reference's
-    default, COO through pdhg_coo.cu in the reference's COO summation
-    order; x and y come back as float32 arrays, as the reference's do).
+    `backend` selects the PDHG lowering: "xla" (the default, as in the
+    reference: COO through pdhg_coo.cu in the reference's COO summation
+    order; x and y come back as float32 arrays, as the reference's do)
+    or "pallas" (blocked ELL through pdhg_burst.cu).
 
     `precision="bf16"` stores the PDHG iterates in bfloat16 between
     iterations, with fp32 arithmetic and residuals (the kernel's
@@ -563,10 +570,10 @@ def solve_lp(lp: StructuredLP, iters: int = 4000, *,
     collective an iteration; every rank returns the same result.
     shards=1 leaves the single-device trajectory bit-for-bit untouched.
 
-    `device="cuda"` (the default) runs each rung as one burst of the CUDA
-    kernel (sharded: the kernel's split step) and raises RuntimeError
-    when no card is available; `device="cpu"` runs the kernel's plain
-    PyTorch version."""
+    `device="cuda"` (the default) runs each burst on the lowering's CUDA
+    kernel (sharded: the ELL kernel's split step) and raises
+    RuntimeError when no card is available; `device="cpu"` runs the
+    kernel's plain PyTorch version."""
     dev = _device.resolve(device)
     _check_backend(backend)
     _check_scale_opts(backend, shards, precision)
@@ -1346,7 +1353,7 @@ def _assemble_fast_result(p: ScheduleProblem, lp: StructuredLP,
 
 def solve_fast(p: ScheduleProblem, objective: str = "energy", *,
                iters: int = 4000, tol: float | None = None,
-               backend: str = "pallas", shards: int = 1,
+               backend: str = "xla", shards: int = 1,
                precision: str = "fp32",
                x0: np.ndarray | None = None, y0: np.ndarray | None = None,
                device: str | torch.device = "cuda") -> FastPathResult:
@@ -1361,9 +1368,9 @@ def solve_fast(p: ScheduleProblem, objective: str = "energy", *,
       iters: PDHG iterations per restart rung (doubled on each restart,
         up to solve_lp's max_restarts).
       tol: primal-residual target in Gbits; default 1e-4 * max demand.
-      backend: PDHG lowering, "pallas" (the port's default; blocked ELL)
-        or "xla" (the reference's default; COO in its summation order,
-        see solve_lp).
+      backend: PDHG lowering, "xla" (the default, as in the reference;
+        COO in its summation order, see solve_lp) or "pallas" (blocked
+        ELL).
       shards, precision: the reference's scale knobs (pallas only).
         precision "fp32" or "bf16" (bf16 iterate storage, fp32
         arithmetic); shards > 1 row-shards the LP across that many
@@ -1550,14 +1557,14 @@ def solve_lp_batch(lps: list[StructuredLP], iters: int = 4000, *,
                    tol: float | None = None, max_restarts: int = 3,
                    adaptive: bool = True, chunk: int = 500,
                    warm_starts: list[tuple[np.ndarray, np.ndarray]] | None
-                   = None, backend: str = "pallas", bucket: bool = True,
+                   = None, backend: str = "xla", bucket: bool = True,
                    shards: int = 1, precision: str = "fp32",
                    device: str | torch.device = "cuda") -> list[PDHGResult]:
     """Solve a batch of LPs in stacked PDHG dispatches, the reference's
     solve_lp_batch: every dispatch one block-diagonal stack
-    (BlockStackedLP), packed in blocked ELL under backend="pallas" (the
-    port's default) or kept in COO under "xla" (the reference's
-    default; kernels.ops.pdhg_coo_adaptive / pdhg_coo_burst).
+    (BlockStackedLP), kept in COO under backend="xla" (the default, as
+    in the reference; kernels.ops.pdhg_coo_adaptive / pdhg_coo_burst)
+    or packed in blocked ELL under "pallas".
 
     Both modes run an escalation ladder that re-stacks only the
     still-unconverged instances each level, so every instance follows
@@ -1799,7 +1806,7 @@ def solve_lp_batch(lps: list[StructuredLP], iters: int = 4000, *,
 def solve_fast_batch(problems: list[ScheduleProblem],
                      objective: str = "energy", *,
                      iters: int = 4000, tol: float | None = None,
-                     adaptive: bool = True, backend: str = "pallas",
+                     adaptive: bool = True, backend: str = "xla",
                      bucket: bool = True, shards: int = 1,
                      precision: str = "fp32",
                      device: str | torch.device = "cuda"
@@ -1838,7 +1845,7 @@ def solve_fast_ensemble(problems: list[ScheduleProblem],
                         warm: list[FastPathResult] | None = None,
                         iters: int = 4000, tol: float | None = None,
                         adaptive: bool = True, chunk: int | None = None,
-                        backend: str = "pallas", bucket: bool = True,
+                        backend: str = "xla", bucket: bool = True,
                         shards: int = 1, precision: str = "fp32",
                         device: str | torch.device = "cuda"
                         ) -> list[FastPathResult]:
@@ -2060,7 +2067,7 @@ def stranded_volume(warm: FastPathResult, p_dst: ScheduleProblem, *,
 
 def resolve_incremental(p: ScheduleProblem, objective: str,
                         warm: FastPathResult, *, iters: int = 4000,
-                        tol: float | None = None, backend: str = "pallas",
+                        tol: float | None = None, backend: str = "xla",
                         shards: int = 1, precision: str = "fp32",
                         device: str | torch.device = "cuda"
                         ) -> FastPathResult:
@@ -2094,7 +2101,7 @@ def solve_fast_warm(p: ScheduleProblem, objective: str = "energy", *,
                     warm: FastPathResult | None = None,
                     flow_map: np.ndarray | None = None,
                     iters: int = 4000, tol: float | None = None,
-                    chunk: int = 250, backend: str = "pallas",
+                    chunk: int = 250, backend: str = "xla",
                     bucket: bool = True, shards: int = 1,
                     precision: str = "fp32",
                     device: str | torch.device = "cuda") -> FastPathResult:
@@ -2143,7 +2150,7 @@ def solve_fast_group(problems: list[ScheduleProblem],
                      flow_maps: list[np.ndarray | None] | None = None,
                      iters: int = 4000, tol: float | None = None,
                      adaptive: bool = True, chunk: int = 250,
-                     backend: str = "pallas", bucket: bool = True,
+                     backend: str = "xla", bucket: bool = True,
                      shards: int = 1, precision: str = "fp32",
                      device: str | torch.device = "cuda"
                      ) -> list[FastPathResult]:

@@ -1011,8 +1011,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     is the kernel of kernels/csrc/flash_attention.cu, chosen by dtype:
     bfloat16 runs the wgmma / TMA kernel on the tiles of
     kernels.flash_attention.tile_plan, float32 the SIMT kernel on those
-    of ::simt_plan (the operands on 16-byte boundaries).  On CPU tensors
-    it is the plain version, kernels.flash_attention.flash_attention_plain.
+    of ::simt_plan; an operand that does not start on a 16-byte boundary
+    (a contiguous view into a larger tensor) is copied first.  On CPU
+    tensors it is the plain version,
+    kernels.flash_attention.flash_attention_plain.
     Raises RuntimeError under autograd: there is no backward.
 
     DTensor q, k, v split alike over batch (dim 0) and heads (dim 2)
@@ -1068,18 +1070,29 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     return out[..., :hd].contiguous()
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """`t` itself when its data starts on a 16-byte boundary, else a
+    fresh contiguous copy of it (a new allocation: the caching
+    allocator's blocks start on 512-byte boundaries).  The attention
+    kernel's TMA maps and 16-byte copies need such a start; a contiguous
+    view into a larger tensor may lack it."""
+    return t if t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format)
+
+
 def _attend(q, k, v, causal, window, softcap, scale):
     """flash_attention on checked operands whose head dim is a multiple
-    of 8: the plain version on the CPU, the kernel on the card."""
+    of 8: the plain version on the CPU, the kernel on the card (an
+    operand off a 16-byte boundary copied first, _aligned16)."""
     global FLASH_ATTENTION_LAUNCHES
     if q.device.type == "cpu":
         return fa.flash_attention_plain(q, k, v, causal=causal,
                                         window=window, softcap=softcap,
                                         scale=scale)
+    q, k, v = (_aligned16(t) for t in (q, k, v))
     if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: q, k and v must start on 16-byte "
-                         "boundaries (the kernel's TMA maps and 16-byte "
-                         "copies need it)")
+        raise RuntimeError("flash_attention: an operand is off a 16-byte "
+                           "boundary after its copy (an internal error)")
     B, S, H, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     p = (fa.tile_plan if q.dtype == torch.bfloat16 else fa.simt_plan)(hd)

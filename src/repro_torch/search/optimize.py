@@ -58,7 +58,7 @@ class SearchConfig:
     seed: int = 0
     iters: int = 1500          # PDHG iterations per evaluator dispatch
     tol: float = 2e-3
-    backend: str = "pallas"    # PDHG lowering (solver.BACKENDS)
+    backend: str = "xla"       # PDHG lowering (solver.BACKENDS)
     device: str | torch.device = "cuda"   # where the bursts run
     rho: float = 8.0
     path_slack: int | None = 2
@@ -202,8 +202,8 @@ def optimize_placement(topo: Topology, pat: TrafficPattern,
       objective: solver-internal "energy", "time", or "fair".
       method: "sa" (parallel-chain simulated annealing) or "ga".
       cfg/overrides: SearchConfig knobs (overrides win over cfg);
-        `backend` is the PDHG lowering ("pallas", the port's default, or
-        "xla", the reference's) and `device` ("cuda" by default, raising
+        `backend` is the PDHG lowering ("xla", the default as in the
+        reference, or "pallas") and `device` ("cuda" by default, raising
         without a card, or "cpu") where every generation's bursts run.
 
     Deterministic per (seed, method): all randomness flows from

@@ -59,12 +59,12 @@ class SolveCostModel:
 
     — where `iters` is the PDHG iterations the dispatch actually spent
     (deterministic for a fixed device, lowering and summation order:
-    under backend="pallas" the card and the CPU may differ, see ROADMAP
-    queue 3; under "xla" both sum in COO entry order and agree) and `B`
-    its member count.  `base_s` models the fixed dispatch overhead
-    (packing, kernel launches) that coalescing amortizes across tenants;
-    `per_instance_s` the per-member LP assembly/unpack work that it
-    cannot.
+    under the default backend "xla" both sum in COO entry order and
+    agree; under "pallas" the card and the CPU may differ, see ROADMAP
+    queue 3) and `B` its member count.  `base_s` models the fixed
+    dispatch overhead (packing, kernel launches) that coalescing
+    amortizes across tenants; `per_instance_s` the per-member LP
+    assembly/unpack work that it cannot.
 
     mode="measured" charges the measured wall time of the dispatch
     instead — non-deterministic, for live benchmarking only."""

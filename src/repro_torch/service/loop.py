@@ -111,7 +111,7 @@ class ServiceConfig:
     iters: int = 3000               # per-window PDHG budget (first rung)
     tol: float | None = 2e-3
     chunk: int = 250
-    backend: str = "pallas"         # PDHG lowering (solver.BACKENDS)
+    backend: str = "xla"            # PDHG lowering (solver.BACKENDS)
     device: str | torch.device = "cuda"   # where the bursts run
     coalesce: bool = True           # False: one dispatch per tenant
     bucket: bool = True

@@ -16,15 +16,16 @@ runs the multi-tenant scheduler service instead and writes its event
 log to <out>/service_events.log.
 Takes the reference's flags (python -m repro.sweep) plus --device
 ("cuda", the default, raises without a card; "cpu" runs the kernels'
-plain versions).  --backend picks the PDHG lowering: pallas (the port's
-default; blocked ELL, pdhg_burst.cu on the card) or xla (the reference's
-default; COO in the reference's summation order, pdhg_coo.cu on the
-card); --mesh N > 1 and --precision bf16 need pallas, as in the
-reference.  --mesh N row-shards every LP fast-path solve
-across N processes, one a shard, as torchrun starts them:
+plain versions).  --backend picks the PDHG lowering: xla (the default,
+as in the reference; COO in the reference's summation order, pdhg_coo.cu
+on the card) or pallas (blocked ELL, pdhg_burst.cu on the card);
+--mesh N > 1 and --precision bf16 need --backend pallas, as in the
+reference (exit 1 otherwise).  --mesh N row-shards every LP fast-path
+solve across N processes, one a shard, as torchrun starts them:
 
     torchrun --standalone --nproc-per-node 2 -m repro_torch.sweep \
-        --mesh 2 --device cpu --topos pon3 --seeds 2 --out /tmp/sweep2
+        --mesh 2 --backend pallas --device cpu --topos pon3 --seeds 2 \
+        --out /tmp/sweep2
 
 over gloo on the CPU, NCCL with one card a rank on cuda; rank 0 alone
 prints and writes the results.  --jax-cache is not ported and exits 1
@@ -241,11 +242,12 @@ def main(argv=None) -> int:
                     help="fixed slot count (default: auto per instance)")
     ap.add_argument("--iters", type=int, default=3000,
                     help="PDHG iterations before residual-driven restarts")
-    ap.add_argument("--backend", default="pallas",
-                    help="PDHG lowering: pallas (default; blocked-ELL "
-                         "bursts of pdhg_burst.cu on the card) or xla (the "
-                         "reference's default: COO in its summation "
-                         "order, pdhg_coo.cu on the card)")
+    ap.add_argument("--backend", default="xla",
+                    help="PDHG lowering: xla (default, as in the "
+                         "reference: COO in its summation order, "
+                         "pdhg_coo.cu on the card) or pallas (blocked-ELL "
+                         "bursts of pdhg_burst.cu on the card; needed by "
+                         "--mesh N > 1 and --precision bf16)")
     ap.add_argument("--mesh", type=int, default=1,
                     help="row-partition every PDHG dispatch across this "
                          "many processes, one a shard (run under torchrun "

@@ -42,10 +42,10 @@ retry ladder ending in the certified "scf" fallback tier, as in the
 reference's chaos cells.
 
 Records keep every column of the reference's SweepRecord.  `backend`
-reads the PDHG lowering that ran (`SweepSpec.backend`): "pallas", the
-port's default, whose rows line up with the reference's `--backend
-pallas` rows, or "xla", the reference's default, whose rows are its
-`--backend xla` rows.  With mesh > 1 every LP fast-path solve is
+reads the PDHG lowering that ran (`SweepSpec.backend`): "xla", the
+default as in the reference, whose rows are the reference's default
+rows, or "pallas", whose rows line up with the reference's `--backend
+pallas` rows.  With mesh > 1 every LP fast-path solve is
 row-sharded across that many torch.distributed ranks (core.solver
 shards=mesh), each rank running the whole sweep; `python -m
 repro_torch.sweep --mesh N` under `torchrun --nproc-per-node N` sets the
@@ -109,10 +109,10 @@ class SweepSpec:
     # loose LP tolerance: the packed schedule is re-scored with the exact
     # paper model regardless, and packing is robust to ~1e-3 residuals
     tol: float = 2e-3
-    # PDHG lowering: "pallas" (blocked ELL, the port's default) or "xla"
-    # (COO in the reference's summation order, the reference's default);
-    # see core.solver.solve_lp
-    backend: str = "pallas"
+    # PDHG lowering: "xla" (COO in the reference's summation order, the
+    # default as in the reference) or "pallas" (blocked ELL); see
+    # core.solver.solve_lp
+    backend: str = "xla"
     # scale knobs (pallas only): precision="bf16" stores the PDHG
     # iterates in bfloat16 between iterations (fp32 arithmetic); mesh > 1
     # row-shards each PDHG dispatch across that many torch.distributed
@@ -206,7 +206,7 @@ class SweepRecord:
     failure: str = "none"             # failure preset ("none" = healthy)
     degradation_ratio: float = 0.0    # fraction of aggregate Gbps lost
     survivability: float = 1.0        # served / offered Gbits
-    backend: str = "pallas"           # PDHG lowering that produced this row
+    backend: str = "xla"              # PDHG lowering that produced this row
     # online-arrival rows (core.arrivals rolling-horizon driver);
     # arrivals == "none" marks an offline (one-shot) row
     arrivals: str = "none"            # arrival-process family
@@ -552,7 +552,7 @@ def _chaos_record(topo_name, obj, pat_name, seed, preset: str,
 def _record(topo_name, obj, pat_name, seed, p, r, per_inst_s, *,
             offered: float, failure: str = "none",
             degradation_ratio: float = 0.0, policy: str = "lp",
-            gap_vs_lp: float = 1.0, backend: str) -> SweepRecord:
+            gap_vs_lp: float = 1.0, backend: str = "xla") -> SweepRecord:
     """One SweepRecord from a solved instance.  `offered` is the healthy
     demand in Gbits (a degraded instance's own coflow excludes flows the
     failure disconnected, but survivability is measured against what the

@@ -105,7 +105,8 @@ def test_flow_progress_bitwise_equal_reference():
     rp = r_timeslot.ScheduleProblem(
         R_TOPO, r_traffic.generate(R_TOPO, r_traffic.pattern(
             "uniform", **HEAVY), 1), n_slots=p.n_slots, path_slack=2)
-    x = solver.solve_fast(p, "energy", iters=1000, device="cpu").schedule
+    x = solver.solve_fast(p, "energy", iters=1000,
+                          backend="pallas", device="cpu").schedule
     for t_end in (1, 4, p.n_slots):
         got = arrivals.flow_progress(p, x, t_end)
         want = r_arrivals.flow_progress(rp, x, t_end)
@@ -121,13 +122,15 @@ def test_single_epoch_reproduces_one_shot_solve_fast():
     pat = traffic.pattern("uniform", **LIGHT)
     cfs = [traffic.generate(TOPO, pat, s) for s in range(3)]
     res = arrivals.run_online(TOPO, arrivals.trace_at_t0(cfs), "energy",
-                              iters=3000, tol=2e-3, device="cpu")
+                              iters=3000, tol=2e-3,
+                              backend="pallas", device="cpu")
     assert res.n_epochs == 1 and not res.epochs[0].warm
     merged = traffic.concat_coflows(cfs, TOPO.n_vertices)
     p = timeslot.ScheduleProblem(
         TOPO, merged, n_slots=timeslot.suggest_n_slots(TOPO, merged),
         path_slack=2)
-    ref = solver.solve_fast(p, "energy", iters=3000, tol=2e-3, device="cpu")
+    ref = solver.solve_fast(p, "energy", iters=3000, tol=2e-3,
+                            backend="pallas", device="cpu")
     assert res.last_result.metrics.energy_j == ref.metrics.energy_j
     assert res.last_result.metrics.completion_s == ref.metrics.completion_s
     assert res.total_energy_j == ref.metrics.energy_j
@@ -156,7 +159,8 @@ def test_rolling_horizon_matches_reference(warm):
     kw = dict(epoch_s=1.0, iters=3000, warm=warm)
     want = r_arrivals.run_online(R_TOPO, rtrace, "energy",
                                  backend="pallas", **kw)
-    got = arrivals.run_online(TOPO, trace, "energy", device="cpu", **kw)
+    got = arrivals.run_online(TOPO, trace, "energy",
+                              backend="pallas", device="cpu", **kw)
     assert got.n_epochs == want.n_epochs > 1
     for g, w in zip(got.epochs, want.epochs):
         assert (g.t_start, g.executed_slots, g.warm) == (
@@ -202,11 +206,13 @@ def test_warm_completion_times_move_with_summation_order():
     from repro_torch.kernels import pdhg_spmv
     trace = heavy_trace(traffic, arrivals, TOPO)
     kw = dict(epoch_s=1.0, iters=3000, device="cpu")
-    torch_order = arrivals.run_online(TOPO, trace, "energy", **kw)
+    torch_order = arrivals.run_online(TOPO, trace, "energy",
+                                      backend="pallas", **kw)
     with mock.patch.object(pdhg_spmv, "pdhg_update_burst",
                            functools.partial(pdhg_spmv.pdhg_update_burst,
                                              order="kernel")):
-        kernel_order = arrivals.run_online(TOPO, trace, "energy", **kw)
+        kernel_order = arrivals.run_online(TOPO, trace, "energy",
+                                           backend="pallas", **kw)
     assert torch_order.n_epochs == kernel_order.n_epochs
     for a, b in zip(torch_order.epochs, kernel_order.epochs):
         assert (a.t_start, a.warm, a.energy_j) == (b.t_start, b.warm,
@@ -223,8 +229,10 @@ def test_warm_completion_times_move_with_summation_order():
 def test_warm_restarts_save_iterations():
     trace = heavy_trace(traffic, arrivals, TOPO)
     kw = dict(epoch_s=1.0, iters=3000, device="cpu")
-    cold = arrivals.run_online(TOPO, trace, "energy", warm=False, **kw)
-    warm = arrivals.run_online(TOPO, trace, "energy", warm=True, **kw)
+    cold = arrivals.run_online(TOPO, trace, "energy", warm=False,
+                               backend="pallas", **kw)
+    warm = arrivals.run_online(TOPO, trace, "energy", warm=True,
+                               backend="pallas", **kw)
     assert not any(e.warm for e in cold.epochs)
     assert warm.total_iterations < cold.total_iterations
     assert warm.warm_iterations > 0.0
@@ -237,7 +245,7 @@ def test_idle_gap_truncation_and_mid_epoch_arrival():
     cf = traffic.generate(TOPO, light, 0)
     res = arrivals.run_online(TOPO, [arrivals.Arrival(5.0, cf, 0)],
                               "energy", epoch_s=1.0, iters=2000,
-                              device="cpu")
+                              backend="pallas", device="cpu")
     first = res.epochs[0]
     assert first.n_flows == 0 and first.demand_gbits == 0.0
     assert first.feasible and first.energy_j == 0.0
@@ -246,7 +254,7 @@ def test_idle_gap_truncation_and_mid_epoch_arrival():
     tr = [arrivals.Arrival(0.0, traffic.generate(TOPO, heavy, 0), 0),
           arrivals.Arrival(100.0, traffic.generate(TOPO, heavy, 1), 1)]
     cut = arrivals.run_online(TOPO, tr, "energy", epoch_s=1.0, iters=2000,
-                              max_epochs=1, device="cpu")
+                              max_epochs=1, backend="pallas", device="cpu")
     assert cut.n_epochs == 1
     assert cut.backlog_gbits > tr[1].coflow.total_gbits
     assert np.isnan(cut.mean_response_s) and np.isnan(cut.makespan_s)
@@ -254,7 +262,7 @@ def test_idle_gap_truncation_and_mid_epoch_arrival():
     mid = [arrivals.Arrival(0.0, traffic.generate(TOPO, heavy, 0), 0),
            arrivals.Arrival(2.5 * D, traffic.generate(TOPO, light, 1), 1)]
     res = arrivals.run_online(TOPO, mid, "energy", iters=1500, tol=2e-3,
-                              device="cpu")
+                              backend="pallas", device="cpu")
     assert res.backlog_gbits == 0.0
     done = {c.coflow_id: c for c in res.coflows}
     assert np.isfinite(done[1].t_done) and done[1].t_done > done[1].t_arrive
@@ -265,12 +273,14 @@ def test_run_online_rejects_and_defaults_to_the_card():
     with pytest.raises(ValueError):
         arrivals.ArrivalSpec(family="nope")
     with pytest.raises(ValueError):
-        arrivals.run_online(TOPO, [], "latency", device="cpu")
+        arrivals.run_online(TOPO, [], "latency",
+                            backend="pallas", device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device runs")
     cf = traffic.generate(TOPO, traffic.pattern("uniform", **LIGHT), 0)
     with pytest.raises(RuntimeError, match="is_available"):
-        arrivals.run_online(TOPO, arrivals.trace_at_t0([cf]), "energy")
+        arrivals.run_online(TOPO, arrivals.trace_at_t0([cf]), "energy",
+                            backend="pallas")
 
 
 # ---------------------------------------------------------------------------
@@ -282,7 +292,7 @@ def test_sweep_arrivals_axis(tmp_path):
         topos=("spine-leaf",), objectives=("energy",),
         patterns=("uniform",), seeds=(0,), arrivals=("poisson",),
         arrival_coflows=3, total_gbits=8.0, n_map=4, n_reduce=3,
-        iters=1200, oracle_check=0, device="cpu")
+        iters=1200, oracle_check=0, backend="pallas", device="cpu")
     records, problems = runner.run_sweep(spec)
     assert len(records) == len(problems) == 2
     online = [r for r in records if r.arrivals != "none"]
@@ -300,7 +310,7 @@ def test_sweep_arrivals_axis(tmp_path):
     assert "Online arrivals" in md and "poisson" in md
     with pytest.raises(ValueError, match="arrival family"):
         runner.SweepSpec(topos=("spine-leaf",),
-                         arrivals=("weekly",)).validate()
+                         arrivals=("weekly",), backend="pallas").validate()
     assert {f.name for f in dataclasses.fields(rec)} >= {
         "arrivals", "epochs", "mean_response_s", "backlog_gbits",
         "warm_iterations"}
@@ -311,7 +321,7 @@ def test_sweep_failures_axis(tmp_path):
                             patterns=("uniform",), seeds=(0, 1),
                             failures=("link1",), total_gbits=6.0, n_map=4,
                             n_reduce=3, iters=1200, oracle_check=0,
-                            device="cpu")
+                            backend="pallas", device="cpu")
     records, problems = runner.run_sweep(spec)
     assert len(records) == len(problems) == 4
     degraded = [r for r in records if r.failure == "link1"]
@@ -325,7 +335,7 @@ def test_sweep_failures_axis(tmp_path):
     for bad in ("meteor", "none"):
         with pytest.raises(ValueError, match="failure preset"):
             runner.SweepSpec(topos=("spine-leaf",),
-                             failures=(bad,)).validate()
+                             failures=(bad,), backend="pallas").validate()
 
 
 @pytest.mark.parametrize("axis,table", [("--failures", "Degraded fabrics"),
@@ -335,7 +345,7 @@ def test_sweep_cli_new_axes_on_the_cpu(tmp_path, axis, table):
     out = tmp_path / "s"
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.sweep", "--device", "cpu",
-         "--topos", "spine-leaf", "--objectives", "energy", "--patterns",
+         "--backend", "pallas", "--topos", "spine-leaf", "--objectives", "energy", "--patterns",
          "uniform", "--seeds", "2", "--total-gbits", "6", "--n-map", "4",
          "--n-reduce", "3", axis, value, "--oracle-check", "0", "--out",
          str(out)], capture_output=True, text=True, timeout=300,

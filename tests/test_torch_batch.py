@@ -101,7 +101,7 @@ def test_solve_lp_batch_matches_reference_pallas(topo_name, objective,
     r_stats = r_solver.dispatch_stats().snapshot()
     solver.reset_dispatch_stats()
     got = solver.solve_lp_batch(lps, iters=1000, adaptive=adaptive,
-                                device="cpu")
+                                backend="pallas", device="cpu")
     stats = solver.dispatch_stats().snapshot()
     for g, w in zip(got, want):
         assert g.iterations == w.iterations
@@ -119,7 +119,7 @@ def test_dispatch_stats_count_repeated_shapes_like_reference():
     solver.reset_dispatch_stats()
     r_solver.reset_dispatch_stats()
     for _ in range(2):
-        solver.solve_lp_batch(lps, iters=500, device="cpu")
+        solver.solve_lp_batch(lps, iters=500, backend="pallas", device="cpu")
         r_solver.solve_lp_batch(rlps, iters=500, backend="pallas")
     got, want = solver.dispatch_stats(), r_solver.dispatch_stats()
     assert (got.dispatches, got.shape_hits, got.shape_misses) == (
@@ -136,9 +136,10 @@ def test_fixed_batch_matches_own_solve_lp(objective):
     kernel's fp32 one."""
     lps = _lps(PORT, solver, "spine-leaf", [0, 1], objective, "skew")
     batch = solver.solve_lp_batch(lps, iters=1000, adaptive=False,
-                                  device="cpu")
+                                  backend="pallas", device="cpu")
     for lp, b in zip(lps, batch):
-        single = solver.solve_lp(lp, iters=1000, device="cpu")
+        single = solver.solve_lp(lp, iters=1000,
+                                 backend="pallas", device="cpu")
         np.testing.assert_allclose(b.x, single.x, atol=1e-6)
         assert b.iterations == single.iterations
         assert abs(b.primal_residual - single.primal_residual) <= RES_ATOL
@@ -154,7 +155,7 @@ def test_mixed_shapes_and_degenerate_members(adaptive):
             + _lps(REF, r_solver, "pon3", [1], "time"))
     assert lps[1].n == 0 or lps[1].m == 0
     got = solver.solve_lp_batch(lps, iters=500, adaptive=adaptive,
-                                device="cpu")
+                                backend="pallas", device="cpu")
     want = r_solver.solve_lp_batch(rlps, iters=500, adaptive=adaptive,
                                    backend="pallas")
     for g, w, lp in zip(got, want, lps):
@@ -166,7 +167,8 @@ def test_mixed_shapes_and_degenerate_members(adaptive):
 
 def test_duplicate_members_are_bitwise_equal():
     lp = _lps(PORT, solver, "pon3", [0], "energy")[0]
-    batch = solver.solve_lp_batch([lp, lp, lp], iters=1000, device="cpu")
+    batch = solver.solve_lp_batch([lp, lp, lp], iters=1000,
+                                  backend="pallas", device="cpu")
     for b in batch[1:]:
         assert np.array_equal(b.x, batch[0].x)
         assert np.array_equal(b.y, batch[0].y)
@@ -239,7 +241,7 @@ def test_solve_fast_batch_certifies_and_matches_reference():
     probs = _problems(PORT, "spine-leaf", [0, 1])
     rprobs = _problems(REF, "spine-leaf", [0, 1])
     got = solver.solve_fast_batch(probs, "energy", iters=2000, tol=2e-3,
-                                  device="cpu")
+                                  backend="pallas", device="cpu")
     want = r_solver.solve_fast_batch(rprobs, "energy", iters=2000, tol=2e-3,
                                      backend="pallas")
     for p, g, w in zip(probs, got, want):
@@ -254,7 +256,8 @@ def test_solve_fast_batch_requires_shared_topology():
     probs = (_problems(PORT, "spine-leaf", [0])
              + _problems(PORT, "pon3", [0]))
     with pytest.raises(ValueError, match="shared topology"):
-        solver.solve_fast_batch(probs, "energy", device="cpu")
+        solver.solve_fast_batch(probs, "energy",
+                                backend="pallas", device="cpu")
 
 
 def test_warm_ensemble_is_not_ported_yet():
@@ -264,9 +267,10 @@ def test_warm_ensemble_is_not_ported_yet():
     cold member serves and spends no more iterations."""
     probs = _problems(PORT, "pon3", [0])
     cold = solver.solve_fast_ensemble(probs, "energy", iters=2000,
-                                      tol=2e-3, device="cpu")
+                                      tol=2e-3, backend="pallas", device="cpu")
     warm = solver.solve_fast_ensemble(probs, "energy", warm=cold,
-                                      iters=2000, tol=2e-3, device="cpu")
+                                      iters=2000, tol=2e-3,
+                                      backend="pallas", device="cpu")
     verify.check_schedule(probs[0], warm[0].schedule).assert_ok("warm")
     assert warm[0].metrics.served.sum() == pytest.approx(
         cold[0].metrics.served.sum(), rel=1e-6)
@@ -279,12 +283,12 @@ def test_batch_entry_points_default_to_the_card():
     probs = _problems(PORT, "pon3", [0])
     lp = solver.build_routing_lp(probs[0], "energy")[0]
     with pytest.raises(RuntimeError, match="is_available"):
-        solver.solve_lp_batch([lp])
+        solver.solve_lp_batch([lp], backend="pallas")
     with pytest.raises(RuntimeError, match="is_available"):
-        solver.solve_fast_batch(probs)
+        solver.solve_fast_batch(probs, backend="pallas")
     with pytest.raises(RuntimeError, match="is_available"):
-        solver.solve_fast_ensemble(probs)
+        solver.solve_fast_ensemble(probs, backend="pallas")
     # shards > 1 is ported: outside a torch.distributed world of 2 ranks
     # it names how to launch one
     with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
-        solver.solve_lp_batch([lp], shards=2, device="cpu")
+        solver.solve_lp_batch([lp], shards=2, backend="pallas", device="cpu")

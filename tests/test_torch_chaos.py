@@ -185,9 +185,9 @@ def test_online_storm_replay_matches_reference():
     want = r_arrivals.run_online(R_TOPO, rtrace, "energy", chaos=revs,
                                  backend="pallas", **kw)
     got = arrivals.run_online(TOPO, trace, "energy", chaos=evs,
-                              device="cpu", **kw)
+                              backend="pallas", device="cpu", **kw)
     again = arrivals.run_online(TOPO, trace, "energy", chaos=evs,
-                                device="cpu", **kw)
+                                backend="pallas", device="cpu", **kw)
     assert "\n".join(got.chaos_log) == "\n".join(again.chaos_log)
     assert got.chaos_log == want.chaos_log
     assert got.availability == want.availability
@@ -216,8 +216,10 @@ def test_online_noop_storm_matches_healthy():
     evs = [chaos.ChaosEvent(1e-12, "fail", 0, scen),
            chaos.ChaosEvent(2e-12, "repair", 0, scen)]
     kw = dict(iters=1500, tol=5e-3, device="cpu")
-    healthy = arrivals.run_online(TOPO, trace, "energy", **kw)
-    chaotic = arrivals.run_online(TOPO, trace, "energy", chaos=evs, **kw)
+    healthy = arrivals.run_online(TOPO, trace, "energy",
+                                  backend="pallas", **kw)
+    chaotic = arrivals.run_online(TOPO, trace, "energy", chaos=evs,
+                                  backend="pallas", **kw)
     assert chaotic.n_epochs == healthy.n_epochs
     for eh, ec in zip(healthy.epochs, chaotic.epochs):
         assert ec.energy_j == eh.energy_j
@@ -240,7 +242,8 @@ def test_online_spine_outage_strands_and_recovers():
            chaos.ChaosEvent(2.0, "repair", 0, scen)]
     res = arrivals.run_online(TOPO, trace, "energy", epoch_s=0.5,
                               iters=1500, tol=5e-3, chaos=evs,
-                              fallback_policy="scf", device="cpu")
+                              fallback_policy="scf",
+                              backend="pallas", device="cpu")
     assert res.stranded_gbits > 1.0
     assert any(" strand " in line for line in res.chaos_log)
     assert res.recoveries and all(t >= 0.0 for t in res.recoveries)
@@ -277,7 +280,7 @@ def test_fallback_policy_names_its_roadmap_item(monkeypatch):
     want = r_arrivals.run_online(R_TOPO, rtrace, "energy", chaos=revs,
                                  backend="pallas", **kw)
     got = arrivals.run_online(TOPO, trace, "energy", chaos=evs,
-                              device="cpu", **kw)
+                              backend="pallas", device="cpu", **kw)
     falls = [line for line in got.chaos_log if " fallback " in line]
     assert len(falls) == got.n_epochs > 1
     assert all(line.endswith("policy=scf") for line in falls)
@@ -300,4 +303,4 @@ def test_fallback_policy_names_its_roadmap_item(monkeypatch):
     monkeypatch.setattr(solver, "solve_fast_warm", broken)
     with pytest.raises(RuntimeError, match="burst failed"):
         arrivals.run_online(TOPO, trace, "energy", chaos=evs,
-                            device="cpu", **kw)
+                            backend="pallas", device="cpu", **kw)

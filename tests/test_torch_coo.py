@@ -829,7 +829,7 @@ def test_fair_lp_policy_under_xla():
                                                  rel=METRIC_RTOL)
     # a heuristic ignores the lowering
     a = policies.get("scf").solve(p, "energy", backend="xla", device="cpu")
-    b = policies.get("scf").solve(p, "energy", device="cpu")
+    b = policies.get("scf").solve(p, "energy", backend="pallas", device="cpu")
     assert np.array_equal(a.schedule, b.schedule)
 
 

@@ -3,11 +3,11 @@ plans against the JAX package.
 
 `core.heuristics` and `core.wavelength` are numpy (and scipy) in both
 packages: their schedules and wirings must be bitwise equal.
-`core.fabric.plan_collectives` runs the port's `solve_fast` through the
-burst kernel's plain version (device="cpu") and is held to the
-reference's blocked-ELL lowering (`backend="pallas"`, Pallas in
-interpret mode, whose `solve_fast` the reference's plan calls through its
-default backend) within 1e-4, and to the reference's own gates.
+`core.fabric.plan_collectives` runs the port's `solve_fast` through a
+kernel's plain version (device="cpu"); both packages' plans call it with
+the default (xla) lowering.  Here both are pinned to the blocked-ELL
+lowering (`backend="pallas"`, the reference's Pallas in interpret mode)
+and held to each other within 1e-4, and to the reference's own gates.
 """
 import dataclasses
 
@@ -23,8 +23,8 @@ from repro.core import topology as r_topology
 from repro.core import traffic as r_traffic
 from repro.core import wavelength as r_wavelength
 from repro_torch import convert
-from repro_torch.core import (fabric, heuristics, timeslot, topology,
-                              traffic, wavelength)
+from repro_torch.core import (fabric, heuristics, solver, timeslot,
+                              topology, traffic, wavelength)
 
 PLAN_RTOL = 1e-4
 
@@ -134,14 +134,16 @@ def test_fabric_data_equals_reference():
 
 @pytest.fixture
 def reference_pallas(monkeypatch):
-    """The reference's plan solves with its default (xla) backend; hold
-    the port to its pallas lowering, the one the port reproduces."""
-    real = r_solver.solve_fast
+    """Both packages' plans solve with their default (xla) backend;
+    these cases hold the port's plan to the reference's under the
+    pallas lowering, both plans pinned to it here (the default plan is
+    held by the examples' coflow_schedule test and tests/
+    test_torch_collectives.py)."""
+    for mod, sol in ((r_fabric, r_solver), (fabric, solver)):
+        def pallas(*a, _real=sol.solve_fast, **kw):
+            return _real(*a, **{**kw, "backend": "pallas"})
 
-    def pallas(*a, **kw):
-        return real(*a, **{**kw, "backend": "pallas"})
-
-    monkeypatch.setattr(r_fabric, "solve_fast", pallas)
+        monkeypatch.setattr(mod, "solve_fast", pallas)
 
 
 def test_plan_matches_reference_and_ships_everything(reference_pallas):

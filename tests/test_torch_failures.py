@@ -166,7 +166,8 @@ def test_degrade_problem_zeroes_unroutable_flows():
     touched = (p.coflow.src == srv) | (p.coflow.dst == srv)
     assert (dp.coflow.size[touched] == 0.0).all()
     assert np.array_equal(dp.coflow.size[~touched], p.coflow.size[~touched])
-    r = solver.solve_fast(dp, "energy", iters=2000, device="cpu")
+    r = solver.solve_fast(dp, "energy", iters=2000,
+                          backend="pallas", device="cpu")
     assert r.metrics.feasible
     assert r.metrics.served.sum() < p.coflow.total_gbits
 
@@ -193,8 +194,9 @@ def test_resolve_incremental_matches_reference(objective):
     want = r_solver.resolve_incremental(rdp, objective, r_healthy,
                                         iters=2000, backend="pallas")
     warm = solver.resolve_incremental(dp, objective, healthy, iters=2000,
-                                      device="cpu")
-    cold = solver.solve_fast(dp, objective, iters=2000, device="cpu")
+                                      backend="pallas", device="cpu")
+    cold = solver.solve_fast(dp, objective, iters=2000,
+                             backend="pallas", device="cpu")
     assert warm.iterations == want.iterations
     assert close_metrics(warm, want)
     verify.check_schedule(dp, warm.schedule).assert_ok("warm re-solve")
@@ -220,9 +222,10 @@ def test_warm_ensemble_matches_reference_and_cold():
                                         warm=[r_healthy] * 3, iters=2000,
                                         backend="pallas")
     warm = solver.solve_fast_ensemble(dprobs, "energy", warm=[healthy] * 3,
-                                      iters=2000, device="cpu")
+                                      iters=2000,
+                                      backend="pallas", device="cpu")
     cold = solver.solve_fast_ensemble(dprobs, "energy", iters=2000,
-                                      device="cpu")
+                                      backend="pallas", device="cpu")
     for dp, c, w, r in zip(dprobs, cold, warm, want):
         assert w.iterations == r.iterations
         assert close_metrics(w, r)
@@ -239,7 +242,8 @@ def test_warm_ensemble_matches_reference_and_cold():
 
 def test_noop_scenario_projection_is_lossless():
     p = small_problem(PORT)
-    healthy = solver.solve_fast(p, "energy", iters=2000, device="cpu")
+    healthy = solver.solve_fast(p, "energy", iters=2000,
+                                backend="pallas", device="cpu")
     lp, idx = solver.build_routing_lp(p, "energy")
     x0, y0 = solver.project_warm_start(healthy, p, lp, idx)
     np.testing.assert_allclose(y0, healthy.lp_y, atol=1e-12)
@@ -258,12 +262,15 @@ def test_warm_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device runs")
     p = small_problem(PORT)
-    healthy = solver.solve_fast(p, "energy", iters=200, device="cpu")
+    healthy = solver.solve_fast(p, "energy", iters=200,
+                                backend="pallas", device="cpu")
     with pytest.raises(RuntimeError, match="is_available"):
-        solver.resolve_incremental(p, "energy", healthy)
+        solver.resolve_incremental(p, "energy", healthy, backend="pallas")
     with pytest.raises(RuntimeError, match="is_available"):
-        solver.solve_fast_warm(p, "energy", warm=healthy)
+        solver.solve_fast_warm(p, "energy", warm=healthy, backend="pallas")
     with pytest.raises(RuntimeError, match="is_available"):
-        solver.solve_fast_ensemble([p], "energy", warm=[healthy])
+        solver.solve_fast_ensemble([p], "energy", warm=[healthy],
+                                   backend="pallas")
     with pytest.raises(RuntimeError, match="is_available"):
-        solver.solve_fast_group([p], "energy", warm=[healthy])
+        solver.solve_fast_group([p], "energy", warm=[healthy],
+                                backend="pallas")

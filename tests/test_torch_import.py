@@ -84,10 +84,10 @@ def test_default_device_raises_without_cuda():
         pytest.skip("a CUDA device is present; the default device runs")
     p = _tiny_problem()
     with pytest.raises(RuntimeError, match="is_available"):
-        solver.solve_fast(p, "energy")
+        solver.solve_fast(p, "energy", backend="pallas")
     lp, _ = solver.build_routing_lp(p, "energy")
     with pytest.raises(RuntimeError, match="is_available"):
-        solver.solve_lp(lp)
+        solver.solve_lp(lp, backend="pallas")
 
 
 # shards > 1 is ported since: with no process group of 2 ranks the solve
@@ -99,7 +99,7 @@ def test_default_device_raises_without_cuda():
 def test_unported_scale_knobs_raise(kw, match):
     p = _tiny_problem()
     with pytest.raises(ValueError, match=match):
-        solver.solve_fast(p, "energy", device="cpu", **kw)
+        solver.solve_fast(p, "energy", backend="pallas", device="cpu", **kw)
 
 
 def test_bf16_scale_knob_certifies():
@@ -107,7 +107,7 @@ def test_bf16_scale_knob_certifies():
     from repro_torch.core import verify
     p = _tiny_problem()
     r = solver.solve_fast(p, "energy", iters=200, precision="bf16",
-                          device="cpu")
+                          backend="pallas", device="cpu")
     verify.check_schedule(p, r.schedule).assert_ok("bf16 tiny solve")
     assert r.metrics.feasible and r.remaining_gbits < 1e-6
 
@@ -115,7 +115,7 @@ def test_bf16_scale_knob_certifies():
 def test_unknown_device_rejected():
     p = _tiny_problem()
     with pytest.raises(ValueError, match="device"):
-        solver.solve_fast(p, "energy", device="meta")
+        solver.solve_fast(p, "energy", backend="pallas", device="meta")
 
 
 def test_burst_wrapper_checks_operands():

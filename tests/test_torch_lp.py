@@ -126,8 +126,10 @@ def test_rebuild_and_resolve_hit_caches():
     lp2, _ = solver.build_routing_lp(p, "energy")
     assert (stats.structure_misses, stats.structure_hits) == (1, 1)
     assert lp1.row is lp2.row                   # shared skeleton
-    r1 = solver.solve_lp(lp1, iters=20, max_restarts=0, device="cpu")
-    r2 = solver.solve_lp(lp2, iters=20, max_restarts=0, device="cpu")
+    r1 = solver.solve_lp(lp1, iters=20, max_restarts=0,
+                         backend="pallas", device="cpu")
+    r2 = solver.solve_lp(lp2, iters=20, max_restarts=0,
+                         backend="pallas", device="cpu")
     assert (stats.ell_misses, stats.ell_hits) == (1, 1)
     assert np.array_equal(r1.x, r2.x) and np.array_equal(r1.y, r2.y)
     solver.reset_build_caches()

@@ -124,7 +124,7 @@ def test_solve_lp_matches_reference(topo_name, objective):
     p, rp = _problems(topo_name, dict(n_map=3, n_reduce=2, total_gbits=6.0))
     lp, _ = solver.build_routing_lp(p, objective)
     rlp, _ = r_solver.build_routing_lp(rp, objective)
-    got = solver.solve_lp(lp, iters=2000, device="cpu")
+    got = solver.solve_lp(lp, iters=2000, backend="pallas", device="cpu")
     want = r_solver.solve_lp(rlp, iters=2000, backend="pallas")
     np.testing.assert_allclose(got.x, want.x, atol=5e-3)
     # the same restart ladder: equal, or one rung apart when a residual
@@ -143,7 +143,8 @@ def test_solve_lp_warm_start_continues_trajectory():
                                         total_gbits=6.0))
     lp, _ = solver.build_routing_lp(p, "energy")
     kw = dict(max_restarts=0, tol=0.0, device="cpu")
-    whole = solver.solve_lp(lp, iters=300, **kw)
-    half = solver.solve_lp(lp, iters=150, **kw)
-    rest = solver.solve_lp(lp, iters=150, x0=half.x, y0=half.y, **kw)
+    whole = solver.solve_lp(lp, iters=300, backend="pallas", **kw)
+    half = solver.solve_lp(lp, iters=150, backend="pallas", **kw)
+    rest = solver.solve_lp(lp, iters=150, x0=half.x, y0=half.y,
+                           backend="pallas", **kw)
     assert np.array_equal(rest.x, whole.x) and np.array_equal(rest.y, whole.y)

@@ -221,6 +221,7 @@ def lp_for_gap(name, objective):
     if (name, objective) not in _LP:
         p, _ = both(name)
         _LP[name, objective] = (p, solver.solve_fast(p, objective,
+                                                     backend="pallas",
                                                      device="cpu"))
     return _LP[name, objective]
 
@@ -252,15 +253,17 @@ def test_fair_lp_matches_reference_pallas():
                                   path_slack=2, flow_weight=w)
     rpw = r_timeslot.ScheduleProblem(rp.topo, rp.coflow, n_slots=rp.n_slots,
                                      path_slack=2, flow_weight=w)
-    got = policies.get("fair-lp").solve(pw, "energy", device="cpu")
+    got = policies.get("fair-lp").solve(pw, "energy",
+                                        backend="pallas", device="cpu")
     want = r_policies.get("fair-lp").solve(rpw, "energy", backend="pallas")
     assert got.certificate.ok and want.certificate.ok
     for key in ("energy_j", "completion_s", "fairness_term"):
         np.testing.assert_allclose(getattr(got.metrics, key),
                                    getattr(want.metrics, key),
                                    rtol=METRIC_RTOL, atol=1e-9)
-    uniform = policies.get("fair-lp").solve(p, "energy", device="cpu")
-    energy = solver.solve_fast(p, "energy", device="cpu")
+    uniform = policies.get("fair-lp").solve(p, "energy",
+                                            backend="pallas", device="cpu")
+    energy = solver.solve_fast(p, "energy", backend="pallas", device="cpu")
     assert np.array_equal(uniform.schedule, energy.schedule)
 
 
@@ -269,4 +272,4 @@ def test_fair_lp_defaults_to_the_card():
         pytest.skip("a CUDA device is present; the default device runs")
     p, _ = both("pon3")
     with pytest.raises(RuntimeError, match="is_available"):
-        policies.get("fair-lp").solve(p, "energy")
+        policies.get("fair-lp").solve(p, "energy", backend="pallas")

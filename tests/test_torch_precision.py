@@ -133,9 +133,10 @@ def _problem(topo_name: str, seed: int = 0):
 @pytest.mark.parametrize("topo_name", ["spine-leaf", "pon3"])
 def test_bf16_certifies_with_metrics_within_1e3_of_fp32(topo_name):
     p = _problem(topo_name)
-    f32 = solver.solve_fast(p, "energy", iters=1500, device="cpu")
+    f32 = solver.solve_fast(p, "energy", iters=1500,
+                            backend="pallas", device="cpu")
     b16 = solver.solve_fast(p, "energy", iters=1500, precision="bf16",
-                            device="cpu")
+                            backend="pallas", device="cpu")
     # check_schedule's default tolerances are the fp32 ones
     cert = verify.check_schedule(p, b16.schedule)
     assert cert.ok, cert
@@ -151,9 +152,10 @@ def test_bf16_certifies_with_metrics_within_1e3_of_fp32(topo_name):
 @pytest.mark.parametrize("topo_name", ["spine-leaf", "pon3"])
 def test_bf16_time_objective_completion_within_125(topo_name):
     p = _problem(topo_name)
-    f32 = solver.solve_fast(p, "time", iters=1500, device="cpu")
+    f32 = solver.solve_fast(p, "time", iters=1500,
+                            backend="pallas", device="cpu")
     b16 = solver.solve_fast(p, "time", iters=1500, precision="bf16",
-                            device="cpu")
+                            backend="pallas", device="cpu")
     assert verify.check_schedule(p, b16.schedule).ok
     assert b16.metrics.feasible
     assert b16.metrics.completion_s <= f32.metrics.completion_s * 1.25
@@ -162,7 +164,8 @@ def test_bf16_time_objective_completion_within_125(topo_name):
 def test_bf16_lp_iterates_stay_finite_boxed_and_on_the_bf16_grid():
     p = _problem("spine-leaf")
     lp, _ = solver.build_routing_lp(p, "energy")
-    r = solver.solve_lp(lp, iters=400, precision="bf16", device="cpu")
+    r = solver.solve_lp(lp, iters=400, precision="bf16",
+                        backend="pallas", device="cpu")
     assert np.isfinite(r.x).all()
     xmax = np.where(np.isfinite(lp.xmax), lp.xmax, np.inf)
     # bf16 storage rounds within the box, never outside it by more than

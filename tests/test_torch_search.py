@@ -52,7 +52,8 @@ def _one_torch_thread():
 def run(name, objective, **kw):
     return search.optimize_placement(
         topology.build(name), traffic.pattern("uniform", **PATTERN),
-        objective, **{**SEARCH_CFG, "device": "cpu", **kw})
+        objective, **{**SEARCH_CFG, "backend": "pallas", "device": "cpu",
+                      **kw})
 
 
 @pytest.fixture
@@ -236,10 +237,11 @@ def test_ga_matches_reference_and_repeats():
 def test_search_config_checks_its_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="is_available"):
-            search.SearchConfig().validate()
+            search.SearchConfig(backend="pallas").validate()
     with pytest.raises(ValueError, match="device"):
-        search.SearchConfig(device="meta").validate()
+        search.SearchConfig(backend="pallas", device="meta").validate()
     with pytest.raises(ValueError, match="generations"):
-        search.SearchConfig(generations=-1, device="cpu").validate()
+        search.SearchConfig(generations=-1,
+                            backend="pallas", device="cpu").validate()
     with pytest.raises(ValueError, match="unknown method"):
         run("pon3", "energy", method="tabu")

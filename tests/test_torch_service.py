@@ -36,7 +36,8 @@ RTOL = 1e-4
 TOPO = topology.build("spine-leaf")
 LIGHT = traffic.pattern("uniform", n_map=4, n_reduce=3, total_gbits=6.0)
 PATTERN = dict(n_map=4, n_reduce=3, total_gbits=8.0)
-CFG = service.ServiceConfig(iters=1500, tol=2e-3, device="cpu")
+CFG = service.ServiceConfig(iters=1500, tol=2e-3,
+                            backend="pallas", device="cpu")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -122,7 +123,8 @@ def test_golden_service_metrics():
     want = GOLDEN[SERVICE_KEY]
     res = service.run_service(
         golden_tenants(service, arrivals, topology, traffic),
-        service.ServiceConfig(iters=3000, tol=2e-3, device="cpu",
+        service.ServiceConfig(iters=3000, tol=2e-3,
+                              backend="pallas", device="cpu",
                               verify_schedules=True))
     assert res.backlog_gbits == 0.0
     got = {"total_energy_j": res.total_energy_j,
@@ -149,7 +151,8 @@ def test_tenants_and_config_carried_from_the_reference():
                                    verify_schedules=True)
     cfg = convert.service_config_from_arrays(
         convert.service_config_to_arrays(rcfg), device="cpu")
-    assert cfg == service.ServiceConfig(iters=3000, tol=2e-3, device="cpu",
+    assert cfg == service.ServiceConfig(iters=3000, tol=2e-3,
+                                        backend="pallas", device="cpu",
                                         verify_schedules=True)
     tenants = [convert.tenant_from_arrays(convert.tenant_to_arrays(t))
                for t in golden_tenants(r_service, r_arrivals, r_topology,
@@ -420,4 +423,5 @@ def test_service_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default device runs")
     with pytest.raises(RuntimeError, match="is_available"):
-        service.run_service(light_tenants(), service.ServiceConfig())
+        service.run_service(light_tenants(),
+                            service.ServiceConfig(backend="pallas"))

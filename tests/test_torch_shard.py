@@ -384,10 +384,10 @@ def test_sharded_warm_resolve_matches_reference(worlds, warm_reference):
 
 
 # --------------------------------------------------------- the sweep CLI
-SWEEP = ["-m", "repro_torch.sweep", "--device", "cpu", "--topos", "pon3",
-         "--objectives", "energy", "--patterns", "uniform", "--seeds", "2",
-         "--total-gbits", "8", "--n-map", "4", "--n-reduce", "3",
-         "--iters", "1200", "--oracle-check", "0"]
+SWEEP = ["-m", "repro_torch.sweep", "--device", "cpu", "--backend", "pallas",
+         "--topos", "pon3", "--objectives", "energy", "--patterns",
+         "uniform", "--seeds", "2", "--total-gbits", "8", "--n-map", "4",
+         "--n-reduce", "3", "--iters", "1200", "--oracle-check", "0"]
 
 
 def _rows(path):

@@ -57,7 +57,8 @@ def _assert_metrics_close(got, want, what):
 @pytest.mark.parametrize("topo_name", list(r_topology.BUILDERS))
 def test_solve_fast_matches_reference(topo_name, objective):
     p = _problem(topology, traffic, timeslot, topo_name, PAT)
-    got = solver.solve_fast(p, objective, iters=ITERS, device="cpu")
+    got = solver.solve_fast(p, objective, iters=ITERS,
+                            backend="pallas", device="cpu")
     want = _reference(topo_name, objective)
     verify.check_schedule(p, got.schedule).assert_ok(
         f"{topo_name}/{objective}")
@@ -75,7 +76,7 @@ def test_golden_metrics_hold(topo_name, objective):
         f"{topo_name}/min-{objective}/seed0"]
     p = _problem(topology, traffic, timeslot, topo_name,
                  dict(n_map=4, n_reduce=3, total_gbits=8.0))
-    r = solver.solve_fast(p, objective, device="cpu")
+    r = solver.solve_fast(p, objective, backend="pallas", device="cpu")
     verify.check_schedule(p, r.schedule).assert_ok(
         f"{topo_name}/min-{objective}")
     got = {"energy_j": r.metrics.energy_j,
@@ -101,7 +102,8 @@ def test_degraded_reference_problem_via_convert(topo_name, scenario):
     assert rdeg.topo.cap.sum() < rp.topo.cap.sum()
     p = convert.problem_from_arrays(convert.problem_to_arrays(rdeg))
     for objective in ("energy", "time"):
-        got = solver.solve_fast(p, objective, iters=ITERS, device="cpu")
+        got = solver.solve_fast(p, objective, iters=ITERS,
+                                backend="pallas", device="cpu")
         want = r_solver.solve_fast(rdeg, objective, iters=ITERS)
         verify.check_schedule(p, got.schedule).assert_ok(
             f"degraded {topo_name}/{objective}")
@@ -114,14 +116,16 @@ def test_empty_coflow_solves_trivially():
     p = timeslot.ScheduleProblem(topo, traffic.empty_coflow(topo.n_vertices),
                                  n_slots=3)
     for objective in ("energy", "time"):
-        r = solver.solve_fast(p, objective, device="cpu")
+        r = solver.solve_fast(p, objective, backend="pallas", device="cpu")
         assert r.iterations == 0 and not r.schedule.any()
         assert r.metrics.feasible and r.metrics.energy_j == 0.0
 
 
 def test_solve_fast_is_repeatable():
     p = _problem(topology, traffic, timeslot, "dcell", PAT)
-    a = solver.solve_fast(p, "time", iters=ITERS, device="cpu")
-    b = solver.solve_fast(p, "time", iters=ITERS, device="cpu")
+    a = solver.solve_fast(p, "time", iters=ITERS,
+                          backend="pallas", device="cpu")
+    b = solver.solve_fast(p, "time", iters=ITERS,
+                          backend="pallas", device="cpu")
     assert np.array_equal(a.lp_x, b.lp_x) and np.array_equal(a.lp_y, b.lp_y)
     assert np.array_equal(a.schedule, b.schedule)

@@ -51,7 +51,8 @@ def _one_torch_thread():
 
 @functools.lru_cache(maxsize=None)
 def _sweeps():
-    got, _ = runner.run_sweep(runner.SweepSpec(**SPEC, device="cpu"))
+    got, _ = runner.run_sweep(runner.SweepSpec(**SPEC,
+                                               backend="pallas", device="cpu"))
     want, _ = r_runner.run_sweep(r_runner.SweepSpec(**SPEC,
                                                     backend="pallas"))
     return got, want
@@ -104,9 +105,9 @@ def _cli(*args):
 
 def test_cli_on_the_cpu_writes_results(tmp_path):
     out = tmp_path / "sweep"
-    proc = _cli("--device", "cpu", "--topos", "pon3", "--objectives",
-                "energy", "--patterns", "uniform", "--seeds", "1",
-                "--total-gbits", "8", "--n-map", "4", "--n-reduce", "3",
+    proc = _cli("--device", "cpu", "--backend", "pallas", "--topos", "pon3",
+                "--objectives", "energy", "--patterns", "uniform", "--seeds",
+                "1", "--total-gbits", "8", "--n-map", "4", "--n-reduce", "3",
                 "--oracle-check", "0", "--out", str(out))
     assert proc.returncode == 0, proc.stderr
     assert "(0 infeasible)" in proc.stdout
@@ -148,16 +149,16 @@ def test_cli_on_the_cpu_writes_results(tmp_path):
 def test_cli_rejects_bad_names_and_unported_flags(args, match):
     # SystemExit with a message: Python prints it and exits with code 1
     with pytest.raises(SystemExit) as exc:
-        sweep_main.main(["--device", "cpu", *args])
+        sweep_main.main(["--device", "cpu", "--backend", "pallas", *args])
     assert isinstance(exc.value.code, str) and match in exc.value.code
 
 
 # each axis of the reference's at its test's size (tests/test_policies.py,
 # tests/test_search.py, tests/test_chaos.py, tests/test_service.py)
-SMALL = ["--device", "cpu", "--topos", "spine-leaf", "--objectives",
-         "energy", "--patterns", "uniform", "--seeds", "1", "--total-gbits",
-         "8", "--n-map", "4", "--n-reduce", "3", "--iters", "1200",
-         "--oracle-check", "0"]
+SMALL = ["--device", "cpu", "--backend", "pallas", "--topos", "spine-leaf",
+         "--objectives", "energy", "--patterns", "uniform", "--seeds", "1",
+         "--total-gbits", "8", "--n-map", "4", "--n-reduce", "3", "--iters",
+         "1200", "--oracle-check", "0"]
 
 
 @pytest.mark.parametrize("args,table,log", [
@@ -192,7 +193,7 @@ def test_cli_runs_each_ported_axis_on_the_cpu(args, table, log, tmp_path,
 
 def test_cli_unported_flag_exits_1_cleanly():
     # --mesh 2 is ported; outside torchrun it exits 1 naming the launch
-    proc = _cli("--device", "cpu", "--mesh", "2")
+    proc = _cli("--device", "cpu", "--backend", "pallas", "--mesh", "2")
     assert proc.returncode == 1
     assert proc.stderr.strip() == (
         "error: --mesh 2 runs one process a shard: launch with torchrun "
@@ -201,7 +202,8 @@ def test_cli_unported_flag_exits_1_cleanly():
 
 def test_spec_rejects_unported_axes_naming_the_roadmap_item():
     runner.SweepSpec(chaos=("storm",), policies=("scf",),
-                     placement_search=("sa",), device="cpu").validate()
+                     placement_search=("sa",),
+                     backend="pallas", device="cpu").validate()
     for bad, match in ((dict(chaos=("nope",)), "unknown chaos preset"),
                        (dict(policies=("nope",)), "unknown policy"),
                        (dict(placement_search=("nope",)),
@@ -210,9 +212,9 @@ def test_spec_rejects_unported_axes_naming_the_roadmap_item():
                              placement_population=0),
                         "population >= 1")):
         with pytest.raises(ValueError, match=match):
-            runner.SweepSpec(**bad, device="cpu").validate()
+            runner.SweepSpec(**bad, backend="pallas", device="cpu").validate()
     # mesh > 1 is ported: the spec validates (the CLI sets up the ranks)
-    runner.SweepSpec(mesh=2, device="cpu").validate()
+    runner.SweepSpec(mesh=2, backend="pallas", device="cpu").validate()
 
 
 def test_oracle_matches_reference_on_a_tiny_instance():

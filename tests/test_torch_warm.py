@@ -148,9 +148,10 @@ def test_solve_fast_warm_matches_reference(healthy):
     want = r_solver.solve_fast_warm(rsub, "energy", warm=r, flow_map=keep,
                                     iters=3000, tol=2e-3, backend="pallas")
     got = solver.solve_fast_warm(sub, "energy", warm=w, flow_map=keep,
-                                 iters=3000, tol=2e-3, device="cpu")
+                                 iters=3000, tol=2e-3,
+                                 backend="pallas", device="cpu")
     cold = solver.solve_fast_warm(sub, "energy", iters=3000, tol=2e-3,
-                                  device="cpu")
+                                  backend="pallas", device="cpu")
     assert got.warm_started and want.warm_started and not cold.warm_started
     assert got.iterations == want.iterations
     assert close_metrics(got, want)
@@ -166,16 +167,16 @@ def test_solve_fast_warm_falls_back_cold_on_shape_change(healthy):
         other, cf, n_slots=timeslot.suggest_n_slots(other, cf),
         path_slack=2)
     r = solver.solve_fast_warm(p2, "energy", warm=w, iters=2000, tol=2e-3,
-                               device="cpu")
+                               backend="pallas", device="cpu")
     assert r.metrics.feasible and not r.warm_started
     # a projection that raises starts cold too (only the projection is
     # guarded): a flow map of the wrong length
     r2 = solver.solve_fast_warm(p, "energy", warm=w,
                                 flow_map=np.zeros(3, np.int64), iters=2000,
-                                tol=2e-3, device="cpu")
+                                tol=2e-3, backend="pallas", device="cpu")
     assert not r2.warm_started and r2.metrics.feasible
     assert solver.solve_fast_warm(p, "energy", warm=w, iters=2000, tol=2e-3,
-                                  device="cpu").warm_started
+                                  backend="pallas", device="cpu").warm_started
 
 
 def test_solve_fast_group_matches_reference_and_solo(healthy):
@@ -200,7 +201,7 @@ def test_solve_fast_group_matches_reference_and_solo(healthy):
     got = solver.solve_fast_group(
         [sub, p, p, empty], objs, warm=[w, w, None, w],
         flow_maps=[keep, None, None, None], iters=3000, tol=2e-3,
-        device="cpu")
+        backend="pallas", device="cpu")
     assert [g.warm_started for g in got] == [x.warm_started for x in want]
     assert [g.warm_started for g in got] == [True, True, False, True]
     for g, x in zip(got, want):
@@ -211,7 +212,8 @@ def test_solve_fast_group_matches_reference_and_solo(healthy):
                                         (p, "time", w, None),
                                         (p, "energy", None, None)]):
         solo = solver.solve_fast_warm(q, o, warm=ws, flow_map=fm,
-                                      iters=3000, tol=2e-3, device="cpu")
+                                      iters=3000, tol=2e-3,
+                                      backend="pallas", device="cpu")
         assert np.array_equal(solo.lp_x, got[i].lp_x), i
         assert np.array_equal(solo.schedule, got[i].schedule), i
 
@@ -231,7 +233,7 @@ def test_stacked_members_with_distinct_patterns_equal_solo(healthy):
     solver.reset_dispatch_stats()
     group = solver.solve_fast_ensemble(members + [zero], "energy",
                                        warm=[w] * 4, iters=3000, tol=2e-3,
-                                       device="cpu")
+                                       backend="pallas", device="cpu")
     # every dispatch stacks the flowing members only (a shape's last
     # field is its instance count)
     assert solver._DISPATCH_SHAPES
@@ -239,7 +241,7 @@ def test_stacked_members_with_distinct_patterns_equal_solo(healthy):
     for q, g in zip(members, group):
         solo = solver.solve_fast_ensemble([q], "energy", warm=[w],
                                           iters=3000, tol=2e-3,
-                                          device="cpu")[0]
+                                          backend="pallas", device="cpu")[0]
         assert np.array_equal(solo.lp_x, g.lp_x)
         assert np.array_equal(solo.lp_y, g.lp_y)
     assert group[-1].iterations == 0
@@ -261,7 +263,8 @@ def test_warm_iterate_reaches_the_burst_as_fp32(healthy, monkeypatch):
         return real(*a, **kw)
 
     monkeypatch.setattr(ops, "pdhg_adaptive", spy)
-    solver.solve_fast_warm(p, "energy", warm=w, iters=1000, device="cpu")
+    solver.solve_fast_warm(p, "energy", warm=w, iters=1000,
+                           backend="pallas", device="cpu")
     x_in, y_in = seen[0]
     assert x_in.dtype == torch.float32
     assert np.array_equal(x_in.numpy()[:lp.n], x0.astype(np.float32))

@@ -170,7 +170,8 @@ def shard_cases(rank: int, world: int, payload: dict) -> dict:
         p = paper_problem(name)
         if world == 2:
             out[name] = summary(p, solver.solve_fast(
-                p, "energy", iters=ITERS, shards=2, device="cpu"))
+                p, "energy", iters=ITERS, shards=2,
+                backend="pallas", device="cpu"))
         else:
             lp, _ = solver.build_routing_lp(p, "energy")
             out[name] = solver._solve_lp_pallas_sharded(
@@ -181,13 +182,14 @@ def shard_cases(rank: int, world: int, payload: dict) -> dict:
         out["batch"] = [summary(p, r) for p, r in zip(
             probs, solver.solve_fast_batch(probs, "energy",
                                            iters=payload["batch_iters"],
-                                           shards=2, device="cpu"))]
+                                           shards=2,
+                                           backend="pallas", device="cpu"))]
         from repro_torch.core import timeslot, topology, traffic
         w = convert.fast_result_from_arrays(payload["warm"])
         _, p, keep = warm_problems((topology, traffic, timeslot))
         got = solver.solve_fast_warm(p, "energy", warm=w, flow_map=keep,
                                      iters=3000, tol=2e-3, shards=2,
-                                     device="cpu")
+                                     backend="pallas", device="cpu")
         out["warm"] = dict(summary(p, got), warm_started=got.warm_started)
     return out
 
